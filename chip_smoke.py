@@ -1,24 +1,43 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's main path on one CUDA card and check it.
+"""Drive the PyTorch port's main paths on one CUDA card and check them.
 
     python3 chip_smoke.py
 
 Needs one CUDA device, ``nvcc`` and a checkout of this repository around
 this file; exits non-zero (printing no result) without them.  Phases:
 
-0. build the ``fused_frame`` CUDA kernel from ``spt_tpu_torch/csrc``;
-1. kernel vs plain PyTorch version on the card, from the same primary
-   rays: default scene 1920x1080 depth 6 and Cornell 512x512 depth 8; the
-   kernel's device time (torch.profiler) and the plain version's time;
-2. the main path: ``Renderer.render_frames(8)`` on default 1920x1080
-   depth 6, Cornell (NEE) and HDR glass with a 1024x2048 synthetic map,
-   with the kernel's launch count reset before and read after;
-3. the kernel's image against the plain path's image at 320x240, 8 frames;
-4. times: ms/frame and Mrays/s of the kernel path and of the plain path on
-   the card at 1920x1080 depth 6, with CUDA events after a warm-up.
+0. build every CUDA kernel from ``spt_tpu_torch/csrc`` (one nvcc per
+   source, all at once); build seconds, registers and spills per kernel;
+1. small-scene fused_frame vs its plain PyTorch version on the card, from
+   the same primary rays: default 1920x1080 depth 6 and Cornell 512x512
+   depth 8; its device time (torch.profiler) and the plain version's time;
+2. the small-scene main path: ``Renderer.render_frames(8)`` on default
+   1920x1080 depth 6, Cornell (NEE) and HDR glass with a 1024x2048
+   synthetic map, launch counts reset before and read after;
+3. the small-scene kernel image against the plain path's image, 320x240;
+4. small-scene times: ms/frame and Mrays/s, kernel path and plain path;
+5. the mesh kernels vs their plain versions on the card, on the procedural
+   mesh scene (``mesh_scene``) at 512x384, every returned plane per lane:
+   each at the inputs its main path gives it, recorded from one frame of
+   that path (fused_bounce, the resident fused_frame and sort_chunks from
+   the sorted frame, closest_hit / any_hit from regen), where its time and
+   bound are taken; besides, closest_hit / any_hit on camera rays and on
+   196 608 random rays, the resident fused_frame from bounce 0 on all
+   lanes, sort_chunks at chunks 8192 and 32768 with 15 random planes;
+6. the mesh main path: ``Renderer.render_frames(8)`` at 512x384 depth 4 in
+   accel mode "resident" through the sorted frame, launch counts reset
+   before and read after;
+7. the standalone cluster tracer's main path: ``Renderer.render_frames(2)``
+   with ``integrator="regen"`` on the mesh scene, which traces through
+   ``intersect_v`` / ``occluded_v`` (closest_hit / any_hit);
+8. mesh images: the sorted kernel path against the unsorted kernel path
+   and against the plain path, 8 frames;
+9. mesh times at 512x384 depth 4: ms/frame and Mrays/s, per-kernel device
+   time and launches per frame (torch.profiler), torch.sort + gather beside
+   sort_chunks.
 
-PNGs go to ``build/chip_smoke/`` beside this file.  The last line is
-``{"ok": true, "device": {...}}``; the line before it lists the kernel.
+PNGs go to ``build/chip_smoke/`` beside this file.  The line before the last
+lists the kernels; the last line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -34,6 +53,13 @@ import time
 HERE = os.path.dirname(os.path.abspath(__file__))
 
 W, H = 1920, 1080
+MW, MH = 512, 384          # the JAX package's mesh resolution (bench.py:195-203)
+MESH_DEPTH = 4
+
+# H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s, float32 outside
+# the tensor cores (also used for the sort's integer compare-exchanges).
+PEAK_BYTES = 3.35e12
+PEAK_F32 = 67e12
 
 
 def log(*a):
@@ -48,16 +74,70 @@ def smi_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-@contextlib.contextmanager
-def plain_path(cuda_bounce):
-    """Route the wavefront's depth loop through the plain PyTorch version
-    on the card (for comparison and timing only)."""
-    kernel = cuda_bounce.fused_frame
-    cuda_bounce.fused_frame = cuda_bounce.fused_frame_reference
-    try:
-        yield
-    finally:
-        cuda_bounce.fused_frame = kernel
+def bound(nbytes: float, flops: float):
+    """(bound_ms, bound_by): the larger of the bytes over HBM bandwidth and
+    the operations over the float32 peak."""
+    tb, to = nbytes / PEAK_BYTES * 1e3, flops / PEAK_F32 * 1e3
+    return (tb, "bytes") if tb >= to else (to, "operations")
+
+
+# --- scenes -------------------------------------------------------------------
+
+def mesh_scene(scene_mod, materials_mod, desc_mod, stacks=32, slices=48):
+    """The procedural stand-in of the glTF chair (6156 triangles at the
+    default tessellation): two smooth UV spheres (diffuse, gold), a glass
+    cube scaled to 0.4, an analytic glass sphere, no ground plane.  Takes
+    the scene, materials and scene.desc modules of either package.
+    Returns (SceneDesc, camera keyword arguments without aspect_ratio): the
+    camera of bench.py's gltf config (bench.py:135-148) — bounding-box
+    centre, position centre + (0, 0.35, 1.1) * extent, fov 60."""
+    import numpy as np
+
+    d = scene_mod.SceneDesc()
+    d.add_material(scene_mod.Material([0.7, 0.7, 0.7], roughness=0.8))
+    d.add_material(materials_mod.gold())
+    d.add_material(materials_mod.glass())
+    eye = np.eye(4, dtype=np.float32)
+    sph = d.add_mesh(scene_mod.create_sphere_mesh(stacks=stacks, slices=slices,
+                                                  radius=0.5))
+    d.add_instance(sph, desc_mod.translate(eye, [-0.6, 0.5, 0.0]), material_id=0)
+    d.add_instance(sph, desc_mod.translate(eye, [0.6, 0.5, 0.0]), material_id=1)
+    cube = d.add_mesh(scene_mod.create_cube_mesh())
+    d.add_instance(cube, desc_mod.scale(desc_mod.translate(eye, [0.0, 0.2, 0.7]),
+                                        [0.4, 0.4, 0.4]), material_id=2)
+    d.add_sphere([0.0, 1.2, 0.3], 0.25, 2)
+
+    lo, hi = np.full(3, np.inf), np.full(3, -np.inf)
+    for inst in d.instances:
+        mesh = d.meshes[inst.mesh_id]
+        ph = np.concatenate([mesh.positions,
+                             np.ones((len(mesh.positions), 1), np.float32)], 1)
+        world = (ph @ inst.world_from_object.T)[:, :3]
+        lo, hi = np.minimum(lo, world.min(0)), np.maximum(hi, world.max(0))
+    for s in d.spheres:
+        lo = np.minimum(lo, s.center - s.radius)
+        hi = np.maximum(hi, s.center + s.radius)
+    lo, hi = lo.astype(np.float32), hi.astype(np.float32)
+    center = (lo + hi) / 2
+    extent = float(np.linalg.norm(hi - lo))
+    cam = dict(position=center + np.array([0.0, 0.35, 1.1]) * extent,
+               target=center, fov_degrees=60.0)
+    return d, cam
+
+
+def port_mesh_scene(stacks=32, slices=48, **cfg_kw):
+    """(SceneDesc, RenderConfig, Camera) of the mesh scene in the port at
+    MWxMH."""
+    from spt_tpu_torch import materials
+    from spt_tpu_torch import scene as tscene
+    from spt_tpu_torch.camera import Camera
+    from spt_tpu_torch.config import RenderConfig
+    from spt_tpu_torch.scene import desc as tdesc
+
+    desc, cam = mesh_scene(tscene, materials, tdesc, stacks, slices)
+    cfg = RenderConfig(width=MW, height=MH, spp=1, max_depth=MESH_DEPTH,
+                       **cfg_kw)
+    return desc, cfg, Camera(aspect_ratio=MW / MH, **cam)
 
 
 def workload(name, width, height, dev):
@@ -99,6 +179,144 @@ def renderer(name, width, height, dev):
     return Renderer(desc, cfg, env=env, lights=lights, camera=cam, device=dev)
 
 
+def mesh_renderer(dev, **cfg_kw):
+    from spt_tpu_torch.engine.renderer import Renderer
+
+    desc, cfg, cam = port_mesh_scene(**cfg_kw)
+    return Renderer(desc, cfg, camera=cam, device=dev)
+
+
+# --- the plain versions on the card (comparison and timing only) --------------
+
+@contextlib.contextmanager
+def plain_path():
+    """Route the wavefront's kernels to their plain PyTorch versions (which
+    trace through the plain tracers themselves)."""
+    from spt_tpu_torch.ops import cuda_bounce, cuda_sort
+
+    swaps = [(cuda_bounce, "fused_frame", cuda_bounce.fused_frame_reference),
+             (cuda_bounce, "fused_bounce", cuda_bounce.fused_bounce_reference),
+             (cuda_sort, "sort_chunks", cuda_sort.sort_chunks_reference)]
+    saved = [(m, name, getattr(m, name)) for m, name, _ in swaps]
+    try:
+        for m, name, ref in swaps:
+            setattr(m, name, ref)
+        yield
+    finally:
+        for m, name, fn in saved:
+            setattr(m, name, fn)
+
+
+def reset_counts():
+    from spt_tpu_torch.integrators import wavefront
+    from spt_tpu_torch.ops import cuda_bounce, cuda_sort, cuda_trace
+
+    cuda_bounce.LAUNCHES = cuda_bounce.BOUNCE_LAUNCHES = 0
+    cuda_sort.LAUNCHES = 0
+    cuda_trace.CLOSEST_LAUNCHES = cuda_trace.ANY_LAUNCHES = 0
+    wavefront.SORTED_SAMPLES.clear()
+
+
+def read_counts() -> dict:
+    from spt_tpu_torch.ops import cuda_bounce, cuda_sort, cuda_trace
+
+    return {"fused_frame": cuda_bounce.LAUNCHES,
+            "fused_bounce": cuda_bounce.BOUNCE_LAUNCHES,
+            "sort_chunks": cuda_sort.LAUNCHES,
+            "closest_hit": cuda_trace.CLOSEST_LAUNCHES,
+            "any_hit": cuda_trace.ANY_LAUNCHES}
+
+
+# --- timing -------------------------------------------------------------------
+
+def _kernel_key(key: str, name: str) -> bool:
+    """Whether a profiler event key is the kernel `name`, where name may
+    carry a template flag: "fused_frame_kernel<true>"."""
+    if "<" not in name:
+        return name in key
+    base, flag = name[:-1].split("<")
+    if base not in key:
+        return False
+    tail = key[key.index(base) + len(base):]
+    one = flag == "true"
+    return tail.startswith("<true>" if one else "<false>") or tail.startswith(
+        "<(bool)1>" if one else "<(bool)0>") or tail.startswith(
+        "<1>" if one else "<0>")
+
+
+def profile_kernels(torch, fn, names, iters: int = 10) -> dict:
+    """{name: (device ms per launch, launches the trace saw)} from a
+    torch.profiler trace of `iters` calls of `fn` after one warm-up (the
+    trace may miss a launch at its start, so launches are counted by the
+    wrappers, not here)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for name in names:
+        events = [e for e in prof.key_averages() if _kernel_key(e.key, name)]
+        total = sum(e.self_device_time_total for e in events)
+        count = sum(e.count for e in events)
+        out[name] = (total / max(count, 1) / 1e3, count)
+    return out
+
+
+def kernel_device_ms(torch, fn, kernel_name: str, iters: int = 10,
+                     launches_per_call: int = 1) -> float:
+    """Mean device time of the named kernel per launch, from a trace of
+    `iters` calls of `fn` that each launch it `launches_per_call` times (the
+    trace has dropped up to a fifth of a short kernel's launches; the mean
+    is over those it saw)."""
+    ms, count = profile_kernels(torch, fn, [kernel_name], iters)[kernel_name]
+    if count < iters * launches_per_call // 2 or ms <= 0:
+        raise AssertionError(f"profiler saw {count} launches of {kernel_name}"
+                             f" in {iters} calls, {ms} ms of device time")
+    return ms
+
+
+def time_call(torch, fn, warmup: int, iters: int) -> float:
+    """Mean ms per call, CUDA events around `iters` calls after `warmup`."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    for _ in range(iters):
+        fn()
+    t1.record()
+    torch.cuda.synchronize()
+    return t0.elapsed_time(t1) / iters
+
+
+def check_image(np, r, name, out_dir, frames):
+    hdr = r.hdr_image()
+    img = r.image()
+    if hdr.shape != (r.cfg.height, r.cfg.width, 3) or not np.isfinite(hdr).all():
+        raise AssertionError(f"{name}: image not finite or of the wrong shape")
+    if not (img.max() > 0.05):
+        raise AssertionError(f"{name}: image is black")
+    rays = r.last_stats.rays_per_bounce.cpu().numpy()
+    if int(rays[0]) != frames * r.cfg.width * r.cfg.height:
+        raise AssertionError(f"{name}: rays_per_bounce[0] = {rays[0]}, "
+                             f"expected {frames * r.cfg.width * r.cfg.height}")
+    path = os.path.join(out_dir, f"{name}_{r.cfg.width}x{r.cfg.height}.png")
+    r.save_png(path)
+    return rays, path
+
+
+def rel_rmse(np, a, b) -> float:
+    return float(np.sqrt(np.mean((a - b) ** 2)) / np.sqrt(np.mean(b ** 2)))
+
+
+# --- small-scene phases (1-4) -------------------------------------------------
+
 def phase_kernel_vs_plain(torch, cuda_bounce, dev, smi):
     """Phase 1.  Returns the default-scene numbers for the kernel line."""
     from spt_tpu_torch.integrators import transport
@@ -134,76 +352,31 @@ def phase_kernel_vs_plain(torch, cuda_bounce, dev, smi):
             # plain version's
             call = lambda: cuda_bounce.fused_frame(cfg, scene, lights, ps)
             wrapper_ms = time_call(torch, call, warmup=3, iters=20)
-            result["ms"] = kernel_device_ms(torch, call, "fused_frame_kernel")
+            result["ms"] = kernel_device_ms(torch, call,
+                                            "fused_frame_kernel<false>")
             result["plain_ms"] = time_call(
                 torch, lambda: cuda_bounce.fused_frame_reference(
                     cfg, scene, lights, ps), warmup=1, iters=3)
+            n = cfg.width * cfg.height
+            # 15 planes in, 11 out; operations: at least the 12 triangle
+            # and 8 sphere tests of every traced ray (~30 and ~20 flops)
+            result["bound"] = bound(n * 26 * 4, float(rk.sum()) * (12 * 30 + 8 * 20))
             log(f"phase 1 fused_frame at {width}x{height} d{cfg.max_depth}: "
                 f"kernel {result['ms']:.4f} ms (device time), wrapper "
                 f"{wrapper_ms:.4f} ms, plain {result['plain_ms']:.4f} ms per "
-                f"call [{smi}]")
+                f"call, bound {result['bound'][0]:.4f} ms "
+                f"({result['bound'][1]}) [{smi}]")
     return result
 
 
-def kernel_device_ms(torch, fn, kernel_name: str, iters: int = 10) -> float:
-    """Mean device time of the named kernel per call of `fn`, read from a
-    torch.profiler trace of `iters` calls."""
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    events = [e for e in prof.key_averages() if kernel_name in e.key]
-    total = sum(e.self_device_time_total for e in events)
-    count = sum(e.count for e in events)
-    if count != iters or total <= 0:
-        raise AssertionError(f"profiler saw {count} launches of {kernel_name} "
-                             f"with {total} us of device time, expected {iters}")
-    return total / count / 1e3
-
-
-def time_call(torch, fn, warmup: int, iters: int) -> float:
-    """Mean ms per call, CUDA events around `iters` calls after `warmup`."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    t0 = torch.cuda.Event(enable_timing=True)
-    t1 = torch.cuda.Event(enable_timing=True)
-    t0.record()
-    for _ in range(iters):
-        fn()
-    t1.record()
-    torch.cuda.synchronize()
-    return t0.elapsed_time(t1) / iters
-
-
-def check_image(np, r, name, out_dir, frames):
-    hdr = r.hdr_image()
-    img = r.image()
-    if hdr.shape != (r.cfg.height, r.cfg.width, 3) or not np.isfinite(hdr).all():
-        raise AssertionError(f"{name}: image not finite or of the wrong shape")
-    if not (img.max() > 0.05):
-        raise AssertionError(f"{name}: image is black")
-    rays = r.last_stats.rays_per_bounce.cpu().numpy()
-    if int(rays[0]) != frames * r.cfg.width * r.cfg.height:
-        raise AssertionError(f"{name}: rays_per_bounce[0] = {rays[0]}, "
-                             f"expected {frames * r.cfg.width * r.cfg.height}")
-    path = os.path.join(out_dir, f"{name}_{r.cfg.width}x{r.cfg.height}.png")
-    r.save_png(path)
-    return rays, path
-
-
 def phase_main_path(torch, np, cuda_bounce, dev, out_dir):
-    """Phase 2: the Renderer on the card; returns the launch count."""
+    """Phase 2: the small-scene Renderer on the card; returns the launch
+    count."""
     frames = 8
     renderers = {name: renderer(name, W, H, dev)
                  for name in ("default", "cornell", "hdr")}
     torch.cuda.synchronize()
-    cuda_bounce.LAUNCHES = 0
+    reset_counts()
     for name, r in renderers.items():
         before = cuda_bounce.LAUNCHES
         r.render_frames(frames)
@@ -216,35 +389,34 @@ def phase_main_path(torch, np, cuda_bounce, dev, out_dir):
         if grew != frames:
             raise AssertionError(f"{name}: LAUNCHES grew by {grew}, "
                                  f"expected {frames}")
-    launches = cuda_bounce.LAUNCHES
-    if launches == 0:
+    counts = read_counts()
+    if counts["fused_frame"] == 0:
         raise AssertionError("the main path launched no kernel")
-    return launches
+    return counts["fused_frame"]
 
 
-def phase_image_vs_plain(torch, np, cuda_bounce, dev):
+def phase_image_vs_plain(torch, np, dev):
     """Phase 3: kernel image vs plain image, 8 frames at 320x240."""
     for name in ("default", "cornell", "hdr"):
         a = renderer(name, 320, 240, dev)
         a.render_frames(8)
         b = renderer(name, 320, 240, dev)
-        with plain_path(cuda_bounce):
+        with plain_path():
             b.render_frames(8)
-        ha, hb = a.hdr_image(), b.hdr_image()
-        rel = float(np.sqrt(np.mean((ha - hb) ** 2)) / np.sqrt(np.mean(hb ** 2)))
+        rel = rel_rmse(np, a.hdr_image(), b.hdr_image())
         log(f"phase 3 {name} 320x240 8 frames: kernel vs plain relative "
             f"RMSE {rel * 100:.5f} % (limit 1 %)")
         if not rel < 0.01:
             raise AssertionError(f"{name}: kernel image differs from plain")
 
 
-def phase_times(torch, cuda_bounce, dev, smi):
+def phase_times(torch, dev, smi):
     """Phase 4: end-to-end ms/frame and Mrays/s, kernel and plain path."""
     from spt_tpu_torch.bench import count_rays, shadow_rays_per_surface_lane
 
     out = {}
     for label, frames, ctx in (("kernel", 32, contextlib.nullcontext),
-                               ("plain", 3, lambda: plain_path(cuda_bounce))):
+                               ("plain", 3, plain_path)):
         r = renderer("default", W, H, dev)
         n_shadow = shadow_rays_per_surface_lane(r)
         with ctx():
@@ -264,6 +436,533 @@ def phase_times(torch, cuda_bounce, dev, smi):
     return out
 
 
+# --- mesh phases (5-9) --------------------------------------------------------
+
+def _mesh_inputs(torch, dev):
+    """(cfg, scene, lights, camera rays) of the mesh scene at MWxMH."""
+    from spt_tpu_torch.lights import default_lights
+    from spt_tpu_torch.ops import cuda_bounce
+    from spt_tpu_torch.scene import flatten_scene
+
+    desc, cfg, cam = port_mesh_scene()
+    scene = flatten_scene(desc, dev)
+    mode = cuda_bounce._accel_mode(scene)
+    if mode != "resident":
+        raise AssertionError(f"mesh scene in accel mode {mode!r}, expected "
+                             "'resident'")
+    return cfg, scene, default_lights(dev), cam.rays(dev)
+
+
+def _trace_flops(scene, n_rays) -> float:
+    """The operations a closest-hit trace needs per ray, at the least: it
+    slab-tests every real cluster box (~24 flops) and every sphere (~20);
+    the triangle tests of the boxes it opens are not counted."""
+    a = scene.accel
+    real = int((a.cluster_lo[:, 0] <= a.cluster_hi[:, 0]).sum())
+    return float(n_rays) * (real * 24 + scene.num_spheres * 20)
+
+
+def _nonempty(torch, tmin, tmax, n):
+    """(N,) mask of the rays whose interval (tmin, tmax) is not empty."""
+    return torch.broadcast_to(torch.as_tensor(tmax) > tmin, (n,))
+
+
+def _any_hit_flops(torch, scene, blocked, tmin, tmax) -> float:
+    """The operations any_hit needs on these rays: an unblocked ray tests
+    every real box and every sphere, a blocked one stops at its first
+    blocker (one test, ~20 flops, at the least), an empty interval none."""
+    live = _nonempty(torch, tmin, tmax, blocked.shape[0]).to(blocked.device)
+    return (_trace_flops(scene, int((live & ~blocked).sum()))
+            + 20.0 * int((live & blocked).sum()))
+
+
+@contextlib.contextmanager
+def capture_calls(targets):
+    """Record (name, args, kwargs) of every call of the (module, function
+    name) targets made while the context is open; the calls still run."""
+    calls = []
+    saved = [(m, name, getattr(m, name)) for m, name in targets]
+
+    def recording(name, fn):
+        def call(*args, **kw):
+            calls.append((name, args, kw))
+            return fn(*args, **kw)
+        return call
+
+    try:
+        for m, name, fn in saved:
+            setattr(m, name, recording(name, fn))
+        yield calls
+    finally:
+        for m, name, fn in saved:
+            setattr(m, name, fn)
+
+
+def lanes_off(torch, k, p):
+    """(N,) mask of the lanes where the kernel's plane k, (N,) or (N, 3),
+    differs from the plain version's p: by more than 1e-3 for floats (NaN
+    against a number counts), at all for the others."""
+    if k.dtype.is_floating_point:
+        off = ~((k == p) | (torch.isnan(k) & torch.isnan(p))
+                | ((k - p).abs() <= 1e-3))
+    else:
+        off = k != p
+    return off.any(-1) if off.dim() > 1 else off
+
+
+def check_planes(torch, what, planes: dict) -> float:
+    """Hold every plane of a kernel's result against the plain version's;
+    fails when more than 0.1 % of the lanes differ in any one plane.
+    Returns the largest finite |kernel - plain| over the float and the
+    boolean planes."""
+    worst, report, bad = 0.0, [], []
+    for name, (k, p) in planes.items():
+        off = lanes_off(torch, k, p)
+        frac = float(off.float().mean())
+        report.append(f"{name} {frac * 100:.4f} %")
+        if k.dtype.is_floating_point:
+            d = (k - p).abs()
+            d = d[torch.isfinite(d)]
+            if d.numel():
+                worst = max(worst, float(d.max()))
+        elif k.dtype == torch.bool:
+            worst = max(worst, float(off.any()))
+        if frac > 1e-3:
+            bad.append(name)
+    log(f"phase 5 {what}: lanes off per plane: {', '.join(report)} (limit "
+        f"0.1 % each), max |d| {worst:.6g}")
+    if bad:
+        raise AssertionError(f"{what} disagrees with its plain version in "
+                             f"{bad}")
+    return worst
+
+
+def _v(torch, x):
+    return torch.stack([*x], -1)
+
+
+def _hit_planes(torch, hk, hp):
+    """The planes of two closest-hit records; normal and material only on
+    the lanes both hit."""
+    both = (hk.kind != 0) & (hp.kind != 0)
+    return {"t": (hk.t, hp.t), "kind": (hk.kind, hp.kind),
+            "mat_id": (torch.where(both, hk.mat_id, 0),
+                       torch.where(both, hp.mat_id, 0)),
+            "normal": (torch.where(both[:, None], _v(torch, hk.normal), 0.0),
+                       torch.where(both[:, None], _v(torch, hp.normal), 0.0))}
+
+
+def _state_planes(torch, ks, km, ps_, pm):
+    """The planes of two fused_bounce results (PathState, missed)."""
+    out = {name: (_v(torch, getattr(ks, name)), _v(torch, getattr(ps_, name)))
+           for name in ("origin", "direction", "throughput", "radiance")}
+    out.update(rng=(ks.rng, ps_.rng), alive=(ks.alive, ps_.alive),
+               emission_ok=(ks.emission_ok, ps_.emission_ok),
+               missed=(km, pm))
+    return out
+
+
+def _over_calls(torch, fn, calls, kernel_name, plain, plain_iters=2):
+    """(device ms per launch, plain ms per call), each the mean over the
+    recorded calls: the kernel from a torch.profiler trace of all of them,
+    the plain version with CUDA events."""
+    ms = kernel_device_ms(
+        torch, lambda: [fn(*a, **k) for a, k in calls], kernel_name,
+        iters=10, launches_per_call=len(calls))
+    plain_ms = time_call(torch, lambda: [plain(*a, **k) for a, k in calls],
+                         warmup=1, iters=plain_iters) / len(calls)
+    return ms, plain_ms
+
+
+def phase_mesh_kernels(torch, np, dev, smi):
+    """Phase 5: every mesh kernel against its plain version on the card, at
+    the inputs its main path gives it (recorded from one frame of that
+    path) and on the checks' own rays and keys.  Returns the kernel-line
+    numbers per kernel, measured at the main path's inputs."""
+    from spt_tpu_torch.integrators import transport
+    from spt_tpu_torch.ops import cuda_bounce, cuda_sort, cuda_trace
+    from spt_tpu_torch.ops.vec3 import Vec3
+
+    cfg, scene, lights, cam = _mesh_inputs(torch, dev)
+    a = scene.accel
+    n = cfg.width * cfg.height
+    out = {}
+    log(f"phase 5 mesh scene: {scene.num_triangles} triangles, "
+        f"{scene.num_spheres} sphere, {a.num_clusters} clusters of "
+        f"{a.cluster_size}, tri_pack {tuple(a.tri_pack.shape)}, accel mode "
+        f"{cuda_bounce._accel_mode(scene)}")
+
+    # --- K4 on camera rays and on random rays ---
+    ps0 = transport.gen_primary(cfg, cam, 0)
+    g = torch.Generator(device="cpu").manual_seed(7)
+    real = a.cluster_lo[:, 0] <= a.cluster_hi[:, 0]
+    lo = a.cluster_lo[real].min(0).values.cpu()
+    hi = a.cluster_hi[real].max(0).values.cpu()
+    ro = (lo - 0.5 + (hi - lo + 1.0) * torch.rand((n, 3), generator=g)).to(dev)
+    rd = torch.randn((n, 3), generator=g)
+    rd = (rd / rd.norm(dim=1, keepdim=True)).to(dev)
+    ray_sets = {"camera": (ps0.origin, ps0.direction),
+                "random": (Vec3(*ro.unbind(1)), Vec3(*rd.unbind(1)))}
+    worst = {"closest_hit": 0.0, "any_hit": 0.0}
+    for rname, (o, d) in ray_sets.items():
+        o = Vec3(*(c.contiguous() for c in o))
+        d = Vec3(*(c.contiguous() for c in d))
+        hk = cuda_trace.closest_hit(a, scene, o, d, 0.0, 1e30)
+        hp = cuda_trace.closest_hit_reference(a, scene, o, d, 0.0, 1e30)
+        worst["closest_hit"] = max(worst["closest_hit"], check_planes(
+            torch, f"closest_hit on {n} {rname} rays "
+            f"({int(torch.isfinite(hp.t).sum())} hits)",
+            _hit_planes(torch, hk, hp)))
+        tmax = torch.full((n,), 4.0, device=dev)
+        bk = cuda_trace.any_hit(a, scene, o, d, 1e-4, tmax)
+        bp = cuda_trace.any_hit_reference(a, scene, o, d, 1e-4, tmax)
+        worst["any_hit"] = max(worst["any_hit"], check_planes(
+            torch, f"any_hit on {n} {rname} rays ({int(bp.sum())} blocked)",
+            {"blocked": (bk, bp)}))
+
+    # --- K4 at its main path's inputs: one frame of the regen path ---
+    r = mesh_renderer(dev, integrator="regen")
+    with capture_calls([(cuda_trace, "closest_hit"),
+                        (cuda_trace, "any_hit")]) as calls:
+        r.render_frames(1)
+        torch.cuda.synchronize()
+    for kname, kern, ref, kernel_name in (
+            ("closest_hit", cuda_trace.closest_hit,
+             cuda_trace.closest_hit_reference, "trace_kernel<false>"),
+            ("any_hit", cuda_trace.any_hit, cuda_trace.any_hit_reference,
+             "trace_kernel<true>")):
+        mine = [(args, kw) for name, args, kw in calls if name == kname]
+        if not mine:
+            raise AssertionError(f"the regen frame made no {kname} call")
+        nbytes = flops = 0.0
+        for i, (args, kw) in enumerate(mine):
+            _, _, o, _, tmin, tmax = args
+            rays = o.x.shape[0]
+            pk, pp = kern(*args, **kw), ref(*args, **kw)
+            if kname == "closest_hit":
+                planes = _hit_planes(torch, pk, pp)
+                flops += _trace_flops(scene, int(
+                    _nonempty(torch, tmin, tmax, rays).sum()))
+                nbytes += rays * (7 * 4 + 24)
+            else:
+                planes = {"blocked": (pk, pp)}
+                flops += _any_hit_flops(torch, scene, pp, tmin, tmax)
+                nbytes += rays * (7 * 4 + 1)
+            worst[kname] = max(worst[kname], check_planes(
+                torch, f"{kname} regen call {i + 1} of {len(mine)} ({rays} "
+                f"rays)", planes))
+        ms, plain_ms = _over_calls(torch, kern, mine, kernel_name, ref)
+        b = bound((nbytes + len(mine) * a.tri_pack.numel() * 4) / len(mine),
+                  flops / len(mine))
+        out[kname] = dict(max_abs_err=worst[kname], ms=ms, plain_ms=plain_ms,
+                          bound=b, library_ms=None)
+        log(f"phase 5 {kname} at the regen frame's {len(mine)} calls: kernel "
+            f"{ms:.4f} ms per launch (device time), plain {plain_ms:.4f} ms, "
+            f"bound {b[0]:.4f} ms ({b[1]}) [{smi}]")
+
+    # --- K3, K1 resident and K5 at their main path's inputs: one frame of
+    # --- the sorted mesh frame ---
+    r = mesh_renderer(dev)
+    with capture_calls([(cuda_bounce, "fused_bounce"),
+                        (cuda_bounce, "fused_frame"),
+                        (cuda_sort, "sort_chunks")]) as calls:
+        r.render_frames(1)
+        torch.cuda.synchronize()
+    by_name = {name: [(args, kw) for nm, args, kw in calls if nm == name]
+               for name in ("fused_bounce", "fused_frame", "sort_chunks")}
+    log(f"phase 5 the sorted frame's calls: "
+        f"{ {k: len(v) for k, v in by_name.items()} }")
+
+    mine = by_name["fused_bounce"]
+    nbytes = flops = 0.0
+    worst_b = 0.0
+    for args, kw in mine:
+        bcfg, bscene, blights, bps, bounce, is_last = args
+        ks, km = cuda_bounce.fused_bounce(*args, **kw)
+        ps_, pm = cuda_bounce.fused_bounce_reference(*args, **kw)
+        lanes = bps.num_paths
+        worst_b = max(worst_b, check_planes(
+            torch, f"fused_bounce bounce {bounce} ({lanes} lanes, "
+            f"{int(bps.alive.sum())} alive)",
+            _state_planes(torch, ks, km, ps_, pm)))
+        # 15 planes in, 16 out (12 float, int64 rng, three byte flags)
+        nbytes += lanes * (15 * 4 + 12 * 4 + 8 + 3) + a.tri_pack.numel() * 4
+        flops += _trace_flops(scene, int(bps.alive.sum()))
+    ms, plain_ms = _over_calls(torch, cuda_bounce.fused_bounce, mine,
+                               "fused_bounce_kernel<true>",
+                               cuda_bounce.fused_bounce_reference)
+    b = bound(nbytes / len(mine), flops / len(mine))
+    out["fused_bounce"] = dict(max_abs_err=worst_b, ms=ms, plain_ms=plain_ms,
+                               bound=b, library_ms=None)
+    log(f"phase 5 fused_bounce at the sorted frame's {len(mine)} calls: "
+        f"kernel {ms:.4f} ms per launch (device time), plain {plain_ms:.4f} "
+        f"ms, bound {b[0]:.4f} ms ({b[1]}) [{smi}]")
+
+    def check_frame(what, args, kw):
+        """fused_frame against its plain version: every plane per lane, and
+        rays_per_bounce within 0.1 %.  Returns (max |d|, kernel rays)."""
+        fk = cuda_bounce.fused_frame(*args, **kw)
+        fp = cuda_bounce.fused_frame_reference(*args, **kw)
+        rk, rp = fk[4].cpu().numpy(), fp[4].cpu().numpy()
+        ray_diff = float((abs(rk - rp) / rp.clip(min=1)).max())
+        worst_f = check_planes(
+            torch, f"{what}; rays_per_bounce kernel {rk.tolist()} plain "
+            f"{rp.tolist()}, max rel diff {ray_diff * 100:.4f} % (limit "
+            f"0.1 %)",
+            {"radiance": (_v(torch, fk[0]), _v(torch, fp[0])),
+             "direction": (_v(torch, fk[1]), _v(torch, fp[1])),
+             "throughput": (_v(torch, fk[2]), _v(torch, fp[2])),
+             "missed": (fk[3], fp[3])})
+        if ray_diff > 1e-3:
+            raise AssertionError(f"{what}: rays_per_bounce differ from the "
+                                 "plain version's")
+        return worst_f, rk
+
+    mine = by_name["fused_frame"]
+    if len(mine) != 1:
+        raise AssertionError(f"the sorted frame called fused_frame "
+                             f"{len(mine)} times")
+    (args, kw), = mine
+    fps = args[3]
+    start = kw.get("start_bounce", args[4] if len(args) > 4 else 0)
+    worst_f, rk = check_frame(
+        f"fused_frame resident from bounce {start} ({fps.num_paths} lanes, "
+        f"{int(fps.alive.sum())} alive)", args, kw)
+    ms, plain_ms = _over_calls(torch, cuda_bounce.fused_frame, mine,
+                               "fused_frame_kernel<true>",
+                               cuda_bounce.fused_frame_reference, plain_iters=3)
+    b = bound(fps.num_paths * 26 * 4 + a.tri_pack.numel() * 4,
+              _trace_flops(scene, float(rk.sum())))
+    out["fused_frame_resident"] = dict(max_abs_err=worst_f, ms=ms,
+                                       plain_ms=plain_ms, bound=b,
+                                       library_ms=None)
+    log(f"phase 5 fused_frame resident at the sorted frame's call: kernel "
+        f"{ms:.4f} ms (device time), plain {plain_ms:.4f} ms, bound "
+        f"{b[0]:.4f} ms ({b[1]}) [{smi}]")
+
+    # the resident fused_frame over every bounce of all lanes: the route of
+    # ray_sort=False and of lane counts the sort cannot take
+    check_frame(f"fused_frame resident from bounce 0 ({n} lanes)",
+                (cfg, scene, lights, ps0), {})
+    ms0 = kernel_device_ms(torch, lambda: cuda_bounce.fused_frame(
+        cfg, scene, lights, ps0), "fused_frame_kernel<true>")
+    log(f"phase 5 fused_frame resident from bounce 0 at {MW}x{MH} "
+        f"d{cfg.max_depth}: kernel {ms0:.4f} ms (device time) [{smi}]")
+
+    # --- K5: at the sorted frame's inputs, then with 15 random planes ---
+    def check_sort(what, key, ops, chunk):
+        sk, lane, so = cuda_sort.sort_chunks(key, ops, chunk)
+        rk_, _, _ = cuda_sort.sort_chunks_reference(key, ops, chunk)
+        width = key.shape[0]
+        keys_ok = torch.equal(sk, rk_)
+        perm_ok = (torch.equal(sk, key[lane])
+                   and all(torch.equal(s, x[lane]) for s, x in zip(so, ops)))
+        chunk_ok = torch.equal(lane // chunk, torch.arange(width, device=dev)
+                               // chunk)
+        log(f"phase 5 sort_chunks {what}: chunk {chunk} x {width // chunk} "
+            f"chunks, {len(ops)} planes: keys equal to torch.sort's "
+            f"{keys_ok}, key and payloads one permutation {perm_ok}, lanes "
+            f"stay in their chunk {chunk_ok}")
+        if not (keys_ok and perm_ok and chunk_ok):
+            raise AssertionError(f"sort_chunks wrong ({what})")
+        return float((sk - rk_).abs().max())
+
+    def sort_bound(key, ops, chunk):
+        # key in (8 B), the planes in and out, key and lane out (8 B each);
+        # the compare-exchanges of the bitonic network
+        width = key.shape[0]
+        lg = int(math.log2(chunk))
+        return (width * (8 + 2 * sum(x.element_size() for x in ops) + 16),
+                width / 2 * lg * (lg + 1) / 2)
+
+    mine = by_name["sort_chunks"]
+    err = 0.0
+    nbytes = flops = 0.0
+    for i, (args, kw) in enumerate(mine):
+        key, ops, chunk = args
+        err = max(err, check_sort(f"sorted-frame call {i + 1} of "
+                                  f"{len(mine)}", key, ops, chunk))
+        by, fl = sort_bound(key, ops, chunk)
+        nbytes, flops = nbytes + by, flops + fl
+    ms, lib_ms = _over_calls(torch, cuda_sort.sort_chunks, mine,
+                             "sort_chunks_kernel",
+                             cuda_sort.sort_chunks_reference, plain_iters=10)
+    b = bound(nbytes / len(mine), flops / len(mine))
+    out["sort_chunks"] = dict(max_abs_err=err, ms=ms, plain_ms=lib_ms,
+                              bound=b, library_ms=lib_ms)
+    log(f"phase 5 sort_chunks at the sorted frame's {len(mine)} calls: "
+        f"kernel {ms:.4f} ms per launch (device time), torch.sort + gathers "
+        f"{lib_ms:.4f} ms, bound {b[0]:.4f} ms ({b[1]}) [{smi}]")
+
+    g = torch.Generator(device="cpu").manual_seed(11)
+    for chunk, width in ((8192, n), (32768, 65536)):
+        key = torch.randint(0, 2 ** 32, (width,), generator=g,
+                            dtype=torch.int64)
+        key[torch.rand(width, generator=g) < 0.5] = 0xFFFFFFFF  # dead lanes
+        key = key.to(dev)
+        ops = ([torch.randn(width, generator=g).to(dev) for _ in range(12)]
+               + [torch.randint(0, 2 ** 32, (width,), generator=g).to(dev),
+                  torch.randint(0, 7, (width,), generator=g,
+                                dtype=torch.int32).to(dev),
+                  torch.arange(width, dtype=torch.int64, device=dev)])
+        check_sort("random keys", key, ops, chunk)
+        ms = kernel_device_ms(torch, lambda: cuda_sort.sort_chunks(
+            key, ops, chunk), "sort_chunks_kernel")
+        lib_ms = time_call(torch, lambda: cuda_sort.sort_chunks_reference(
+            key, ops, chunk), warmup=2, iters=10)
+        b = bound(*sort_bound(key, ops, chunk))
+        log(f"phase 5 sort_chunks random keys, chunk {chunk} x {width}: "
+            f"kernel {ms:.4f} ms (device time), torch.sort + 15 gathers "
+            f"{lib_ms:.4f} ms, bound {b[0]:.4f} ms ({b[1]}) [{smi}]")
+    return out
+
+
+def phase_mesh_main_path(torch, np, dev, out_dir):
+    """Phase 6: the mesh Renderer on the card; returns the launch counts."""
+    from spt_tpu_torch.integrators import wavefront
+    from spt_tpu_torch.ops import cuda_bounce
+
+    frames = 8
+    r = mesh_renderer(dev)
+    if cuda_bounce._accel_mode(r.scene) != "resident":
+        raise AssertionError("mesh scene not in accel mode 'resident'")
+    torch.cuda.synchronize()
+    reset_counts()
+    r.render_frames(frames)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    branches = dict(wavefront.SORTED_SAMPLES)
+    rays, path = check_image(np, r, "mesh", out_dir, frames)
+    log(f"phase 6 mesh {MW}x{MH} d{MESH_DEPTH}: {frames} frames, launches "
+        f"{counts}, sorted-frame branches {branches}, rays_per_bounce "
+        f"{rays.tolist()}, mean hdr {float(r.hdr_image().mean()):.6g}, png "
+        f"{path}")
+    if sum(branches.values()) != frames:
+        raise AssertionError(f"the sorted frame ran {branches}, expected "
+                             f"{frames} samples")
+    if counts["fused_bounce"] != 3 * frames or counts["fused_frame"] != frames:
+        raise AssertionError(f"launch counts {counts}: expected fused_bounce "
+                             f"{3 * frames} and fused_frame {frames}")
+    want_sorts = 3 * branches.get("full_width", 0) + 4 * branches.get(
+        "condensed", 0)
+    if counts["sort_chunks"] != want_sorts:
+        raise AssertionError(f"sort_chunks launched {counts['sort_chunks']} "
+                             f"times, expected {want_sorts}")
+    return counts, branches
+
+
+def phase_regen_path(torch, np, dev, out_dir):
+    """Phase 7: integrator "regen" on the mesh scene traces through the
+    standalone cluster tracer; returns the launch counts."""
+    frames = 2
+    r = mesh_renderer(dev, integrator="regen")
+    torch.cuda.synchronize()
+    reset_counts()
+    r.render_frames(frames)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    rays, path = check_image(np, r, "mesh_regen", out_dir, frames)
+    log(f"phase 7 mesh regen {MW}x{MH} d{MESH_DEPTH}: {frames} frames, "
+        f"launches {counts}, rays_per_bounce {rays.tolist()}, png {path}")
+    if counts["closest_hit"] == 0 or counts["any_hit"] == 0:
+        raise AssertionError(f"the regen path launched {counts}")
+    return counts
+
+
+def phase_mesh_images(torch, np, dev):
+    """Phase 8: sorted kernel path vs unsorted kernel path vs plain path."""
+    frames = 8
+    imgs, rays = {}, {}
+    for label, kw, ctx in (("sorted", {}, contextlib.nullcontext),
+                           ("unsorted", {"ray_sort": False},
+                            contextlib.nullcontext),
+                           ("plain", {}, plain_path)):
+        r = mesh_renderer(dev, **kw)
+        t0 = time.perf_counter()
+        with ctx():
+            r.render_frames(frames)
+            torch.cuda.synchronize()
+        imgs[label] = r.hdr_image()
+        rays[label] = r.last_stats.rays_per_bounce.cpu().numpy()
+        log(f"phase 8 mesh {label} path: {frames} frames in "
+            f"{time.perf_counter() - t0:.2f} s (host clock), rays_per_bounce "
+            f"{rays[label].tolist()}")
+    for other in ("unsorted", "plain"):
+        rel = rel_rmse(np, imgs["sorted"], imgs[other])
+        log(f"phase 8 mesh sorted kernel path vs {other}: relative RMSE "
+            f"{rel * 100:.5f} % (limit 1 %)")
+        if not rel < 0.01:
+            raise AssertionError(f"mesh image differs from the {other} path")
+    if not np.array_equal(rays["sorted"], rays["unsorted"]):
+        raise AssertionError("sorted and unsorted rays_per_bounce differ")
+
+
+def device_busy_ms(torch, fn, iters: int = 8):
+    """(device ms of all kernels per call of fn, kernel launches per call)
+    from a torch.profiler trace."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    return (sum(e.self_device_time_total for e in kernels) / iters / 1e3,
+            sum(e.count for e in kernels) / iters)
+
+
+def phase_mesh_times(torch, dev, smi):
+    """Phase 9: the mesh path's ms/frame and Mrays/s (sorted, as the
+    Renderer runs it, and unsorted), its device busy time, and per-kernel
+    device time and launches per frame."""
+    from spt_tpu_torch.bench import count_rays, shadow_rays_per_surface_lane
+
+    frames = 16
+    for label, kw in (("sorted", {}), ("unsorted", {"ray_sort": False})):
+        r = mesh_renderer(dev, **kw)
+        n_shadow = shadow_rays_per_surface_lane(r)
+        r.render_frames(2)
+        torch.cuda.synchronize()
+        t0 = torch.cuda.Event(enable_timing=True)
+        t1 = torch.cuda.Event(enable_timing=True)
+        t0.record()
+        r.render_frames(frames)
+        t1.record()
+        torch.cuda.synchronize()
+        ms_l = t0.elapsed_time(t1) / frames
+        mrays = count_rays(r.last_stats, n_shadow) / frames / (ms_l * 1e-3) / 1e6
+        busy, n_kernels = device_busy_ms(torch, lambda: r.render_frames(1))
+        log(f"phase 9 mesh kernel path ({label}) {MW}x{MH} d{MESH_DEPTH}, "
+            f"{frames} frames: {ms_l:.4f} ms/frame, {mrays:.2f} Mrays/s; "
+            f"device busy {busy:.4f} ms/frame over {n_kernels:.1f} kernel "
+            f"launches (profiled) [{smi}]")
+        if label == "sorted":
+            ms = ms_l
+    r = mesh_renderer(dev)
+    r.render_frames(1)
+    names = {"fused_bounce": "fused_bounce_kernel<true>",
+             "fused_frame": "fused_frame_kernel<true>",
+             "sort_chunks": "sort_chunks_kernel"}
+    iters = 8
+    reset_counts()
+    prof = profile_kernels(torch, lambda: r.render_frames(1),
+                           list(names.values()), iters=iters)
+    counts = read_counts()
+    out = {}
+    for label, name in names.items():
+        per_launch, _ = prof[name]
+        per_frame = counts[label] / (iters + 1)
+        out[label] = (per_launch * per_frame, per_frame)
+        log(f"phase 9 {name}: {per_launch:.4f} ms per launch, "
+            f"{per_frame:.2f} launches and {per_launch * per_frame:.4f} ms of "
+            f"device time per frame [{smi}]")
+    return ms, out
+
+
 def main() -> int:
     try:
         import torch
@@ -277,7 +976,7 @@ def main() -> int:
     sys.path.insert(0, HERE)
     try:
         import numpy as np
-        from spt_tpu_torch.ops import cuda_bounce
+        from spt_tpu_torch.ops import cuda_bounce, cuda_lib
     except ImportError as e:
         print(f"chip_smoke: the spt_tpu_torch package is not beside this "
               f"script ({e})", file=sys.stderr)
@@ -285,7 +984,7 @@ def main() -> int:
 
     dev = torch.device("cuda", 0)
     smi = smi_line()
-    nvcc = subprocess.run([cuda_bounce._nvcc(), "--version"],
+    nvcc = subprocess.run([cuda_lib.nvcc(), "--version"],
                           capture_output=True, text=True, timeout=60)
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"device {torch.cuda.get_device_name(0)}, count "
@@ -296,32 +995,63 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     t0 = time.perf_counter()
-    cuda_bounce.build()
-    log(f"phase 0 build fused_frame: {time.perf_counter() - t0:.2f} s, "
-        f"{cuda_bounce.kernel_info()}")
+    cuda_lib.build()
+    log(f"phase 0 build: {time.perf_counter() - t0:.2f} s in all, per source "
+        f"{ {k: round(v, 2) for k, v in cuda_lib.BUILD_SECONDS.items()} }")
+    log(f"phase 0 kernels: {cuda_lib.kernel_info()}")
+    for line in cuda_lib.PTXAS_LOG.splitlines():
+        if "Compiling entry" in line or "spill" in line or "Used" in line:
+            log("phase 0 ptxas: " + line.strip())
 
     out_dir = os.path.join(HERE, "build", "chip_smoke")
     os.makedirs(out_dir, exist_ok=True)
 
-    k = phase_kernel_vs_plain(torch, cuda_bounce, dev, smi)
-    launches = phase_main_path(torch, np, cuda_bounce, dev, out_dir)
-    phase_image_vs_plain(torch, np, cuda_bounce, dev)
-    phase_times(torch, cuda_bounce, dev, smi)
+    small = phase_kernel_vs_plain(torch, cuda_bounce, dev, smi)
+    small_launches = phase_main_path(torch, np, cuda_bounce, dev, out_dir)
+    phase_image_vs_plain(torch, np, dev)
+    phase_times(torch, dev, smi)
 
-    for v in k.values():
-        if not math.isfinite(v):
-            raise AssertionError(f"non-finite kernel measurement {k}")
+    mesh = phase_mesh_kernels(torch, np, dev, smi)
+    counts, branches = phase_mesh_main_path(torch, np, dev, out_dir)
+    regen = phase_regen_path(torch, np, dev, out_dir)
+    phase_mesh_images(torch, np, dev)
+    phase_mesh_times(torch, dev, smi)
+
+    def entry(name, source, replaces, launches, k):
+        for key in ("max_abs_err", "ms", "plain_ms"):
+            if not math.isfinite(k[key]):
+                raise AssertionError(f"non-finite {key} for {name}: {k}")
+        if launches < 1:
+            raise AssertionError(f"{name} was launched no time on its path")
+        return {"name": name, "route": "cuda",
+                "source": f"spt_tpu_torch/csrc/{source}",
+                "replaces": replaces, "launches": launches,
+                "max_abs_err": k["max_abs_err"], "ms": k["ms"],
+                "plain_ms": k["plain_ms"], "bound_ms": k["bound"][0],
+                "bound_by": k["bound"][1], "library_ms": k["library_ms"]}
+
+    small["library_ms"] = None
+    kernels = [
+        entry("fused_frame", "fused_frame.cu",
+              "spt_tpu/ops/pallas_bounce.py:1090", small_launches, small),
+        entry("fused_frame_resident", "fused_frame.cu",
+              "spt_tpu/ops/pallas_bounce.py:1090", counts["fused_frame"],
+              mesh["fused_frame_resident"]),
+        entry("fused_bounce", "fused_bounce.cu",
+              "spt_tpu/ops/pallas_bounce.py:752", counts["fused_bounce"],
+              mesh["fused_bounce"]),
+        entry("closest_hit", "cluster_trace.cu",
+              "spt_tpu/ops/pallas_trace.py:497", regen["closest_hit"],
+              mesh["closest_hit"]),
+        entry("any_hit", "cluster_trace.cu",
+              "spt_tpu/ops/pallas_trace.py:617", regen["any_hit"],
+              mesh["any_hit"]),
+        entry("sort_chunks", "sort_chunks.cu",
+              "spt_tpu/ops/pallas_sort.py:70", counts["sort_chunks"],
+              mesh["sort_chunks"]),
+    ]
     log(smi)
-    print(json.dumps({"kernels": [{
-        "name": "fused_frame",
-        "route": "cuda",
-        "source": "spt_tpu_torch/csrc/fused_frame.cu",
-        "replaces": "spt_tpu/ops/pallas_bounce.py:1090",
-        "launches": launches,
-        "max_abs_err": k["max_abs_err"],
-        "ms": k["ms"],
-        "plain_ms": k["plain_ms"],
-    }]}), flush=True)
+    print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

@@ -1,11 +1,14 @@
 """Render configuration — the same frozen dataclass as ``spt_tpu.config``.
 
 Fields and defaults match field for field, so one config maps 1:1 between
-the JAX package and this port.  The lane-scheduling knobs that only shape
-the TPU programs (``swizzle``, ``ray_sort``, ``ray_sort_stages``,
-``condense``, ``condense_width``) are accepted and have no effect here: the
-port's image does not depend on them (RNG is seeded per pixel).
-``integrator`` other than "masked" raises NotImplementedError in the port.
+the JAX package and this port.  ``ray_sort``, ``ray_sort_stages``,
+``condense`` and ``condense_width`` drive the sorted mesh frame
+(integrators/wavefront.py) on scenes with a cluster accel, as in the JAX
+package; they regroup lanes and leave the image unchanged to float
+tolerance.  ``swizzle`` is accepted and has no effect: the port keeps
+pixels in row-major lane order (RNG is seeded per pixel).  ``integrator``
+"masked" and "regen" are ported; "compact" and "megakernel" raise
+NotImplementedError.
 
 The reference scatters its knobs across compile-time constants: image size and
 tile size (GLRenderer.h:34-36), spp=4 / max_depth=6 (main.cpp:108-109), GPU

@@ -1,667 +1,136 @@
 // fused_frame: the wavefront depth loop of one sample, one thread per path.
 //
 // Replaces the Pallas TPU kernel spt_tpu/ops/pallas_bounce.py:1090-1322
-// (`_frame_kernel`, launched by `fused_frame`) in its small-scene form
-// (accel mode None: brute-force loops over at most 192 primitives, no
-// textures, no in-kernel environment term).  It computes bounces
-// [start_bounce, max_depth) of spt_tpu_torch.integrators.transport
-// (trace_bounce + shade_core) for every lane and hands back what the
-// deferred environment term needs: final direction and throughput,
-// radiance, the missed-ever flag and the per-lane bounce count.
+// (`_frame_kernel`, launched by `fused_frame` :1207) in two forms:
+// - small (accel mode None): brute-force loops over at most 192 primitives
+//   with every table in shared memory (RolledTracer);
+// - resident: the cluster tracer over tri_pack in global memory, with the
+//   small tables (materials, lights, emitters, spheres, cluster boxes and
+//   visit orders) in shared memory (ClusterTracer, spt_tracers.cuh).
+// It computes bounces [start_bounce, max_depth) of
+// spt_tpu_torch.integrators.transport (trace_bounce + shade_core) for every
+// lane and hands back what the deferred environment term needs: final
+// direction and throughput, radiance, the missed-ever flag and the per-lane
+// bounce count.  No textures and no in-kernel environment term.
 //
 // What bounds it on an H100: the path state is 15 planes in and 11 out,
 // 26 x 4 = 104 B per lane per frame — about 216 MB at 1920x1080, some
 // 65 us at 3.35 TB/s — so device memory is not the limit.  Per-thread ALU
-// work (tens of ray-primitive tests per bounce), its divergence across a
-// warp (lanes die at different bounces and take different scatter
-// branches) and the latency of dependent float chains are.  The design
-// answers that plainly: the scene, material, light and emitter tables
-// (under 20 KB at the caps) are copied into shared memory once per block
-// and read by every thread of a warp at the same index (a broadcast), and
-// each thread exits its loop as soon as its own path dies.
-//
-// Numerics: built with --fmad=false and without fast math, and every
-// expression below is evaluated in the order of the plain PyTorch version
-// (transport.py, sampling.py, vec3.py, intersect.py), so the kernel rounds
-// op for op like it and branch decisions (the RR test xi_rr >= survival,
-// the Fresnel test xi_d < fr, the triangle edge tests) agree.  Each lane
-// computes only its own scatter branch; the RNG stream still matches the
-// select-all-branches version because every branch starts from the same
-// post-NEE state, the metal branch keeps that state when cos_nv <= 0, and
-// only surface lanes write their state back.
+// work (ray-primitive tests per bounce), its divergence across a warp
+// (lanes die at different bounces and take different scatter branches)
+// and the latency of dependent float chains are.  The design answers that
+// plainly: the small tables are copied into shared memory once per block
+// and read by the threads of a warp at mostly the same index, and each
+// thread exits its loop as soon as its own path dies.
 
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+#include "spt_tracers.cuh"
 
 namespace {
 
-// Constants as the plain version rounds them: a Python double cast to float.
-#define F32(x) (static_cast<float>(x))
-constexpr double kPi = 3.14159265358979323846;
-
-// Packed table layout, in 32-bit words (ints are stored as their bits).
-constexpr int kTriWords = 10;   // v0 xyz | e1 xyz | e2 xyz | mat
-constexpr int kSphWords = 5;    // center xyz | radius | mat
-constexpr int kMatWords = 11;   // base xyz | metallic | roughness | ior | type | emission xyz | transparency
-constexpr int kLightWords = 11; // kind | vec xyz | color xyz | intensity | attenuation xyz
-constexpr int kEmitWords = 13;  // v0 xyz | e1 xyz | e2 xyz | le xyz | area
-constexpr int kNsWords = 9;     // n0 | n1-n0 | n2-n0
-
-// RenderConfig toggles, one bit each.
-constexpr int kNee = 1 << 0;            // cfg.nee and the scene has emitters
-constexpr int kShadowRays = 1 << 1;
-constexpr int kMetalVndf = 1 << 2;
-constexpr int kMetalMirror = 1 << 3;
-constexpr int kCpuTransparency = 1 << 4;
-constexpr int kDepthTermNormalVis = 1 << 5;
-constexpr int kDirectLightDielectric = 1 << 6;
-constexpr int kHasNs = 1 << 7;          // the scene carries shading normals
+using namespace spt;
 
 constexpr int kBlock = 128;
 
-struct Params {
+struct FrameIO {
   const float *ox, *oy, *oz, *dx, *dy, *dz, *tx, *ty, *tz, *rx, *ry, *rz;
   const int *rng, *alive, *emok;
   float *o_dx, *o_dy, *o_dz, *o_tx, *o_ty, *o_tz, *o_rx, *o_ry, *o_rz;
   int *o_missed, *o_bounces;
-  const float* tables;
-  int n_tris, n_sphs, n_mats, n_lights, n_emit;
-  int n, start_bounce, max_depth, rr_after, flags;
-  float hit_eps, ray_offset_dir, firefly_clamp;
+  int n, start_bounce, max_depth;
 };
 
-struct Tables {
-  const float *tri, *sph, *mat, *light, *emit, *ns;
-  int n_tris, n_sphs, n_mats, n_lights, n_emit;
-};
-
-struct V3 {
-  float x, y, z;
-};
-
-__device__ __forceinline__ V3 v3(float x, float y, float z) { return V3{x, y, z}; }
-__device__ __forceinline__ V3 add(V3 a, V3 b) { return v3(a.x + b.x, a.y + b.y, a.z + b.z); }
-__device__ __forceinline__ V3 sub(V3 a, V3 b) { return v3(a.x - b.x, a.y - b.y, a.z - b.z); }
-__device__ __forceinline__ V3 mul(V3 a, V3 b) { return v3(a.x * b.x, a.y * b.y, a.z * b.z); }
-__device__ __forceinline__ V3 scale(V3 a, float s) { return v3(a.x * s, a.y * s, a.z * s); }
-__device__ __forceinline__ V3 neg(V3 a) { return v3(-a.x, -a.y, -a.z); }
-__device__ __forceinline__ float dot(V3 a, V3 b) { return a.x * b.x + a.y * b.y + a.z * b.z; }
-__device__ __forceinline__ V3 cross(V3 a, V3 b) {
-  return v3(a.y * b.z - a.z * b.y, a.z * b.x - a.x * b.z, a.x * b.y - a.y * b.x);
-}
-__device__ __forceinline__ V3 load3(const float* p) { return v3(p[0], p[1], p[2]); }
-__device__ __forceinline__ int as_int(float f) { return __float_as_int(f); }
-__device__ __forceinline__ float clampf(float x, float lo, float hi) { return fminf(fmaxf(x, lo), hi); }
-
-// vec3.safe_normalize: zero vectors stay zero; rsqrt as the plain version.
-__device__ __forceinline__ V3 safe_normalize(V3 v) {
-  float l2 = dot(v, v);
-  float inv = l2 > 0.0f ? rsqrtf(l2) : 0.0f;
-  return scale(v, inv);
-}
-
-// vec3.normalize_or
-__device__ __forceinline__ V3 normalize_or(V3 v, V3 fallback) {
-  float l2 = dot(v, v);
-  bool ok = l2 > 0.0f;
-  float inv = rsqrtf(ok ? l2 : 1.0f);
-  return ok ? scale(v, inv) : fallback;
-}
-
-__device__ __forceinline__ V3 reflect(V3 i, V3 n) { return sub(i, scale(n, 2.0f * dot(i, n))); }
-
-__device__ __forceinline__ float safe_sqrt(float x) { return x > 0.0f ? sqrtf(x) : 0.0f; }
-
-// vec3.make_onb, written out with up = (upx, 0, 1 - upx) as the plain version.
-__device__ __forceinline__ void make_onb(V3 n, V3& t, V3& b) {
-  bool use_z = fabsf(n.z) < F32(0.999);
-  float upx = use_z ? 0.0f : 1.0f;
-  float uz = 1.0f - upx;
-  V3 up = v3(upx, 0.0f, uz);
-  t = safe_normalize(cross(up, n));
-  b = cross(n, t);
-}
-
-__device__ __forceinline__ V3 from_onb(V3 t, V3 b, V3 n, float lx, float ly, float lz) {
-  return add(add(scale(t, lx), scale(b, ly)), scale(n, lz));
-}
-
-// vec3.refract: returns the direction (zero on TIR) and can_refract.
-__device__ __forceinline__ V3 refract(V3 i, V3 n, float eta, bool& can) {
-  float cosi = clampf(-dot(n, i), -1.0f, 1.0f);
-  float sin2t = eta * eta * fmaxf(1.0f - cosi * cosi, 0.0f);
-  can = sin2t <= 1.0f;
-  float cost = sin2t < 1.0f ? sqrtf(1.0f - sin2t) : 0.0f;
-  V3 t = add(scale(i, eta), scale(n, eta * cosi - cost));
-  t = safe_normalize(t);
-  return can ? t : v3(0.0f, 0.0f, 0.0f);
-}
-
-// --- rng (ops/rng.py) ----------------------------------------------------------
-
-__device__ __forceinline__ uint32_t wang_hash(uint32_t x) {
-  x = (x ^ 61u) ^ (x >> 16);
-  x = x * 9u;
-  x = x ^ (x >> 4);
-  x = x * 0x27D4EB2Du;
-  x = x ^ (x >> 15);
-  return x;
-}
-
-__device__ __forceinline__ float next_float(uint32_t& s) {
-  s = wang_hash(s);
-  return static_cast<float>(static_cast<int>(s & 0x00FFFFFFu)) * F32(1.0 / 16777216.0);
-}
-
-// --- sampling (ops/sampling.py) ------------------------------------------------
-
-__device__ __forceinline__ float fresnel_schlick_eta(float cos_i, float eta_i, float eta_t) {
-  float r0 = (eta_t - eta_i) / (eta_t + eta_i);
-  r0 = r0 * r0;
-  float m = 1.0f - clampf(cos_i, 0.0f, 1.0f);
-  return r0 + (1.0f - r0) * m * m * m * m * m;
-}
-
-__device__ __forceinline__ V3 fresnel_schlick_v(float cos_vh, V3 f0) {
-  float m = 1.0f - clampf(cos_vh, 0.0f, 1.0f);
-  float m5 = (m * m) * (m * m) * m;
-  return v3(f0.x + (1.0f - f0.x) * m5, f0.y + (1.0f - f0.y) * m5, f0.z + (1.0f - f0.z) * m5);
-}
-
-__device__ __forceinline__ float roughness_to_alpha(float roughness) {
-  float r = clampf(roughness, F32(0.02), 1.0f);
-  return r * r;
-}
-
-__device__ __forceinline__ float d_ggx(float cos_nh, float alpha) {
-  cos_nh = fmaxf(cos_nh, 0.0f);
-  float a2 = alpha * alpha;
-  float denom = cos_nh * cos_nh * (a2 - 1.0f) + 1.0f;
-  return a2 / (F32(kPi) * denom * denom);
-}
-
-__device__ __forceinline__ float g1_schlick(float c, float k) { return c / (c * (1.0f - k) + k); }
-
-__device__ __forceinline__ float g_smith_cpu(float cos_nv, float cos_nl, float alpha) {
-  float r = clampf(sqrtf(fmaxf(alpha, 0.0f)), F32(0.02), 1.0f);
-  float k = (r + 1.0f) * (r + 1.0f) / 8.0f;
-  return g1_schlick(fmaxf(cos_nv, 0.0f), k) * g1_schlick(fmaxf(cos_nl, 0.0f), k);
-}
-
-__device__ __forceinline__ float g_smith_gpu(float cos_nl, float cos_nv, float alpha) {
-  float a = alpha + 1.0f;
-  float k = a * a * 0.125f;
-  return g1_schlick(cos_nl, k) * g1_schlick(cos_nv, k);
-}
-
-__device__ V3 evaluate_brdf(V3 n, V3 v, V3 l, V3 base, float metallic, float roughness, float ior) {
-  V3 h = safe_normalize(add(v, l));
-  float cos_nv = fmaxf(dot(n, v), 0.0f);
-  float cos_nl = fmaxf(dot(n, l), 0.0f);
-  float cos_hv = fmaxf(dot(h, v), 0.0f);
-  float cos_nh = fmaxf(dot(n, h), 0.0f);
-  float alpha = roughness_to_alpha(roughness);
-  float d = d_ggx(cos_nh, alpha);
-  float g = g_smith_cpu(cos_nv, cos_nl, alpha);
-  float q = (ior - 1.0f) / (ior + 1.0f);
-  float f0_diel = q * q;
-  float f0s = f0_diel * (1.0f - metallic);
-  V3 f0 = v3(base.x * metallic + f0s, base.y * metallic + f0s, base.z * metallic + f0s);
-  V3 f = fresnel_schlick_v(cos_hv, f0);
-  float spec_scale = (d * g) / (4.0f * cos_nv * cos_nl + F32(1e-4));
-  V3 specular = scale(f, spec_scale);
-  V3 kd = v3(1.0f - f.x, 1.0f - f.y, 1.0f - f.z);
-  V3 diffuse = scale(base, (1.0f - metallic) / F32(kPi));
-  return scale(add(mul(kd, diffuse), specular), cos_nl);
-}
-
-__device__ V3 cosine_sample(V3 n, float u1, float u2) {
-  float r = safe_sqrt(u1);
-  float phi = F32(2.0 * kPi) * u2;
-  float lx = r * cosf(phi);
-  float ly = r * sinf(phi);
-  float lz = safe_sqrt(1.0f - u1);
-  V3 t, b;
-  make_onb(n, t, b);
-  return safe_normalize(from_onb(t, b, n, lx, ly, lz));
-}
-
-__device__ V3 ggx_sample_half_vector(float u1, float u2, float alpha, V3 n) {
-  float a2 = alpha * alpha;
-  float phi = F32(2.0 * kPi) * u1;
-  float denom = 1.0f + (a2 - 1.0f) * u2;
-  float cos_t = safe_sqrt((1.0f - u2) / denom);
-  float sin_t = safe_sqrt(1.0f - cos_t * cos_t);
-  float lx = sin_t * cosf(phi);
-  float ly = sin_t * sinf(phi);
-  V3 t, b;
-  make_onb(n, t, b);
-  return normalize_or(from_onb(t, b, n, lx, ly, cos_t), n);
-}
-
-__device__ V3 ggx_sample_vndf(float u1, float u2, float alpha, V3 n, V3 v) {
-  V3 t, b;
-  make_onb(n, t, b);
-  V3 vh = safe_normalize(v3(dot(v, t), dot(v, b), dot(v, n)));
-  V3 vs = safe_normalize(v3(alpha * vh.x, alpha * vh.y, vh.z));
-  V3 t1 = safe_normalize(cross(v3(0.0f, 0.0f, 1.0f), vs));
-  if (!(vs.z < F32(0.9999))) t1 = v3(1.0f, 0.0f, 0.0f);
-  V3 t2 = cross(vs, t1);
-  float r_disk = safe_sqrt(u1);
-  float phi = F32(2.0 * kPi) * u2;
-  float p1 = r_disk * cosf(phi);
-  float p2 = r_disk * sinf(phi);
-  float s = 0.5f * (1.0f + vs.z);
-  p2 = (1.0f - s) * safe_sqrt(1.0f - p1 * p1) + s * p2;
-  float p3 = safe_sqrt(1.0f - p1 * p1 - p2 * p2);
-  V3 nh = add(add(scale(t1, p1), scale(t2, p2)), scale(vs, p3));
-  V3 h_local = safe_normalize(v3(alpha * nh.x, alpha * nh.y, fmaxf(nh.z, 0.0f)));
-  return safe_normalize(from_onb(t, b, n, h_local.x, h_local.y, h_local.z));
-}
-
-// --- intersection (ops/intersect.py, unrolled semantics) -----------------------
-
-// Moller-Trumbore for triangle record r; returns whether t lies in
-// (tmin, tmax) and below best, with t and the barycentrics (u, v).
-__device__ __forceinline__ bool tri_test(const float* r, V3 o, V3 d, float tmin, float tmax,
-                                         float best, float& t, float& u, float& v) {
-  float v0x = r[0], v0y = r[1], v0z = r[2];
-  float e1x = r[3], e1y = r[4], e1z = r[5];
-  float e2x = r[6], e2y = r[7], e2z = r[8];
-  float hx = d.y * e2z - d.z * e2y;
-  float hy = d.z * e2x - d.x * e2z;
-  float hz = d.x * e2y - d.y * e2x;
-  float a = e1x * hx + e1y * hy + e1z * hz;
-  bool big = fabsf(a) > F32(1e-9);
-  float inv = 1.0f / (big ? a : 1.0f);
-  float sx = o.x - v0x, sy = o.y - v0y, sz = o.z - v0z;
-  u = inv * (sx * hx + sy * hy + sz * hz);
-  float qx = sy * e1z - sz * e1y;
-  float qy = sz * e1x - sx * e1z;
-  float qz = sx * e1y - sy * e1x;
-  v = inv * (d.x * qx + d.y * qy + d.z * qz);
-  t = inv * (e2x * qx + e2y * qy + e2z * qz);
-  return big && (u >= 0.0f) && (v >= 0.0f) && (u + v <= 1.0f) && (t > tmin) && (t < tmax) &&
-         (t < best);
-}
-
-__device__ __forceinline__ bool sph_test(const float* r, V3 o, V3 d, float tmin, float tmax,
-                                         float best, float& t) {
-  float cx = r[0], cy = r[1], cz = r[2], rad = r[3];
-  float ocx = o.x - cx, ocy = o.y - cy, ocz = o.z - cz;
-  float b = ocx * d.x + ocy * d.y + ocz * d.z;
-  float c = ocx * ocx + ocy * ocy + ocz * ocz - rad * rad;
-  float disc = b * b - c;
-  float sq = safe_sqrt(disc);
-  float t0 = -b - sq;
-  float t1 = -b + sq;
-  t = ((t0 > tmin) && (t0 < tmax)) ? t0 : t1;
-  return (disc > 0.0f) && (rad > 0.0f) && (t > tmin) && (t < tmax) && (t < best);
-}
-
-// Closest hit of a live lane (trace_bounce: tmin 0, tmax 1e30).  Returns
-// the hit kind (0 miss, 1 triangle, 2 sphere) with t, material and normal.
-__device__ int closest_hit(const Tables& tb, V3 o, V3 d, float& best, int& mat, V3& normal) {
-  const float tmin = 0.0f, tmax = F32(1e30);
-  best = INFINITY;
-  int kind = 0;
-  mat = 0;
-  float ax = 0.0f, ay = 0.0f, az = 0.0f, rinv = 0.0f;
-  for (int i = 0; i < tb.n_tris; ++i) {
-    const float* r = tb.tri + i * kTriWords;
-    float t, u, v;
-    if (!tri_test(r, o, d, tmin, tmax, best, t, u, v)) continue;
-    float e1x = r[3], e1y = r[4], e1z = r[5];
-    float e2x = r[6], e2y = r[7], e2z = r[8];
-    float nx = e1y * e2z - e1z * e2y;
-    float ny = e1z * e2x - e1x * e2z;
-    float nz = e1x * e2y - e1y * e2x;
-    if (tb.ns != nullptr) {
-      // interpolated shading normal; zero rows keep the geometric one
-      const float* rn = tb.ns + i * kNsWords;
-      float snx = rn[0] + u * rn[3] + v * rn[6];
-      float sny = rn[1] + u * rn[4] + v * rn[7];
-      float snz = rn[2] + u * rn[5] + v * rn[8];
-      if (snx * snx + sny * sny + snz * snz > F32(1e-12)) {
-        nx = snx;
-        ny = sny;
-        nz = snz;
-      }
-    }
-    best = t;
-    kind = 1;
-    mat = as_int(r[9]);
-    ax = nx;
-    ay = ny;
-    az = nz;
-  }
-  for (int i = 0; i < tb.n_sphs; ++i) {
-    const float* r = tb.sph + i * kSphWords;
-    float t;
-    if (!sph_test(r, o, d, tmin, tmax, best, t)) continue;
-    best = t;
-    kind = 2;
-    mat = as_int(r[4]);
-    ax = r[0];
-    ay = r[1];
-    az = r[2];
-    rinv = 1.0f / fmaxf(r[3], F32(1e-12));
-  }
-  if (kind == 2) {
-    float px = o.x + best * d.x;
-    float py = o.y + best * d.y;
-    float pz = o.z + best * d.z;
-    normal = v3((px - ax) * rinv, (py - ay) * rinv, (pz - az) * rinv);
-  } else {
-    normal = v3(ax, ay, az);
-  }
-  return kind;
-}
-
-__device__ bool occluded(const Tables& tb, V3 o, V3 d, float tmin, float tmax) {
-  float t, u, v;
-  for (int i = 0; i < tb.n_tris; ++i)
-    if (tri_test(tb.tri + i * kTriWords, o, d, tmin, tmax, INFINITY, t, u, v)) return true;
-  for (int i = 0; i < tb.n_sphs; ++i)
-    if (sph_test(tb.sph + i * kSphWords, o, d, tmin, tmax, INFINITY, t)) return true;
-  return false;
-}
-
-// intersect.safe_origin_v with front = true
-__device__ __forceinline__ V3 safe_origin(V3 p, V3 n) {
-  float mag = fmaxf(fabsf(p.x), fmaxf(fabsf(p.y), fabsf(p.z)));
-  float eps = F32(1e-4) * fmaxf(mag, 1.0f);
-  return add(p, scale(n, eps));
-}
-
-// --- the kernel ----------------------------------------------------------------
-
-__global__ void __launch_bounds__(kBlock) fused_frame_kernel(Params P) {
+template <bool kResident>
+__global__ void __launch_bounds__(kBlock)
+    fused_frame_kernel(FrameIO io, SceneArgs sc, ShadeArgs sa) {
   extern __shared__ float smem[];
-  const int words = P.n_tris * kTriWords + P.n_sphs * kSphWords + P.n_mats * kMatWords +
-                    P.n_lights * kLightWords + P.n_emit * kEmitWords +
-                    ((P.flags & kHasNs) ? P.n_tris * kNsWords : 0);
-  for (int k = threadIdx.x; k < words; k += blockDim.x) smem[k] = P.tables[k];
-  __syncthreads();
-
-  Tables tb;
-  tb.tri = smem;
-  tb.sph = tb.tri + P.n_tris * kTriWords;
-  tb.mat = tb.sph + P.n_sphs * kSphWords;
-  tb.light = tb.mat + P.n_mats * kMatWords;
-  tb.emit = tb.light + P.n_lights * kLightWords;
-  tb.ns = (P.flags & kHasNs) ? tb.emit + P.n_emit * kEmitWords : nullptr;
-  tb.n_tris = P.n_tris;
-  tb.n_sphs = P.n_sphs;
-  tb.n_mats = P.n_mats;
-  tb.n_lights = P.n_lights;
-  tb.n_emit = P.n_emit;
-
+  const Tables tb = load_tables(smem, sc);
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= P.n) return;
+  if (i >= io.n) return;
 
-  const bool nee_on = P.flags & kNee;
-  const bool shadow_rays = P.flags & kShadowRays;
-  const bool metal_vndf = P.flags & kMetalVndf;
-  const bool metal_mirror = P.flags & kMetalMirror;
-  const bool cpu_transparency = P.flags & kCpuTransparency;
-  const bool normal_vis = P.flags & kDepthTermNormalVis;
-  const bool direct_diel = P.flags & kDirectLightDielectric;
-
-  V3 o = v3(P.ox[i], P.oy[i], P.oz[i]);
-  V3 d = v3(P.dx[i], P.dy[i], P.dz[i]);
-  V3 thr = v3(P.tx[i], P.ty[i], P.tz[i]);
-  V3 rad = v3(P.rx[i], P.ry[i], P.rz[i]);
-  uint32_t rng = static_cast<uint32_t>(P.rng[i]);
-  bool alive = P.alive[i] != 0;
-  bool emok = P.emok[i] != 0;
+  V3 o = v3(io.ox[i], io.oy[i], io.oz[i]);
+  V3 d = v3(io.dx[i], io.dy[i], io.dz[i]);
+  V3 thr = v3(io.tx[i], io.ty[i], io.tz[i]);
+  V3 rad = v3(io.rx[i], io.ry[i], io.rz[i]);
+  uint32_t rng = static_cast<uint32_t>(io.rng[i]);
+  bool alive = io.alive[i] != 0;
+  bool emok = io.emok[i] != 0;
   int missed_ever = 0;
   int bounces = 0;
-  const V3 up = v3(0.0f, 1.0f, 0.0f);
 
-  for (int bounce = P.start_bounce; bounce < P.max_depth && alive; ++bounce) {
+  for (int bounce = io.start_bounce; bounce < io.max_depth && alive; ++bounce) {
     ++bounces;
-    const bool is_last = bounce == P.max_depth - 1;
-    float t;
-    int mat_id;
-    V3 hn;
-    if (closest_hit(tb, o, d, t, mat_id, hn) == 0) {
-      // missed: the lane keeps its direction and throughput for the
-      // deferred environment term and dies
-      missed_ever = 1;
-      alive = false;
-      break;
-    }
-
-    // --- surface setup ---
-    const float* m = tb.mat + min(max(mat_id, 0), tb.n_mats - 1) * kMatWords;
-    const V3 base = load3(m);
-    const float metallic = m[3], roughness = m[4], ior = m[5];
-    const int mat_type = as_int(m[6]);
-    const V3 emission = load3(m + 7);
-    const float transparency = m[10];
-
-    const V3 ng = normalize_or(hn, up);
-    const bool entering = dot(d, ng) < 0.0f;
-    const V3 n = entering ? ng : neg(ng);
-    const V3 p = add(o, scale(d, t));
-
-    const V3 diffuse_color = scale(base, 1.0f - metallic);
-    const bool is_dielectric = mat_type == 1;
-    const bool is_metal = (metallic > 0.5f) && !is_dielectric;
-    const bool is_diffuse = !is_metal && !is_dielectric;
-
-    // --- emission ---
-    if (!nee_on || emok) rad = add(rad, mul(thr, emission));
-
-    // --- direct lighting over the light table ---
-    const bool direct_ok = direct_diel || !is_dielectric;
-    const V3 view = safe_normalize(neg(d));
-    for (int li = 0; li < tb.n_lights; ++li) {
-      const float* L = tb.light + li * kLightWords;
-      const int kind = as_int(L[0]);
-      const V3 lv0 = load3(L + 1);
-      const float it = L[7];
-      const V3 c = v3(L[4] * it, L[5] * it, L[6] * it);
-      const float a0 = L[8], a1 = L[9], a2 = L[10];
-      const bool is_point = kind == 2;
-      const V3 lv = sub(lv0, p);
-      const float dist_p = sqrtf(lv.x * lv.x + lv.y * lv.y + lv.z * lv.z);
-      const float inv = 1.0f / fmaxf(dist_p, F32(1e-12));
-      const float atten = a0 + a1 * dist_p + a2 * dist_p * dist_p;
-      const float inv_at = 1.0f / fmaxf(atten, F32(1e-12));
-      const V3 ldir = is_point ? scale(lv, inv) : lv0;
-      const float ldist = is_point ? dist_p : F32(1e30);
-      const V3 li_rad = is_point ? scale(c, inv_at) : c;
-      const float cos_theta = fmaxf(dot(n, ldir), 0.0f);
-      bool contrib = direct_ok && (kind != 0) && (cos_theta > 0.0f);
-      if (contrib && shadow_rays)
-        contrib = !occluded(tb, safe_origin(p, n), ldir, P.hit_eps, ldist - P.hit_eps);
-      if (contrib) {
-        V3 brdf = evaluate_brdf(n, view, ldir, base, metallic, roughness, ior);
-        rad = add(rad, mul(mul(thr, brdf), li_rad));
-      }
-    }
-
-    // --- NEE toward emissive triangles ---
-    if (nee_on) {
-      const int e_count = tb.n_emit;
-      const float xe = next_float(rng);
-      const float xu1 = next_float(rng);
-      const float xu2 = next_float(rng);
-      // uniform pick: truncate toward zero, then clamp
-      const int pick = min(max(static_cast<int>(xe * static_cast<float>(e_count)), 0), e_count - 1);
-      const float* E = tb.emit + pick * kEmitWords;
-      const V3 ev0 = load3(E), ee1 = load3(E + 3), ee2 = load3(E + 6), ele = load3(E + 9);
-      const float earea = E[12];
-      const float su = safe_sqrt(xu1);
-      const float b1 = 1.0f - su;
-      const float b2 = xu2 * su;
-      const V3 pe = add(add(ev0, scale(ee1, b1)), scale(ee2, b2));
-      const V3 to_e = sub(pe, p);
-      const float dist = fmaxf(sqrtf(dot(to_e, to_e)), F32(1e-6));
-      const V3 wi = scale(to_e, 1.0f / dist);
-      const V3 n_e = safe_normalize(cross(ee1, ee2));
-      const float cos_e = fabsf(dot(n_e, wi));
-      const float cos_s = dot(n, wi);
-      bool nee_mask = !is_dielectric && (cos_s > 0.0f) && (cos_e > F32(1e-6));
-      if (nee_mask && shadow_rays)
-        nee_mask = !occluded(tb, safe_origin(p, n), wi, P.hit_eps, dist * F32(1.0 - 1e-3));
-      if (nee_mask) {
-        V3 brdf = evaluate_brdf(n, view, wi, base, metallic, roughness, ior);
-        const float weight = (cos_e / (dist * dist)) * (earea * static_cast<float>(e_count));
-        rad = add(rad, scale(mul(mul(thr, brdf), ele), weight));
-      }
-    }
-
-    // --- scatter: this lane's branch only, each from the post-NEE state ---
-    V3 new_dir, new_org, new_thr;
-    uint32_t new_rng = rng;
-    bool rr_dead = false;
-    if (is_dielectric) {
-      const float xi_d = next_float(new_rng);
-      const float eta_i = entering ? 1.0f : ior;
-      const float eta_t = entering ? ior : 1.0f;
-      const float eta = eta_i / eta_t;
-      const float cos_i = clampf(-dot(d, n), -1.0f, 1.0f);
-      const float fr = fresnel_schlick_eta(cos_i, eta_i, eta_t);
-      bool can_refract;
-      const V3 refr_dir = refract(d, n, eta, can_refract);
-      const V3 reflect_dir = safe_normalize(reflect(d, n));
-      new_dir = (!can_refract || (xi_d < fr)) ? reflect_dir : refr_dir;
-      new_org = add(p, scale(new_dir, P.ray_offset_dir));
-      new_thr = thr;
-      if (cpu_transparency) {
-        const float w_d = (xi_d < fr) ? 1.0f - transparency : (can_refract ? transparency : 1.0f);
-        new_thr = scale(thr, w_d);
-      }
-    } else if (is_metal) {
-      const float cos_nv_raw = dot(n, view);
-      const V3 mirror_dir = normalize_or(reflect(d, n), n);
-      if (metal_mirror) {
-        new_dir = mirror_dir;
-        new_thr = scale(mul(thr, base), metallic);
-      } else {
-        uint32_t rng_m = rng;
-        const float u1 = next_float(rng_m);
-        const float u2 = next_float(rng_m);
-        const float alpha = roughness_to_alpha(roughness);
-        const V3 h = metal_vndf ? ggx_sample_vndf(u1, u2, alpha, n, view)
-                                : ggx_sample_half_vector(u1, u2, alpha, n);
-        const float cos_nh_raw = dot(n, h);
-        const V3 l_dir = normalize_or(reflect(neg(view), h), n);
-        const float cos_nl_raw = dot(n, l_dir);
-        const bool ggx_ok = (cos_nv_raw > 0.0f) && (cos_nh_raw > 0.0f) && (cos_nl_raw > 0.0f);
-        const float cos_nv = fmaxf(cos_nv_raw, F32(1e-6));
-        const float cos_nl = fmaxf(cos_nl_raw, F32(1e-6));
-        const float cos_nh = fmaxf(cos_nh_raw, F32(1e-6));
-        float scl;
-        V3 f;
-        if (metal_vndf) {
-          const float cos_vh = fmaxf(dot(view, h), F32(1e-6));
-          f = fresnel_schlick_v(cos_vh, base);
-          const float g = g_smith_cpu(cos_nv, cos_nl, alpha);
-          scl = clampf(g * cos_vh / cos_nh, 0.0f, P.firefly_clamp);
-        } else {
-          const float cos_vh = fmaxf(dot(view, h), 0.0f);
-          f = fresnel_schlick_v(cos_vh, base);
-          const float g = g_smith_gpu(cos_nl, cos_nv, alpha);
-          scl = clampf(g * cos_vh / (cos_nv * cos_nh), 0.0f, P.firefly_clamp);
-        }
-        new_dir = ggx_ok ? l_dir : mirror_dir;
-        new_thr = mul(thr, ggx_ok ? scale(f, scl) : base);
-        // the GPU's cosNV <= 0 fallback bails before drawing randoms
-        if (cos_nv_raw > 0.0f) new_rng = rng_m;
-      }
-      new_org = add(p, scale(n, F32(1e-3)));
+    const bool is_last = bounce == io.max_depth - 1;
+    bool missed;
+    if constexpr (kResident) {
+      alive = shade_bounce(tb, cluster_tracer(tb, sc), sa, bounce, is_last, o, d, thr, rad,
+                           rng, emok, missed);
     } else {
-      const float du1 = next_float(new_rng);
-      const float du2 = next_float(new_rng);
-      new_dir = cosine_sample(n, du1, du2);
-      new_org = safe_origin(p, n);
-      const float survival =
-          clampf(fmaxf(diffuse_color.x, fmaxf(diffuse_color.y, diffuse_color.z)), F32(1e-6), 1.0f);
-      const float xi_rr = next_float(new_rng);
-      const bool rr_on = bounce > P.rr_after;
-      rr_dead = rr_on && (xi_rr >= survival);
-      new_thr = mul(thr, diffuse_color);
-      if (rr_on) new_thr = scale(new_thr, 1.0f / survival);
+      alive = shade_bounce(tb, RolledTracer{&tb}, sa, bounce, is_last, o, d, thr, rad, rng,
+                           emok, missed);
     }
-
-    const bool scatter_alive = !is_last && !(is_diffuse && rr_dead);
-
-    // quirk 5: diffuse * normal-vis at max depth instead of black
-    if (normal_vis && is_last) {
-      const V3 nn = normalize_or(ng, up);
-      const V3 nvis = v3((nn.x + 1.0f) * 0.5f, (nn.y + 1.0f) * 0.5f, (nn.z + 1.0f) * 0.5f);
-      rad = add(rad, mul(mul(thr, diffuse_color), nvis));
-    }
-    if (nee_on) emok = scatter_alive ? is_dielectric : emok;
-    if (scatter_alive) {
-      o = new_org;
-      d = new_dir;
-      thr = new_thr;
-    }
-    rng = new_rng;
-    alive = scatter_alive;
+    if (missed) missed_ever = 1;
   }
 
-  P.o_dx[i] = d.x;
-  P.o_dy[i] = d.y;
-  P.o_dz[i] = d.z;
-  P.o_tx[i] = thr.x;
-  P.o_ty[i] = thr.y;
-  P.o_tz[i] = thr.z;
-  P.o_rx[i] = rad.x;
-  P.o_ry[i] = rad.y;
-  P.o_rz[i] = rad.z;
-  P.o_missed[i] = missed_ever;
-  P.o_bounces[i] = bounces;
-}
-
-// Words of the packed table for these counts (see the k*Words layout).
-int table_words(int n_tris, int n_sphs, int n_mats, int n_lights, int n_emit, bool has_ns) {
-  return n_tris * kTriWords + n_sphs * kSphWords + n_mats * kMatWords + n_lights * kLightWords +
-         n_emit * kEmitWords + (has_ns ? n_tris * kNsWords : 0);
+  io.o_dx[i] = d.x;
+  io.o_dy[i] = d.y;
+  io.o_dz[i] = d.z;
+  io.o_tx[i] = thr.x;
+  io.o_ty[i] = thr.y;
+  io.o_tz[i] = thr.z;
+  io.o_rx[i] = rad.x;
+  io.o_ry[i] = rad.y;
+  io.o_rz[i] = rad.z;
+  io.o_missed[i] = missed_ever;
+  io.o_bounces[i] = bounces;
 }
 
 }  // namespace
 
 extern "C" {
 
-// Launches the kernel on `stream` and returns cudaGetLastError() (0: the
-// launch was accepted).  Allocates nothing and does not synchronise.
+// Replaces spt_tpu/ops/pallas_bounce.py:1207 (fused_frame, pallas_call
+// :1298).  Launches the kernel on `stream` and returns the CUDA error of
+// the launch (0: accepted).  `pack` null selects the small form.  Allocates
+// nothing and does not synchronise.
 int spt_fused_frame(const float* ox, const float* oy, const float* oz, const float* dx,
                     const float* dy, const float* dz, const float* tx, const float* ty,
                     const float* tz, const float* rx, const float* ry, const float* rz,
                     const int* rng, const int* alive, const int* emok, float* o_dx, float* o_dy,
                     float* o_dz, float* o_tx, float* o_ty, float* o_tz, float* o_rx, float* o_ry,
                     float* o_rz, int* o_missed, int* o_bounces, const float* tables, int n_tris,
-                    int n_sphs, int n_mats, int n_lights, int n_emit, int n, int start_bounce,
-                    int max_depth, int rr_after, int flags, float hit_eps, float ray_offset_dir,
-                    float firefly_clamp, void* stream) {
-  Params P{ox,       oy,       oz,     dx,         dy,          dz,           tx,
-           ty,       tz,       rx,     ry,         rz,          rng,          alive,
-           emok,     o_dx,     o_dy,   o_dz,       o_tx,        o_ty,         o_tz,
-           o_rx,     o_ry,     o_rz,   o_missed,   o_bounces,   tables,       n_tris,
-           n_sphs,   n_mats,   n_lights, n_emit,   n,           start_bounce, max_depth,
-           rr_after, flags,    hit_eps, ray_offset_dir, firefly_clamp};
-  const size_t smem = sizeof(float) * static_cast<size_t>(table_words(
-                                          n_tris, n_sphs, n_mats, n_lights, n_emit,
-                                          (flags & kHasNs) != 0));
-  if (smem > 48 * 1024 || n_mats < 1) return static_cast<int>(cudaErrorInvalidValue);
-  if (n > 0) {
-    const int grid = (n + kBlock - 1) / kBlock;
-    fused_frame_kernel<<<grid, kBlock, smem, static_cast<cudaStream_t>(stream)>>>(P);
+                    int n_sphs, int n_mats, int n_lights, int n_emit, int flags,
+                    const float* pack, int pack_w, int n_clusters, int cluster_size,
+                    int n, int start_bounce, int max_depth, int rr_after, float hit_eps,
+                    float ray_offset_dir, float firefly_clamp, void* stream) {
+  FrameIO io{ox,   oy,   oz,   dx,   dy,   dz,   tx,   ty,       tz,        rx,
+             ry,   rz,   rng,  alive, emok, o_dx, o_dy, o_dz,    o_tx,      o_ty,
+             o_tz, o_rx, o_ry, o_rz, o_missed, o_bounces, n, start_bounce, max_depth};
+  SceneArgs sc{tables, n_tris,     n_sphs,     n_mats,       n_lights, n_emit,
+               flags,  pack,       pack_w,     n_clusters,   cluster_size};
+  ShadeArgs sa{rr_after, flags, hit_eps, ray_offset_dir, firefly_clamp};
+  const size_t smem = smem_bytes(sc);
+  if (n_mats < 1 || smem > 227 * 1024) return static_cast<int>(cudaErrorInvalidValue);
+  if (n <= 0) return static_cast<int>(cudaGetLastError());
+  const int grid = (n + kBlock - 1) / kBlock;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  if (pack != nullptr) {
+    err = reserve_smem(fused_frame_kernel<true>, smem);
+    if (err == cudaSuccess) fused_frame_kernel<true><<<grid, kBlock, smem, st>>>(io, sc, sa);
+  } else {
+    err = reserve_smem(fused_frame_kernel<false>, smem);
+    if (err == cudaSuccess) fused_frame_kernel<false><<<grid, kBlock, smem, st>>>(io, sc, sa);
   }
+  if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
 
-// Registers per thread and local (spill) bytes of the compiled kernel.
-int spt_fused_frame_kernel_info(int* num_regs, int* local_bytes) {
+// Registers per thread and local (spill) bytes of the small (resident = 0)
+// or resident (1) form.
+int spt_fused_frame_kernel_info(int resident, int* num_regs, int* local_bytes) {
   cudaFuncAttributes attr;
-  const cudaError_t err = cudaFuncGetAttributes(&attr, fused_frame_kernel);
+  const cudaError_t err = resident ? cudaFuncGetAttributes(&attr, fused_frame_kernel<true>)
+                                   : cudaFuncGetAttributes(&attr, fused_frame_kernel<false>);
   if (err == cudaSuccess) {
     *num_regs = attr.numRegs;
     *local_bytes = static_cast<int>(attr.localSizeBytes);

@@ -6,7 +6,9 @@ movement and resets accumulation, renders cfg.spp wavefront samples into
 the accumulation, and on demand resolves it to a display image (exposure ->
 Reinhard -> gamma, device_programs.cu:854-899).
 
-Every table and state tensor lives on the device given to the Renderer.
+Every table and state tensor lives on the device given to the Renderer:
+the card unless the caller asks for the CPU (``device="cpu"``, which runs
+the kernels' plain PyTorch versions).
 ``render_frames(k)`` queues k frames with no host sync inside the loop.
 """
 
@@ -57,7 +59,7 @@ class Renderer:
         camera: Optional[Camera] = None,
         multi_device: Optional[bool] = None,
         *,
-        device,
+        device="cuda",
     ):
         self.cfg = cfg or RenderConfig()
         if self.cfg.integrator == "megakernel":
@@ -67,6 +69,9 @@ class Renderer:
             raise NotImplementedError(
                 "multi_device=True (pixel-band sharding) is not ported yet")
         self.device = torch.device(device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError("Renderer: no CUDA device (pass device='cpu' "
+                               "to run the plain PyTorch versions)")
         self.scene = flatten_scene(desc, self.device)
         self.env = (env if env is not None
                     else make_procedural_environment(self.device))

@@ -42,7 +42,7 @@ class Environment(NamedTuple):
     max_clamp: float
 
 
-def make_procedural_environment(device) -> Environment:
+def make_procedural_environment(device="cuda") -> Environment:
     return Environment(
         image=torch.zeros((1, 1, 3), dtype=torch.float32, device=device),
         enabled=False,

@@ -63,6 +63,15 @@ def gen_primary(
     carry pixel indices in row-major order; RNG is seeded by pixel, so any
     lane order renders the identical image.  (The JAX package's row0/rows
     banding serves its pixel sharding, which is not ported.)"""
+    return primary_lanes(cfg, camera, frame_index, sample_index,
+                         cfg.spp > 1 or bool(sample_index))
+
+
+def primary_lanes(cfg: RenderConfig, camera: CameraRays, frame_index,
+                  sample_index, per_sample: bool) -> PathState:
+    """gen_primary with the per-sample seeding chosen by the caller;
+    `sample_index` may be a per-lane tensor (path regeneration,
+    wavefront.py:761-799)."""
     w, h = cfg.width, cfg.height
     n = w * h
     device = camera.position.device
@@ -71,7 +80,7 @@ def gen_primary(
     py = (pixel // w).to(torch.float32)
 
     state = rng_ops.seed_paths(pixel, frame_index)
-    if cfg.spp > 1 or sample_index:
+    if per_sample:
         state = rng_ops.seed_samples(state, sample_index)
 
     if cfg.jitter:
@@ -98,11 +107,14 @@ def gen_primary(
     )
 
 
-def trace_bounce(scene: DeviceScene, ps: PathState) -> isect.HitV:
+def trace_bounce(scene: DeviceScene, ps: PathState,
+                 plain: bool = False) -> isect.HitV:
     """Trace (__raygen__trace, cu:279-310).  Dead lanes trace with
-    tmax = 0, so they hit nothing."""
+    tmax = 0, so they hit nothing.  `plain` keeps a mesh scene's trace on
+    the cluster tracer's plain version (intersect.intersect_v)."""
     tmax = torch.where(ps.alive, 1e30, 0.0)
-    return isect.intersect_v(scene, ps.origin, ps.direction, tmin=0.0, tmax=tmax)
+    return isect.intersect_v(scene, ps.origin, ps.direction, tmin=0.0,
+                             tmax=tmax, plain=plain)
 
 
 def shade(
@@ -133,12 +145,13 @@ def shade_core(
     hit: isect.HitV,
     bounce: int,
     is_last: bool,
+    plain: bool = False,
 ):
     """Everything in shade except the environment color: emission, direct
     lighting with shadow rays, NEE, and the scatter branches.  Returns
     (new_state, missed_mask) — the caller owes `throughput * env(direction)`
     to every missed lane (those lanes keep their direction and die here).
-    Dead lanes come back unchanged."""
+    Dead lanes come back unchanged.  `plain` as in trace_bounce."""
     shape = ps.rng.shape
     device = ps.rng.device
     alive = ps.alive
@@ -180,6 +193,7 @@ def shade_core(
             blocked = isect.occluded_v(
                 scene, shadow_o, ldir, tmin=cfg.hit_eps,
                 tmax=torch.where(contrib_mask, ldist - cfg.hit_eps, 0.0),
+                plain=plain,
             )
             contrib_mask = contrib_mask & ~blocked
         brdf_nl = sampling.evaluate_brdf_v(
@@ -221,7 +235,8 @@ def shade_core(
         if cfg.shadow_rays:
             so = isect.safe_origin_v(p, n, front)
             tmax_e = torch.where(nee_mask, dist * (1.0 - 1e-3), 0.0)
-            blocked = isect.occluded_v(scene, so, wi, tmin=cfg.hit_eps, tmax=tmax_e)
+            blocked = isect.occluded_v(scene, so, wi, tmin=cfg.hit_eps,
+                                       tmax=tmax_e, plain=plain)
             nee_mask = nee_mask & ~blocked
         brdf_nl = sampling.evaluate_brdf_v(
             n, view, wi, mat.base_color, mat.metallic, mat.roughness, mat.ior
@@ -304,11 +319,17 @@ def shade_core(
     f_org = isect.safe_origin_v(p, n, front)
     survival = torch.clamp(v3.max_component(diffuse_color), 1e-6, 1.0)
     rng_f, xi_rr = rng_ops.next_float(rng_f)
+    # bounce and is_last are Python values, or per-lane tensors (regen)
     rr_on = bounce > cfg.rr_after
-    rr_dead = (xi_rr >= survival) if rr_on else torch.zeros_like(surf)
     f_thr = ps.throughput * diffuse_color
-    if rr_on:
+    if isinstance(rr_on, torch.Tensor):
+        rr_dead = rr_on & (xi_rr >= survival)
+        f_thr = v3.where(rr_on, f_thr * (1.0 / survival), f_thr)
+    elif rr_on:
+        rr_dead = xi_rr >= survival
         f_thr = f_thr * (1.0 / survival)
+    else:
+        rr_dead = torch.zeros_like(surf)
 
     # --- select the branch per lane -------------------------------------------
     new_dir = v3.where(is_dielectric, d_dir, v3.where(is_metal, m_dir, f_dir))
@@ -318,15 +339,21 @@ def shade_core(
                           torch.where(is_metal, rng_m_out, rng_f))
 
     scatter_alive = surf & ~(is_diffuse & rr_dead)
-    if is_last:
+    if isinstance(is_last, torch.Tensor):
+        scatter_alive = scatter_alive & ~is_last
+        last_surf = surf & is_last
+    elif is_last:
         scatter_alive = torch.zeros_like(surf)
+        last_surf = surf
+    else:
+        last_surf = None
 
     # Quirk 5 (optional): the GPU paints diffuse * normal-vis at max depth
     # (cu:420-440) instead of going black.
-    if cfg.depth_term_normal_vis and is_last:
+    if cfg.depth_term_normal_vis and last_surf is not None:
         nvis = (v3.normalize_or(ng, up) + 1.0) * 0.5
         term_c = ps.throughput * diffuse_color * nvis
-        radiance = radiance + v3.where(surf, term_c, zero3)
+        radiance = radiance + v3.where(last_surf, term_c, zero3)
 
     if nee_on:
         # dielectric continuations keep counting emission; NEE'd scatters

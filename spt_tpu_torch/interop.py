@@ -19,6 +19,7 @@ from spt_tpu_torch.env import Environment
 from spt_tpu_torch.integrators.transport import PathState
 from spt_tpu_torch.lights import DeviceLights
 from spt_tpu_torch.materials import DeviceMaterials
+from spt_tpu_torch.ops.bvh import MeshAccel
 from spt_tpu_torch.ops.vec3 import Vec3
 from spt_tpu_torch.scene.flatten import DeviceScene, EmitterTable
 
@@ -36,13 +37,21 @@ def _vec3(v, device) -> Vec3:
     return Vec3(_f32(v.x, device), _f32(v.y, device), _f32(v.z, device))
 
 
+def accel(src, device) -> MeshAccel:
+    """The JAX package's ``MeshAccel``, converted array by array (not
+    rebuilt), so both packages trace the same cluster tables."""
+    ints = ("tri_mat", "cl_okey", "sup_okey")
+    return MeshAccel(**{f: (_i32 if f in ints else _f32)(getattr(src, f), device)
+                        for f in MeshAccel._fields})
+
+
 def scene(src, device) -> DeviceScene:
-    """A small-scene ``DeviceScene``.  Raises NotImplementedError for a
-    scene that carries an accel, an instanced TLAS/BLAS or textures."""
-    for field in ("accel", "inst", "textures"):
+    """A ``DeviceScene``, with its cluster accel when the JAX scene has one.
+    Raises NotImplementedError for an instanced TLAS/BLAS or textures."""
+    for field in ("inst", "textures"):
         if getattr(src, field, None) is not None:
-            raise NotImplementedError(f"scene.{field} belongs to the mesh "
-                                      "path, which is not ported yet")
+            raise NotImplementedError(f"scene.{field} belongs to a tier of "
+                                      "the mesh path that is not ported yet")
     m = src.materials
     mats = DeviceMaterials(
         base_color=_f32(m.base_color, device),
@@ -70,6 +79,8 @@ def scene(src, device) -> DeviceScene:
         materials=mats,
         emitters=emitters,
         tri_ns=None if tri_ns is None else _f32(tri_ns, device),
+        accel=(None if getattr(src, "accel", None) is None
+               else accel(src.accel, device)),
     )
 
 

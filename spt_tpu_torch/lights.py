@@ -63,7 +63,7 @@ class LightManager:
     def light_count(self) -> int:
         return len(self._rows)
 
-    def device(self, device, pad_multiple: int = 1) -> DeviceLights:
+    def device(self, device="cuda", pad_multiple: int = 1) -> DeviceLights:
         """The light table on `device` (a torch device)."""
         n = max(len(self._rows), 1)
         n = ((n + pad_multiple - 1) // pad_multiple) * pad_multiple
@@ -83,7 +83,7 @@ class LightManager:
         )
 
 
-def default_lights(device) -> DeviceLights:
+def default_lights(device="cuda") -> DeviceLights:
     """setupLights (main.cpp:85-94): one directional light, direction
     (-0.5, -1, 0.3), warm white (1, 0.95, 0.8), intensity 2."""
     lm = LightManager()

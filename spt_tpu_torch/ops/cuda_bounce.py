@@ -1,138 +1,102 @@
-"""The whole-frame wavefront kernel: ``fused_frame`` for Hopper.
+"""The wavefront kernels for Hopper: ``fused_frame`` and ``fused_bounce``.
 
-The counterpart of ``spt_tpu.ops.pallas_bounce.fused_frame`` in its
-small-scene form (accel mode None).  It runs bounces
-[start_bounce, max_depth) of one sample — closest hit, emission, direct
-light with shadow rays, NEE, and the scatter branches — and returns what the
-deferred environment term needs.
+The counterparts of ``spt_tpu.ops.pallas_bounce.fused_frame`` (K1) and
+``fused_bounce`` (K3) in two accel modes (``_accel_mode``): None, the small
+scenes of at most ``MAX_PRIMS`` primitives traced by brute force, and
+"resident", mesh scenes whose cluster accel (``ops/bvh``) holds at most
+``MAX_ACCEL_TRIS`` triangles, traced by the cluster tracer.
+``fused_frame`` runs bounces [start_bounce, max_depth) of one sample and
+returns what the deferred environment term needs; ``fused_bounce`` runs one
+bounce and returns the new path state and the missed mask.
 
-- On a CUDA tensor it launches the hand-written kernel in
-  ``csrc/fused_frame.cu`` (built with nvcc at first use, bound with ctypes)
-  or raises: there is no fallback.
-- On a CPU tensor it runs :func:`fused_frame_reference`, the plain PyTorch
-  version (``transport.trace_bounce`` + ``transport.shade_core`` in a bounce
-  loop).  Nothing on the CUDA path calls it; tests and ``chip_smoke.py``
-  hold the kernel against it.
+- On a CUDA tensor each launches its hand-written kernel
+  (``csrc/fused_frame.cu``, ``csrc/fused_bounce.cu``, built by
+  ``ops/cuda_lib``) or raises: there is no fallback.
+- On a CPU tensor each runs its plain PyTorch version
+  (``fused_frame_reference``, ``fused_bounce_reference``:
+  ``transport.trace_bounce`` + ``transport.shade_core``, tracing through the
+  plain versions of the tracers).  Nothing on the CUDA path calls them;
+  tests and ``chip_smoke.py`` hold the kernels against them.
 
-``LAUNCHES`` counts kernel launches, so a run can show that its main path
-went through the kernel.
+``LAUNCHES`` counts fused_frame launches and ``BOUNCE_LAUNCHES``
+fused_bounce launches, so a run can show that its main path went through
+the kernels.
 """
 
 from __future__ import annotations
-
-import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-from pathlib import Path
 
 import torch
 
 from spt_tpu_torch.config import RenderConfig
 from spt_tpu_torch.integrators import transport
 from spt_tpu_torch.lights import DeviceLights
+from spt_tpu_torch.ops import cuda_lib
 from spt_tpu_torch.ops.vec3 import Vec3
-from spt_tpu_torch.scene.flatten import DeviceScene
+from spt_tpu_torch.scene.flatten import MAX_ACCEL_SPHERES, DeviceScene
 
-# Kernel launches since import (or since a caller reset it).
+# Kernel launches since import (or since a caller reset them).
 LAUNCHES = 0
+BOUNCE_LAUNCHES = 0
 
-# Caps of the small-scene form, as pallas_bounce's (MAX_PALLAS_PRIMS,
-# MAX_PALLAS_MATERIALS, MAX_PALLAS_EMITTERS); the tables must also fit the
-# 48 KiB of shared memory a block gets without opting in.
+# Caps, as pallas_bounce's (MAX_PALLAS_PRIMS, MAX_PALLAS_MATERIALS,
+# MAX_PALLAS_EMITTERS, MAX_ACCEL_TRIS).  The small form's tables must fit
+# the 48 KiB of shared memory a block gets without opting in; the resident
+# form's small tables, the 227 KiB it may opt in to.
 MAX_PRIMS = 192
 MAX_MATERIALS = 64
 MAX_EMITTERS = 32
+MAX_ACCEL_TRIS = 12288
 MAX_TABLE_BYTES = 48 * 1024
+MAX_RESIDENT_TABLE_BYTES = 227 * 1024
 
-_CSRC = Path(__file__).resolve().parent.parent / "csrc"
-_SOURCES = ("fused_frame.cu",)
-_BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "spt_tpu_torch"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
-              "-shared", "-Xcompiler", "-fPIC", "--fmad=false")
+# Words per table row, as the k*Words constants in csrc/spt_common.cuh.
+_TRI, _SPH, _MAT, _LIGHT, _EMIT, _NS, _BOX, _OKEY = 10, 5, 11, 11, 13, 9, 6, 8
 
-# Words per table row, as the k*Words constants in csrc/fused_frame.cu.
-_TRI, _SPH, _MAT, _LIGHT, _EMIT, _NS = 10, 5, 11, 11, 13, 9
-
-# RenderConfig toggles, as the k* flag bits in csrc/fused_frame.cu.
+# RenderConfig toggles, as the k* flag bits in csrc/spt_common.cuh.
 _NEE, _SHADOW_RAYS, _METAL_VNDF, _METAL_MIRROR = 1, 2, 4, 8
 _CPU_TRANSPARENCY, _NORMAL_VIS, _DIRECT_DIELECTRIC, _HAS_NS = 16, 32, 64, 128
 
-_LIB = None
+
+def _accel_mode(scene: DeviceScene):
+    """None (small scene, brute force) or "resident" (cluster tracer over
+    the accel), as pallas_bounce._accel_mode (:161-182).  The instanced and
+    stream tiers are not ported: such a scene raises."""
+    if scene.num_triangles + scene.num_spheres <= MAX_PRIMS:
+        return None
+    a = scene.accel
+    if a is None:
+        raise NotImplementedError(
+            f"{scene.num_triangles + scene.num_spheres} primitives > "
+            f"MAX_PRIMS={MAX_PRIMS} and no cluster accel built")
+    if scene.num_spheres > MAX_ACCEL_SPHERES:
+        raise NotImplementedError(f"{scene.num_spheres} spheres > "
+                                  f"MAX_ACCEL_SPHERES={MAX_ACCEL_SPHERES}")
+    if a.num_clusters * a.cluster_size > MAX_ACCEL_TRIS:
+        raise NotImplementedError(
+            f"{a.num_clusters * a.cluster_size} accel triangles > "
+            f"MAX_ACCEL_TRIS={MAX_ACCEL_TRIS}: the stream tier is not ported")
+    return "resident"
 
 
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    path = os.path.join(home, "bin", "nvcc")
-    if not os.path.exists(path):
-        raise RuntimeError("nvcc not found on PATH or under CUDA_HOME; the "
-                           "fused_frame kernel cannot be built")
-    return path
-
-
-def build() -> ctypes.CDLL:
-    """Compile ``csrc/fused_frame.cu`` (once per source hash) into
-    ``build/spt_tpu_torch/`` and load it.  Raises on a failed build."""
-    global _LIB
-    if _LIB is not None:
-        return _LIB
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in _SOURCES:
-        h.update((_CSRC / name).read_bytes())
-    out_dir = _BUILD_ROOT / h.hexdigest()[:16]
-    lib_path = out_dir / "libspt_fused_frame.so"
-    if not lib_path.exists():
-        out_dir.mkdir(parents=True, exist_ok=True)
-        tmp = out_dir / f"libspt_fused_frame.{os.getpid()}.tmp.so"
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-               *(str(_CSRC / s) for s in _SOURCES)]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                               f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
-        os.replace(tmp, lib_path)
-    lib = ctypes.CDLL(str(lib_path))
-    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.spt_fused_frame.argtypes = [p] * 27 + [i] * 10 + [f] * 3 + [p]
-    lib.spt_fused_frame.restype = i
-    lib.spt_fused_frame_kernel_info.argtypes = [p, p]
-    lib.spt_fused_frame_kernel_info.restype = i
-    lib.spt_cuda_error_string.argtypes = [i]
-    lib.spt_cuda_error_string.restype = ctypes.c_char_p
-    _LIB = lib
-    return lib
-
-
-def kernel_info() -> dict:
-    """Registers per thread and spill bytes of the built kernel."""
-    lib = build()
-    regs, local = ctypes.c_int(0), ctypes.c_int(0)
-    err = lib.spt_fused_frame_kernel_info(ctypes.addressof(regs),
-                                          ctypes.addressof(local))
-    if err != 0:
-        raise RuntimeError(f"cudaFuncGetAttributes failed: CUDA error {err}")
-    return {"registers": regs.value, "local_bytes": local.value}
-
-
-def _table_words(scene: DeviceScene, lights: DeviceLights, nee_on: bool) -> int:
+def _table_words(scene: DeviceScene, lights: DeviceLights, nee_on: bool,
+                 mode=None) -> int:
     e = scene.emitters.count if nee_on else 0
+    words = (scene.num_spheres * _SPH + scene.materials.count * _MAT
+             + lights.count * _LIGHT + e * _EMIT)
+    if mode == "resident":
+        return words + scene.accel.num_clusters * (_BOX + _OKEY)
     ns = scene.num_triangles if scene.tri_ns is not None else 0
-    return (scene.num_triangles * _TRI + scene.num_spheres * _SPH
-            + scene.materials.count * _MAT + lights.count * _LIGHT
-            + e * _EMIT + ns * _NS)
+    return words + scene.num_triangles * _TRI + ns * _NS
 
 
 def explain_decline(cfg: RenderConfig, scene: DeviceScene,
                     lights: DeviceLights):
-    """Why the kernel cannot take this workload, or None when it can."""
+    """Why the kernels cannot take this workload, or None when they can."""
     reasons = []
-    n_prims = scene.num_triangles + scene.num_spheres
-    if n_prims > MAX_PRIMS:
-        reasons.append(f"{n_prims} primitives > MAX_PRIMS={MAX_PRIMS}")
+    try:
+        mode = _accel_mode(scene)
+    except NotImplementedError as e:
+        return str(e)
     if scene.materials.count > MAX_MATERIALS:
         reasons.append(f"{scene.materials.count} materials > "
                        f"MAX_MATERIALS={MAX_MATERIALS}")
@@ -140,10 +104,13 @@ def explain_decline(cfg: RenderConfig, scene: DeviceScene,
     if nee_on and scene.emitters.count > MAX_EMITTERS:
         reasons.append(f"{scene.emitters.count} emitters > "
                        f"MAX_EMITTERS={MAX_EMITTERS}")
-    nbytes = 4 * _table_words(scene, lights, nee_on)
-    if nbytes > MAX_TABLE_BYTES:
-        reasons.append(f"scene tables take {nbytes} B > "
-                       f"MAX_TABLE_BYTES={MAX_TABLE_BYTES}")
+    nbytes = 4 * _table_words(scene, lights, nee_on, mode)
+    if mode == "resident":
+        nbytes += 2 * 8 * scene.accel.num_clusters
+    cap = MAX_RESIDENT_TABLE_BYTES if mode == "resident" else MAX_TABLE_BYTES
+    if nbytes > cap:
+        reasons.append(f"scene tables take {nbytes} B > {cap} B of shared "
+                       "memory")
     return "; ".join(reasons) if reasons else None
 
 
@@ -160,25 +127,37 @@ def rays_from_counts(bounces_done: torch.Tensor, max_depth: int,
 
 def fused_frame_reference(cfg: RenderConfig, scene: DeviceScene,
                           lights: DeviceLights, ps, start_bounce: int = 0):
-    """The plain PyTorch version of the kernel: the same bounces through
-    ``transport.trace_bounce`` and ``transport.shade_core``.  Every bounce
+    """The plain PyTorch version of fused_frame: the same bounces through
+    fused_bounce_reference.  Every bounce
     runs over every lane: dead lanes come back unchanged, so the result is
     the kernel's, and no host sync is needed to stop early."""
     counts = torch.zeros(ps.num_paths, dtype=torch.int32, device=ps.rng.device)
     missed_ever = torch.zeros_like(ps.alive)
     for bounce in range(start_bounce, cfg.max_depth):
         counts = counts + ps.alive.to(torch.int32)
-        hit = transport.trace_bounce(scene, ps)
-        ps, missed = transport.shade_core(cfg, scene, lights, ps, hit, bounce,
-                                          bounce == cfg.max_depth - 1)
+        ps, missed = fused_bounce_reference(cfg, scene, lights, ps, bounce,
+                                            bounce == cfg.max_depth - 1)
         missed_ever = missed_ever | missed
     rays = rays_from_counts(counts, cfg.max_depth, start_bounce)
     return ps.radiance, ps.direction, ps.throughput, missed_ever, rays
 
 
-def _pack_tables(scene: DeviceScene, lights: DeviceLights, nee_on: bool):
+def fused_bounce_reference(cfg: RenderConfig, scene: DeviceScene,
+                           lights: DeviceLights, ps, bounce: int,
+                           is_last: bool):
+    """The plain PyTorch version of fused_bounce: one trace_bounce +
+    shade_core, tracing through the plain versions of the tracers."""
+    hit = transport.trace_bounce(scene, ps, plain=True)
+    return transport.shade_core(cfg, scene, lights, ps, hit, bounce, is_last,
+                                plain=True)
+
+
+def _pack_tables(scene: DeviceScene, lights: DeviceLights, nee_on: bool,
+                 mode=None):
     """The scene, material, light and emitter tables as one float32 buffer
-    in the kernel's row layout (int columns stored as their bits)."""
+    in the kernels' row layout (int columns stored as their bits); in the
+    resident mode the cluster boxes and octant keys instead of the
+    triangles."""
     def col(t):
         return t.to(torch.float32).reshape(-1, 1)
 
@@ -186,9 +165,10 @@ def _pack_tables(scene: DeviceScene, lights: DeviceLights, nee_on: bool):
         return t.to(torch.int32).contiguous().view(torch.float32).reshape(-1, 1)
 
     m = scene.materials
-    parts = [
+    parts = [] if mode == "resident" else [
         torch.cat([scene.tri_v0, scene.tri_e1, scene.tri_e2,
-                   bits(scene.tri_mat)], 1),
+                   bits(scene.tri_mat)], 1)]
+    parts += [
         torch.cat([scene.sph_center, col(scene.sph_radius),
                    bits(scene.sph_mat)], 1),
         torch.cat([m.base_color, col(m.metallic), col(m.roughness),
@@ -200,12 +180,17 @@ def _pack_tables(scene: DeviceScene, lights: DeviceLights, nee_on: bool):
     if nee_on:
         e = scene.emitters
         parts.append(torch.cat([e.v0, e.e1, e.e2, e.le, col(e.area)], 1))
-    if scene.tri_ns is not None:
+    if mode == "resident":
+        a = scene.accel
+        parts += [torch.cat([a.cluster_lo, a.cluster_hi], 1), bits(a.cl_okey)]
+    elif scene.tri_ns is not None:
         parts.append(scene.tri_ns)
     return torch.cat([p.reshape(-1) for p in parts]).contiguous()
 
 
-def _flags(cfg: RenderConfig, scene: DeviceScene, nee_on: bool) -> int:
+def _flags(cfg: RenderConfig, scene: DeviceScene, nee_on: bool,
+           mode=None) -> int:
+    has_ns = mode is None and scene.tri_ns is not None
     return ((_NEE if nee_on else 0)
             | (_SHADOW_RAYS if cfg.shadow_rays else 0)
             | (_METAL_VNDF if cfg.metal_vndf else 0)
@@ -213,12 +198,58 @@ def _flags(cfg: RenderConfig, scene: DeviceScene, nee_on: bool) -> int:
             | (_CPU_TRANSPARENCY if cfg.cpu_transparency else 0)
             | (_NORMAL_VIS if cfg.depth_term_normal_vis else 0)
             | (_DIRECT_DIELECTRIC if cfg.direct_light_dielectric else 0)
-            | (_HAS_NS if scene.tri_ns is not None else 0))
+            | (_HAS_NS if has_ns else 0))
 
 
 def _rng_bits(rng: torch.Tensor) -> torch.Tensor:
     """int64-held uint32 words -> their int32 bit pattern."""
     return torch.where(rng >= 2 ** 31, rng - 2 ** 32, rng).to(torch.int32)
+
+
+def _kernel_inputs(cfg: RenderConfig, scene: DeviceScene,
+                   lights: DeviceLights, ps, what: str):
+    """Checks the lanes and the scene, and returns (state pointers, scene
+    arguments, keep-alive tensors) for a launch."""
+    device = ps.rng.device
+    reason = explain_decline(cfg, scene, lights)
+    if reason:
+        raise NotImplementedError(f"the {what} kernel cannot take this "
+                                  f"scene: {reason}")
+    n = ps.num_paths
+    planes = [*ps.origin, *ps.direction, *ps.throughput, *ps.radiance]
+    for name, t in zip(("origin", "direction", "throughput", "radiance"),
+                       (planes[0:3], planes[3:6], planes[6:9], planes[9:12])):
+        for c in t:
+            if (c.device != device or c.dtype != torch.float32
+                    or c.shape != (n,) or not c.is_contiguous()):
+                raise ValueError(f"{name} planes must be contiguous float32 "
+                                 f"({n},) tensors on {device}")
+    for name, t, dt in (("rng", ps.rng, torch.int64),
+                        ("alive", ps.alive, torch.bool),
+                        ("emission_ok", ps.emission_ok, torch.bool)):
+        if t.device != device or t.dtype != dt or t.shape != (n,):
+            raise ValueError(f"{name} must be a ({n},) {dt} tensor on {device}")
+    mode = _accel_mode(scene)
+    nee_on = cfg.nee and scene.emitters is not None
+    tables = _pack_tables(scene, lights, nee_on, mode)
+    ints = [_rng_bits(ps.rng), ps.alive.to(torch.int32),
+            ps.emission_ok.to(torch.int32)]
+    keep = planes + ints + [tables]
+    if mode == "resident":
+        a = scene.accel
+        pack = a.tri_pack.contiguous()
+        keep.append(pack)
+        accel = (pack.data_ptr(), pack.shape[-1], a.num_clusters,
+                 a.cluster_size)
+        n_tris = 0
+    else:
+        accel = (None, 0, 0, 0)
+        n_tris = scene.num_triangles
+    scene_args = (tables.data_ptr(), n_tris, scene.num_spheres,
+                  scene.materials.count, lights.count,
+                  scene.emitters.count if nee_on else 0,
+                  _flags(cfg, scene, nee_on, mode)) + accel
+    return [t.data_ptr() for t in planes + ints], scene_args, keep
 
 
 def fused_frame(cfg: RenderConfig, scene: DeviceScene, lights: DeviceLights,
@@ -236,54 +267,26 @@ def fused_frame(cfg: RenderConfig, scene: DeviceScene, lights: DeviceLights,
         return fused_frame_reference(cfg, scene, lights, ps, start_bounce)
     if device.type != "cuda":
         raise ValueError(f"fused_frame runs on CUDA or CPU tensors, not {device}")
-    reason = explain_decline(cfg, scene, lights)
-    if reason:
-        raise NotImplementedError(f"the fused_frame kernel cannot take this "
-                                  f"scene: {reason}")
-    n = ps.num_paths
-    planes = [*ps.origin, *ps.direction, *ps.throughput, *ps.radiance]
-    for name, t in zip(("origin", "direction", "throughput", "radiance"),
-                       (planes[0:3], planes[3:6], planes[6:9], planes[9:12])):
-        for c in t:
-            if (c.device != device or c.dtype != torch.float32
-                    or c.shape != (n,) or not c.is_contiguous()):
-                raise ValueError(f"{name} planes must be contiguous float32 "
-                                 f"({n},) tensors on {device}")
-    for name, t, dt in (("rng", ps.rng, torch.int64),
-                        ("alive", ps.alive, torch.bool),
-                        ("emission_ok", ps.emission_ok, torch.bool)):
-        if t.device != device or t.dtype != dt or t.shape != (n,):
-            raise ValueError(f"{name} must be a ({n},) {dt} tensor on {device}")
     if not 0 <= start_bounce <= cfg.max_depth:
         raise ValueError(f"start_bounce {start_bounce} outside "
                          f"[0, {cfg.max_depth}]")
-
-    nee_on = cfg.nee and scene.emitters is not None
-    tables = _pack_tables(scene, lights, nee_on)
-    rng = _rng_bits(ps.rng)
-    alive = ps.alive.to(torch.int32)
-    emok = ps.emission_ok.to(torch.int32)
+    ins, scene_args, keep = _kernel_inputs(cfg, scene, lights, ps,
+                                           "fused_frame")
+    n = ps.num_paths
     outs_f = [torch.empty(n, dtype=torch.float32, device=device)
               for _ in range(9)]
     missed = torch.empty(n, dtype=torch.int32, device=device)
     bounces = torch.empty(n, dtype=torch.int32, device=device)
 
-    lib = build()
-    e_count = scene.emitters.count if nee_on else 0
+    lib = cuda_lib.build()
     with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
         err = lib.spt_fused_frame(
-            *(t.data_ptr() for t in planes),
-            rng.data_ptr(), alive.data_ptr(), emok.data_ptr(),
-            *(t.data_ptr() for t in outs_f),
-            missed.data_ptr(), bounces.data_ptr(), tables.data_ptr(),
-            scene.num_triangles, scene.num_spheres, scene.materials.count,
-            lights.count, e_count, n, start_bounce, cfg.max_depth,
-            min(cfg.rr_after, 2 ** 31 - 1), _flags(cfg, scene, nee_on),
-            cfg.hit_eps, cfg.ray_offset_dir, cfg.firefly_clamp, stream)
-    if err != 0:
-        raise RuntimeError(f"fused_frame launch failed: CUDA error {err} "
-                           f"({lib.spt_cuda_error_string(err).decode()})")
+            *ins, *(t.data_ptr() for t in outs_f), missed.data_ptr(),
+            bounces.data_ptr(), *scene_args, n, start_bounce, cfg.max_depth,
+            min(cfg.rr_after, 2 ** 31 - 1), cfg.hit_eps, cfg.ray_offset_dir,
+            cfg.firefly_clamp, cuda_lib.stream_of(device))
+    cuda_lib.check(err, "fused_frame")
+    del keep
     LAUNCHES += 1
 
     direction = Vec3(*outs_f[0:3])
@@ -291,3 +294,39 @@ def fused_frame(cfg: RenderConfig, scene: DeviceScene, lights: DeviceLights,
     radiance = Vec3(*outs_f[6:9])
     rays = rays_from_counts(bounces, cfg.max_depth, start_bounce)
     return radiance, direction, throughput, missed != 0, rays
+
+
+def fused_bounce(cfg: RenderConfig, scene: DeviceScene, lights: DeviceLights,
+                 ps, bounce: int, is_last: bool):
+    """One bounce of every lane (trace_bounce + shade_core).  Returns
+    (new PathState, missed (N,) bool); the caller owes
+    `throughput * env(direction)` to the missed lanes, which keep their
+    direction and throughput."""
+    global BOUNCE_LAUNCHES
+    device = ps.rng.device
+    if device.type == "cpu":
+        return fused_bounce_reference(cfg, scene, lights, ps, bounce, is_last)
+    if device.type != "cuda":
+        raise ValueError(f"fused_bounce runs on CUDA or CPU tensors, not {device}")
+    ins, scene_args, keep = _kernel_inputs(cfg, scene, lights, ps,
+                                           "fused_bounce")
+    n = ps.num_paths
+    outs_f = [torch.empty(n, dtype=torch.float32, device=device)
+              for _ in range(12)]
+    rng = torch.empty(n, dtype=torch.int64, device=device)
+    flags = [torch.empty(n, dtype=torch.bool, device=device) for _ in range(3)]
+
+    lib = cuda_lib.build()
+    with torch.cuda.device(device):
+        err = lib.spt_fused_bounce(
+            *ins, *(t.data_ptr() for t in outs_f), rng.data_ptr(),
+            *(t.data_ptr() for t in flags), *scene_args, n, bounce,
+            int(bool(is_last)), min(cfg.rr_after, 2 ** 31 - 1), cfg.hit_eps,
+            cfg.ray_offset_dir, cfg.firefly_clamp, cuda_lib.stream_of(device))
+    cuda_lib.check(err, "fused_bounce")
+    del keep
+    BOUNCE_LAUNCHES += 1
+    return transport.PathState(
+        origin=Vec3(*outs_f[0:3]), direction=Vec3(*outs_f[3:6]),
+        throughput=Vec3(*outs_f[6:9]), radiance=Vec3(*outs_f[9:12]),
+        rng=rng, alive=flags[0], emission_ok=flags[1]), flags[2]

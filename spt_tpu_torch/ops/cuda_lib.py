@@ -1,0 +1,153 @@
+"""Build and load the port's CUDA kernels (``csrc/*.cu``) with nvcc + ctypes.
+
+Every source compiles to an object in its own nvcc process, all started
+together, and the objects link into one shared library under
+``build/spt_tpu_torch/<hash of flags and sources>/``; a second build of the
+same sources loads the cached library.  Each C entry point returns the CUDA
+error of its launch, which ``check`` turns into an exception: there is no
+fallback.  Nothing here runs when the package is imported.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+SOURCES = ("fused_frame.cu", "fused_bounce.cu", "cluster_trace.cu",
+           "sort_chunks.cu")
+HEADERS = ("spt_common.cuh", "spt_tracers.cuh")
+BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "spt_tpu_torch"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
+              "-Xcompiler", "-fPIC", "--fmad=false", "-Xptxas", "-v")
+
+# Filled by build(): seconds per source (0 when the cached library loaded)
+# and the ptxas report (registers, spill stores and loads per kernel).
+BUILD_SECONDS: dict = {}
+PTXAS_LOG = ""
+
+_LIB = None
+
+
+def nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    path = os.path.join(home, "bin", "nvcc")
+    if not os.path.exists(path):
+        raise RuntimeError("nvcc not found on PATH or under CUDA_HOME; the "
+                           "CUDA kernels cannot be built")
+    return path
+
+
+def _compile(out_dir: Path, lib_path: Path) -> None:
+    global PTXAS_LOG
+    exe = nvcc()
+    procs = []
+    for name in SOURCES:
+        obj = out_dir / f"{Path(name).stem}.{os.getpid()}.o"
+        cmd = [exe, *NVCC_FLAGS, "-c", "-o", str(obj), str(CSRC / name)]
+        procs.append((name, obj, cmd, time.perf_counter(),
+                      subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                       stderr=subprocess.PIPE, text=True)))
+    logs, failed = [], []
+    for name, obj, cmd, t0, proc in procs:
+        out, err = proc.communicate()
+        BUILD_SECONDS[name] = time.perf_counter() - t0
+        logs.append(f"== {name}\n{out}{err}")
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
+                          f"{out}{err}")
+    PTXAS_LOG = "".join(logs)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    tmp = out_dir / f"libspt_kernels.{os.getpid()}.tmp.so"
+    cmd = [exe, "-shared", "-o", str(tmp), *(str(p[1]) for p in procs)]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc link failed ({proc.returncode}): "
+                           f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
+    os.replace(tmp, lib_path)
+    for p in procs:
+        p[1].unlink(missing_ok=True)
+
+
+def build() -> ctypes.CDLL:
+    """Compile csrc (once per source hash) and load it.  Raises on a failed
+    build."""
+    global _LIB
+    if _LIB is not None:
+        return _LIB
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for name in SOURCES + HEADERS:
+        h.update((CSRC / name).read_bytes())
+    out_dir = BUILD_ROOT / h.hexdigest()[:16]
+    lib_path = out_dir / "libspt_kernels.so"
+    if not lib_path.exists():
+        out_dir.mkdir(parents=True, exist_ok=True)
+        _compile(out_dir, lib_path)
+    else:
+        BUILD_SECONDS.update({name: 0.0 for name in SOURCES})
+    lib = ctypes.CDLL(str(lib_path))
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    # tables, n_tris, n_sphs, n_mats, n_lights, n_emit, flags, pack,
+    # pack_w, n_clusters, cluster_size
+    scene = [p, i, i, i, i, i, i, p, i, i, i]
+    lib.spt_fused_frame.argtypes = [p] * 26 + scene + [i] * 4 + [f] * 3 + [p]
+    lib.spt_fused_bounce.argtypes = [p] * 31 + scene + [i] * 4 + [f] * 3 + [p]
+    lib.spt_closest_hit.argtypes = [p] * 14 + [i, p, i, i, i, i, f, p]
+    lib.spt_any_hit.argtypes = [p] * 9 + [i, p, i, i, i, i, f, p]
+    lib.spt_sort_chunks.argtypes = [p] * 6 + [i, i, i, p]
+    for fn in ("spt_fused_frame_kernel_info", "spt_fused_bounce_kernel_info",
+               "spt_trace_kernel_info"):
+        getattr(lib, fn).argtypes = [i, p, p]
+    lib.spt_sort_kernel_info.argtypes = [p, p]
+    for fn in ("spt_fused_frame", "spt_fused_bounce", "spt_closest_hit",
+               "spt_any_hit", "spt_sort_chunks", "spt_fused_frame_kernel_info",
+               "spt_fused_bounce_kernel_info", "spt_trace_kernel_info",
+               "spt_sort_kernel_info"):
+        getattr(lib, fn).restype = i
+    lib.spt_cuda_error_string.argtypes = [i]
+    lib.spt_cuda_error_string.restype = ctypes.c_char_p
+    _LIB = lib
+    return lib
+
+
+def check(err: int, what: str) -> None:
+    """Raise if a launch returned a CUDA error."""
+    if err != 0:
+        msg = build().spt_cuda_error_string(err).decode()
+        raise RuntimeError(f"{what} launch failed: CUDA error {err} ({msg})")
+
+
+def stream_of(device) -> int:
+    import torch
+
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def kernel_info() -> dict:
+    """Registers per thread and local (spill) bytes of every kernel."""
+    lib = build()
+    out = {}
+    for name, fn, args in (
+            ("fused_frame", lib.spt_fused_frame_kernel_info, (0,)),
+            ("fused_frame_resident", lib.spt_fused_frame_kernel_info, (1,)),
+            ("fused_bounce", lib.spt_fused_bounce_kernel_info, (0,)),
+            ("fused_bounce_resident", lib.spt_fused_bounce_kernel_info, (1,)),
+            ("closest_hit", lib.spt_trace_kernel_info, (0,)),
+            ("any_hit", lib.spt_trace_kernel_info, (1,)),
+            ("sort_chunks", lib.spt_sort_kernel_info, ())):
+        regs, local = ctypes.c_int(0), ctypes.c_int(0)
+        err = fn(*args, ctypes.addressof(regs), ctypes.addressof(local))
+        if err != 0:
+            raise RuntimeError(f"cudaFuncGetAttributes({name}) failed: "
+                               f"CUDA error {err}")
+        out[name] = {"registers": regs.value, "local_bytes": local.value}
+    return out

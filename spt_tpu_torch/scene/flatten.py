@@ -1,16 +1,18 @@
-"""SceneDesc -> DeviceScene, small-scene fields only.
+"""SceneDesc -> DeviceScene.
 
 The counterpart of ``spt_tpu.scene.flatten``: instance transforms are baked
 into world-space triangles (EmbreeBackend.cpp:60-79), analytic spheres stay
 analytic, and emissive triangles form the NEE emitter table.  Material
 resolution order matches EmbreeBackend.cpp:51-57: instance override, then
-mesh material, then 0.
+mesh material, then 0.  Above ``ACCEL_THRESHOLD`` primitives the cluster
+accel of ``ops/bvh`` is built, as ``spt_tpu.scene.flatten`` does.
 
-The port covers scenes of at most ``ACCEL_THRESHOLD`` primitives with no
-textures — the scenes the JAX package traces without an acceleration
-structure.  Anything else raises NotImplementedError naming the reason, as
-``spt_tpu.ops.pallas_bounce.explain_decline`` does for its kernels.  The JAX
-package's ``SPT_NS=0`` switch (flat shading for an A/B) is not ported.
+The port covers untextured scenes whose accel stays in the resident tier
+(at most ``MAX_RESIDENT_TRIS`` triangles, at most ``MAX_ACCEL_SPHERES``
+spheres beside them).  Scenes the JAX package would instance or stream, and
+textured ones, raise NotImplementedError naming the reason.  The JAX
+package's ``SPT_NS``, ``SPT_CLUSTER`` and ``SPT_CLUSTER_SIZE`` switches are
+not ported.
 """
 
 from __future__ import annotations
@@ -21,19 +23,15 @@ import numpy as np
 import torch
 
 from spt_tpu_torch.materials import DeviceMaterials, build_device_materials
+from spt_tpu_torch.ops.bvh import (MAX_RESIDENT_TRIS, MeshAccel,
+                                   build_mesh_accel, quantize_ns)
 from spt_tpu_torch.scene.desc import NO_MATERIAL, SceneDesc
 
-# Above this many primitives the JAX package builds a cluster accel.
+# Above this many primitives a cluster accel is built.
 ACCEL_THRESHOLD = 192
-# Above this many triangles it may also build the instanced TLAS/BLAS
-# (spt_tpu.ops.bvh.MAX_RESIDENT_TRIS); both wait for the mesh path.
-_MAX_RESIDENT_TRIS = 12288
-
-# 12-bit packed shading normals (spt_tpu.ops.bvh NS_FIELDS / NS_STEP): every
-# path of the JAX package shades with the quantized values, so the port
-# stores the same ones.
-_NS_FIELDS = ((0, 1), (2, 3), (4, 5), (6, 7), (8, None))
-_NS_STEP = np.float32(4.0 / 4094.0)
+# Analytic spheres beside an accel (spt_tpu.ops.pallas_bounce
+# MAX_ACCEL_SPHERES): the tracers test them one by one before the clusters.
+MAX_ACCEL_SPHERES = 32
 
 
 class EmitterTable(NamedTuple):
@@ -67,6 +65,8 @@ class DeviceScene(NamedTuple):
     # float32, 12-bit quantized; None when interpolation would be the
     # geometric normal everywhere.
     tri_ns: Optional[torch.Tensor] = None
+    # Cluster accel (ops/bvh) above ACCEL_THRESHOLD primitives, else None.
+    accel: Optional[MeshAccel] = None
 
     @property
     def num_triangles(self) -> int:
@@ -86,44 +86,38 @@ def _resolve_material(instance, mesh) -> int:
     return int(mid)
 
 
-def _quantize_ns(ns: np.ndarray) -> np.ndarray:
-    """Round-trip (T, 9) shading normals through the 12-bit packing
-    (spt_tpu.ops.bvh.encode_ns then decode_ns); all-zero rows stay zero."""
-    ns = np.asarray(ns, np.float32).reshape(-1, 9)
-    q = (1.0 + np.round((np.clip(ns, -2.0, 2.0) + np.float32(2.0))
-                        / _NS_STEP)).astype(np.float32)
-    planes = np.zeros((ns.shape[0], 5), np.float32)
-    for c, (hi, lo) in enumerate(_NS_FIELDS):
-        v = q[:, hi] * np.float32(4096.0)
-        if lo is not None:
-            v = v + q[:, lo]
-        planes[:, c] = v
-    planes[np.abs(ns).max(axis=1) == 0.0] = 0.0
-    out = np.zeros((planes.shape[0], 9), np.float32)
-    for c, (hi, lo) in enumerate(_NS_FIELDS):
-        h = np.floor(planes[:, c] * np.float32(1.0 / 4096.0)).astype(np.float32)
-        out[:, hi] = (h - np.float32(1.0)) * _NS_STEP - np.float32(2.0)
-        if lo is not None:
-            lq = planes[:, c] - h * np.float32(4096.0)
-            out[:, lo] = (lq - np.float32(1.0)) * _NS_STEP - np.float32(2.0)
-    out[np.abs(planes).max(axis=1) == 0.0] = 0.0
-    return out
+def _valid_instances(desc: SceneDesc):
+    return [i for i in desc.instances
+            if i.mesh_id < len(desc.meshes)
+            and desc.meshes[i.mesh_id].is_valid()]
 
 
-def explain_unsupported(desc: SceneDesc) -> Optional[str]:
+def explain_unsupported(desc: SceneDesc, cluster_size: int = 64) -> Optional[str]:
     """Why the port cannot flatten `desc` yet, or None when it can."""
     reasons = []
-    n_tris = sum(desc.meshes[i.mesh_id].triangle_count
-                 for i in desc.instances
-                 if i.mesh_id < len(desc.meshes)
-                 and desc.meshes[i.mesh_id].is_valid())
-    n_prims = n_tris + len(desc.spheres)
-    if n_prims > ACCEL_THRESHOLD:
-        reasons.append(
-            f"{n_prims} primitives > {ACCEL_THRESHOLD}: the scene needs the "
-            "cluster accel" + (" or the instanced TLAS/BLAS"
-                               if n_tris > _MAX_RESIDENT_TRIS else "")
-            + " of the mesh path")
+    insts = _valid_instances(desc)
+    n_tris = sum(desc.meshes[i.mesh_id].triangle_count for i in insts)
+    if n_tris + len(desc.spheres) > ACCEL_THRESHOLD:
+        if n_tris > MAX_RESIDENT_TRIS:
+            # spt_tpu.scene.flatten._maybe_build_inst: instance when the
+            # unique meshes, each cluster-padded, fit the resident budget
+            mesh_ids = sorted({i.mesh_id for i in insts})
+            cmax = max(-(-desc.meshes[m].triangle_count // cluster_size)
+                       for m in mesh_ids)
+            tier = ("instanced TLAS/BLAS" if len(insts) >= 2 and
+                    len(mesh_ids) * cmax * cluster_size <= MAX_RESIDENT_TRIS
+                    else "stream tier")
+            reasons.append(
+                f"{n_tris} triangles > MAX_RESIDENT_TRIS={MAX_RESIDENT_TRIS}:"
+                f" the scene needs the {tier} of the mesh path")
+        if n_tris <= ACCEL_THRESHOLD:
+            # the accel is built over triangles only
+            reasons.append(f"{n_tris + len(desc.spheres)} primitives > "
+                           f"{ACCEL_THRESHOLD} with no cluster accel: at "
+                           f"most {ACCEL_THRESHOLD} triangles")
+        elif len(desc.spheres) > MAX_ACCEL_SPHERES:
+            reasons.append(f"{len(desc.spheres)} spheres > MAX_ACCEL_SPHERES="
+                           f"{MAX_ACCEL_SPHERES} beside the cluster accel")
     if any(getattr(m, "base_color_texture", None) is not None
            or getattr(m, "metallic_roughness_texture", None) is not None
            for m in desc.materials):
@@ -132,13 +126,15 @@ def explain_unsupported(desc: SceneDesc) -> Optional[str]:
     return "; ".join(reasons) if reasons else None
 
 
-def flatten_scene(desc: SceneDesc, device) -> DeviceScene:
-    """Bake instance transforms into world-space SoA tensors on `device`."""
-    reason = explain_unsupported(desc)
+def flatten_scene(desc: SceneDesc, device="cuda",
+                  cluster_size: int = 64) -> DeviceScene:
+    """Bake instance transforms into world-space SoA tensors on `device`,
+    plus the cluster accel above ACCEL_THRESHOLD primitives."""
+    reason = explain_unsupported(desc, cluster_size)
     if reason:
         raise NotImplementedError(f"spt_tpu_torch cannot render this scene "
                                   f"yet: {reason}")
-    v0s, v1s, v2s, tri_mats, tri_nss = [], [], [], [], []
+    v0s, v1s, v2s, tri_mats, tri_uvs, tri_nss = [], [], [], [], [], []
     has_ns = False
     for inst in desc.instances:
         if inst.mesh_id >= len(desc.meshes):
@@ -157,6 +153,16 @@ def flatten_scene(desc: SceneDesc, device) -> DeviceScene:
         v1s.append(world[idx[:, 1]])
         v2s.append(world[idx[:, 2]])
         tri_mats.append(np.full(idx.shape[0], mat_id, np.int32))
+        if mesh.texcoords is not None and len(mesh.texcoords) == mesh.vertex_count:
+            # [uv0 | uv1-uv0 | uv2-uv0]: only the accel's tri_pack carries
+            # them (untextured scenes never read them)
+            tc = mesh.texcoords
+            uv0 = tc[idx[:, 0]]
+            tri_uvs.append(np.concatenate(
+                [uv0, tc[idx[:, 1]] - uv0, tc[idx[:, 2]] - uv0], axis=1
+            ).astype(np.float32))
+        else:
+            tri_uvs.append(np.zeros((idx.shape[0], 6), np.float32))
         if mesh.normals is not None and len(mesh.normals) == mesh.vertex_count:
             # normals -> world by the inverse-transpose (EmbreeBackend.cpp:70-79)
             ofw = np.linalg.inv(np.asarray(xf, np.float64))[:3, :3]
@@ -175,10 +181,12 @@ def flatten_scene(desc: SceneDesc, device) -> DeviceScene:
         v1 = np.concatenate(v1s)
         v2 = np.concatenate(v2s)
         tri_mat = np.concatenate(tri_mats)
+        tri_uv = np.concatenate(tri_uvs)
         tri_ns = np.concatenate(tri_nss)
     else:
         v0 = v1 = v2 = np.zeros((0, 3), np.float32)
         tri_mat = np.zeros((0,), np.int32)
+        tri_uv = np.zeros((0, 6), np.float32)
         tri_ns = np.zeros((0, 9), np.float32)
 
     if has_ns and v0.shape[0]:
@@ -193,7 +201,7 @@ def flatten_scene(desc: SceneDesc, device) -> DeviceScene:
         off_geom = np.abs(tri_ns[:, 0:3] - ngn).max(axis=1) > 1e-3
         has_ns = bool((real & nonzero & (varying | off_geom)).any())
     if has_ns:
-        tri_ns = _quantize_ns(tri_ns)
+        tri_ns = quantize_ns(tri_ns)
 
     if desc.spheres:
         centers = np.stack([s.center for s in desc.spheres]).astype(np.float32)
@@ -223,6 +231,12 @@ def flatten_scene(desc: SceneDesc, device) -> DeviceScene:
                 le=t(em[tm_clip[sel]]), area=t(area.astype(np.float32)),
             )
 
+    accel = None
+    if v0.shape[0] > ACCEL_THRESHOLD:
+        accel = build_mesh_accel(v0, v1 - v0, v2 - v0, tri_mat,
+                                 cluster_size=cluster_size, uv=tri_uv,
+                                 ns=tri_ns if has_ns else None, device=device)
+
     return DeviceScene(
         tri_v0=t(v0),
         tri_e1=t(v1 - v0),
@@ -234,4 +248,5 @@ def flatten_scene(desc: SceneDesc, device) -> DeviceScene:
         materials=build_device_materials(desc.materials, device),
         emitters=emitters,
         tri_ns=t(tri_ns) if has_ns else None,
+        accel=accel,
     )

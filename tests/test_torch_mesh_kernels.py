@@ -1,0 +1,275 @@
+"""The mesh path's kernel wrappers of spt_tpu_torch, without JAX.
+
+- On the CPU: each wrapper (closest_hit, any_hit, fused_bounce, the
+  resident fused_frame, sort_chunks) runs its plain version and launches
+  nothing; the resident tables have the layout the kernels read; the
+  tiers that are not ported raise, naming why.
+- On a CUDA card (marker ``cuda``; skipped without one): each kernel against
+  its plain version on the same tensors, on the procedural mesh scene of
+  chip_smoke.py.  Gates: closest_hit kind and t (1e-4) and any_hit flags on
+  >= 99.9 % of lanes (the kernel walks clusters in its own octant's order,
+  so only exact ties may resolve otherwise); fused_bounce and fused_frame
+  radiance within 1e-3 on >= 99.9 % of lanes, rays_per_bounce within 0.1 %
+  (both are built with --fmad=false and evaluate in the plain version's
+  order); sort_chunks keys equal to torch.sort's and every payload the
+  same permutation.  Run there with
+  ``python -m pytest --noconftest tests/test_torch_mesh_kernels.py -m cuda``.
+"""
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+torch.set_num_threads(2)
+
+import chip_smoke  # noqa: E402
+from spt_tpu_torch import scene as tscene  # noqa: E402
+from spt_tpu_torch.integrators import transport as ttr  # noqa: E402
+from spt_tpu_torch.integrators import wavefront as twf  # noqa: E402
+from spt_tpu_torch.lights import default_lights  # noqa: E402
+from spt_tpu_torch.ops import cuda_bounce, cuda_sort, cuda_trace  # noqa: E402
+from spt_tpu_torch.ops.vec3 import Vec3  # noqa: E402
+
+CPU = torch.device("cpu")
+
+
+def _mesh(dev, w, h, cluster_size=64, **kw):
+    """(cfg, scene, lights, primary PathState) of chip_smoke's mesh scene."""
+    desc, cfg, cam = chip_smoke.port_mesh_scene(**kw)
+    cfg = cfg.replace(width=w, height=h)
+    cam.set_aspect_ratio(w / h)
+    scene = tscene.flatten_scene(desc, dev, cluster_size=cluster_size)
+    return cfg, scene, default_lights(dev), ttr.gen_primary(cfg, cam.rays(dev), 1)
+
+
+# --- CPU: wrappers, layouts, refusals ------------------------------------------
+
+def test_wrappers_on_cpu_run_the_plain_versions():
+    cfg, scene, lights, ps = _mesh(CPU, 32, 24, stacks=8, slices=12)
+    assert cuda_bounce._accel_mode(scene) == "resident"
+    counts = (cuda_bounce.LAUNCHES, cuda_bounce.BOUNCE_LAUNCHES,
+              cuda_trace.CLOSEST_LAUNCHES, cuda_trace.ANY_LAUNCHES,
+              cuda_sort.LAUNCHES)
+    a = scene.accel
+    hit = cuda_trace.closest_hit(a, scene, ps.origin, ps.direction, 0.0, 1e30)
+    ref = cuda_trace.closest_hit_reference(a, scene, ps.origin, ps.direction,
+                                           0.0, 1e30)
+    assert torch.equal(hit.t, ref.t) and torch.equal(hit.kind, ref.kind)
+    assert int(torch.isfinite(hit.t).sum()) > 0
+    blk = cuda_trace.any_hit(a, scene, ps.origin, ps.direction, 1e-4, 2.0)
+    assert torch.equal(blk, cuda_trace.any_hit_reference(
+        a, scene, ps.origin, ps.direction, 1e-4, 2.0))
+    nb, missed = cuda_bounce.fused_bounce(cfg, scene, lights, ps, 0, False)
+    rb, rmissed = cuda_bounce.fused_bounce_reference(cfg, scene, lights, ps, 0,
+                                                     False)
+    assert torch.equal(missed, rmissed) and torch.equal(nb.rng, rb.rng)
+    fr = cuda_bounce.fused_frame(cfg, scene, lights, ps, start_bounce=1)
+    assert fr[4].tolist()[0] == 0 and int(fr[4][1]) == int(ps.alive.sum())
+    key = torch.randint(0, 2 ** 32, (4096,), dtype=torch.int64)
+    sk, lane, out = cuda_sort.sort_chunks(key, [key], 2048)
+    assert torch.equal(out[0], sk) and torch.equal(key[lane], sk)
+    assert counts == (cuda_bounce.LAUNCHES, cuda_bounce.BOUNCE_LAUNCHES,
+                      cuda_trace.CLOSEST_LAUNCHES, cuda_trace.ANY_LAUNCHES,
+                      cuda_sort.LAUNCHES)
+
+
+def test_resident_tables_layout():
+    # the kernels read this buffer by fixed row widths: spheres, materials,
+    # lights, then the cluster boxes and the octant keys' bits
+    cfg, scene, lights, _ = _mesh(CPU, 8, 8, stacks=8, slices=12)
+    a = scene.accel
+    buf = cuda_bounce._pack_tables(scene, lights, nee_on=False,
+                                   mode="resident")
+    assert buf.numel() == cuda_bounce._table_words(scene, lights, False,
+                                                   "resident")
+    s, m, n_l, c = (scene.num_spheres, scene.materials.count, lights.count,
+                    a.num_clusters)
+    off = s * 5 + m * 11 + n_l * 11
+    assert torch.equal(buf[:s * 5].reshape(s, 5)[:, :3], scene.sph_center)
+    boxes = buf[off:off + c * 6].reshape(c, 6)
+    assert torch.equal(boxes[:, :3], a.cluster_lo)
+    assert torch.equal(boxes[:, 3:], a.cluster_hi)
+    keys = buf[off + c * 6:].contiguous().view(torch.int32).reshape(8, c)
+    assert torch.equal(keys, a.cl_okey[:, :, 0])
+    # every octant's keys rank the clusters 0..C-1 (the kernel inverts them)
+    ranks = torch.sort(keys >> 16, dim=1).values
+    assert torch.equal(ranks, torch.arange(c, dtype=torch.int32).expand(8, c))
+    assert cuda_bounce._flags(cfg, scene, False, "resident") & 128 == 0
+    assert cuda_bounce.explain_decline(cfg, scene, lights) is None
+
+
+def test_unported_tiers_raise(monkeypatch):
+    big = tscene.SceneDesc()
+    big.add_material(tscene.Material())
+    big.add_instance(big.add_mesh(tscene.create_sphere_mesh(stacks=80,
+                                                            slices=80)))
+    with pytest.raises(NotImplementedError, match="stream tier"):
+        tscene.flatten_scene(big, CPU)
+    inst = tscene.SceneDesc()
+    inst.add_material(tscene.Material())
+    mid = inst.add_mesh(tscene.create_sphere_mesh(stacks=40, slices=80))
+    inst.add_instance(mid)
+    inst.add_instance(mid, tscene.desc.translate(np.eye(4, dtype=np.float32),
+                                                 [2.0, 0.0, 0.0]))
+    with pytest.raises(NotImplementedError, match="instanced"):
+        tscene.flatten_scene(inst, CPU)
+    balls = tscene.SceneDesc()
+    balls.add_material(tscene.Material())
+    balls.add_instance(balls.add_mesh(tscene.create_sphere_mesh(8, 16)))
+    for i in range(33):
+        balls.add_sphere((i, 0.0, 0.0), 0.4, 0)
+    with pytest.raises(NotImplementedError, match="MAX_ACCEL_SPHERES"):
+        tscene.flatten_scene(balls, CPU)
+    only = tscene.SceneDesc()
+    only.add_material(tscene.Material())
+    for i in range(200):
+        only.add_sphere((i, 0.0, 0.0), 0.4, 0)
+    with pytest.raises(NotImplementedError, match="no cluster accel"):
+        tscene.flatten_scene(only, CPU)
+    # an accel past the resident tier has no kernel route
+    _, scene, _, _ = _mesh(CPU, 8, 8, stacks=8, slices=12)
+    monkeypatch.setattr(cuda_bounce, "MAX_ACCEL_TRIS", 64)
+    with pytest.raises(NotImplementedError, match="stream tier"):
+        cuda_bounce._accel_mode(scene)
+
+
+def test_sorted_frame_pads_like_the_jax_package():
+    # 40x30 = 1200 lanes do not tile: the sorted frame runs on 8192 padded
+    # lanes and the image keeps the first 1200
+    cfg, scene, lights, ps = _mesh(CPU, 40, 30, stacks=8, slices=12)
+    assert twf.sort_padding(1200) == 8192 - 1200
+    twf.SORTED_SAMPLES.clear()
+    from spt_tpu_torch.env import make_procedural_environment
+
+    env = make_procedural_environment(CPU)
+    rad, stats = twf._wavefront_masked(cfg, scene, env, lights, ps)
+    assert sum(twf.SORTED_SAMPLES.values()) == 1
+    ref, rstats = twf._wavefront_masked(cfg.replace(ray_sort=False), scene,
+                                        env, lights, ps)
+    assert rad.shape == (1200, 3)
+    np.testing.assert_allclose(rad.numpy(), ref.numpy(), rtol=1e-4, atol=1e-5)
+    assert torch.equal(stats.rays_per_bounce, rstats.rays_per_bounce)
+
+
+# --- the card --------------------------------------------------------------------
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the mesh kernels have no CPU mode")
+    return torch.device("cuda", 0)
+
+
+@pytest.mark.cuda
+def test_cluster_tracer_matches_plain_on_card(cuda_device):
+    cfg, scene, _, ps = _mesh(cuda_device, 256, 192)
+    a = scene.accel
+    g = torch.Generator().manual_seed(3)
+    n = 256 * 192
+    ro = (torch.rand((n, 3), generator=g) * 3.0 - 1.5).to(cuda_device)
+    rd = torch.randn((n, 3), generator=g)
+    rd = (rd / rd.norm(dim=1, keepdim=True)).to(cuda_device)
+    for o, d in ((ps.origin, ps.direction),
+                 (Vec3(*ro.unbind(1)), Vec3(*rd.unbind(1)))):
+        o = Vec3(*(c.contiguous() for c in o))
+        d = Vec3(*(c.contiguous() for c in d))
+        before = cuda_trace.CLOSEST_LAUNCHES
+        k = cuda_trace.closest_hit(a, scene, o, d, 0.0, 1e30)
+        assert cuda_trace.CLOSEST_LAUNCHES == before + 1
+        p = cuda_trace.closest_hit_reference(a, scene, o, d, 0.0, 1e30)
+        torch.cuda.synchronize()
+        both = torch.isfinite(k.t) & torch.isfinite(p.t)
+        off = ((k.kind != p.kind) | (torch.isfinite(k.t) != torch.isfinite(p.t))
+               | (both & ((k.t - p.t).abs() > 1e-4)))
+        assert float(off.float().mean()) <= 1e-3
+        # a third of the lanes with an empty interval, which count blocked
+        tmax = torch.where(torch.arange(n, device=cuda_device) % 3 == 0,
+                           0.0, 2.0)
+        kb = cuda_trace.any_hit(a, scene, o, d, 1e-4, tmax)
+        pb = cuda_trace.any_hit_reference(a, scene, o, d, 1e-4, tmax)
+        torch.cuda.synchronize()
+        assert float((kb != pb).float().mean()) <= 1e-3
+
+
+@pytest.mark.cuda
+def test_fused_bounce_matches_plain_on_card(cuda_device):
+    cfg, scene, lights, ps = _mesh(cuda_device, 256, 192)
+    for bounce in range(3):
+        before = cuda_bounce.BOUNCE_LAUNCHES
+        k, km = cuda_bounce.fused_bounce(cfg, scene, lights, ps, bounce, False)
+        assert cuda_bounce.BOUNCE_LAUNCHES == before + 1
+        p, pm = cuda_bounce.fused_bounce_reference(cfg, scene, lights, ps,
+                                                   bounce, False)
+        torch.cuda.synchronize()
+        for a, b in ((k.radiance, p.radiance), (k.direction, p.direction),
+                     (k.throughput, p.throughput)):
+            err = (torch.stack(list(a), -1) - torch.stack(list(b), -1)).abs()
+            assert float((err.amax(-1) > 1e-3).float().mean()) <= 1e-3
+        assert float((km != pm).float().mean()) <= 1e-3
+        assert float((k.alive != p.alive).float().mean()) <= 1e-3
+        assert float((k.rng != p.rng).float().mean()) <= 1e-3
+        ps = p
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("start,cluster_size", [(0, 64), (3, 64), (0, 8)])
+def test_resident_fused_frame_matches_plain_on_card(cuda_device, start,
+                                                    cluster_size):
+    # cluster_size 8: 784 clusters, whose tables need the shared-memory
+    # opt-in above 48 KiB, and one 8-row sub-block per cluster
+    cfg, scene, lights, ps = _mesh(cuda_device, 256, 192, cluster_size)
+    before = cuda_bounce.LAUNCHES
+    k = cuda_bounce.fused_frame(cfg, scene, lights, ps, start_bounce=start)
+    assert cuda_bounce.LAUNCHES == before + 1
+    p = cuda_bounce.fused_frame_reference(cfg, scene, lights, ps,
+                                          start_bounce=start)
+    torch.cuda.synchronize()
+    for a, b in zip(k[:3], p[:3]):
+        err = (torch.stack(list(a), -1) - torch.stack(list(b), -1)).abs()
+        assert float((err.amax(-1) > 1e-3).float().mean()) <= 1e-3
+    rk, rp = k[4].cpu().numpy(), p[4].cpu().numpy()
+    assert (np.abs(rk - rp) <= 1e-3 * rp.clip(min=1)).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("chunk", [2048, 8192, 32768])
+def test_sort_chunks_matches_torch_sort_on_card(cuda_device, chunk):
+    g = torch.Generator().manual_seed(chunk)
+    n = 4 * chunk
+    key = torch.randint(0, 2 ** 32, (n,), generator=g, dtype=torch.int64)
+    key[torch.rand(n, generator=g) < 0.4] = 0xFFFFFFFF
+    key[: n // 8] = 5  # long runs of equal keys
+    key = key.to(cuda_device)
+    ops = [torch.randn(n, generator=g).to(cuda_device) for _ in range(12)]
+    ops += [torch.randint(-9, 9, (n,), generator=g,
+                          dtype=torch.int32).to(cuda_device),
+            torch.arange(n, dtype=torch.int64, device=cuda_device)]
+    before = cuda_sort.LAUNCHES
+    sk, lane, out = cuda_sort.sort_chunks(key, ops, chunk)
+    assert cuda_sort.LAUNCHES == before + 1
+    rk, _, _ = cuda_sort.sort_chunks_reference(key, ops, chunk)
+    torch.cuda.synchronize()
+    assert torch.equal(sk, rk)
+    assert torch.equal(lane // chunk, torch.arange(n, device=cuda_device) // chunk)
+    for src, got in zip(ops, out):
+        assert torch.equal(got, src[lane])
+    assert torch.equal(torch.sort(lane).values,
+                       torch.arange(n, device=cuda_device))
+
+
+@pytest.mark.cuda
+def test_mesh_renderer_runs_the_sorted_kernel_path_on_card(cuda_device):
+    from spt_tpu_torch.engine.renderer import Renderer
+
+    desc, cfg, cam = chip_smoke.port_mesh_scene(stacks=16, slices=24)
+    r = Renderer(desc, cfg, camera=cam, device=cuda_device)
+    twf.SORTED_SAMPLES.clear()
+    counts = (cuda_bounce.LAUNCHES, cuda_bounce.BOUNCE_LAUNCHES)
+    r.render_frames(2)
+    torch.cuda.synchronize()
+    assert sum(twf.SORTED_SAMPLES.values()) == 2
+    assert cuda_bounce.LAUNCHES == counts[0] + 2
+    assert cuda_bounce.BOUNCE_LAUNCHES == counts[1] + 6
+    img = r.hdr_image()
+    assert np.isfinite(img).all() and img.max() > 0
+    assert int(r.last_stats.rays_per_bounce[0]) == 2 * cfg.width * cfg.height

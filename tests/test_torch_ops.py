@@ -114,10 +114,16 @@ def test_shading_normals_quantized_like_jax():
 
 
 def test_scenes_beyond_the_slice_raise():
+    # a 512-triangle mesh now gets the resident cluster accel; past
+    # MAX_RESIDENT_TRIS the stream tier is not ported
+    mesh = tscene.SceneDesc()
+    mesh.add_material(tscene.Material())
+    mesh.add_instance(mesh.add_mesh(tscene.create_sphere_mesh(stacks=16, slices=16)))
+    assert tscene.flatten_scene(mesh, CPU).accel is not None
     big = tscene.SceneDesc()
     big.add_material(tscene.Material())
-    big.add_instance(big.add_mesh(tscene.create_sphere_mesh(stacks=16, slices=16)))
-    with pytest.raises(NotImplementedError, match="accel"):
+    big.add_instance(big.add_mesh(tscene.create_sphere_mesh(stacks=80, slices=80)))
+    with pytest.raises(NotImplementedError, match="accel|stream"):
         tscene.flatten_scene(big, CPU)
     tex = tscene.build_default_scene()
     tex.materials[0] = tscene.Material(

@@ -140,14 +140,18 @@ def test_port_imports_no_jax():
 
 
 @pytest.mark.parametrize("change", [
-    {"integrator": "compact"}, {"integrator": "regen"},
+    {"integrator": "compact"}, {"textured": True},
     {"integrator": "megakernel"}, {"multi_device": True}])
 def test_unported_options_raise(change):
     cfg = tconfig.RenderConfig(width=16, height=8)
     if "integrator" in change:
         cfg = cfg.replace(integrator=change["integrator"])
+    desc = tscene.build_default_scene()
+    if "textured" in change:
+        desc.materials[0] = tscene.Material(
+            base_color_texture=np.ones((4, 4, 3), np.float32))
     with pytest.raises(NotImplementedError):
-        r = Renderer(tscene.build_default_scene(), cfg, device=CPU,
+        r = Renderer(desc, cfg, device=CPU,
                      multi_device=change.get("multi_device"))
         r.render_frame()
 
