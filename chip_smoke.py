@@ -34,7 +34,24 @@ this file; exits non-zero (printing no result) without them.  Phases:
    and against the plain path, 8 frames;
 9. mesh times at 512x384 depth 4: ms/frame and Mrays/s, per-kernel device
    time and launches per frame (torch.profiler), torch.sort + gather beside
-   sort_chunks.
+   sort_chunks;
+10. the instanced kernels vs their plain versions on the card, on the
+    textured instanced grid (``inst_grid_scene``, 104 448 world triangles)
+    at 512x384, every returned plane per lane, at the inputs recorded from
+    one regen frame (closest_hit_inst / any_hit_inst) and one sorted frame
+    (fused_bounce and fused_frame instanced, textured), where their times
+    and bounds are taken; the textured fused_frame's time without its
+    texture table (the sampler's share); the instanced fused_frame from
+    bounce 0 on all lanes; the textured resident forms on the mesh scene;
+11. the instanced main path: ``Renderer.render_frames(8)`` on the grid at
+    512x384 depth 4 in accel mode "instanced", textured, through the sorted
+    frame, launch counts reset before and read after; ms/frame, Mrays/s
+    and device busy;
+12. the instanced tracer's standalone path: ``Renderer.render_frames(2)``
+    with ``integrator="regen"`` on the grid (closest_hit_inst /
+    any_hit_inst);
+13. grid images: the sorted kernel path against the unsorted one (8 frames)
+    and against the plain path (2 frames).
 
 PNGs go to ``build/chip_smoke/`` beside this file.  The line before the last
 lists the kernels; the last line is ``{"ok": true, "device": {...}}``.
@@ -123,6 +140,108 @@ def mesh_scene(scene_mod, materials_mod, desc_mod, stacks=32, slices=48):
     cam = dict(position=center + np.array([0.0, 0.35, 1.1]) * extent,
                target=center, fov_degrees=60.0)
     return d, cam
+
+
+def _checker_texture(np, rng, res=512):
+    """(res, res, 3) baseColor: an 8x8 checker of two random colours times a
+    smooth gradient, and (res, res, 3) metallicRoughness: G (roughness) a
+    gradient in [0.2, 1], B (metallic) stripes of 0 and 1."""
+    y, x = np.meshgrid(np.arange(res) / res, np.arange(res) / res,
+                       indexing="ij")
+    colours = rng.uniform(0.15, 1.0, (2, 3))
+    cell = ((np.floor(x * 8) + np.floor(y * 8)) % 2).astype(np.int64)
+    grad = 0.55 + 0.45 * np.sin(np.pi * x)[..., None] * np.cos(
+        0.5 * np.pi * y)[..., None]
+    base = (colours[cell] * grad).astype(np.float32)
+    mr = np.zeros((res, res, 3), np.float32)
+    mr[..., 1] = 0.2 + 0.8 * y
+    mr[..., 2] = (np.floor(x * 6) % 2 == 1)
+    return base, mr
+
+
+def inst_grid_scene(scene_mod, materials_mod, desc_mod, stacks=48, slices=64,
+                    seed=0):
+    """The procedural stand-in of bench.py's bigmesh config (a 4x4 grid of
+    the textured glTF chair, bench.py:104-118, spt_tpu/scene/builder.py:148-163): 16
+    instances of a textured UV sphere A (stacks x slices x 2 triangles,
+    6144 at the default, the chair's size), rotated about y by
+    0.4 * (gx * 4 + gz), cell (1, 2) mirrored, cells with (gx + gz) % 4 of 1
+    gold and of 3 glass; four instances of an untextured sphere B
+    (stacks/2 x slices/2 x 2 triangles) scaled (0.6, 0.3, 0.6) over the
+    centres of the 2x2 blocks; an analytic glass sphere above the grid's
+    centre; no ground plane.  At the default size 104 448 world triangles
+    over a 2 x 96-cluster BLAS of 12 288 slots, exactly MAX_RESIDENT_TRIS,
+    so both packages instance it.  Takes the scene, materials and
+    scene.desc modules of either package.  Returns (SceneDesc, camera
+    keyword arguments without aspect_ratio): bench.py's bigmesh camera,
+    radius = 4 |hi - lo| of one A instance, position centre + (0.3, 0.35,
+    1.0) * radius, fov 45."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    base_tex, mr_tex = _checker_texture(np, rng)
+    d = scene_mod.SceneDesc()
+    d.add_material(scene_mod.Material([1.0, 1.0, 1.0], roughness=1.0,
+                                      metallic=1.0,
+                                      base_color_texture=base_tex,
+                                      metallic_roughness_texture=mr_tex))
+    d.add_material(materials_mod.gold())
+    d.add_material(materials_mod.glass())
+    d.add_material(scene_mod.Material([0.6, 0.6, 0.6], roughness=0.7))
+    a = d.add_mesh(scene_mod.create_sphere_mesh(stacks=stacks, slices=slices,
+                                                radius=0.5, material_id=0))
+    b = d.add_mesh(scene_mod.create_sphere_mesh(
+        stacks=max(stacks // 2, 2), slices=max(slices // 2, 3), radius=0.5,
+        material_id=3))
+    pos = d.meshes[a].positions
+    lo, hi = pos.min(0).astype(np.float32), pos.max(0).astype(np.float32)
+    dx, dz = float(hi[0] - lo[0]) * 1.3, float(hi[2] - lo[2]) * 1.3
+
+    def xform(t, angle=0.0, s=(1.0, 1.0, 1.0)):
+        m = np.eye(4, dtype=np.float64)
+        c, sn = np.cos(angle), np.sin(angle)
+        m[:3, :3] = np.array([[c, 0.0, sn], [0.0, 1.0, 0.0], [-sn, 0.0, c]])
+        m[:3, :3] = m[:3, :3] @ np.diag(s)
+        m[:3, 3] = t
+        return m.astype(np.float32)
+
+    for gx in range(4):
+        for gz in range(4):
+            mirror = (-1.0, 1.0, 1.0) if (gx, gz) == (1, 2) else (1.0, 1.0, 1.0)
+            xf = xform((gx * dx, 0.0, gz * dz), 0.4 * (gx * 4 + gz), mirror)
+            over = {1: 1, 3: 2}.get((gx + gz) % 4)
+            if over is None:
+                d.add_instance(a, xf)
+            else:
+                d.add_instance(a, xf, material_id=over)
+    for bx in range(2):
+        for bz in range(2):
+            d.add_instance(b, xform(((2 * bx + 0.5) * dx, 0.6,
+                                     (2 * bz + 0.5) * dz),
+                                    s=(0.6, 0.3, 0.6)))
+    center = 0.5 * (lo + hi)
+    center[0] += 3 * dx / 2
+    center[2] += 3 * dz / 2
+    d.add_sphere([float(center[0]), 1.2, float(center[2])], 0.4, 2)
+    radius = float(np.linalg.norm(hi - lo)) * 4
+    cam = dict(position=center + np.array([0.3, 0.35, 1.0]) * radius,
+               target=center, fov_degrees=45.0)
+    return d, cam
+
+
+def port_inst_scene(stacks=48, slices=64, **cfg_kw):
+    """(SceneDesc, RenderConfig, Camera) of the instanced grid in the port
+    at MWxMH."""
+    from spt_tpu_torch import materials
+    from spt_tpu_torch import scene as tscene
+    from spt_tpu_torch.camera import Camera
+    from spt_tpu_torch.config import RenderConfig
+    from spt_tpu_torch.scene import desc as tdesc
+
+    desc, cam = inst_grid_scene(tscene, materials, tdesc, stacks, slices)
+    cfg = RenderConfig(width=MW, height=MH, spp=1, max_depth=MESH_DEPTH,
+                       **cfg_kw)
+    return desc, cfg, Camera(aspect_ratio=MW / MH, **cam)
 
 
 def port_mesh_scene(stacks=32, slices=48, **cfg_kw):
@@ -214,6 +333,7 @@ def reset_counts():
     cuda_bounce.LAUNCHES = cuda_bounce.BOUNCE_LAUNCHES = 0
     cuda_sort.LAUNCHES = 0
     cuda_trace.CLOSEST_LAUNCHES = cuda_trace.ANY_LAUNCHES = 0
+    cuda_trace.INST_CLOSEST_LAUNCHES = cuda_trace.INST_ANY_LAUNCHES = 0
     wavefront.SORTED_SAMPLES.clear()
 
 
@@ -224,24 +344,26 @@ def read_counts() -> dict:
             "fused_bounce": cuda_bounce.BOUNCE_LAUNCHES,
             "sort_chunks": cuda_sort.LAUNCHES,
             "closest_hit": cuda_trace.CLOSEST_LAUNCHES,
-            "any_hit": cuda_trace.ANY_LAUNCHES}
+            "any_hit": cuda_trace.ANY_LAUNCHES,
+            "closest_hit_inst": cuda_trace.INST_CLOSEST_LAUNCHES,
+            "any_hit_inst": cuda_trace.INST_ANY_LAUNCHES}
 
 
 # --- timing -------------------------------------------------------------------
 
 def _kernel_key(key: str, name: str) -> bool:
     """Whether a profiler event key is the kernel `name`, where name may
-    carry a template flag: "fused_frame_kernel<true>"."""
+    carry a template argument: "trace_kernel<true>", "fused_frame_kernel<2>"."""
     if "<" not in name:
         return name in key
     base, flag = name[:-1].split("<")
     if base not in key:
         return False
     tail = key[key.index(base) + len(base):]
-    one = flag == "true"
-    return tail.startswith("<true>" if one else "<false>") or tail.startswith(
-        "<(bool)1>" if one else "<(bool)0>") or tail.startswith(
-        "<1>" if one else "<0>")
+    forms = {"true": ("<true>", "<(bool)1>", "<1>"),
+             "false": ("<false>", "<(bool)0>", "<0>")}.get(
+                 flag, (f"<{flag}>", f"<(int){flag}>"))
+    return tail.startswith(forms)
 
 
 def profile_kernels(torch, fn, names, iters: int = 10) -> dict:
@@ -353,7 +475,7 @@ def phase_kernel_vs_plain(torch, cuda_bounce, dev, smi):
             call = lambda: cuda_bounce.fused_frame(cfg, scene, lights, ps)
             wrapper_ms = time_call(torch, call, warmup=3, iters=20)
             result["ms"] = kernel_device_ms(torch, call,
-                                            "fused_frame_kernel<false>")
+                                            "fused_frame_kernel<0>")
             result["plain_ms"] = time_call(
                 torch, lambda: cuda_bounce.fused_frame_reference(
                     cfg, scene, lights, ps), warmup=1, iters=3)
@@ -510,7 +632,7 @@ def lanes_off(torch, k, p):
     return off.any(-1) if off.dim() > 1 else off
 
 
-def check_planes(torch, what, planes: dict) -> float:
+def check_planes(torch, what, planes: dict, phase: int = 5) -> float:
     """Hold every plane of a kernel's result against the plain version's;
     fails when more than 0.1 % of the lanes differ in any one plane.
     Returns the largest finite |kernel - plain| over the float and the
@@ -529,7 +651,7 @@ def check_planes(torch, what, planes: dict) -> float:
             worst = max(worst, float(off.any()))
         if frac > 1e-3:
             bad.append(name)
-    log(f"phase 5 {what}: lanes off per plane: {', '.join(report)} (limit "
+    log(f"phase {phase} {what}: lanes off per plane: {', '.join(report)} (limit "
         f"0.1 % each), max |d| {worst:.6g}")
     if bad:
         raise AssertionError(f"{what} disagrees with its plain version in "
@@ -689,7 +811,7 @@ def phase_mesh_kernels(torch, np, dev, smi):
         nbytes += lanes * (15 * 4 + 12 * 4 + 8 + 3) + a.tri_pack.numel() * 4
         flops += _trace_flops(scene, int(bps.alive.sum()))
     ms, plain_ms = _over_calls(torch, cuda_bounce.fused_bounce, mine,
-                               "fused_bounce_kernel<true>",
+                               "fused_bounce_kernel<1>",
                                cuda_bounce.fused_bounce_reference)
     b = bound(nbytes / len(mine), flops / len(mine))
     out["fused_bounce"] = dict(max_abs_err=worst_b, ms=ms, plain_ms=plain_ms,
@@ -729,7 +851,7 @@ def phase_mesh_kernels(torch, np, dev, smi):
         f"fused_frame resident from bounce {start} ({fps.num_paths} lanes, "
         f"{int(fps.alive.sum())} alive)", args, kw)
     ms, plain_ms = _over_calls(torch, cuda_bounce.fused_frame, mine,
-                               "fused_frame_kernel<true>",
+                               "fused_frame_kernel<1>",
                                cuda_bounce.fused_frame_reference, plain_iters=3)
     b = bound(fps.num_paths * 26 * 4 + a.tri_pack.numel() * 4,
               _trace_flops(scene, float(rk.sum())))
@@ -745,7 +867,7 @@ def phase_mesh_kernels(torch, np, dev, smi):
     check_frame(f"fused_frame resident from bounce 0 ({n} lanes)",
                 (cfg, scene, lights, ps0), {})
     ms0 = kernel_device_ms(torch, lambda: cuda_bounce.fused_frame(
-        cfg, scene, lights, ps0), "fused_frame_kernel<true>")
+        cfg, scene, lights, ps0), "fused_frame_kernel<1>")
     log(f"phase 5 fused_frame resident from bounce 0 at {MW}x{MH} "
         f"d{cfg.max_depth}: kernel {ms0:.4f} ms (device time) [{smi}]")
 
@@ -944,8 +1066,8 @@ def phase_mesh_times(torch, dev, smi):
             ms = ms_l
     r = mesh_renderer(dev)
     r.render_frames(1)
-    names = {"fused_bounce": "fused_bounce_kernel<true>",
-             "fused_frame": "fused_frame_kernel<true>",
+    names = {"fused_bounce": "fused_bounce_kernel<1>",
+             "fused_frame": "fused_frame_kernel<1>",
              "sort_chunks": "sort_chunks_kernel"}
     iters = 8
     reset_counts()
@@ -961,6 +1083,378 @@ def phase_mesh_times(torch, dev, smi):
             f"{per_frame:.2f} launches and {per_launch * per_frame:.4f} ms of "
             f"device time per frame [{smi}]")
     return ms, out
+
+
+# --- instanced phases (10-13) -------------------------------------------------
+
+def inst_renderer(dev, **cfg_kw):
+    from spt_tpu_torch.engine.renderer import Renderer
+
+    desc, cfg, cam = port_inst_scene(**cfg_kw)
+    return Renderer(desc, cfg, camera=cam, device=dev)
+
+
+def _check_inst_scene(scene):
+    from spt_tpu_torch.ops import cuda_bounce
+
+    mode = cuda_bounce._accel_mode(scene)
+    if mode != "instanced" or scene.textures is None:
+        raise AssertionError(f"instanced grid in accel mode {mode!r}, "
+                             f"textured {scene.textures is not None}: "
+                             "expected 'instanced' and textured")
+
+
+def _inst_trace_ops(torch, scene, o, d, tmin, tmax, t_end, blocked=None):
+    """The operations the instanced tracer needs on these rays, counted from
+    the plain version's result: every lane with a non-empty interval
+    slab-tests every instance box (~24 flops) and every sphere (~20); for
+    each instance it crosses within min(tmax, its final t) it slab-tests the
+    mesh's real cluster boxes in object space (~24 flops each) and runs the
+    64 Moller-Trumbore tests (~40 flops each) of every cluster box that
+    final bound still reaches.  A blocked any-hit lane counts one test."""
+    from spt_tpu_torch.ops import cuda_trace as ct
+    from spt_tpu_torch.ops.vec3 import Vec3
+
+    ia = scene.inst
+    n = o.x.shape[0]
+    tmax = torch.broadcast_to(torch.as_tensor(tmax, device=o.x.device,
+                                              dtype=torch.float32), (n,))
+    live = tmax > tmin
+    if blocked is not None:
+        live = live & ~blocked
+    bound = torch.minimum(tmax, t_end).clamp(max=1e30)
+    inv = Vec3(*(ct._inv_dir(c) for c in d))
+    tnear, tfar = ct._slab(ia.inst_lo, ia.inst_hi, o, inv, tmin, bound)
+    crossed = (tnear <= tfar) & live[None]
+    ops = float(live.sum()) * (ia.num_instances * 24 + scene.num_spheres * 20)
+    k = ia.cluster_size
+    for i in range(ia.num_instances):
+        lanes = torch.nonzero(crossed[i]).flatten()
+        if lanes.numel() == 0:
+            continue
+        mesh = int(ia.inst[i, 12])
+        real = ct._real_clusters(ia, mesh)
+        oo, dd = ct._xform(ia.inst[i:i + 1].expand(lanes.numel(), 16),
+                           Vec3(*(c[lanes] for c in o)),
+                           Vec3(*(c[lanes] for c in d)))
+        iinv = Vec3(*(ct._inv_dir(c) for c in dd))
+        opened = 0
+        for c0 in range(0, real.numel(), 16):
+            cl = real[c0:c0 + 16]
+            cn, cf = ct._slab(ia.blas_lo[mesh, cl], ia.blas_hi[mesh, cl], oo,
+                              iinv, tmin, bound[lanes])
+            opened += int((cn <= cf).sum())
+        ops += lanes.numel() * real.numel() * 24.0 + opened * k * 40.0
+    if blocked is not None:
+        ops += 20.0 * int((blocked & (tmax > tmin)).sum())
+    return ops
+
+
+def phase_inst_kernels(torch, np, dev, smi):
+    """Phase 10: the instanced kernels (K1, K3, K7) and the texture sampler
+    against their plain versions on the card, at the inputs recorded from
+    one sorted frame and one regen frame of the instanced grid, where their
+    times and bounds are taken; and the textured resident forms on the mesh
+    scene (K6 in the resident form).  Returns the kernel-line numbers."""
+    from spt_tpu_torch.integrators import transport
+    from spt_tpu_torch.lights import default_lights
+    from spt_tpu_torch.ops import cuda_bounce, cuda_sort, cuda_trace
+    from spt_tpu_torch.scene import flatten_scene
+
+    out = {}
+    # --- K7 at its main path's inputs: one frame of the regen path ---
+    r = inst_renderer(dev, integrator="regen")
+    scene = r.scene
+    _check_inst_scene(scene)
+    ia = scene.inst
+    log(f"phase 10 instanced grid: {scene.num_triangles} world triangles, "
+        f"{ia.num_instances} instances of {ia.num_meshes} meshes, BLAS "
+        f"{ia.num_meshes} x {ia.cmax} clusters of {ia.cluster_size} "
+        f"(tri_pack {tuple(ia.tri_pack.shape)}), {scene.num_spheres} sphere, "
+        f"texture table {tuple(scene.textures.shape)}")
+    with capture_calls([(cuda_trace, "inst_closest_hit"),
+                        (cuda_trace, "inst_any_hit")]) as calls:
+        r.render_frames(1)
+        torch.cuda.synchronize()
+    pack_bytes = ia.tri_pack.numel() * 4
+    for kname, kern, ref, kernel_name in (
+            ("closest_hit_inst", cuda_trace.inst_closest_hit,
+             cuda_trace.inst_closest_hit_reference, "inst_trace_kernel<false>"),
+            ("any_hit_inst", cuda_trace.inst_any_hit,
+             cuda_trace.inst_any_hit_reference, "inst_trace_kernel<true>")):
+        fn_name = "inst_closest_hit" if kname == "closest_hit_inst" \
+            else "inst_any_hit"
+        mine = [(args, kw) for name, args, kw in calls if name == fn_name]
+        if not mine:
+            raise AssertionError(f"the regen frame made no {fn_name} call")
+        worst = nbytes = flops = 0.0
+        for i, (args, kw) in enumerate(mine):
+            _, _, o, d, tmin, tmax = args
+            rays = o.x.shape[0]
+            pk, pp = kern(*args, **kw), ref(*args, **kw)
+            if kname == "closest_hit_inst":
+                planes = _hit_planes(torch, pk, pp)
+                both = (pk.kind != 0) & (pp.kind != 0)
+                planes.update(uv=(torch.where(both[:, None], torch.stack(
+                    [pk.uvx, pk.uvy], -1), 0.0), torch.where(
+                    both[:, None], torch.stack([pp.uvx, pp.uvy], -1), 0.0)))
+                flops += _inst_trace_ops(torch, scene, o, d, tmin, tmax, pp.t)
+                nbytes += rays * (7 * 4 + 32)
+            else:
+                planes = {"blocked": (pk, pp)}
+                t_end = torch.as_tensor(tmax, device=o.x.device,
+                                        dtype=torch.float32)
+                flops += _inst_trace_ops(torch, scene, o, d, tmin, tmax,
+                                         t_end, blocked=pp)
+                nbytes += rays * (7 * 4 + 1)
+            worst = max(worst, check_planes(
+                torch, f"{kname} regen call {i + 1} of {len(mine)} ({rays} "
+                f"rays)", planes, phase=10))
+        ms, plain_ms = _over_calls(torch, kern, mine, kernel_name, ref,
+                                   plain_iters=1)
+        b = bound((nbytes + len(mine) * pack_bytes) / len(mine),
+                  flops / len(mine))
+        out[kname] = dict(max_abs_err=worst, ms=ms, plain_ms=plain_ms,
+                          bound=b, library_ms=None)
+        log(f"phase 10 {kname} at the regen frame's {len(mine)} calls: kernel "
+            f"{ms:.4f} ms per launch (device time), plain {plain_ms:.4f} ms, "
+            f"bound {b[0]:.4f} ms ({b[1]}; operations count the triangle "
+            f"tests of the clusters each lane's final bound reaches) [{smi}]")
+
+    # --- K3 and K1 instanced (textured) at the sorted frame's inputs ---
+    r = inst_renderer(dev)
+    with capture_calls([(cuda_bounce, "fused_bounce"),
+                        (cuda_bounce, "fused_frame"),
+                        (cuda_sort, "sort_chunks")]) as calls:
+        r.render_frames(1)
+        torch.cuda.synchronize()
+    by_name = {name: [(args, kw) for nm, args, kw in calls if nm == name]
+               for name in ("fused_bounce", "fused_frame", "sort_chunks")}
+    log(f"phase 10 the instanced sorted frame's calls: "
+        f"{ {k: len(v) for k, v in by_name.items()} }")
+    tex_bytes = scene.textures.numel() * 4
+    per_ray = ia.num_instances * 24 + scene.num_spheres * 20
+    for i, (args, kw) in enumerate(by_name["sort_chunks"]):
+        key, ops, chunk = args
+        sk, lane, so = cuda_sort.sort_chunks(key, ops, chunk)
+        rk, _, _ = cuda_sort.sort_chunks_reference(key, ops, chunk)
+        ok = (torch.equal(sk, rk) and torch.equal(sk, key[lane])
+              and all(torch.equal(s, x[lane]) for s, x in zip(so, ops)))
+        log(f"phase 10 sort_chunks instanced-frame call {i + 1}: chunk "
+            f"{chunk} x {key.shape[0] // chunk}, {len(ops)} planes: keys "
+            f"equal to torch.sort's and payloads one permutation {ok}")
+        if not ok:
+            raise AssertionError("sort_chunks wrong on the instanced frame")
+
+    mine = by_name["fused_bounce"]
+    nbytes = flops = worst = 0.0
+    for args, kw in mine:
+        bps, bounce = args[3], args[4]
+        ks, km = cuda_bounce.fused_bounce(*args, **kw)
+        ps_, pm = cuda_bounce.fused_bounce_reference(*args, **kw)
+        worst = max(worst, check_planes(
+            torch, f"fused_bounce instanced bounce {bounce} "
+            f"({bps.num_paths} lanes, {int(bps.alive.sum())} alive)",
+            _state_planes(torch, ks, km, ps_, pm), phase=10))
+        nbytes += (bps.num_paths * (15 * 4 + 12 * 4 + 8 + 3) + pack_bytes
+                   + tex_bytes)
+        flops += float(bps.alive.sum()) * per_ray
+    ms, plain_ms = _over_calls(torch, cuda_bounce.fused_bounce, mine,
+                               "fused_bounce_kernel<2>",
+                               cuda_bounce.fused_bounce_reference,
+                               plain_iters=1)
+    b = bound(nbytes / len(mine), flops / len(mine))
+    out["fused_bounce_instanced"] = dict(max_abs_err=worst, ms=ms,
+                                         plain_ms=plain_ms, bound=b,
+                                         library_ms=None)
+    log(f"phase 10 fused_bounce instanced at the sorted frame's {len(mine)} "
+        f"calls: kernel {ms:.4f} ms per launch (device time), plain "
+        f"{plain_ms:.4f} ms, bound {b[0]:.4f} ms ({b[1]}) [{smi}]")
+
+    def check_frame(what, args, kw):
+        fk = cuda_bounce.fused_frame(*args, **kw)
+        fp = cuda_bounce.fused_frame_reference(*args, **kw)
+        rk, rp = fk[4].cpu().numpy(), fp[4].cpu().numpy()
+        if not np.array_equal(rk, rp):
+            raise AssertionError(f"{what}: rays_per_bounce kernel "
+                                 f"{rk.tolist()} plain {rp.tolist()}")
+        return check_planes(
+            torch, f"{what}; rays_per_bounce {rk.tolist()} (= plain)",
+            {"radiance": (_v(torch, fk[0]), _v(torch, fp[0])),
+             "direction": (_v(torch, fk[1]), _v(torch, fp[1])),
+             "throughput": (_v(torch, fk[2]), _v(torch, fp[2])),
+             "missed": (fk[3], fp[3])}, phase=10), rk
+
+    mine = by_name["fused_frame"]
+    if len(mine) != 1:
+        raise AssertionError(f"the instanced sorted frame called fused_frame "
+                             f"{len(mine)} times")
+    (args, kw), = mine
+    fps = args[3]
+    worst, rk = check_frame(
+        f"fused_frame instanced from bounce {kw.get('start_bounce')} "
+        f"({fps.num_paths} lanes, {int(fps.alive.sum())} alive)", args, kw)
+    ms, plain_ms = _over_calls(torch, cuda_bounce.fused_frame, mine,
+                               "fused_frame_kernel<2>",
+                               cuda_bounce.fused_frame_reference,
+                               plain_iters=1)
+    b = bound(fps.num_paths * 26 * 4 + pack_bytes + tex_bytes,
+              float(rk.sum()) * per_ray)
+    out["fused_frame_instanced"] = dict(max_abs_err=worst, ms=ms,
+                                        plain_ms=plain_ms, bound=b,
+                                        library_ms=None)
+    log(f"phase 10 fused_frame instanced at the sorted frame's call: kernel "
+        f"{ms:.4f} ms (device time), plain {plain_ms:.4f} ms, bound "
+        f"{b[0]:.4f} ms ({b[1]}) [{smi}]")
+    # the sampler's share of that launch: the same call without the table
+    bare = (args[0], args[1]._replace(textures=None)) + tuple(args[2:])
+    check_frame("fused_frame instanced on the same call without the "
+                "texture table", bare, kw)
+    bare_ms = kernel_device_ms(torch, lambda: cuda_bounce.fused_frame(
+        *bare, **kw), "fused_frame_kernel<2>")
+    out["texture_sampler"] = dict(out["fused_frame_instanced"],
+                                  untextured_ms=bare_ms)
+    log(f"phase 10 texture_sampler (the textured fused_frame instanced "
+        f"launch): {ms:.4f} ms textured, {bare_ms:.4f} ms on the same call "
+        f"without the texture table [{smi}]")
+
+    # the instanced fused_frame over every bounce of all lanes (ray_sort off)
+    cfg, lights = r.cfg, default_lights(dev)
+    ps0 = transport.gen_primary(cfg, r.camera.rays(dev), 0)
+    check_frame(f"fused_frame instanced from bounce 0 "
+                f"({cfg.width * cfg.height} lanes)",
+                (cfg, scene, lights, ps0), {})
+
+    # --- K6 in the resident and small forms: the textured mesh scene ---
+    desc, mcfg, mcam = port_mesh_scene()
+    base, mr = _checker_texture(np, np.random.default_rng(0))
+    from spt_tpu_torch import scene as tscene
+
+    desc.materials[0] = tscene.Material([1.0, 1.0, 1.0], roughness=1.0,
+                                        metallic=1.0, base_color_texture=base,
+                                        metallic_roughness_texture=mr)
+    mscene = flatten_scene(desc, dev)
+    if (cuda_bounce._accel_mode(mscene) != "resident"
+            or mscene.textures is None):
+        raise AssertionError("textured mesh scene not resident and textured")
+    mps = transport.gen_primary(mcfg, mcam.rays(dev), 0)
+    check_frame(f"fused_frame resident textured from bounce 0 "
+                f"({mcfg.width * mcfg.height} lanes)",
+                (mcfg, mscene, lights, mps), {})
+    ks, km = cuda_bounce.fused_bounce(mcfg, mscene, lights, mps, 0, False)
+    ps_, pm = cuda_bounce.fused_bounce_reference(mcfg, mscene, lights, mps, 0,
+                                                 False)
+    check_planes(torch, "fused_bounce resident textured bounce 0",
+                 _state_planes(torch, ks, km, ps_, pm), phase=10)
+    return out
+
+
+def phase_inst_main_path(torch, np, dev, out_dir, smi):
+    """Phase 11: the instanced grid's Renderer on the card; returns the
+    launch counts."""
+    from spt_tpu_torch.bench import count_rays, shadow_rays_per_surface_lane
+    from spt_tpu_torch.integrators import wavefront
+
+    frames = 8
+    r = inst_renderer(dev)
+    _check_inst_scene(r.scene)
+    n_shadow = shadow_rays_per_surface_lane(r)
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    r.render_frames(frames)
+    t1.record()
+    torch.cuda.synchronize()
+    counts = read_counts()
+    branches = dict(wavefront.SORTED_SAMPLES)
+    ms = t0.elapsed_time(t1) / frames
+    rays, path = check_image(np, r, "inst_grid", out_dir, frames)
+    mrays = count_rays(r.last_stats, n_shadow) / frames / (ms * 1e-3) / 1e6
+    log(f"phase 11 instanced grid {MW}x{MH} d{MESH_DEPTH}: {frames} frames, "
+        f"launches {counts}, sorted-frame branches {branches}, "
+        f"rays_per_bounce {rays.tolist()}, mean hdr "
+        f"{float(r.hdr_image().mean()):.6g}, png {path}")
+    for k in ("fused_frame", "fused_bounce", "sort_chunks"):
+        if counts[k] < 1:
+            raise AssertionError(f"the instanced main path launched no {k}")
+    if sum(branches.values()) != frames:
+        raise AssertionError(f"the sorted frame ran {branches}")
+    busy, n_kernels = device_busy_ms(torch, lambda: r.render_frames(1))
+    log(f"phase 11 instanced grid: {ms:.4f} ms/frame (CUDA events, {frames} "
+        f"frames), {mrays:.2f} Mrays/s; device busy {busy:.4f} ms/frame over "
+        f"{n_kernels:.1f} kernel launches (profiled), idle share "
+        f"{max(0.0, 1 - busy / ms) * 100:.1f} % [{smi}]")
+    names = {"fused_bounce": "fused_bounce_kernel<2>",
+             "fused_frame": "fused_frame_kernel<2>",
+             "sort_chunks": "sort_chunks_kernel"}
+    prof = profile_kernels(torch, lambda: r.render_frames(1),
+                           list(names.values()), iters=4)
+    log("phase 11 instanced grid, device ms per launch (profiled): "
+        + ", ".join(f"{k} {prof[v][0]:.4f}" for k, v in names.items())
+        + f" [{smi}]")
+    # the same path without the coherence sorts: one fused_frame a sample
+    u = inst_renderer(dev, ray_sort=False)
+    u.render_frames(1)
+    torch.cuda.synchronize()
+    t0.record()
+    u.render_frames(frames)
+    t1.record()
+    torch.cuda.synchronize()
+    ms_u = t0.elapsed_time(t1) / frames
+    busy_u, n_u = device_busy_ms(torch, lambda: u.render_frames(1))
+    log(f"phase 11 instanced grid unsorted (ray_sort=False): {ms_u:.4f} "
+        f"ms/frame, device busy {busy_u:.4f} ms/frame over {n_u:.1f} kernel "
+        f"launches [{smi}]")
+    return counts
+
+
+def phase_inst_regen_path(torch, np, dev, out_dir):
+    """Phase 12: integrator "regen" on the instanced grid traces through the
+    standalone instanced tracer; returns the launch counts."""
+    frames = 2
+    r = inst_renderer(dev, integrator="regen")
+    torch.cuda.synchronize()
+    reset_counts()
+    r.render_frames(frames)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    rays, path = check_image(np, r, "inst_grid_regen", out_dir, frames)
+    log(f"phase 12 instanced grid regen {MW}x{MH} d{MESH_DEPTH}: {frames} "
+        f"frames, launches {counts}, rays_per_bounce {rays.tolist()}, png "
+        f"{path}")
+    if counts["closest_hit_inst"] < 1 or counts["any_hit_inst"] < 1:
+        raise AssertionError(f"the instanced regen path launched {counts}")
+    return counts
+
+
+def phase_inst_images(torch, np, dev):
+    """Phase 13: the instanced grid's sorted kernel path against its
+    unsorted kernel path (8 frames) and against the plain path (2
+    frames)."""
+    imgs = {}
+    for label, frames, kw, ctx in (
+            ("sorted", 8, {}, contextlib.nullcontext),
+            ("unsorted", 8, {"ray_sort": False}, contextlib.nullcontext),
+            ("sorted_2", 2, {}, contextlib.nullcontext),
+            ("plain", 2, {}, plain_path)):
+        r = inst_renderer(dev, **kw)
+        t0 = time.perf_counter()
+        with ctx():
+            r.render_frames(frames)
+            torch.cuda.synchronize()
+        imgs[label] = r.hdr_image()
+        log(f"phase 13 instanced grid {label} path: {frames} frames in "
+            f"{time.perf_counter() - t0:.2f} s (host clock), rays_per_bounce "
+            f"{r.last_stats.rays_per_bounce.cpu().numpy().tolist()}")
+    for a, b in (("sorted", "unsorted"), ("sorted_2", "plain")):
+        rel = rel_rmse(np, imgs[a], imgs[b])
+        log(f"phase 13 instanced grid {a} kernel path vs {b}: relative RMSE "
+            f"{rel * 100:.5f} % (limit 1 %)")
+        if not rel < 0.01:
+            raise AssertionError(f"instanced grid image differs from the {b} "
+                                 "path")
 
 
 def main() -> int:
@@ -1017,6 +1511,11 @@ def main() -> int:
     phase_mesh_images(torch, np, dev)
     phase_mesh_times(torch, dev, smi)
 
+    inst = phase_inst_kernels(torch, np, dev, smi)
+    inst_counts = phase_inst_main_path(torch, np, dev, out_dir, smi)
+    inst_regen = phase_inst_regen_path(torch, np, dev, out_dir)
+    phase_inst_images(torch, np, dev)
+
     def entry(name, source, replaces, launches, k):
         for key in ("max_abs_err", "ms", "plain_ms"):
             if not math.isfinite(k[key]):
@@ -1049,6 +1548,21 @@ def main() -> int:
         entry("sort_chunks", "sort_chunks.cu",
               "spt_tpu/ops/pallas_sort.py:70", counts["sort_chunks"],
               mesh["sort_chunks"]),
+        entry("fused_frame_instanced", "fused_frame.cu",
+              "spt_tpu/ops/pallas_bounce.py:1090",
+              inst_counts["fused_frame"], inst["fused_frame_instanced"]),
+        entry("fused_bounce_instanced", "fused_bounce.cu",
+              "spt_tpu/ops/pallas_bounce.py:752", inst_counts["fused_bounce"],
+              inst["fused_bounce_instanced"]),
+        entry("closest_hit_inst", "inst_trace.cu",
+              "spt_tpu/ops/pallas_inst.py:823",
+              inst_regen["closest_hit_inst"], inst["closest_hit_inst"]),
+        entry("any_hit_inst", "inst_trace.cu",
+              "spt_tpu/ops/pallas_inst.py:840", inst_regen["any_hit_inst"],
+              inst["any_hit_inst"]),
+        entry("texture_sampler", "spt_common.cuh",
+              "spt_tpu/ops/pallas_bounce.py:527", inst_counts["fused_frame"],
+              inst["texture_sampler"]),
     ]
     log(smi)
     print(json.dumps({"kernels": kernels}), flush=True)

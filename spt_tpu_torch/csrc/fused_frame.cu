@@ -1,17 +1,22 @@
 // fused_frame: the wavefront depth loop of one sample, one thread per path.
 //
 // Replaces the Pallas TPU kernel spt_tpu/ops/pallas_bounce.py:1090-1322
-// (`_frame_kernel`, launched by `fused_frame` :1207) in two forms:
+// (`_frame_kernel`, launched by `fused_frame` :1207) in three forms:
 // - small (accel mode None): brute-force loops over at most 192 primitives
 //   with every table in shared memory (RolledTracer);
 // - resident: the cluster tracer over tri_pack in global memory, with the
 //   small tables (materials, lights, emitters, spheres, cluster boxes and
-//   visit orders) in shared memory (ClusterTracer, spt_tracers.cuh).
+//   visit orders) in shared memory (ClusterTracer, spt_tracers.cuh);
+// - instanced: the TLAS/BLAS tracer over the shared BLAS tri_pack in global
+//   memory, with the instance rows and the BLAS boxes and visit orders in
+//   shared memory (InstTracer).
 // It computes bounces [start_bounce, max_depth) of
 // spt_tpu_torch.integrators.transport (trace_bounce + shade_core) for every
 // lane and hands back what the deferred environment term needs: final
 // direction and throughput, radiance, the missed-ever flag and the per-lane
-// bounce count.  No textures and no in-kernel environment term.
+// bounce count.  A textured scene samples its texture table in-kernel (K6,
+// spt_common.cuh sample_texture) in every form.  No in-kernel environment
+// term.
 //
 // What bounds it on an H100: the path state is 15 planes in and 11 out,
 // 26 x 4 = 104 B per lane per frame — about 216 MB at 1920x1080, some
@@ -39,7 +44,9 @@ struct FrameIO {
   int n, start_bounce, max_depth;
 };
 
-template <bool kResident>
+// kMode: 0 small (RolledTracer), 1 resident (ClusterTracer), 2 instanced
+// (InstTracer).
+template <int kMode>
 __global__ void __launch_bounds__(kBlock)
     fused_frame_kernel(FrameIO io, SceneArgs sc, ShadeArgs sa) {
   extern __shared__ float smem[];
@@ -61,7 +68,10 @@ __global__ void __launch_bounds__(kBlock)
     ++bounces;
     const bool is_last = bounce == io.max_depth - 1;
     bool missed;
-    if constexpr (kResident) {
+    if constexpr (kMode == 2) {
+      alive = shade_bounce(tb, inst_tracer(tb, sc), sa, bounce, is_last, o, d, thr, rad, rng,
+                           emok, missed);
+    } else if constexpr (kMode == 1) {
       alive = shade_bounce(tb, cluster_tracer(tb, sc), sa, bounce, is_last, o, d, thr, rad,
                            rng, emok, missed);
     } else {
@@ -90,8 +100,8 @@ extern "C" {
 
 // Replaces spt_tpu/ops/pallas_bounce.py:1207 (fused_frame, pallas_call
 // :1298).  Launches the kernel on `stream` and returns the CUDA error of
-// the launch (0: accepted).  `pack` null selects the small form.  Allocates
-// nothing and does not synchronise.
+// the launch (0: accepted).  `pack` null selects the small form, n_inst > 0
+// the instanced one.  Allocates nothing and does not synchronise.
 int spt_fused_frame(const float* ox, const float* oy, const float* oz, const float* dx,
                     const float* dy, const float* dz, const float* tx, const float* ty,
                     const float* tz, const float* rx, const float* ry, const float* rz,
@@ -100,13 +110,14 @@ int spt_fused_frame(const float* ox, const float* oy, const float* oz, const flo
                     float* o_rz, int* o_missed, int* o_bounces, const float* tables, int n_tris,
                     int n_sphs, int n_mats, int n_lights, int n_emit, int flags,
                     const float* pack, int pack_w, int n_clusters, int cluster_size,
+                    int n_inst, int n_meshes, const int* tex, int tex_res,
                     int n, int start_bounce, int max_depth, int rr_after, float hit_eps,
                     float ray_offset_dir, float firefly_clamp, void* stream) {
   FrameIO io{ox,   oy,   oz,   dx,   dy,   dz,   tx,   ty,       tz,        rx,
              ry,   rz,   rng,  alive, emok, o_dx, o_dy, o_dz,    o_tx,      o_ty,
              o_tz, o_rx, o_ry, o_rz, o_missed, o_bounces, n, start_bounce, max_depth};
-  SceneArgs sc{tables, n_tris,     n_sphs,     n_mats,       n_lights, n_emit,
-               flags,  pack,       pack_w,     n_clusters,   cluster_size};
+  SceneArgs sc{tables, n_tris, n_sphs, n_mats, n_lights, n_emit, flags, pack,
+               pack_w, n_clusters, cluster_size, n_inst, n_meshes, tex, tex_res};
   ShadeArgs sa{rr_after, flags, hit_eps, ray_offset_dir, firefly_clamp};
   const size_t smem = smem_bytes(sc);
   if (n_mats < 1 || smem > 227 * 1024) return static_cast<int>(cudaErrorInvalidValue);
@@ -114,23 +125,28 @@ int spt_fused_frame(const float* ox, const float* oy, const float* oz, const flo
   const int grid = (n + kBlock - 1) / kBlock;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err;
-  if (pack != nullptr) {
-    err = reserve_smem(fused_frame_kernel<true>, smem);
-    if (err == cudaSuccess) fused_frame_kernel<true><<<grid, kBlock, smem, st>>>(io, sc, sa);
+  if (pack == nullptr) {
+    err = reserve_smem(fused_frame_kernel<0>, smem);
+    if (err == cudaSuccess) fused_frame_kernel<0><<<grid, kBlock, smem, st>>>(io, sc, sa);
+  } else if (n_inst > 0) {
+    err = reserve_smem(fused_frame_kernel<2>, smem);
+    if (err == cudaSuccess) fused_frame_kernel<2><<<grid, kBlock, smem, st>>>(io, sc, sa);
   } else {
-    err = reserve_smem(fused_frame_kernel<false>, smem);
-    if (err == cudaSuccess) fused_frame_kernel<false><<<grid, kBlock, smem, st>>>(io, sc, sa);
+    err = reserve_smem(fused_frame_kernel<1>, smem);
+    if (err == cudaSuccess) fused_frame_kernel<1><<<grid, kBlock, smem, st>>>(io, sc, sa);
   }
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
 
-// Registers per thread and local (spill) bytes of the small (resident = 0)
-// or resident (1) form.
-int spt_fused_frame_kernel_info(int resident, int* num_regs, int* local_bytes) {
+// Registers per thread and local (spill) bytes of the small (mode 0),
+// resident (1) or instanced (2) form.
+int spt_fused_frame_kernel_info(int mode, int* num_regs, int* local_bytes) {
   cudaFuncAttributes attr;
-  const cudaError_t err = resident ? cudaFuncGetAttributes(&attr, fused_frame_kernel<true>)
-                                   : cudaFuncGetAttributes(&attr, fused_frame_kernel<false>);
+  const cudaError_t err =
+      mode == 2   ? cudaFuncGetAttributes(&attr, fused_frame_kernel<2>)
+      : mode == 1 ? cudaFuncGetAttributes(&attr, fused_frame_kernel<1>)
+                  : cudaFuncGetAttributes(&attr, fused_frame_kernel<0>);
   if (err == cudaSuccess) {
     *num_regs = attr.numRegs;
     *local_bytes = static_cast<int>(attr.localSizeBytes);

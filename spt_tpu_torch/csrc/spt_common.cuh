@@ -1,6 +1,6 @@
 // Device code shared by the path-tracing kernels: vec3, rng, sampling, the
-// packed scene tables and one bounce of shading (shade_bounce), templated
-// on the tracer (spt_tracers.cuh).
+// packed scene tables, the texture sampler (K6) and one bounce of shading
+// (shade_bounce), templated on the tracer (spt_tracers.cuh).
 //
 // Numerics: every translation unit is built with --fmad=false and without
 // fast math, and every expression below is evaluated in the order of the
@@ -27,11 +27,13 @@ constexpr double kPi = 3.14159265358979323846;
 // Packed table layout, in 32-bit words (ints are stored as their bits).
 constexpr int kTriWords = 10;   // v0 xyz | e1 xyz | e2 xyz | mat
 constexpr int kSphWords = 5;    // center xyz | radius | mat
-constexpr int kMatWords = 11;   // base xyz | metallic | roughness | ior | type | emission xyz | transparency
+constexpr int kMatWords = 12;   // base xyz | metallic | roughness | ior | type | emission xyz | transparency | tex_id
 constexpr int kLightWords = 11; // kind | vec xyz | color xyz | intensity | attenuation xyz
 constexpr int kEmitWords = 13;  // v0 xyz | e1 xyz | e2 xyz | le xyz | area
 constexpr int kNsWords = 9;     // n0 | n1-n0 | n2-n0
+constexpr int kUvWords = 6;     // uv0 | uv1-uv0 | uv2-uv0
 constexpr int kBoxWords = 6;    // cluster lo xyz | hi xyz
+constexpr int kInstWords = 22;  // world box lo xyz | hi xyz | bvh.InstAccel.inst row (16)
 
 // RenderConfig toggles, one bit each.
 constexpr int kNee = 1 << 0;            // cfg.nee and the scene has emitters
@@ -42,33 +44,45 @@ constexpr int kCpuTransparency = 1 << 4;
 constexpr int kDepthTermNormalVis = 1 << 5;
 constexpr int kDirectLightDielectric = 1 << 6;
 constexpr int kHasNs = 1 << 7;          // the flat tables carry shading normals
+constexpr int kTextured = 1 << 8;       // the scene has a texture table
 
 // The scene tables as one float buffer in global memory, copied whole into
 // shared memory by every block:
-//   tri | sph | mat | light | emit | ns | cluster boxes | octant keys
-// The small form fills tri (and ns); the resident form leaves them empty
-// and fills the cluster boxes and bvh.MeshAccel.cl_okey (8 x C int32 bits,
-// (rank << 16) | cluster id).  From the keys every block builds the 8
-// per-octant front-to-back visit orders (uint16 cluster ids) in shared
-// memory after the tables.  The resident form's triangles stay in global
-// memory (tri_pack).
+//   tri | sph | mat | light | emit | ns | uv | cluster boxes | instances |
+//   octant keys
+// The small form fills tri (and ns, and uv on a textured scene).  The
+// resident form leaves them empty and fills the cluster boxes and
+// bvh.MeshAccel.cl_okey (8 x C int32 bits, (rank << 16) | cluster id).  The
+// instanced form fills the boxes of every BLAS (M x CMAX, padding clusters
+// inverted), the instance rows and the BLAS keys (8M x CMAX, row
+// octant * M + mesh, ranks 0..CMAX-1 per row).  From the keys every block
+// builds the front-to-back visit orders (uint16 cluster ids, one row of
+// C / M per key row) in shared memory after the tables.  The mesh forms'
+// triangles stay in global memory (tri_pack), and so does the texture
+// table.
 struct SceneArgs {
   const float* tables;
   int n_tris, n_sphs, n_mats, n_lights, n_emit, flags;
-  const float* pack;  // resident form: (C*K, pack_w) tri_pack, else null
+  const float* pack;  // mesh forms: (C*K, pack_w) tri_pack, else null
   int pack_w, n_clusters, cluster_size;
+  int n_inst, n_meshes;  // instanced form: I, M (C = M * CMAX); else 0, 1
+  const int* tex;        // textured: (n_tex, res^2, 2) int32, else null
+  int tex_res;
 };
 
 struct Tables {
-  const float *tri, *sph, *mat, *light, *emit, *ns, *box;
+  const float *tri, *sph, *mat, *light, *emit, *ns, *uv, *box, *inst;
   const uint16_t* order;
-  int n_tris, n_sphs, n_mats, n_lights, n_emit;
+  const int* tex;
+  int n_tris, n_sphs, n_mats, n_lights, n_emit, tex_res;
 };
 
 __host__ __device__ inline int table_words(const SceneArgs& s) {
+  const bool uv = (s.flags & kTextured) && s.pack == nullptr;
   return s.n_tris * kTriWords + s.n_sphs * kSphWords + s.n_mats * kMatWords +
          s.n_lights * kLightWords + s.n_emit * kEmitWords +
-         ((s.flags & kHasNs) ? s.n_tris * kNsWords : 0) + s.n_clusters * (kBoxWords + 8);
+         ((s.flags & kHasNs) ? s.n_tris * kNsWords : 0) + (uv ? s.n_tris * kUvWords : 0) +
+         s.n_clusters * (kBoxWords + 8) + s.n_inst * kInstWords;
 }
 
 // Dynamic shared memory of a block: the tables plus the visit orders.
@@ -82,13 +96,14 @@ __host__ __device__ inline size_t smem_bytes(const SceneArgs& s) {
 __device__ inline Tables load_tables(float* smem, const SceneArgs& s) {
   const int words = table_words(s);
   for (int k = threadIdx.x; k < words; k += blockDim.x) smem[k] = s.tables[k];
-  // order[oct * C + rank] = id, from the keys in global memory
+  // order[row * cmax + rank] = id, from the keys in global memory
   const int c = s.n_clusters;
+  const int cmax = c / max(s.n_meshes, 1);
   const int* okey = reinterpret_cast<const int*>(s.tables + words - 8 * c);
   uint16_t* order = reinterpret_cast<uint16_t*>(smem + words);
   for (int k = threadIdx.x; k < 8 * c; k += blockDim.x) {
     const int key = okey[k];
-    order[(k / c) * c + (key >> 16)] = static_cast<uint16_t>(key & 0xFFFF);
+    order[(k / cmax) * cmax + (key >> 16)] = static_cast<uint16_t>(key & 0xFFFF);
   }
   __syncthreads();
   Tables tb;
@@ -99,8 +114,14 @@ __device__ inline Tables load_tables(float* smem, const SceneArgs& s) {
   tb.emit = tb.light + s.n_lights * kLightWords;
   const float* after_emit = tb.emit + s.n_emit * kEmitWords;
   tb.ns = (s.flags & kHasNs) ? after_emit : nullptr;
-  tb.box = after_emit + ((s.flags & kHasNs) ? s.n_tris * kNsWords : 0);
+  const float* after_ns = after_emit + ((s.flags & kHasNs) ? s.n_tris * kNsWords : 0);
+  const bool uv = (s.flags & kTextured) && s.pack == nullptr;
+  tb.uv = uv ? after_ns : nullptr;
+  tb.box = after_ns + (uv ? s.n_tris * kUvWords : 0);
+  tb.inst = tb.box + s.n_clusters * kBoxWords;
   tb.order = order;
+  tb.tex = (s.flags & kTextured) ? s.tex : nullptr;
+  tb.tex_res = s.tex_res;
   tb.n_tris = s.n_tris;
   tb.n_sphs = s.n_sphs;
   tb.n_mats = s.n_mats;
@@ -308,6 +329,54 @@ __device__ inline V3 ggx_sample_vndf(float u1, float u2, float alpha, V3 n, V3 v
   return safe_normalize(from_onb(t, b, n, h_local.x, h_local.y, h_local.z));
 }
 
+// --- the texture sampler (K6: transport.sample_texture_v) ----------------------
+
+// Bilinear sample of texture tex_id at (u, v): the glTF REPEAT wrap and
+// texel-centre setup of transport._bilinear_setup, four taps of one 8-byte
+// load each (plane 0 the sqrt-encoded 10/10/10 baseColor, plane 1 the
+// 16/16 roughness/metallic multipliers, texel (ty, tx) at row ty * res +
+// tx), each tap unpacked as materials.unpack_color / unpack_mr and summed
+// in the plain version's order.  Replaces the Pallas sampler
+// spt_tpu/ops/pallas_bounce.py:527 (_make_texture_sampler, with
+// _gather_rc :510): its distinct-key while loop, (8, 128) tile gathers and
+// whole-tile skip are TPU devices; a thread here loads its own four texels
+// through the read-only cache, and a 256^2 table (512 KiB a texture) stays
+// in L2.
+__device__ inline void sample_texture(const int* __restrict__ tex, int res, int tex_id, float u,
+                                      float v, V3& rgb, float& rough, float& metal) {
+  const float fu = u - floorf(u);
+  const float fv = v - floorf(v);
+  const float sx = fu * static_cast<float>(res) - 0.5f;
+  const float sy = fv * static_cast<float>(res) - 0.5f;
+  const int x0 = static_cast<int>(floorf(sx));
+  const int y0 = static_cast<int>(floorf(sy));
+  const float wx = sx - static_cast<float>(x0);
+  const float wy = sy - static_cast<float>(y0);
+  const int xs[2] = {x0 < 0 ? x0 + res : x0, x0 + 1 >= res ? 0 : x0 + 1};
+  const int ys[2] = {y0 < 0 ? y0 + res : y0, y0 + 1 >= res ? 0 : y0 + 1};
+  const float wxs[2] = {1.0f - wx, wx};
+  const float wys[2] = {1.0f - wy, wy};
+  const int2* __restrict__ base =
+      reinterpret_cast<const int2*>(tex) + static_cast<size_t>(tex_id) * res * res;
+  float acc[5] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+  for (int a = 0; a < 2; ++a) {
+    for (int b = 0; b < 2; ++b) {
+      const int2 p = __ldg(base + ys[b] * res + xs[a]);
+      const float w = wxs[a] * wys[b];
+      const float cr = static_cast<float>((p.x >> 20) & 1023) * F32(1.0 / 1023.0);
+      const float cg = static_cast<float>((p.x >> 10) & 1023) * F32(1.0 / 1023.0);
+      const float cb = static_cast<float>(p.x & 1023) * F32(1.0 / 1023.0);
+      const float vals[5] = {cr * cr, cg * cg, cb * cb,
+                             static_cast<float>((p.y >> 16) & 0xFFFF) * F32(1.0 / 65535.0),
+                             static_cast<float>(p.y & 0xFFFF) * F32(1.0 / 65535.0)};
+      for (int i = 0; i < 5; ++i) acc[i] = acc[i] + w * vals[i];
+    }
+  }
+  rgb = v3(acc[0], acc[1], acc[2]);
+  rough = acc[3];
+  metal = acc[4];
+}
+
 // --- one bounce (transport.trace_bounce + transport.shade_core) ----------------
 
 // One bounce of a live lane.  Updates the lane's state in place, sets
@@ -327,10 +396,10 @@ __device__ inline bool shade_bounce(const Tables& tb, const Tracer& tr, const Sh
   const bool direct_diel = sa.flags & kDirectLightDielectric;
   const V3 up = v3(0.0f, 1.0f, 0.0f);
 
-  float t;
+  float t, hu, hv;
   int mat_id;
   V3 hn;
-  if (tr.closest(o, d, 0.0f, F32(1e30), t, mat_id, hn) == 0) {
+  if (tr.closest(o, d, 0.0f, F32(1e30), t, mat_id, hn, hu, hv) == 0) {
     missed = true;
     return false;
   }
@@ -338,9 +407,21 @@ __device__ inline bool shade_bounce(const Tables& tb, const Tracer& tr, const Sh
 
   // --- surface setup ---
   const float* m = tb.mat + min(max(mat_id, 0), tb.n_mats - 1) * kMatWords;
-  const V3 base = load3(m);
-  const float metallic = m[3], roughness = m[4], ior = m[5];
+  V3 base = load3(m);
+  float metallic = m[3], roughness = m[4];
+  const float ior = m[5];
   const int mat_type = as_int(m[6]);
+  if (tb.tex != nullptr) {
+    // the texture channels multiply the material factors; untextured
+    // materials take multipliers of 1, and every lane is clipped
+    V3 trgb = v3(1.0f, 1.0f, 1.0f);
+    float trough = 1.0f, tmetal = 1.0f;
+    const int tex_id = as_int(m[11]);
+    if (tex_id >= 0) sample_texture(tb.tex, tb.tex_res, tex_id, hu, hv, trgb, trough, tmetal);
+    base = mul(base, trgb);
+    roughness = clampf(roughness * trough, F32(0.01), 1.0f);
+    metallic = clampf(metallic * tmetal, 0.0f, 1.0f);
+  }
   const V3 emission = load3(m + 7);
   const float transparency = m[10];
 

@@ -22,7 +22,8 @@ from spt_tpu_torch.camera import CameraRays
 from spt_tpu_torch.config import RenderConfig
 from spt_tpu_torch.env import Environment, environment_color_v
 from spt_tpu_torch.lights import DeviceLights, sample_light_v
-from spt_tpu_torch.materials import gather_v
+from spt_tpu_torch.materials import (gather_v, tex_res_of, unpack_color,
+                                     unpack_mr)
 from spt_tpu_torch.ops import intersect as isect
 from spt_tpu_torch.ops import rng as rng_ops
 from spt_tpu_torch.ops import sampling
@@ -137,6 +138,49 @@ def shade(
     return new_ps._replace(radiance=radiance)
 
 
+def _bilinear_setup(uvx, uvy, res: int):
+    """Wrap the uv (glTF REPEAT) and sample at texel centres
+    (transport.py:165-182).  Returns ((x0, x1, y0, y1) int32 texel
+    coordinates, (wx, wy) fractional weights)."""
+    fu = uvx - torch.floor(uvx)
+    fv = uvy - torch.floor(uvy)
+    sx = fu * float(res) - 0.5
+    sy = fv * float(res) - 0.5
+    x0 = torch.floor(sx).to(torch.int32)
+    y0 = torch.floor(sy).to(torch.int32)
+    wx = sx - x0.to(torch.float32)
+    wy = sy - y0.to(torch.float32)
+    x0w = torch.where(x0 < 0, x0 + res, x0)
+    y0w = torch.where(y0 < 0, y0 + res, y0)
+    x1 = torch.where(x0 + 1 >= res, 0, x0 + 1)
+    y1 = torch.where(y0 + 1 >= res, 0, y0 + 1)
+    return (x0w, x1, y0w, y1), (wx, wy)
+
+
+def sample_texture_v(textures, tex_id, uvx, uvy):
+    """Bilinear sample of the packed table (n_tex, res^2, 2) int32
+    (transport.py:185-222): four taps, each one row of the table, texel
+    (ty, tx) at row ty * res + tx.  Returns (rgb Vec3, roughness_mult,
+    metallic_mult); lanes with tex_id < 0 return all-1 multipliers.  The
+    plain version of the texture sampler the kernels inline (K6)."""
+    res = tex_res_of(textures)
+    (x0, x1, y0, y1), (wx, wy) = _bilinear_setup(uvx, uvy, res)
+    tid = torch.clamp(tex_id, min=0).to(torch.int64)
+    flat_tab = textures.reshape(-1, 2)
+    acc = [torch.zeros_like(uvx) for _ in range(5)]
+    for xi, wxi in ((x0, 1.0 - wx), (x1, wx)):
+        for yi, wyi in ((y0, 1.0 - wy), (y1, wy)):
+            texel = flat_tab[tid * (res * res) + (yi * res + xi).to(torch.int64)]
+            w = wxi * wyi
+            r, g, b = unpack_color(texel[:, 0])
+            ro, me = unpack_mr(texel[:, 1])
+            for i, v in enumerate((r, g, b, ro, me)):
+                acc[i] = acc[i] + w * v
+    has = tex_id >= 0
+    vals = [torch.where(has, a, 1.0) for a in acc]
+    return Vec3(vals[0], vals[1], vals[2]), vals[3], vals[4]
+
+
 def shade_core(
     cfg: RenderConfig,
     scene: DeviceScene,
@@ -162,6 +206,17 @@ def shade_core(
 
     # --- surface setup --------------------------------------------------------
     mat = gather_v(scene.materials, hit.mat_id)
+    if scene.textures is not None and hit.uvx is not None:
+        # miss lanes sample nothing (tex_id -1); the texture channels
+        # multiply the material factors (transport.py:257-273)
+        tex_rgb, tex_rough, tex_metal = sample_texture_v(
+            scene.textures, torch.where(hit.hit_mask, mat.tex_id, -1),
+            hit.uvx, hit.uvy)
+        mat = mat._replace(
+            base_color=mat.base_color * tex_rgb,
+            roughness=torch.clamp(mat.roughness * tex_rough, 0.01, 1.0),
+            metallic=torch.clamp(mat.metallic * tex_metal, 0.0, 1.0),
+        )
     up = Vec3.full((0.0, 1.0, 0.0), shape, device)
     ng = v3.normalize_or(hit.normal, up)
     n, entering = v3.faceforward(ng, ps.direction)

@@ -8,7 +8,7 @@ after the loop replaces one per bounce.
 
 - Small scenes and mesh scenes whose lane count cannot be sorted: the whole
   loop in ``cuda_bounce.fused_frame``.
-- Mesh scenes (a cluster accel) at a sortable lane count
+- Mesh scenes (a cluster accel, instanced or not) at a sortable lane count
   (``_ray_sort_ok``, after the JAX package's dead-lane padding):
   ``_fused_mesh_sorted_frame`` — fused_bounce, chunked coherence sorts,
   condense, fused_frame from bounce ``ray_sort_stages``, un-condense,
@@ -357,10 +357,10 @@ def render_wavefront_regen(
     sample; the sample set and its RNG streams are those of
     render_wavefront.  Every iteration traces through
     ``transport.trace_bounce`` and ``transport.shade`` — on a mesh scene
-    the standalone cluster tracer (``ops/cuda_trace``), with no fused
-    kernels and no coherence sorts.  One host read per iteration decides
+    the standalone cluster or instanced tracer (``ops/cuda_trace``), with
+    no fused kernels and no coherence sorts.  One host read per iteration decides
     whether any lane is left."""
-    if scene.accel is not None:
+    if scene.accel is not None or scene.inst is not None:
         warnings.warn(
             "integrator 'regen' traces mesh scenes without the fused kernels "
             "or the coherence sorts: expect several times the 'masked' "

@@ -19,7 +19,7 @@ from spt_tpu_torch.env import Environment
 from spt_tpu_torch.integrators.transport import PathState
 from spt_tpu_torch.lights import DeviceLights
 from spt_tpu_torch.materials import DeviceMaterials
-from spt_tpu_torch.ops.bvh import MeshAccel
+from spt_tpu_torch.ops.bvh import InstAccel, MeshAccel
 from spt_tpu_torch.ops.vec3 import Vec3
 from spt_tpu_torch.scene.flatten import DeviceScene, EmitterTable
 
@@ -45,13 +45,25 @@ def accel(src, device) -> MeshAccel:
                         for f in MeshAccel._fields})
 
 
+def inst_accel(src, device) -> InstAccel:
+    """The JAX package's ``InstAccel``, converted array by array."""
+    ints = ("blas_okey", "inst_okey")
+    return InstAccel(**{f: (_i32 if f in ints else _f32)(getattr(src, f), device)
+                        for f in InstAccel._fields})
+
+
+def textures(src, device) -> torch.Tensor:
+    """The JAX package's tiled texture table (n_tex, res^2/1024, 2, 8, 128)
+    as the port's (n_tex, res^2, 2): texel (q, r, c) of a tile pair goes to
+    row q * 1024 + r * 128 + c."""
+    t = np.asarray(src, np.int32)
+    return torch.as_tensor(np.ascontiguousarray(
+        t.transpose(0, 1, 3, 4, 2).reshape(t.shape[0], -1, 2)), device=device)
+
+
 def scene(src, device) -> DeviceScene:
-    """A ``DeviceScene``, with its cluster accel when the JAX scene has one.
-    Raises NotImplementedError for an instanced TLAS/BLAS or textures."""
-    for field in ("inst", "textures"):
-        if getattr(src, field, None) is not None:
-            raise NotImplementedError(f"scene.{field} belongs to a tier of "
-                                      "the mesh path that is not ported yet")
+    """A ``DeviceScene``, with its cluster accel, instanced TLAS/BLAS,
+    texture coordinates and texture table where the JAX scene has them."""
     m = src.materials
     mats = DeviceMaterials(
         base_color=_f32(m.base_color, device),
@@ -81,6 +93,12 @@ def scene(src, device) -> DeviceScene:
         tri_ns=None if tri_ns is None else _f32(tri_ns, device),
         accel=(None if getattr(src, "accel", None) is None
                else accel(src.accel, device)),
+        tri_uv=(None if getattr(src, "tri_uv", None) is None
+                else _f32(src.tri_uv, device)),
+        textures=(None if getattr(src, "textures", None) is None
+                  else textures(src.textures, device)),
+        inst=(None if getattr(src, "inst", None) is None
+              else inst_accel(src.inst, device)),
     )
 
 

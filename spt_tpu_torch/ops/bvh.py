@@ -11,9 +11,11 @@ in one dense row per triangle for the tracers
 
 The build is the JAX package's numpy fallback; its native builder
 (``native/spt_native.cpp``) produces bit-identical tables, so both packages
-trace the same clusters.  Not ported: the instanced TLAS/BLAS
-(``InstAccel``), the streaming table beyond ``MAX_RESIDENT_TRIS`` (built
-here only as the 1-row dummy), and the ``SPT_CLUSTER=morton`` build.
+trace the same clusters.  ``build_inst_accel`` builds the instanced
+TLAS/BLAS pair (``InstAccel``) over the same per-mesh cluster tables.  Not
+ported: the streaming table beyond ``MAX_RESIDENT_TRIS`` (built here only
+as the 1-row dummy: the stream tier is not ported) and the
+``SPT_CLUSTER=morton`` build.
 """
 
 from __future__ import annotations
@@ -241,11 +243,6 @@ def build_mesh_accel(v0, e1, e2, mat, cluster_size: int = 64, uv=None,
     sup_hi = cl_hi.reshape(g_total, SUPER_FAN, 3).max(1).astype(np.float32)
     sup_okey = _octant_keys(sup_lo, sup_hi)
 
-    if c_total * cluster_size > MAX_RESIDENT_TRIS:
-        raise NotImplementedError(
-            f"{c_total * cluster_size} accel triangles > MAX_RESIDENT_TRIS="
-            f"{MAX_RESIDENT_TRIS}: the streaming tier is not ported yet")
-
     def t_(a):
         return torch.as_tensor(np.ascontiguousarray(a), device=device)
 
@@ -257,4 +254,128 @@ def build_mesh_accel(v0, e1, e2, mat, cluster_size: int = 64, uv=None,
         sup_lo=t_(sup_lo), sup_hi=t_(sup_hi),
         sup_okey=t_(sup_okey.reshape(8, g_total, 1)),
         tri_stream=t_(np.zeros((1, 1, 128), np.float32)),
+    )
+
+
+class InstAccel(NamedTuple):
+    """Two-level instanced acceleration: a TLAS of instance boxes over
+    shared per-mesh BLAS cluster tables (spt_tpu.ops.bvh.InstAccel, every
+    array as the JAX package builds it).  Rays transform into each crossed
+    instance's object space (directions unnormalized, so t stays world t)
+    and walk that mesh's clusters."""
+
+    blas_lo: torch.Tensor    # (M, CMAX, 3) object-space cluster boxes
+    blas_hi: torch.Tensor    # (M, CMAX, 3); padding clusters inverted
+    # (8*M, CMAX, 1) int32 (rank << 16) | local cluster id, row
+    # octant * M + mesh; the ranks of a trimmed BLAS need not be 0..CMAX-1
+    blas_okey: torch.Tensor
+    tri_pack: torch.Tensor   # (M*CMAX, K, 24 | PACK_NS) object space
+    inst_lo: torch.Tensor    # (I, 3) world-space instance boxes
+    inst_hi: torch.Tensor    # (I, 3)
+    inst_okey: torch.Tensor  # (8, I, 1) int32 (rank << 16) | instance id
+    # (I, 16) float32: [R_ofw row-major 0:9 | t_ofw 9:12 | mesh 12 |
+    # material override or -1 13 | sign(det) 14 | 0 15]
+    inst: torch.Tensor
+
+    @property
+    def num_instances(self) -> int:
+        return self.inst.shape[0]
+
+    @property
+    def num_meshes(self) -> int:
+        return self.blas_lo.shape[0]
+
+    @property
+    def cmax(self) -> int:
+        return self.blas_lo.shape[1]
+
+    @property
+    def cluster_size(self) -> int:
+        return self.tri_pack.shape[1]
+
+
+def build_inst_accel(meshes, instances, cluster_size: int = 64,
+                     device="cpu") -> InstAccel:
+    """The TLAS/BLAS pair from object-space meshes and transforms
+    (spt_tpu/ops/bvh.py:234-345).
+
+    `meshes`: (v0, e1, e2, mat, uv[, ns]) object-space arrays per mesh (uv
+    (T, 6) or None, ns (T, 9) or None); `instances`: (mesh index,
+    world_from_object (4, 4), material override or -1).  Each BLAS is
+    trimmed to its real clusters and padded to CMAX with inverted boxes;
+    instance boxes are the object box through the affine map by interval
+    arithmetic.  Raises ValueError for a singular transform or more than
+    16384 instances (the caller then declines to the flattened path)."""
+    meshes = [m if len(m) >= 6 else tuple(m) + (None,) for m in meshes]
+    any_ns = any(m[5] is not None for m in meshes)
+    blas = [build_mesh_accel(
+        v0, e1, e2, mat, cluster_size=cluster_size, uv=uv,
+        ns=(ns if ns is not None
+            else (np.zeros((v0.shape[0], 9), np.float32) if any_ns
+                  else None)))
+            for (v0, e1, e2, mat, uv, ns) in meshes]
+    real_c = [-(-m[0].shape[0] // cluster_size) for m in meshes]
+    cmax = max(real_c)
+    k = cluster_size
+    m_count = len(blas)
+
+    lo = np.full((m_count, cmax, 3), 1e30, np.float32)
+    hi = np.full((m_count, cmax, 3), -1e30, np.float32)
+    okey = np.zeros((8, m_count, cmax), np.int32)
+    pack_w = PACK_NS if any_ns else 24
+    pack = np.zeros((m_count * cmax, k, pack_w), np.float32)
+    obj_lo = np.zeros((m_count, 3), np.float32)
+    obj_hi = np.zeros((m_count, 3), np.float32)
+    pad_ids = np.arange(cmax, dtype=np.int32)
+    for mi, b in enumerate(blas):
+        c = real_c[mi]
+        lo[mi, :c] = b.cluster_lo.numpy()[:c]
+        hi[mi, :c] = b.cluster_hi.numpy()[:c]
+        okey[:, mi, :] = (pad_ids << 16) | pad_ids
+        okey[:, mi, :c] = b.cl_okey.numpy().reshape(8, -1)[:, :c]
+        pack[mi * cmax:mi * cmax + c] = b.tri_pack.numpy()[:c]
+        valid = lo[mi, :, 0] <= hi[mi, :, 0]
+        if valid.any():
+            obj_lo[mi] = lo[mi, valid].min(0)
+            obj_hi[mi] = hi[mi, valid].max(0)
+
+    i_count = len(instances)
+    if i_count > (1 << 14):
+        raise ValueError(f"{i_count} instances overflow the 16-bit id / "
+                         "15-bit rank packing")
+    inst_lo = np.zeros((i_count, 3), np.float32)
+    inst_hi = np.zeros((i_count, 3), np.float32)
+    inst = np.zeros((i_count, 16), np.float32)
+    for ii, (mesh_idx, xf, mat_ov) in enumerate(instances):
+        xf = np.asarray(xf, np.float64).reshape(4, 4)
+        det = np.linalg.det(xf[:3, :3])
+        if abs(det) < 1e-12:
+            raise ValueError(f"instance {ii}: singular world_from_object "
+                             "(det ~ 0)")
+        ofw = np.linalg.inv(xf)
+        inst[ii, 0:9] = ofw[:3, :3].reshape(9)
+        inst[ii, 9:12] = ofw[:3, 3]
+        inst[ii, 12] = mesh_idx
+        inst[ii, 13] = mat_ov
+        inst[ii, 14] = 1.0 if det > 0 else -1.0
+        r_wfo = xf[:3, :3]
+        t_wfo = xf[:3, 3]
+        a = r_wfo * obj_lo[mesh_idx][None, :]
+        b2 = r_wfo * obj_hi[mesh_idx][None, :]
+        inst_lo[ii] = (t_wfo + np.minimum(a, b2).sum(1)).astype(np.float32)
+        inst_hi[ii] = (t_wfo + np.maximum(a, b2).sum(1)).astype(np.float32)
+
+    # instance boxes are never inverted: the cluster keys' ranking applies
+    inst_okey = _octant_keys(inst_lo, inst_hi)
+
+    def t_(a):
+        return torch.as_tensor(np.ascontiguousarray(a), device=device)
+
+    return InstAccel(
+        blas_lo=t_(lo), blas_hi=t_(hi),
+        blas_okey=t_(okey.reshape(8 * m_count, cmax, 1)),
+        tri_pack=t_(pack),
+        inst_lo=t_(inst_lo), inst_hi=t_(inst_hi),
+        inst_okey=t_(inst_okey.reshape(8, i_count, 1)),
+        inst=t_(inst),
     )

@@ -1,13 +1,17 @@
 """The wavefront kernels for Hopper: ``fused_frame`` and ``fused_bounce``.
 
 The counterparts of ``spt_tpu.ops.pallas_bounce.fused_frame`` (K1) and
-``fused_bounce`` (K3) in two accel modes (``_accel_mode``): None, the small
-scenes of at most ``MAX_PRIMS`` primitives traced by brute force, and
-"resident", mesh scenes whose cluster accel (``ops/bvh``) holds at most
-``MAX_ACCEL_TRIS`` triangles, traced by the cluster tracer.
-``fused_frame`` runs bounces [start_bounce, max_depth) of one sample and
-returns what the deferred environment term needs; ``fused_bounce`` runs one
-bounce and returns the new path state and the missed mask.
+``fused_bounce`` (K3) in three accel modes (``_accel_mode``, as
+pallas_bounce._accel_mode :161-182): None, the small scenes of at most
+``MAX_PRIMS`` primitives traced by brute force; "resident", mesh scenes
+whose cluster accel (``ops/bvh``) holds at most ``MAX_ACCEL_TRIS``
+triangles, traced by the cluster tracer; "instanced", scenes with an
+instanced TLAS/BLAS pair (``ops/bvh.InstAccel``), traced by the instanced
+tracer.  Every mode samples the scene's texture table in-kernel (K6) when
+it has one.  ``fused_frame`` runs bounces [start_bounce, max_depth) of one
+sample and returns what the deferred environment term needs;
+``fused_bounce`` runs one bounce and returns the new path state and the
+missed mask.
 
 - On a CUDA tensor each launches its hand-written kernel
   (``csrc/fused_frame.cu``, ``csrc/fused_bounce.cu``, built by
@@ -15,7 +19,8 @@ bounce and returns the new path state and the missed mask.
 - On a CPU tensor each runs its plain PyTorch version
   (``fused_frame_reference``, ``fused_bounce_reference``:
   ``transport.trace_bounce`` + ``transport.shade_core``, tracing through the
-  plain versions of the tracers).  Nothing on the CUDA path calls them;
+  plain versions of the tracers and sampling through
+  ``transport.sample_texture_v``).  Nothing on the CUDA path calls them;
   tests and ``chip_smoke.py`` hold the kernels against them.
 
 ``LAUNCHES`` counts fused_frame launches and ``BOUNCE_LAUNCHES``
@@ -30,7 +35,8 @@ import torch
 from spt_tpu_torch.config import RenderConfig
 from spt_tpu_torch.integrators import transport
 from spt_tpu_torch.lights import DeviceLights
-from spt_tpu_torch.ops import cuda_lib
+from spt_tpu_torch.materials import tex_res_of
+from spt_tpu_torch.ops import cuda_lib, cuda_trace
 from spt_tpu_torch.ops.vec3 import Vec3
 from spt_tpu_torch.scene.flatten import MAX_ACCEL_SPHERES, DeviceScene
 
@@ -50,27 +56,32 @@ MAX_TABLE_BYTES = 48 * 1024
 MAX_RESIDENT_TABLE_BYTES = 227 * 1024
 
 # Words per table row, as the k*Words constants in csrc/spt_common.cuh.
-_TRI, _SPH, _MAT, _LIGHT, _EMIT, _NS, _BOX, _OKEY = 10, 5, 11, 11, 13, 9, 6, 8
+_TRI, _SPH, _MAT, _LIGHT, _EMIT, _NS, _UV, _BOX, _OKEY = (10, 5, 12, 11, 13,
+                                                          9, 6, 6, 8)
 
 # RenderConfig toggles, as the k* flag bits in csrc/spt_common.cuh.
 _NEE, _SHADOW_RAYS, _METAL_VNDF, _METAL_MIRROR = 1, 2, 4, 8
 _CPU_TRANSPARENCY, _NORMAL_VIS, _DIRECT_DIELECTRIC, _HAS_NS = 16, 32, 64, 128
+_TEXTURED = 256
 
 
 def _accel_mode(scene: DeviceScene):
-    """None (small scene, brute force) or "resident" (cluster tracer over
-    the accel), as pallas_bounce._accel_mode (:161-182).  The instanced and
-    stream tiers are not ported: such a scene raises."""
+    """None (small scene, brute force), "resident" (cluster tracer over the
+    accel) or "instanced" (the TLAS/BLAS tracer over scene.inst), as
+    pallas_bounce._accel_mode (:161-182).  The stream tier is not ported:
+    such a scene raises."""
     if scene.num_triangles + scene.num_spheres <= MAX_PRIMS:
         return None
+    if scene.num_spheres > MAX_ACCEL_SPHERES:
+        raise NotImplementedError(f"{scene.num_spheres} spheres > "
+                                  f"MAX_ACCEL_SPHERES={MAX_ACCEL_SPHERES}")
+    if scene.inst is not None:
+        return "instanced"
     a = scene.accel
     if a is None:
         raise NotImplementedError(
             f"{scene.num_triangles + scene.num_spheres} primitives > "
             f"MAX_PRIMS={MAX_PRIMS} and no cluster accel built")
-    if scene.num_spheres > MAX_ACCEL_SPHERES:
-        raise NotImplementedError(f"{scene.num_spheres} spheres > "
-                                  f"MAX_ACCEL_SPHERES={MAX_ACCEL_SPHERES}")
     if a.num_clusters * a.cluster_size > MAX_ACCEL_TRIS:
         raise NotImplementedError(
             f"{a.num_clusters * a.cluster_size} accel triangles > "
@@ -78,20 +89,39 @@ def _accel_mode(scene: DeviceScene):
     return "resident"
 
 
+def _clusters(scene: DeviceScene, mode) -> int:
+    """Cluster boxes in the kernels' tables: the accel's, or every BLAS's."""
+    if mode == "resident":
+        return scene.accel.num_clusters
+    if mode == "instanced":
+        return scene.inst.num_meshes * scene.inst.cmax
+    return 0
+
+
 def _table_words(scene: DeviceScene, lights: DeviceLights, nee_on: bool,
                  mode=None) -> int:
     e = scene.emitters.count if nee_on else 0
     words = (scene.num_spheres * _SPH + scene.materials.count * _MAT
-             + lights.count * _LIGHT + e * _EMIT)
+             + lights.count * _LIGHT + e * _EMIT
+             + _clusters(scene, mode) * (_BOX + _OKEY))
+    if mode == "instanced":
+        return words + scene.inst.num_instances * cuda_trace.INST_WORDS
     if mode == "resident":
-        return words + scene.accel.num_clusters * (_BOX + _OKEY)
+        return words
     ns = scene.num_triangles if scene.tri_ns is not None else 0
-    return words + scene.num_triangles * _TRI + ns * _NS
+    uv = scene.num_triangles if scene.textures is not None else 0
+    return words + scene.num_triangles * _TRI + ns * _NS + uv * _UV
 
 
 def explain_decline(cfg: RenderConfig, scene: DeviceScene,
                     lights: DeviceLights):
-    """Why the kernels cannot take this workload, or None when they can."""
+    """Why the kernels cannot take this workload, or None when they can.
+
+    The JAX package's texture gates (pallas_bounce.py:222-228: a textured
+    scene needs an accel mode, and the packed table at most
+    MAX_TEX_TABLE_BYTES) bound the table in a TPU core's VMEM.  Here the
+    table stays in global memory and is read through L2, so neither
+    applies: textured scenes take every mode, small ones included."""
     reasons = []
     try:
         mode = _accel_mode(scene)
@@ -104,10 +134,9 @@ def explain_decline(cfg: RenderConfig, scene: DeviceScene,
     if nee_on and scene.emitters.count > MAX_EMITTERS:
         reasons.append(f"{scene.emitters.count} emitters > "
                        f"MAX_EMITTERS={MAX_EMITTERS}")
-    nbytes = 4 * _table_words(scene, lights, nee_on, mode)
-    if mode == "resident":
-        nbytes += 2 * 8 * scene.accel.num_clusters
-    cap = MAX_RESIDENT_TABLE_BYTES if mode == "resident" else MAX_TABLE_BYTES
+    nbytes = (4 * _table_words(scene, lights, nee_on, mode)
+              + 2 * 8 * _clusters(scene, mode))
+    cap = MAX_TABLE_BYTES if mode is None else MAX_RESIDENT_TABLE_BYTES
     if nbytes > cap:
         reasons.append(f"scene tables take {nbytes} B > {cap} B of shared "
                        "memory")
@@ -165,7 +194,7 @@ def _pack_tables(scene: DeviceScene, lights: DeviceLights, nee_on: bool,
         return t.to(torch.int32).contiguous().view(torch.float32).reshape(-1, 1)
 
     m = scene.materials
-    parts = [] if mode == "resident" else [
+    parts = [] if mode else [
         torch.cat([scene.tri_v0, scene.tri_e1, scene.tri_e2,
                    bits(scene.tri_mat)], 1)]
     parts += [
@@ -173,7 +202,7 @@ def _pack_tables(scene: DeviceScene, lights: DeviceLights, nee_on: bool,
                    bits(scene.sph_mat)], 1),
         torch.cat([m.base_color, col(m.metallic), col(m.roughness),
                    col(m.ior), bits(m.mat_type), m.emission,
-                   col(m.transparency)], 1),
+                   col(m.transparency), bits(m.tex_id)], 1),
         torch.cat([bits(lights.kind), lights.vec, lights.color,
                    col(lights.intensity), lights.attenuation], 1),
     ]
@@ -183,8 +212,17 @@ def _pack_tables(scene: DeviceScene, lights: DeviceLights, nee_on: bool,
     if mode == "resident":
         a = scene.accel
         parts += [torch.cat([a.cluster_lo, a.cluster_hi], 1), bits(a.cl_okey)]
-    elif scene.tri_ns is not None:
-        parts.append(scene.tri_ns)
+    elif mode == "instanced":
+        ia = scene.inst
+        parts += [torch.cat([ia.blas_lo, ia.blas_hi], 2),
+                  cuda_trace.inst_rows(ia),
+                  bits(cuda_trace.visit_keys(
+                      ia.blas_okey.reshape(8 * ia.num_meshes, ia.cmax)))]
+    else:
+        if scene.tri_ns is not None:
+            parts.append(scene.tri_ns)
+        if scene.textures is not None:
+            parts.append(scene.tri_uv)
     return torch.cat([p.reshape(-1) for p in parts]).contiguous()
 
 
@@ -198,7 +236,8 @@ def _flags(cfg: RenderConfig, scene: DeviceScene, nee_on: bool,
             | (_CPU_TRANSPARENCY if cfg.cpu_transparency else 0)
             | (_NORMAL_VIS if cfg.depth_term_normal_vis else 0)
             | (_DIRECT_DIELECTRIC if cfg.direct_light_dielectric else 0)
-            | (_HAS_NS if has_ns else 0))
+            | (_HAS_NS if has_ns else 0)
+            | (_TEXTURED if scene.textures is not None else 0))
 
 
 def _rng_bits(rng: torch.Tensor) -> torch.Tensor:
@@ -235,20 +274,27 @@ def _kernel_inputs(cfg: RenderConfig, scene: DeviceScene,
     ints = [_rng_bits(ps.rng), ps.alive.to(torch.int32),
             ps.emission_ok.to(torch.int32)]
     keep = planes + ints + [tables]
-    if mode == "resident":
-        a = scene.accel
-        pack = a.tri_pack.contiguous()
-        keep.append(pack)
-        accel = (pack.data_ptr(), pack.shape[-1], a.num_clusters,
-                 a.cluster_size)
-        n_tris = 0
-    else:
-        accel = (None, 0, 0, 0)
+    if mode is None:
+        accel = (None, 0, 0, 0, 0, 1)
         n_tris = scene.num_triangles
+    else:
+        src = scene.accel if mode == "resident" else scene.inst
+        pack = src.tri_pack.contiguous()
+        keep.append(pack)
+        inst = ((0, 1) if mode == "resident"
+                else (scene.inst.num_instances, scene.inst.num_meshes))
+        accel = (pack.data_ptr(), pack.shape[-1], _clusters(scene, mode),
+                 src.cluster_size) + inst
+        n_tris = 0
+    tex = (None, 0)
+    if scene.textures is not None:
+        textures = scene.textures.contiguous()
+        keep.append(textures)
+        tex = (textures.data_ptr(), tex_res_of(textures))
     scene_args = (tables.data_ptr(), n_tris, scene.num_spheres,
                   scene.materials.count, lights.count,
                   scene.emitters.count if nee_on else 0,
-                  _flags(cfg, scene, nee_on, mode)) + accel
+                  _flags(cfg, scene, nee_on, mode)) + accel + tex
     return [t.data_ptr() for t in planes + ints], scene_args, keep
 
 

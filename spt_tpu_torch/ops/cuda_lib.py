@@ -20,8 +20,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = ("fused_frame.cu", "fused_bounce.cu", "cluster_trace.cu",
-           "sort_chunks.cu")
-HEADERS = ("spt_common.cuh", "spt_tracers.cuh")
+           "inst_trace.cu", "sort_chunks.cu")
+HEADERS = ("spt_common.cuh", "spt_tracers.cuh", "spt_trace_io.cuh")
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "spt_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
               "-Xcompiler", "-fPIC", "--fmad=false", "-Xptxas", "-v")
@@ -97,21 +97,27 @@ def build() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(lib_path))
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     # tables, n_tris, n_sphs, n_mats, n_lights, n_emit, flags, pack,
-    # pack_w, n_clusters, cluster_size
-    scene = [p, i, i, i, i, i, i, p, i, i, i]
+    # pack_w, n_clusters, cluster_size, n_inst, n_meshes, tex, tex_res
+    scene = [p, i, i, i, i, i, i, p, i, i, i, i, i, p, i]
     lib.spt_fused_frame.argtypes = [p] * 26 + scene + [i] * 4 + [f] * 3 + [p]
     lib.spt_fused_bounce.argtypes = [p] * 31 + scene + [i] * 4 + [f] * 3 + [p]
-    lib.spt_closest_hit.argtypes = [p] * 14 + [i, p, i, i, i, i, f, p]
-    lib.spt_any_hit.argtypes = [p] * 9 + [i, p, i, i, i, i, f, p]
+    # tables, n_sphs, pack, pack_w, n_clusters, cluster_size, n_inst,
+    # n_meshes, n, tmin, stream
+    trace = [i, p] + [i] * 6 + [f, p]
+    for fn in ("spt_closest_hit", "spt_inst_closest_hit"):
+        getattr(lib, fn).argtypes = [p] * 16 + trace
+    for fn in ("spt_any_hit", "spt_inst_any_hit"):
+        getattr(lib, fn).argtypes = [p] * 9 + trace
     lib.spt_sort_chunks.argtypes = [p] * 6 + [i, i, i, p]
     for fn in ("spt_fused_frame_kernel_info", "spt_fused_bounce_kernel_info",
-               "spt_trace_kernel_info"):
+               "spt_trace_kernel_info", "spt_inst_trace_kernel_info"):
         getattr(lib, fn).argtypes = [i, p, p]
     lib.spt_sort_kernel_info.argtypes = [p, p]
     for fn in ("spt_fused_frame", "spt_fused_bounce", "spt_closest_hit",
-               "spt_any_hit", "spt_sort_chunks", "spt_fused_frame_kernel_info",
+               "spt_any_hit", "spt_inst_closest_hit", "spt_inst_any_hit",
+               "spt_sort_chunks", "spt_fused_frame_kernel_info",
                "spt_fused_bounce_kernel_info", "spt_trace_kernel_info",
-               "spt_sort_kernel_info"):
+               "spt_inst_trace_kernel_info", "spt_sort_kernel_info"):
         getattr(lib, fn).restype = i
     lib.spt_cuda_error_string.argtypes = [i]
     lib.spt_cuda_error_string.restype = ctypes.c_char_p
@@ -139,10 +145,14 @@ def kernel_info() -> dict:
     for name, fn, args in (
             ("fused_frame", lib.spt_fused_frame_kernel_info, (0,)),
             ("fused_frame_resident", lib.spt_fused_frame_kernel_info, (1,)),
+            ("fused_frame_instanced", lib.spt_fused_frame_kernel_info, (2,)),
             ("fused_bounce", lib.spt_fused_bounce_kernel_info, (0,)),
             ("fused_bounce_resident", lib.spt_fused_bounce_kernel_info, (1,)),
+            ("fused_bounce_instanced", lib.spt_fused_bounce_kernel_info, (2,)),
             ("closest_hit", lib.spt_trace_kernel_info, (0,)),
             ("any_hit", lib.spt_trace_kernel_info, (1,)),
+            ("closest_hit_inst", lib.spt_inst_trace_kernel_info, (0,)),
+            ("any_hit_inst", lib.spt_inst_trace_kernel_info, (1,)),
             ("sort_chunks", lib.spt_sort_kernel_info, ())):
         regs, local = ctypes.c_int(0), ctypes.c_int(0)
         err = fn(*args, ctypes.addressof(regs), ctypes.addressof(local))

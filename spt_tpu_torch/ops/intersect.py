@@ -6,13 +6,19 @@
   lanes at a time, the winner carried with selects, triangles before
   spheres, and the strict ``t < best`` test, so ties resolve the same way as
   in the JAX package.
-- Above it the scene carries a cluster accel (``ops/bvh``).  On a CUDA
-  tensor the trace goes to the resident cluster tracer
-  (``ops/cuda_trace``, the counterpart of ``spt_tpu.ops.pallas_trace``); on
-  a CPU tensor, or with ``plain=True``, to ``_intersect_chunked`` /
-  ``_occluded_chunked`` (intersect.py:272,380): (N, chunk) broadcast tests
-  over the flat tables with a running minimum — the plain version of the
-  cluster tracer.  The two agree except on exact ties.
+- Above it the scene carries a cluster accel (``ops/bvh``), and the
+  module follows ``_trace_module`` (intersect.py:460-479):
+  - with an instanced TLAS/BLAS (``scene.inst``), the instanced tracer of
+    ``ops/cuda_trace`` (the counterpart of ``spt_tpu.ops.pallas_inst``) on
+    a CUDA tensor, its plain version on a CPU tensor or with ``plain=True``;
+  - else on a CUDA tensor the resident cluster tracer (``ops/cuda_trace``,
+    the counterpart of ``spt_tpu.ops.pallas_trace``); on a CPU tensor, or
+    with ``plain=True``, ``_intersect_chunked`` / ``_occluded_chunked``
+    (intersect.py:272,380): (N, chunk) broadcast tests over the flat tables
+    with a running minimum — the plain version of the cluster tracer.  The
+    two agree except on exact ties.
+- Textured scenes (``scene.tri_uv``) resolve the hit's interpolated texture
+  coordinates (``HitV.uvx`` / ``uvy``) on every route.
 
 Conventions (as the JAX package):
 - `t = INF` means miss;
@@ -50,6 +56,10 @@ class HitV(NamedTuple):
     normal: Vec3           # geometric or shading normal (not normalized)
     mat_id: torch.Tensor   # (N,) int32
     kind: torch.Tensor     # (N,) int32
+    # Interpolated texture coordinates at the hit; None when the scene is
+    # untextured.
+    uvx: torch.Tensor = None
+    uvy: torch.Tensor = None
 
     @property
     def hit_mask(self) -> torch.Tensor:
@@ -104,9 +114,14 @@ def intersect_v(scene, o: Vec3, d: Vec3, tmin=1e-4, tmax=INF,
     if scene.num_triangles + scene.num_spheres <= UNROLL_LIMIT:
         return _intersect_unrolled(scene, o, d, tmin, tmax)
     _check_accel(scene)
-    if o.x.device.type == "cuda" and not plain:
-        from spt_tpu_torch.ops import cuda_trace
+    from spt_tpu_torch.ops import cuda_trace
 
+    kernel = o.x.device.type == "cuda" and not plain
+    if scene.inst is not None:
+        fn = (cuda_trace.inst_closest_hit if kernel
+              else cuda_trace.inst_closest_hit_reference)
+        return fn(scene.inst, scene, o, d, tmin, tmax)
+    if kernel:
         return cuda_trace.closest_hit(scene.accel, scene, o, d, tmin, tmax)
     return _intersect_chunked(scene, o, d, tmin, tmax)
 
@@ -118,9 +133,14 @@ def occluded_v(scene, o: Vec3, d: Vec3, tmin=1e-4, tmax=INF,
     if scene.num_triangles + scene.num_spheres <= UNROLL_LIMIT:
         return _occluded_unrolled(scene, o, d, tmin, tmax)
     _check_accel(scene)
-    if o.x.device.type == "cuda" and not plain:
-        from spt_tpu_torch.ops import cuda_trace
+    from spt_tpu_torch.ops import cuda_trace
 
+    kernel = o.x.device.type == "cuda" and not plain
+    if scene.inst is not None:
+        fn = (cuda_trace.inst_any_hit if kernel
+              else cuda_trace.inst_any_hit_reference)
+        return fn(scene.inst, scene, o, d, tmin, tmax)
+    if kernel:
         return cuda_trace.any_hit(scene.accel, scene, o, d, tmin, tmax)
     return _occluded_chunked(scene, o, d, tmin, tmax)
 
@@ -140,6 +160,8 @@ def _intersect_unrolled(scene, o: Vec3, d: Vec3, tmin, tmax) -> HitV:
     # carry: triangle normal OR sphere center in (ax, ay, az); sphere 1/r
     ax = ay = az = rinv = zeros
     tri_ns = scene.tri_ns
+    textured = scene.tri_uv is not None
+    uvx = uvy = zeros
     for i in range(scene.num_triangles):
         ok, t, (nx, ny, nz), (bu, bv) = _tri_scalar_test(
             scene, i, o, d, tmin, tmax, best_t)
@@ -159,6 +181,11 @@ def _intersect_unrolled(scene, o: Vec3, d: Vec3, tmin, tmax) -> HitV:
         ax = torch.where(ok, nx, ax)
         ay = torch.where(ok, ny, ay)
         az = torch.where(ok, nz, az)
+        if textured:
+            # a sphere that wins later keeps this uv (intersect.py:173-176)
+            r = scene.tri_uv[i]
+            uvx = torch.where(ok, r[0] + bu * r[2] + bv * r[4], uvx)
+            uvy = torch.where(ok, r[1] + bu * r[3] + bv * r[5], uvy)
 
     for i in range(scene.num_spheres):
         ok, t, (cx, cy, cz, r) = _sph_scalar_test(scene, i, o, d, tmin, tmax, best_t)
@@ -181,7 +208,10 @@ def _intersect_unrolled(scene, o: Vec3, d: Vec3, tmin, tmax) -> HitV:
         torch.where(is_sph, (py - ay) * rinv, ay),
         torch.where(is_sph, (pz - az) * rinv, az),
     )
-    return HitV(t=best_t, normal=normal, mat_id=mat, kind=kind)
+    if not textured:
+        uvx = uvy = None
+    return HitV(t=best_t, normal=normal, mat_id=mat, kind=kind, uvx=uvx,
+                uvy=uvy)
 
 
 def _occluded_unrolled(scene, o: Vec3, d: Vec3, tmin, tmax) -> torch.Tensor:
@@ -316,9 +346,9 @@ def _intersect_chunked(scene, o: Vec3, d: Vec3, tmin, tmax,
     sph_mat = scene.sph_mat[si] if scene.num_spheres else zi
     mat = torch.where(is_tri, tri_mat, torch.where(is_sph, sph_mat, zi))
 
-    if scene.tri_ns is not None:
-        # the winner's barycentrics, re-evaluated; zero rows keep the
-        # geometric normal
+    uvx = uvy = None
+    if scene.tri_ns is not None or scene.tri_uv is not None:
+        # the winner's barycentrics, re-evaluated
         wv0 = scene.tri_v0[ti]
         hx = d.y * we2[:, 2] - d.z * we2[:, 1]
         hy = d.z * we2[:, 0] - d.x * we2[:, 2]
@@ -331,11 +361,20 @@ def _intersect_chunked(scene, o: Vec3, d: Vec3, tmin, tmax,
         qy = sz * we1[:, 0] - sx * we1[:, 2]
         qz = sx * we1[:, 1] - sy * we1[:, 0]
         bv = inv_a * (d.x * qx + d.y * qy + d.z * qz)
-        rn = scene.tri_ns[ti]
-        sn = [rn[:, k] + bu * rn[:, k + 3] + bv * rn[:, k + 6] for k in range(3)]
-        use = is_tri & (sn[0] * sn[0] + sn[1] * sn[1] + sn[2] * sn[2] > 1e-12)
-        normal = [torch.where(use, s, c) for s, c in zip(sn, normal)]
-    return HitV(t=best_t, normal=Vec3(*normal), mat_id=mat, kind=kind)
+        if scene.tri_uv is not None:
+            r = scene.tri_uv[ti]
+            uvx = torch.where(is_tri, r[:, 0] + bu * r[:, 2] + bv * r[:, 4], 0.0)
+            uvy = torch.where(is_tri, r[:, 1] + bu * r[:, 3] + bv * r[:, 5], 0.0)
+        if scene.tri_ns is not None:
+            # zero rows keep the geometric normal
+            rn = scene.tri_ns[ti]
+            sn = [rn[:, k] + bu * rn[:, k + 3] + bv * rn[:, k + 6]
+                  for k in range(3)]
+            use = is_tri & (sn[0] * sn[0] + sn[1] * sn[1] + sn[2] * sn[2]
+                            > 1e-12)
+            normal = [torch.where(use, s, c) for s, c in zip(sn, normal)]
+    return HitV(t=best_t, normal=Vec3(*normal), mat_id=mat, kind=kind,
+                uvx=uvx, uvy=uvy)
 
 
 def _occluded_chunked(scene, o: Vec3, d: Vec3, tmin, tmax,

@@ -5,14 +5,16 @@ into world-space triangles (EmbreeBackend.cpp:60-79), analytic spheres stay
 analytic, and emissive triangles form the NEE emitter table.  Material
 resolution order matches EmbreeBackend.cpp:51-57: instance override, then
 mesh material, then 0.  Above ``ACCEL_THRESHOLD`` primitives the cluster
-accel of ``ops/bvh`` is built, as ``spt_tpu.scene.flatten`` does.
+accel of ``ops/bvh`` is built over the flattened triangles, as
+``spt_tpu.scene.flatten`` does; when those exceed ``MAX_RESIDENT_TRIS`` but
+the unique meshes fit it, the instanced TLAS/BLAS pair is built beside it
+(``_maybe_build_inst``).  Textured materials get the packed texture table
+and the flattened triangles their texture coordinates.
 
-The port covers untextured scenes whose accel stays in the resident tier
-(at most ``MAX_RESIDENT_TRIS`` triangles, at most ``MAX_ACCEL_SPHERES``
-spheres beside them).  Scenes the JAX package would instance or stream, and
-textured ones, raise NotImplementedError naming the reason.  The JAX
-package's ``SPT_NS``, ``SPT_CLUSTER`` and ``SPT_CLUSTER_SIZE`` switches are
-not ported.
+Scenes the JAX package would trace through its HBM-streaming tier (K8,
+``spt_tpu/ops/pallas_stream.py``) raise NotImplementedError naming the
+reason.  The JAX package's ``SPT_NS``, ``SPT_CLUSTER``,
+``SPT_CLUSTER_SIZE`` and ``SPT_INSTANCED`` switches are not ported.
 """
 
 from __future__ import annotations
@@ -22,8 +24,10 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from spt_tpu_torch.materials import DeviceMaterials, build_device_materials
-from spt_tpu_torch.ops.bvh import (MAX_RESIDENT_TRIS, MeshAccel,
+from spt_tpu_torch.materials import (DeviceMaterials, build_device_materials,
+                                     build_texture_table)
+from spt_tpu_torch.ops import bvh
+from spt_tpu_torch.ops.bvh import (InstAccel, MeshAccel, build_inst_accel,
                                    build_mesh_accel, quantize_ns)
 from spt_tpu_torch.scene.desc import NO_MATERIAL, SceneDesc
 
@@ -67,6 +71,15 @@ class DeviceScene(NamedTuple):
     tri_ns: Optional[torch.Tensor] = None
     # Cluster accel (ops/bvh) above ACCEL_THRESHOLD primitives, else None.
     accel: Optional[MeshAccel] = None
+    # Per-triangle texture coordinates [uv0 | uv1-uv0 | uv2-uv0], (T, 6)
+    # float32; None when no material is textured.
+    tri_uv: Optional[torch.Tensor] = None
+    # Packed texture table (n_tex, res^2, 2) int32
+    # (materials.build_texture_table); None when untextured.
+    textures: Optional[torch.Tensor] = None
+    # Instanced TLAS/BLAS pair (ops/bvh.InstAccel) when the flattened
+    # triangles exceed MAX_RESIDENT_TRIS and the unique meshes fit it.
+    inst: Optional[InstAccel] = None
 
     @property
     def num_triangles(self) -> int:
@@ -92,24 +105,53 @@ def _valid_instances(desc: SceneDesc):
             and desc.meshes[i.mesh_id].is_valid()]
 
 
+def _inst_records(desc: SceneDesc):
+    """(mesh_id, world_from_object, material override or -1) per valid
+    instance, in scene order."""
+    return [(i.mesh_id, i.world_from_object,
+             int(i.material_id) if i.material_id != NO_MATERIAL else -1)
+            for i in _valid_instances(desc)]
+
+
+def _inst_declines(desc: SceneDesc, inst_records, total_tris: int,
+                   cluster_size: int) -> Optional[str]:
+    """Why the instanced TLAS/BLAS is not built, or None when it is
+    (spt_tpu/scene/flatten.py:300-379): the flattened triangles must exceed
+    MAX_RESIDENT_TRIS, with at least two instances, while the unique
+    meshes, each padded to the largest one's cluster count, fit it; a
+    singular transform or more than 16384 instances declines."""
+    if total_tris <= bvh.MAX_RESIDENT_TRIS:
+        return "the flattened triangles fit MAX_RESIDENT_TRIS"
+    if len(inst_records) < 2:
+        return "fewer than two instances"
+    mesh_ids = sorted({mid for mid, _, _ in inst_records})
+    cmax = max(-(-desc.meshes[mid].triangle_count // cluster_size)
+               for mid in mesh_ids)
+    if len(mesh_ids) * cmax * cluster_size > bvh.MAX_RESIDENT_TRIS:
+        return (f"{len(mesh_ids)} unique meshes x {cmax} clusters of "
+                f"{cluster_size} > MAX_RESIDENT_TRIS={bvh.MAX_RESIDENT_TRIS}")
+    if len(inst_records) > (1 << 14):
+        return f"{len(inst_records)} instances > 16384"
+    for _, xf, _ in inst_records:
+        if abs(np.linalg.det(np.asarray(xf, np.float64)[:3, :3])) < 1e-12:
+            return "a singular instance transform"
+    return None
+
+
 def explain_unsupported(desc: SceneDesc, cluster_size: int = 64) -> Optional[str]:
     """Why the port cannot flatten `desc` yet, or None when it can."""
     reasons = []
-    insts = _valid_instances(desc)
-    n_tris = sum(desc.meshes[i.mesh_id].triangle_count for i in insts)
+    recs = _inst_records(desc)
+    n_tris = sum(desc.meshes[mid].triangle_count for mid, _, _ in recs)
     if n_tris + len(desc.spheres) > ACCEL_THRESHOLD:
-        if n_tris > MAX_RESIDENT_TRIS:
-            # spt_tpu.scene.flatten._maybe_build_inst: instance when the
-            # unique meshes, each cluster-padded, fit the resident budget
-            mesh_ids = sorted({i.mesh_id for i in insts})
-            cmax = max(-(-desc.meshes[m].triangle_count // cluster_size)
-                       for m in mesh_ids)
-            tier = ("instanced TLAS/BLAS" if len(insts) >= 2 and
-                    len(mesh_ids) * cmax * cluster_size <= MAX_RESIDENT_TRIS
-                    else "stream tier")
-            reasons.append(
-                f"{n_tris} triangles > MAX_RESIDENT_TRIS={MAX_RESIDENT_TRIS}:"
-                f" the scene needs the {tier} of the mesh path")
+        if n_tris > bvh.MAX_RESIDENT_TRIS:
+            why = _inst_declines(desc, recs, n_tris, cluster_size)
+            if why is not None:
+                reasons.append(
+                    f"{n_tris} triangles > MAX_RESIDENT_TRIS="
+                    f"{bvh.MAX_RESIDENT_TRIS} and no instanced TLAS/BLAS "
+                    f"({why}): the scene needs the stream tier of the mesh "
+                    "path (K8, spt_tpu/ops/pallas_stream.py), not ported yet")
         if n_tris <= ACCEL_THRESHOLD:
             # the accel is built over triangles only
             reasons.append(f"{n_tris + len(desc.spheres)} primitives > "
@@ -118,12 +160,58 @@ def explain_unsupported(desc: SceneDesc, cluster_size: int = 64) -> Optional[str
         elif len(desc.spheres) > MAX_ACCEL_SPHERES:
             reasons.append(f"{len(desc.spheres)} spheres > MAX_ACCEL_SPHERES="
                            f"{MAX_ACCEL_SPHERES} beside the cluster accel")
-    if any(getattr(m, "base_color_texture", None) is not None
-           or getattr(m, "metallic_roughness_texture", None) is not None
-           for m in desc.materials):
-        reasons.append("textured materials need the packed texture table "
-                       "of the mesh path")
     return "; ".join(reasons) if reasons else None
+
+
+def _maybe_build_inst(desc: SceneDesc, inst_records, total_tris: int,
+                      cluster_size: int, device) -> Optional[InstAccel]:
+    """The TLAS/BLAS pair over the unique meshes in object space, or None
+    (spt_tpu/scene/flatten.py:300-379, with the same triviality drop of
+    object-space shading normals as the flat path)."""
+    if _inst_declines(desc, inst_records, total_tris, cluster_size):
+        return None
+    mesh_ids = sorted({mid for mid, _, _ in inst_records})
+    local = {mid: i for i, mid in enumerate(mesh_ids)}
+    meshes = []
+    for mid in mesh_ids:
+        mesh = desc.meshes[mid]
+        pos = mesh.positions
+        idx = mesh.indices.astype(np.int64)
+        mv0 = pos[idx[:, 0]].astype(np.float32)
+        e1 = (pos[idx[:, 1]] - pos[idx[:, 0]]).astype(np.float32)
+        e2 = (pos[idx[:, 2]] - pos[idx[:, 0]]).astype(np.float32)
+        blas_mat = mesh.material_id if mesh.material_id != NO_MATERIAL else 0
+        mat = np.full(idx.shape[0], blas_mat, np.int32)
+        uv = ns = None
+        if mesh.texcoords is not None and len(mesh.texcoords) == mesh.vertex_count:
+            tc = mesh.texcoords
+            uv0 = tc[idx[:, 0]]
+            uv = np.concatenate(
+                [uv0, tc[idx[:, 1]] - uv0, tc[idx[:, 2]] - uv0], axis=1
+            ).astype(np.float32)
+        if mesh.normals is not None and len(mesh.normals) == mesh.vertex_count:
+            # object-space shading normals; the tracer's finish applies the
+            # instance's inverse-transpose
+            nrm = mesh.normals.astype(np.float64)
+            nrm = nrm / np.maximum(
+                np.linalg.norm(nrm, axis=1, keepdims=True), 1e-20)
+            nrm = nrm.astype(np.float32)
+            n0 = nrm[idx[:, 0]]
+            ns = np.concatenate(
+                [n0, nrm[idx[:, 1]] - n0, nrm[idx[:, 2]] - n0], axis=1)
+            ng = np.cross(e1, e2)
+            ngl = np.linalg.norm(ng, axis=1, keepdims=True)
+            real = ngl[:, 0] > 1e-20
+            ngn = ng / np.maximum(ngl, 1e-20)
+            varying = np.abs(ns[:, 3:9]).max(axis=1) > 1e-6
+            off = np.abs(ns[:, 0:3] - ngn).max(axis=1) > 1e-3
+            if not (real & (varying | off)).any():
+                ns = None
+        meshes.append((mv0, e1, e2, mat, uv, ns))
+    instances = [(local[mid], xf, mat_ov) for mid, xf, mat_ov in inst_records]
+    # _inst_declines has ruled out what build_inst_accel refuses
+    return build_inst_accel(meshes, instances, cluster_size=cluster_size,
+                            device=device)
 
 
 def flatten_scene(desc: SceneDesc, device="cuda",
@@ -136,6 +224,7 @@ def flatten_scene(desc: SceneDesc, device="cuda",
                                   f"yet: {reason}")
     v0s, v1s, v2s, tri_mats, tri_uvs, tri_nss = [], [], [], [], [], []
     has_ns = False
+    inst_records = _inst_records(desc)
     for inst in desc.instances:
         if inst.mesh_id >= len(desc.meshes):
             continue
@@ -154,8 +243,6 @@ def flatten_scene(desc: SceneDesc, device="cuda",
         v2s.append(world[idx[:, 2]])
         tri_mats.append(np.full(idx.shape[0], mat_id, np.int32))
         if mesh.texcoords is not None and len(mesh.texcoords) == mesh.vertex_count:
-            # [uv0 | uv1-uv0 | uv2-uv0]: only the accel's tri_pack carries
-            # them (untextured scenes never read them)
             tc = mesh.texcoords
             uv0 = tc[idx[:, 0]]
             tri_uvs.append(np.concatenate(
@@ -236,6 +323,9 @@ def flatten_scene(desc: SceneDesc, device="cuda",
         accel = build_mesh_accel(v0, v1 - v0, v2 - v0, tri_mat,
                                  cluster_size=cluster_size, uv=tri_uv,
                                  ns=tri_ns if has_ns else None, device=device)
+    inst = _maybe_build_inst(desc, inst_records, v0.shape[0], cluster_size,
+                             device)
+    _, textures = build_texture_table(desc.materials, device=device)
 
     return DeviceScene(
         tri_v0=t(v0),
@@ -249,4 +339,7 @@ def flatten_scene(desc: SceneDesc, device="cuda",
         emitters=emitters,
         tri_ns=t(tri_ns) if has_ns else None,
         accel=accel,
+        tri_uv=t(tri_uv) if textures is not None else None,
+        textures=textures,
+        inst=inst,
     )

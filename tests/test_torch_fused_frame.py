@@ -137,11 +137,12 @@ def test_pack_tables_layout():
     sph = buf[t * 10:t * 10 + s * 5].reshape(s, 5)
     assert torch.equal(sph[:, 3], scene.sph_radius)
     off = t * 10 + s * 5
-    mat = buf[off:off + m * 11].reshape(m, 11)
+    mat = buf[off:off + m * 12].reshape(m, 12)
     assert torch.equal(mat[:, 6].contiguous().view(torch.int32),
                        scene.materials.mat_type)
     assert torch.equal(mat[:, 7:10], scene.materials.emission)
-    off += m * 11
+    assert (mat[:, 11].contiguous().view(torch.int32) == -1).all()
+    off += m * 12
     lt = buf[off:off + 2 * 11].reshape(2, 11)
     assert lt[:, 0].contiguous().view(torch.int32).tolist() == [2, 0]
     assert lt[0, 7] == 4.0 and lt[0, 1:4].tolist() == [1.0, 2.0, 3.0]

@@ -3,7 +3,7 @@
 - On the CPU: each wrapper (closest_hit, any_hit, fused_bounce, the
   resident fused_frame, sort_chunks) runs its plain version and launches
   nothing; the resident tables have the layout the kernels read; the
-  tiers that are not ported raise, naming why.
+  stream tier, which is not ported, raises, naming why.
 - On a CUDA card (marker ``cuda``; skipped without one): each kernel against
   its plain version on the same tensors, on the procedural mesh scene of
   chip_smoke.py.  Gates: closest_hit kind and t (1e-4) and any_hit flags on
@@ -84,7 +84,7 @@ def test_resident_tables_layout():
                                                    "resident")
     s, m, n_l, c = (scene.num_spheres, scene.materials.count, lights.count,
                     a.num_clusters)
-    off = s * 5 + m * 11 + n_l * 11
+    off = s * 5 + m * 12 + n_l * 11
     assert torch.equal(buf[:s * 5].reshape(s, 5)[:, :3], scene.sph_center)
     boxes = buf[off:off + c * 6].reshape(c, 6)
     assert torch.equal(boxes[:, :3], a.cluster_lo)
@@ -105,13 +105,17 @@ def test_unported_tiers_raise(monkeypatch):
                                                             slices=80)))
     with pytest.raises(NotImplementedError, match="stream tier"):
         tscene.flatten_scene(big, CPU)
+    # two instances of one 6400-triangle mesh take the instanced tier now
     inst = tscene.SceneDesc()
     inst.add_material(tscene.Material())
     mid = inst.add_mesh(tscene.create_sphere_mesh(stacks=40, slices=80))
     inst.add_instance(mid)
     inst.add_instance(mid, tscene.desc.translate(np.eye(4, dtype=np.float32),
                                                  [2.0, 0.0, 0.0]))
-    with pytest.raises(NotImplementedError, match="instanced"):
+    assert cuda_bounce._accel_mode(tscene.flatten_scene(inst, CPU)) == "instanced"
+    inst.add_instance(inst.add_mesh(tscene.create_sphere_mesh(stacks=40,
+                                                              slices=80)))
+    with pytest.raises(NotImplementedError, match="stream tier"):
         tscene.flatten_scene(inst, CPU)
     balls = tscene.SceneDesc()
     balls.add_material(tscene.Material())

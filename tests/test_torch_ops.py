@@ -114,8 +114,9 @@ def test_shading_normals_quantized_like_jax():
 
 
 def test_scenes_beyond_the_slice_raise():
-    # a 512-triangle mesh now gets the resident cluster accel; past
-    # MAX_RESIDENT_TRIS the stream tier is not ported
+    # a 512-triangle mesh gets the resident cluster accel; past
+    # MAX_RESIDENT_TRIS without a shared BLAS the stream tier (K8) is not
+    # ported
     mesh = tscene.SceneDesc()
     mesh.add_material(tscene.Material())
     mesh.add_instance(mesh.add_mesh(tscene.create_sphere_mesh(stacks=16, slices=16)))
@@ -123,13 +124,30 @@ def test_scenes_beyond_the_slice_raise():
     big = tscene.SceneDesc()
     big.add_material(tscene.Material())
     big.add_instance(big.add_mesh(tscene.create_sphere_mesh(stacks=80, slices=80)))
-    with pytest.raises(NotImplementedError, match="accel|stream"):
+    with pytest.raises(NotImplementedError, match="stream tier.*K8"):
         tscene.flatten_scene(big, CPU)
+    # textured scenes flatten with the packed texture table
     tex = tscene.build_default_scene()
     tex.materials[0] = tscene.Material(
         base_color_texture=np.ones((4, 4, 3), np.float32))
-    with pytest.raises(NotImplementedError, match="texture"):
-        tscene.flatten_scene(tex, CPU)
+    ts = tscene.flatten_scene(tex, CPU)
+    assert ts.textures is not None and tuple(ts.textures.shape) == (1, 65536, 2)
+    assert ts.tri_uv is not None and int(ts.materials.tex_id[0]) == 0
+    # the instanced grid flattens onto the TLAS/BLAS pair
+    import chip_smoke
+    from spt_tpu_torch import materials as tmaterials
+    from spt_tpu_torch.scene import desc as tdesc
+
+    grid, _ = chip_smoke.inst_grid_scene(tscene, tmaterials, tdesc)
+    assert tscene.flatten_scene(grid, CPU).inst is not None
+    # three distinct meshes over the gate share no BLAS that fits
+    three = tscene.SceneDesc()
+    three.add_material(tscene.Material())
+    for k in range(3):
+        mid = three.add_mesh(tscene.create_sphere_mesh(stacks=48 + k, slices=64))
+        three.add_instance(mid)
+    with pytest.raises(NotImplementedError, match="stream tier.*K8"):
+        tscene.flatten_scene(three, CPU)
 
 
 def test_lights_match():

@@ -140,16 +140,18 @@ def test_port_imports_no_jax():
 
 
 @pytest.mark.parametrize("change", [
-    {"integrator": "compact"}, {"textured": True},
+    {"integrator": "compact"}, {"stream_tier": True},
     {"integrator": "megakernel"}, {"multi_device": True}])
 def test_unported_options_raise(change):
     cfg = tconfig.RenderConfig(width=16, height=8)
     if "integrator" in change:
         cfg = cfg.replace(integrator=change["integrator"])
     desc = tscene.build_default_scene()
-    if "textured" in change:
-        desc.materials[0] = tscene.Material(
-            base_color_texture=np.ones((4, 4, 3), np.float32))
+    if "stream_tier" in change:
+        # textured scenes render now; a single mesh past MAX_RESIDENT_TRIS
+        # needs the stream tier (K8), which is not ported
+        desc.add_instance(desc.add_mesh(tscene.create_sphere_mesh(
+            stacks=80, slices=80)))
     with pytest.raises(NotImplementedError):
         r = Renderer(desc, cfg, device=CPU,
                      multi_device=change.get("multi_device"))
