@@ -51,7 +51,30 @@ this file; exits non-zero (printing no result) without them.  Phases:
     with ``integrator="regen"`` on the grid (closest_hit_inst /
     any_hit_inst);
 13. grid images: the sorted kernel path against the unsorted one (8 frames)
-    and against the plain path (2 frames).
+    and against the plain path (2 frames);
+14. the stream-tier kernels vs their plain versions on the card, on the
+    baked grid (``unique_grid_scene``, 104 448 unique world triangles,
+    accel mode "stream") at 512x384, every returned plane per lane, at the
+    inputs recorded from one regen frame (closest_hit_stream /
+    any_hit_stream) and one sorted frame (fused_bounce and fused_frame
+    stream, textured), where their times and bounds are taken;
+15. the stream main path: ``Renderer.render_frames(8)`` on the baked grid
+    at 512x384 depth 4 through the sorted frame, launch counts reset before
+    and read after; ms/frame, Mrays/s, device busy and idle share, sorted
+    and unsorted;
+16. the stream tracer's standalone path: ``Renderer.render_frames(2)`` with
+    ``integrator="regen"`` on the baked grid;
+17. baked-grid images: the sorted kernel path against the unsorted one (8
+    frames) and against the plain path (1 frame);
+18. the stream tier at any size: the baked grid at 144 x 192 tessellation
+    (about 940k triangles, a tri_pack past the L2), the stream tracer per
+    launch at one regen frame's calls and against its plain version on
+    16 384 lanes;
+19. the equirect sampler (K2) on the hdr config at 1920x1080 depth 6 (its
+    map through the .hdr round trip) at the inputs of one frame of its main
+    path: kernel against plain on the lanes that need the term, 0 on the
+    others; device ms, bound, plain ms and ``grid_sample``'s time; the
+    poles and the u seam.
 
 PNGs go to ``build/chip_smoke/`` beside this file.  The line before the last
 lists the kernels; the last line is ``{"ok": true, "device": {...}}``.
@@ -229,6 +252,64 @@ def inst_grid_scene(scene_mod, materials_mod, desc_mod, stacks=48, slices=64,
     return d, cam
 
 
+def unique_grid_scene(scene_mod, materials_mod, desc_mod, stacks=48,
+                      slices=64, seed=0):
+    """The procedural stand-in of bench.py's stream config (the chair grid
+    baked to unique meshes, bench.py:119-134,
+    spt_tpu/scene/builder.py:167-217): inst_grid_scene with every instance
+    baked to a mesh of its own as builder.py:187-212 bakes them — positions
+    transformed, normals by the inverse-transpose and renormalized,
+    texture coordinates and material overrides kept — and one instance per
+    mesh.  At the default size 104 448 unique world triangles in 20 meshes:
+    no shared BLAS fits MAX_RESIDENT_TRIS, so both packages trace it in
+    accel mode "stream" (1632 clusters in 102 superclusters).  Takes the
+    scene, materials and scene.desc modules of either package.  Returns
+    (SceneDesc, camera keyword arguments without aspect_ratio), the camera
+    of inst_grid_scene."""
+    import numpy as np
+
+    src, cam = inst_grid_scene(scene_mod, materials_mod, desc_mod, stacks,
+                               slices, seed)
+    d = scene_mod.SceneDesc()
+    for m in src.materials:
+        d.add_material(m)
+    for inst in src.instances:
+        mesh = src.meshes[inst.mesh_id]
+        xf = inst.world_from_object
+        pos_h = np.concatenate(
+            [mesh.positions, np.ones((mesh.vertex_count, 1), np.float32)], 1)
+        world = (pos_h @ xf.T)[:, :3].astype(np.float32)
+        nrm = None
+        if mesh.normals is not None:
+            ofw = np.linalg.inv(np.asarray(xf, np.float64))[:3, :3]
+            nrm = mesh.normals.astype(np.float64) @ ofw
+            nrm /= np.maximum(np.linalg.norm(nrm, axis=1, keepdims=True),
+                              1e-20)
+            nrm = nrm.astype(np.float32)
+        mid = d.add_mesh(scene_mod.MeshData(
+            positions=world, indices=mesh.indices, normals=nrm,
+            texcoords=mesh.texcoords, material_id=mesh.material_id))
+        d.add_instance(mid, material_id=inst.material_id)
+    for sph in src.spheres:
+        d.add_sphere(sph.center, sph.radius, sph.material_id)
+    return d, cam
+
+
+def port_stream_scene(stacks=48, slices=64, **cfg_kw):
+    """(SceneDesc, RenderConfig, Camera) of the baked grid in the port at
+    MWxMH."""
+    from spt_tpu_torch import materials
+    from spt_tpu_torch import scene as tscene
+    from spt_tpu_torch.camera import Camera
+    from spt_tpu_torch.config import RenderConfig
+    from spt_tpu_torch.scene import desc as tdesc
+
+    desc, cam = unique_grid_scene(tscene, materials, tdesc, stacks, slices)
+    cfg = RenderConfig(width=MW, height=MH, spp=1, max_depth=MESH_DEPTH,
+                       **cfg_kw)
+    return desc, cfg, Camera(aspect_ratio=MW / MH, **cam)
+
+
 def port_inst_scene(stacks=48, slices=64, **cfg_kw):
     """(SceneDesc, RenderConfig, Camera) of the instanced grid in the port
     at MWxMH."""
@@ -259,13 +340,29 @@ def port_mesh_scene(stacks=32, slices=48, **cfg_kw):
     return desc, cfg, Camera(aspect_ratio=MW / MH, **cam)
 
 
+def hdr_file() -> str:
+    """The hdr config's map as bench.py:79-94 makes it: the 1024x2048
+    synthetic sun-sky written once as a Radiance .hdr file (here under
+    build/chip_smoke/ beside this file)."""
+    from spt_tpu_torch.env import synthetic_equirect
+    from spt_tpu_torch.io.hdr import write_hdr
+
+    path = os.path.join(HERE, "build", "chip_smoke", "sunsky_1024.hdr")
+    if not os.path.exists(path):
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        tmp = f"{path}.{os.getpid()}.tmp"
+        write_hdr(tmp, synthetic_equirect(1024))
+        os.replace(tmp, path)
+    return path
+
+
 def workload(name, width, height, dev):
     """(SceneDesc, RenderConfig, env, lights, Camera) of a BASELINE config
-    as the JAX package's bench.py builds it (the .hdr file round trip of its
-    hdr config is skipped: the map is used as generated)."""
+    as the JAX package's bench.py builds it (the hdr config's map through
+    the .hdr round trip: write_hdr -> load_environment)."""
     from spt_tpu_torch.camera import Camera, default_camera
     from spt_tpu_torch.config import RenderConfig
-    from spt_tpu_torch.env import make_hdr_environment, synthetic_equirect
+    from spt_tpu_torch.env import load_environment
     from spt_tpu_torch.lights import LightManager, default_lights
     from spt_tpu_torch.scene import (build_cornell_box_scene,
                                      build_default_scene,
@@ -284,7 +381,7 @@ def workload(name, width, height, dev):
         cfg = RenderConfig(width=width, height=height, spp=1, max_depth=6)
         cam = Camera(position=(0, 2.0, 6.0), target=(0, 1.0, 0.0),
                      fov_degrees=50.0, aspect_ratio=aspect)
-        env = make_hdr_environment(synthetic_equirect(1024), dev)
+        env = load_environment(hdr_file(), dev)
         return build_hdr_glass_scene(), cfg, env, lm.device(dev), cam
     cfg = RenderConfig(width=width, height=height, spp=1, max_depth=6)
     return (build_default_scene(), cfg, None, default_lights(dev),
@@ -311,11 +408,12 @@ def mesh_renderer(dev, **cfg_kw):
 def plain_path():
     """Route the wavefront's kernels to their plain PyTorch versions (which
     trace through the plain tracers themselves)."""
-    from spt_tpu_torch.ops import cuda_bounce, cuda_sort
+    from spt_tpu_torch.ops import cuda_bounce, cuda_env, cuda_sort
 
     swaps = [(cuda_bounce, "fused_frame", cuda_bounce.fused_frame_reference),
              (cuda_bounce, "fused_bounce", cuda_bounce.fused_bounce_reference),
-             (cuda_sort, "sort_chunks", cuda_sort.sort_chunks_reference)]
+             (cuda_sort, "sort_chunks", cuda_sort.sort_chunks_reference),
+             (cuda_env, "env_sample", cuda_env.env_sample_reference)]
     saved = [(m, name, getattr(m, name)) for m, name, _ in swaps]
     try:
         for m, name, ref in swaps:
@@ -328,17 +426,19 @@ def plain_path():
 
 def reset_counts():
     from spt_tpu_torch.integrators import wavefront
-    from spt_tpu_torch.ops import cuda_bounce, cuda_sort, cuda_trace
+    from spt_tpu_torch.ops import cuda_bounce, cuda_env, cuda_sort, cuda_trace
 
     cuda_bounce.LAUNCHES = cuda_bounce.BOUNCE_LAUNCHES = 0
     cuda_sort.LAUNCHES = 0
+    cuda_env.LAUNCHES = 0
     cuda_trace.CLOSEST_LAUNCHES = cuda_trace.ANY_LAUNCHES = 0
     cuda_trace.INST_CLOSEST_LAUNCHES = cuda_trace.INST_ANY_LAUNCHES = 0
+    cuda_trace.STREAM_CLOSEST_LAUNCHES = cuda_trace.STREAM_ANY_LAUNCHES = 0
     wavefront.SORTED_SAMPLES.clear()
 
 
 def read_counts() -> dict:
-    from spt_tpu_torch.ops import cuda_bounce, cuda_sort, cuda_trace
+    from spt_tpu_torch.ops import cuda_bounce, cuda_env, cuda_sort, cuda_trace
 
     return {"fused_frame": cuda_bounce.LAUNCHES,
             "fused_bounce": cuda_bounce.BOUNCE_LAUNCHES,
@@ -346,7 +446,10 @@ def read_counts() -> dict:
             "closest_hit": cuda_trace.CLOSEST_LAUNCHES,
             "any_hit": cuda_trace.ANY_LAUNCHES,
             "closest_hit_inst": cuda_trace.INST_CLOSEST_LAUNCHES,
-            "any_hit_inst": cuda_trace.INST_ANY_LAUNCHES}
+            "any_hit_inst": cuda_trace.INST_ANY_LAUNCHES,
+            "closest_hit_stream": cuda_trace.STREAM_CLOSEST_LAUNCHES,
+            "any_hit_stream": cuda_trace.STREAM_ANY_LAUNCHES,
+            "env_sample": cuda_env.LAUNCHES}
 
 
 # --- timing -------------------------------------------------------------------
@@ -400,6 +503,25 @@ def kernel_device_ms(torch, fn, kernel_name: str, iters: int = 10,
         raise AssertionError(f"profiler saw {count} launches of {kernel_name}"
                              f" in {iters} calls, {ms} ms of device time")
     return ms
+
+
+def queued_device_ms(torch, fn, iters: int = 20) -> float:
+    """Mean device ms per call of `fn`, for a call that launches one short
+    kernel and nothing else: the calls are queued behind a spin kernel, so
+    the CUDA events around them bracket device time only, not the host's
+    enqueue (the profiler's trace drops most launches of a kernel this
+    short)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(50_000_000)   # ~25 ms at the H100's ~2 GHz
+    t0.record()
+    for _ in range(iters):
+        fn()
+    t1.record()
+    torch.cuda.synchronize()
+    return t0.elapsed_time(t1) / iters
 
 
 def time_call(torch, fn, warmup: int, iters: int) -> float:
@@ -493,28 +615,35 @@ def phase_kernel_vs_plain(torch, cuda_bounce, dev, smi):
 
 def phase_main_path(torch, np, cuda_bounce, dev, out_dir):
     """Phase 2: the small-scene Renderer on the card; returns the launch
-    count."""
+    counts of fused_frame and of the environment sampler (on hdr, whose map
+    made the .hdr round trip)."""
+    from spt_tpu_torch.ops import cuda_env
+
     frames = 8
     renderers = {name: renderer(name, W, H, dev)
                  for name in ("default", "cornell", "hdr")}
     torch.cuda.synchronize()
     reset_counts()
     for name, r in renderers.items():
-        before = cuda_bounce.LAUNCHES
+        before, env_before = cuda_bounce.LAUNCHES, cuda_env.LAUNCHES
         r.render_frames(frames)
         torch.cuda.synchronize()
         grew = cuda_bounce.LAUNCHES - before
+        env_grew = cuda_env.LAUNCHES - env_before
         rays, path = check_image(np, r, name, out_dir, frames)
         log(f"phase 2 {name} {W}x{H} d{r.cfg.max_depth}: {frames} frames, "
-            f"LAUNCHES +{grew}, rays_per_bounce {rays.tolist()}, "
-            f"mean hdr {float(r.hdr_image().mean()):.6g}, png {path}")
+            f"LAUNCHES +{grew}, env_sample +{env_grew}, rays_per_bounce "
+            f"{rays.tolist()}, mean hdr {float(r.hdr_image().mean()):.6g}, "
+            f"png {path}")
         if grew != frames:
             raise AssertionError(f"{name}: LAUNCHES grew by {grew}, "
                                  f"expected {frames}")
+        if env_grew != (frames if name == "hdr" else 0):
+            raise AssertionError(f"{name}: env_sample grew by {env_grew}")
     counts = read_counts()
     if counts["fused_frame"] == 0:
         raise AssertionError("the main path launched no kernel")
-    return counts["fused_frame"]
+    return counts["fused_frame"], counts["env_sample"]
 
 
 def phase_image_vs_plain(torch, np, dev):
@@ -632,16 +761,38 @@ def lanes_off(torch, k, p):
     return off.any(-1) if off.dim() > 1 else off
 
 
+def ulps_apart(torch, k, p):
+    """(share of lanes not bit-equal, largest distance in float32 ulps over
+    the lanes where both are finite) of two float32 planes."""
+    k, p = k.reshape(k.shape[0], -1), p.reshape(p.shape[0], -1)
+    unequal = ~((k == p) | (torch.isnan(k) & torch.isnan(p))).all(-1)
+
+    def ordered(x):   # float32 bits as integers in the order of the values
+        i = x.contiguous().view(torch.int32).to(torch.int64)
+        return torch.where(i < 0, -(i & 0x7FFFFFFF), i)
+
+    fin = torch.isfinite(k) & torch.isfinite(p)
+    d = (ordered(k) - ordered(p)).abs()[fin]
+    return float(unequal.float().mean()), int(d.max()) if d.numel() else 0
+
+
 def check_planes(torch, what, planes: dict, phase: int = 5) -> float:
     """Hold every plane of a kernel's result against the plain version's;
-    fails when more than 0.1 % of the lanes differ in any one plane.
+    fails when more than 0.1 % of the lanes differ in any one plane (by
+    more than 1e-3 for floats).  Reports, per float plane, the share of
+    lanes that are not bit-equal and the largest distance in ulps.
     Returns the largest finite |kernel - plain| over the float and the
     boolean planes."""
     worst, report, bad = 0.0, [], []
     for name, (k, p) in planes.items():
         off = lanes_off(torch, k, p)
         frac = float(off.float().mean())
-        report.append(f"{name} {frac * 100:.4f} %")
+        if k.dtype == torch.float32:
+            neq, ulps = ulps_apart(torch, k, p)
+            report.append(f"{name} {frac * 100:.4f} % (not bit-equal "
+                          f"{neq * 100:.5f} %, max {ulps} ulp)")
+        else:
+            report.append(f"{name} {frac * 100:.4f} %")
         if k.dtype.is_floating_point:
             d = (k - p).abs()
             d = d[torch.isfinite(d)]
@@ -1457,6 +1608,501 @@ def phase_inst_images(torch, np, dev):
                                  "path")
 
 
+# --- stream phases (14-18) ----------------------------------------------------
+
+def stream_renderer(dev, stacks=48, slices=64, **cfg_kw):
+    from spt_tpu_torch.engine.renderer import Renderer
+
+    desc, cfg, cam = port_stream_scene(stacks, slices, **cfg_kw)
+    return Renderer(desc, cfg, camera=cam, device=dev)
+
+
+def _check_stream_scene(scene):
+    from spt_tpu_torch.ops import cuda_bounce
+
+    mode = cuda_bounce._accel_mode(scene)
+    if mode != "stream" or scene.inst is not None or scene.textures is None:
+        raise AssertionError(f"baked grid in accel mode {mode!r}, instanced "
+                             f"{scene.inst is not None}, textured "
+                             f"{scene.textures is not None}: expected "
+                             "'stream', not instanced, textured")
+
+
+def _stream_trace_ops(torch, scene, o, d, tmin, tmax, t_end, blocked=None):
+    """The operations the stream tracer needs on these rays, counted from
+    the plain version's result: every lane with a non-empty interval
+    slab-tests every real supercluster box (~24 flops) and every sphere
+    (~20); for each super its final bound min(tmax, t_end) still reaches it
+    slab-tests that super's real cluster boxes (~24 flops each), and for
+    each cluster box that bound reaches it runs the 64 Moller-Trumbore
+    tests (~40 flops each).  A blocked any-hit lane counts one test."""
+    from spt_tpu_torch.ops import cuda_trace as ct
+    from spt_tpu_torch.ops.vec3 import Vec3
+
+    a = scene.accel
+    n = o.x.shape[0]
+    tmax = torch.broadcast_to(torch.as_tensor(tmax, device=o.x.device,
+                                              dtype=torch.float32), (n,))
+    live = tmax > tmin
+    if blocked is not None:
+        live = live & ~blocked
+    bound = torch.minimum(tmax, t_end).clamp(max=1e30)
+    real_s = a.sup_lo[:, 0] <= a.sup_hi[:, 0]
+    real_c = (a.cluster_lo[:, 0] <= a.cluster_hi[:, 0]).reshape(-1, 16)
+    slo, shi = a.sup_lo[real_s], a.sup_hi[real_s]
+    per_super = real_c[real_s].sum(1).to(torch.float32)
+    ops = float(live.sum()) * (int(real_s.sum()) * 24 + scene.num_spheres * 20)
+    clo, chi = a.cluster_lo.reshape(-1, 16, 3), a.cluster_hi.reshape(-1, 16, 3)
+    for s0 in range(0, n, 16384):
+        sl = slice(s0, min(n, s0 + 16384))
+        oo = Vec3(*(c[sl] for c in o))
+        inv = Vec3(*(ct._inv_dir(c[sl]) for c in d))
+        b = bound[sl]
+        tn, tf = ct._slab(slo, shi, oo, inv, tmin, b)
+        opened = (tn <= tf) & live[sl][None]                      # (G', L)
+        ops += float((opened.to(torch.float32) * per_super[:, None]).sum()) * 24
+        cn, cf = ct._slab(clo[real_s].reshape(-1, 3), chi[real_s].reshape(-1, 3),
+                          oo, inv, tmin, b)
+        hit_c = ((cn <= cf).reshape(-1, 16, cn.shape[-1])
+                 & real_c[real_s][..., None] & opened[:, None, :])
+        ops += float(hit_c.sum()) * a.cluster_size * 40
+    if blocked is not None:
+        ops += 20.0 * int((blocked & (tmax > tmin)).sum())
+    return ops
+
+
+def _timed(torch, fn):
+    """(result, ms) of one call, CUDA events around it."""
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    t0.record()
+    out = fn()
+    t1.record()
+    torch.cuda.synchronize()
+    return out, t0.elapsed_time(t1)
+
+
+def phase_stream_kernels(torch, np, dev, smi):
+    """Phase 14: the stream-tier kernels (K8, K1/K3 stream, textured)
+    against their plain versions on the card, at the inputs recorded from
+    one regen frame (stream_closest_hit / stream_any_hit) and one sorted
+    frame (fused_bounce and fused_frame stream) of the baked grid, every
+    returned plane per lane, where their times and bounds are taken (the
+    plain time is that of the checking call).  Returns the kernel-line
+    numbers."""
+    from spt_tpu_torch.ops import cuda_bounce, cuda_sort, cuda_trace
+
+    out = {}
+    r = stream_renderer(dev, integrator="regen")
+    scene = r.scene
+    _check_stream_scene(scene)
+    a = scene.accel
+    pack_bytes = a.tri_pack.numel() * 4
+    log(f"phase 14 baked grid: {scene.num_triangles} unique world triangles,"
+        f" {a.num_clusters} clusters of {a.cluster_size} in "
+        f"{a.sup_lo.shape[0]} superclusters, tri_pack "
+        f"{tuple(a.tri_pack.shape)} ({pack_bytes / 1e6:.2f} MB), "
+        f"{scene.num_spheres} sphere, texture table "
+        f"{tuple(scene.textures.shape)}")
+    with capture_calls([(cuda_trace, "stream_closest_hit"),
+                        (cuda_trace, "stream_any_hit")]) as calls:
+        r.render_frames(1)
+        torch.cuda.synchronize()
+    for kname, kern, ref, kernel_name in (
+            ("closest_hit_stream", cuda_trace.stream_closest_hit,
+             cuda_trace.closest_hit_reference, "stream_trace_kernel<false>"),
+            ("any_hit_stream", cuda_trace.stream_any_hit,
+             cuda_trace.any_hit_reference, "stream_trace_kernel<true>")):
+        fn_name = ("stream_closest_hit" if kname == "closest_hit_stream"
+                   else "stream_any_hit")
+        mine = [(args, kw) for name, args, kw in calls if name == fn_name]
+        if not mine:
+            raise AssertionError(f"the regen frame made no {fn_name} call")
+        worst = nbytes = flops = plain_total = 0.0
+        for i, (args, kw) in enumerate(mine):
+            _, _, o, d, tmin, tmax = args
+            rays = o.x.shape[0]
+            pk = kern(*args, **kw)
+            pp, pms = _timed(torch, lambda: ref(*args, **kw))
+            plain_total += pms
+            if kname == "closest_hit_stream":
+                planes = _hit_planes(torch, pk, pp)
+                both = (pk.kind != 0) & (pp.kind != 0)
+                planes.update(uv=(torch.where(both[:, None], torch.stack(
+                    [pk.uvx, pk.uvy], -1), 0.0), torch.where(
+                    both[:, None], torch.stack([pp.uvx, pp.uvy], -1), 0.0)))
+                flops += _stream_trace_ops(torch, scene, o, d, tmin, tmax, pp.t)
+                nbytes += rays * (7 * 4 + 32)
+            else:
+                planes = {"blocked": (pk, pp)}
+                t_end = torch.as_tensor(tmax, device=o.x.device,
+                                        dtype=torch.float32)
+                flops += _stream_trace_ops(torch, scene, o, d, tmin, tmax,
+                                           t_end, blocked=pp)
+                nbytes += rays * (7 * 4 + 1)
+            worst = max(worst, check_planes(
+                torch, f"{kname} regen call {i + 1} of {len(mine)} ({rays} "
+                f"rays)", planes, phase=14))
+        ms = kernel_device_ms(torch, lambda: [kern(*a_, **k_) for a_, k_ in mine],
+                              kernel_name, iters=10, launches_per_call=len(mine))
+        plain_ms = plain_total / len(mine)
+        b = bound((nbytes + len(mine) * pack_bytes) / len(mine),
+                  flops / len(mine))
+        out[kname] = dict(max_abs_err=worst, ms=ms, plain_ms=plain_ms,
+                          bound=b, library_ms=None)
+        log(f"phase 14 {kname} at the regen frame's {len(mine)} calls: kernel "
+            f"{ms:.4f} ms per launch (device time), plain {plain_ms:.4f} ms, "
+            f"bound {b[0]:.4f} ms ({b[1]}; operations count the super boxes, "
+            f"the cluster boxes of the supers and the triangles of the "
+            f"clusters each lane's final bound reaches) [{smi}]")
+
+    # --- K3 and K1 stream (textured) at the sorted frame's inputs ---
+    r = stream_renderer(dev)
+    with capture_calls([(cuda_bounce, "fused_bounce"),
+                        (cuda_bounce, "fused_frame"),
+                        (cuda_sort, "sort_chunks")]) as calls:
+        r.render_frames(1)
+        torch.cuda.synchronize()
+    by_name = {name: [(args, kw) for nm, args, kw in calls if nm == name]
+               for name in ("fused_bounce", "fused_frame", "sort_chunks")}
+    log(f"phase 14 the stream sorted frame's calls: "
+        f"{ {k: len(v) for k, v in by_name.items()} }")
+    tex_bytes = scene.textures.numel() * 4
+    # each live lane slab-tests every super box and the sphere, at the least
+    per_ray = a.sup_lo.shape[0] * 24 + scene.num_spheres * 20
+    mine = by_name["fused_bounce"]
+    nbytes = flops = worst = plain_total = 0.0
+    for args, kw in mine:
+        bps, bounce = args[3], args[4]
+        ks, km = cuda_bounce.fused_bounce(*args, **kw)
+        (ps_, pm), pms = _timed(torch, lambda: cuda_bounce.fused_bounce_reference(
+            *args, **kw))
+        plain_total += pms
+        worst = max(worst, check_planes(
+            torch, f"fused_bounce stream bounce {bounce} ({bps.num_paths} "
+            f"lanes, {int(bps.alive.sum())} alive)",
+            _state_planes(torch, ks, km, ps_, pm), phase=14))
+        nbytes += (bps.num_paths * (15 * 4 + 12 * 4 + 8 + 3) + pack_bytes
+                   + tex_bytes)
+        flops += float(bps.alive.sum()) * per_ray
+    ms = kernel_device_ms(torch, lambda: [cuda_bounce.fused_bounce(*a_, **k_)
+                                          for a_, k_ in mine],
+                          "fused_bounce_kernel<3>", iters=10,
+                          launches_per_call=len(mine))
+    b = bound(nbytes / len(mine), flops / len(mine))
+    out["fused_bounce_stream"] = dict(max_abs_err=worst, ms=ms,
+                                      plain_ms=plain_total / len(mine),
+                                      bound=b, library_ms=None)
+    log(f"phase 14 fused_bounce stream at the sorted frame's {len(mine)} "
+        f"calls: kernel {ms:.4f} ms per launch (device time), plain "
+        f"{plain_total / len(mine):.4f} ms, bound {b[0]:.4f} ms ({b[1]}) "
+        f"[{smi}]")
+
+    mine = by_name["fused_frame"]
+    if len(mine) != 1:
+        raise AssertionError(f"the stream sorted frame called fused_frame "
+                             f"{len(mine)} times")
+    (args, kw), = mine
+    fps = args[3]
+    fk = cuda_bounce.fused_frame(*args, **kw)
+    fp, plain_ms = _timed(torch, lambda: cuda_bounce.fused_frame_reference(
+        *args, **kw))
+    rk, rp = fk[4].cpu().numpy(), fp[4].cpu().numpy()
+    if not np.array_equal(rk, rp):
+        raise AssertionError(f"fused_frame stream: rays_per_bounce kernel "
+                             f"{rk.tolist()} plain {rp.tolist()}")
+    worst = check_planes(
+        torch, f"fused_frame stream from bounce {kw.get('start_bounce')} "
+        f"({fps.num_paths} lanes, {int(fps.alive.sum())} alive); "
+        f"rays_per_bounce {rk.tolist()} (= plain)",
+        {"radiance": (_v(torch, fk[0]), _v(torch, fp[0])),
+         "direction": (_v(torch, fk[1]), _v(torch, fp[1])),
+         "throughput": (_v(torch, fk[2]), _v(torch, fp[2])),
+         "missed": (fk[3], fp[3])}, phase=14)
+    ms = kernel_device_ms(torch, lambda: cuda_bounce.fused_frame(*args, **kw),
+                          "fused_frame_kernel<3>")
+    b = bound(fps.num_paths * 26 * 4 + pack_bytes + tex_bytes,
+              float(rk.sum()) * per_ray)
+    out["fused_frame_stream"] = dict(max_abs_err=worst, ms=ms,
+                                     plain_ms=plain_ms, bound=b,
+                                     library_ms=None)
+    log(f"phase 14 fused_frame stream at the sorted frame's call: kernel "
+        f"{ms:.4f} ms (device time), plain {plain_ms:.4f} ms, bound "
+        f"{b[0]:.4f} ms ({b[1]}) [{smi}]")
+    for i, (args, kw) in enumerate(by_name["sort_chunks"]):
+        key, ops, chunk = args
+        sk, lane, so = cuda_sort.sort_chunks(key, ops, chunk)
+        rk_, _, _ = cuda_sort.sort_chunks_reference(key, ops, chunk)
+        ok = (torch.equal(sk, rk_) and torch.equal(sk, key[lane])
+              and all(torch.equal(x, y[lane]) for x, y in zip(so, ops)))
+        log(f"phase 14 sort_chunks stream-frame call {i + 1}: chunk {chunk} x "
+            f"{key.shape[0] // chunk}: keys equal to torch.sort's and "
+            f"payloads one permutation {ok}")
+        if not ok:
+            raise AssertionError("sort_chunks wrong on the stream frame")
+    return out
+
+
+def phase_stream_main_path(torch, np, dev, out_dir, smi):
+    """Phase 15: the baked grid's Renderer on the card, sorted (the main
+    path) and unsorted; returns the sorted run's launch counts."""
+    from spt_tpu_torch.bench import count_rays, shadow_rays_per_surface_lane
+    from spt_tpu_torch.integrators import wavefront
+
+    frames = 8
+    r = stream_renderer(dev)
+    _check_stream_scene(r.scene)
+    n_shadow = shadow_rays_per_surface_lane(r)
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    r.render_frames(frames)
+    t1.record()
+    torch.cuda.synchronize()
+    counts = read_counts()
+    branches = dict(wavefront.SORTED_SAMPLES)
+    ms = t0.elapsed_time(t1) / frames
+    rays, path = check_image(np, r, "stream_grid", out_dir, frames)
+    mrays = count_rays(r.last_stats, n_shadow) / frames / (ms * 1e-3) / 1e6
+    log(f"phase 15 baked grid {MW}x{MH} d{MESH_DEPTH}: {frames} frames, "
+        f"launches {counts}, sorted-frame branches {branches}, "
+        f"rays_per_bounce {rays.tolist()}, mean hdr "
+        f"{float(r.hdr_image().mean()):.6g}, png {path}")
+    for k in ("fused_frame", "fused_bounce", "sort_chunks"):
+        if counts[k] < 1:
+            raise AssertionError(f"the stream main path launched no {k}")
+    if sum(branches.values()) != frames:
+        raise AssertionError(f"the sorted frame ran {branches}")
+    busy, n_kernels = device_busy_ms(torch, lambda: r.render_frames(1))
+    log(f"phase 15 baked grid: {ms:.4f} ms/frame (CUDA events, {frames} "
+        f"frames), {mrays:.2f} Mrays/s; device busy {busy:.4f} ms/frame over "
+        f"{n_kernels:.1f} kernel launches (profiled), idle share "
+        f"{max(0.0, 1 - busy / ms) * 100:.1f} % [{smi}]")
+    names = {"fused_bounce": "fused_bounce_kernel<3>",
+             "fused_frame": "fused_frame_kernel<3>",
+             "sort_chunks": "sort_chunks_kernel"}
+    prof = profile_kernels(torch, lambda: r.render_frames(1),
+                           list(names.values()), iters=4)
+    log("phase 15 baked grid, device ms per launch (profiled): "
+        + ", ".join(f"{k} {prof[v][0]:.4f} ({prof[v][1]} seen)"
+                    for k, v in names.items()) + f" [{smi}]")
+    if min(c for _, c in prof.values()) < 1:
+        raise AssertionError(f"the profile of the stream path misses a "
+                             f"stream form: {prof}")
+    u = stream_renderer(dev, ray_sort=False)
+    u.render_frames(1)
+    torch.cuda.synchronize()
+    t0.record()
+    u.render_frames(frames)
+    t1.record()
+    torch.cuda.synchronize()
+    ms_u = t0.elapsed_time(t1) / frames
+    mrays_u = count_rays(u.last_stats, n_shadow) / frames / (ms_u * 1e-3) / 1e6
+    busy_u, n_u = device_busy_ms(torch, lambda: u.render_frames(1))
+    log(f"phase 15 baked grid unsorted (ray_sort=False): {ms_u:.4f} "
+        f"ms/frame, {mrays_u:.2f} Mrays/s, device busy {busy_u:.4f} ms/frame "
+        f"over {n_u:.1f} kernel launches, idle share "
+        f"{max(0.0, 1 - busy_u / ms_u) * 100:.1f} % [{smi}]")
+    return counts
+
+
+def phase_stream_regen_path(torch, np, dev, out_dir):
+    """Phase 16: integrator "regen" on the baked grid traces through the
+    standalone stream tracer; returns the launch counts."""
+    frames = 2
+    r = stream_renderer(dev, integrator="regen")
+    torch.cuda.synchronize()
+    reset_counts()
+    r.render_frames(frames)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    rays, path = check_image(np, r, "stream_grid_regen", out_dir, frames)
+    log(f"phase 16 baked grid regen {MW}x{MH} d{MESH_DEPTH}: {frames} frames,"
+        f" launches {counts}, rays_per_bounce {rays.tolist()}, png {path}")
+    if counts["closest_hit_stream"] < 1 or counts["any_hit_stream"] < 1:
+        raise AssertionError(f"the stream regen path launched {counts}")
+    if counts["closest_hit"] or counts["any_hit"]:
+        raise AssertionError(f"the stream regen path launched the resident "
+                             f"tracer: {counts}")
+    return counts
+
+
+def phase_stream_images(torch, np, dev):
+    """Phase 17: the baked grid's sorted kernel path against its unsorted
+    kernel path (8 frames) and against the plain path (1 frame)."""
+    imgs = {}
+    for label, frames, kw, ctx in (
+            ("sorted", 8, {}, contextlib.nullcontext),
+            ("unsorted", 8, {"ray_sort": False}, contextlib.nullcontext),
+            ("sorted_1", 1, {}, contextlib.nullcontext),
+            ("plain", 1, {}, plain_path)):
+        r = stream_renderer(dev, **kw)
+        t0 = time.perf_counter()
+        with ctx():
+            r.render_frames(frames)
+            torch.cuda.synchronize()
+        imgs[label] = r.hdr_image()
+        log(f"phase 17 baked grid {label} path: {frames} frames in "
+            f"{time.perf_counter() - t0:.2f} s (host clock), rays_per_bounce "
+            f"{r.last_stats.rays_per_bounce.cpu().numpy().tolist()}")
+    for x, y in (("sorted", "unsorted"), ("sorted_1", "plain")):
+        rel = rel_rmse(np, imgs[x], imgs[y])
+        log(f"phase 17 baked grid {x} kernel path vs {y}: relative RMSE "
+            f"{rel * 100:.5f} % (limit 1 %)")
+        if not rel < 0.01:
+            raise AssertionError(f"baked grid image differs from the {y} "
+                                 "path")
+
+
+def phase_any_size(torch, np, dev, smi):
+    """Phase 18: the stream tier at any size — the baked grid at 144 x 192
+    tessellation (about 940k unique triangles, 14.7k clusters, a tri_pack
+    past the 50 MB L2): stream_closest_hit / stream_any_hit per launch at
+    one regen frame's calls, each call's first 16 384 lanes against the
+    plain version."""
+    from spt_tpu_torch.ops import cuda_trace
+    from spt_tpu_torch.ops.vec3 import Vec3
+
+    t0 = time.perf_counter()
+    r = stream_renderer(dev, 144, 192, integrator="regen")
+    build_s = time.perf_counter() - t0
+    scene = r.scene
+    _check_stream_scene(scene)
+    a = scene.accel
+    log(f"phase 18 any-size baked grid: {scene.num_triangles} triangles, "
+        f"{a.num_clusters} clusters in {a.sup_lo.shape[0]} superclusters, "
+        f"tri_pack {a.tri_pack.numel() * 4 / 1e6:.1f} MB; scene and accel "
+        f"built in {build_s:.1f} s (host)")
+    with capture_calls([(cuda_trace, "stream_closest_hit"),
+                        (cuda_trace, "stream_any_hit")]) as calls:
+        r.render_frames(1)
+        torch.cuda.synchronize()
+    for fn_name, kern, ref, kernel_name in (
+            ("stream_closest_hit", cuda_trace.stream_closest_hit,
+             cuda_trace.closest_hit_reference, "stream_trace_kernel<false>"),
+            ("stream_any_hit", cuda_trace.stream_any_hit,
+             cuda_trace.any_hit_reference, "stream_trace_kernel<true>")):
+        mine = [(args, kw) for name, args, kw in calls if name == fn_name]
+        if not mine:
+            raise AssertionError(f"the any-size regen frame made no {fn_name}")
+        ms = kernel_device_ms(torch, lambda: [kern(*a_, **k_) for a_, k_ in mine],
+                              kernel_name, iters=5, launches_per_call=len(mine))
+        args, kw = mine[0]
+        acc, sc, o, d, tmin, tmax = args
+        m = 16384
+        o16 = Vec3(*(c[:m].contiguous() for c in o))
+        d16 = Vec3(*(c[:m].contiguous() for c in d))
+        t16 = (tmax[:m].contiguous() if isinstance(tmax, torch.Tensor)
+               and tmax.dim() else tmax)
+        pk = kern(acc, sc, o16, d16, tmin, t16)
+        pp, pms = _timed(torch, lambda: ref(acc, sc, o16, d16, tmin, t16))
+        planes = (_hit_planes(torch, pk, pp) if fn_name == "stream_closest_hit"
+                  else {"blocked": (pk, pp)})
+        check_planes(torch, f"any-size {fn_name} on the first {m} lanes of "
+                     f"the regen frame's first call", planes, phase=18)
+        log(f"phase 18 any-size {fn_name}: kernel {ms:.4f} ms per launch "
+            f"(device time, {len(mine)} calls of {o.x.shape[0]} rays); the "
+            f"plain version on {m} lanes {pms:.1f} ms [{smi}]")
+
+
+# --- the environment sampler (phase 19) ---------------------------------------
+
+def phase_env_kernel(torch, np, dev, smi):
+    """Phase 19: the equirect sampler (K2) on the hdr config at 1920x1080 d6
+    (the .hdr round trip), at the inputs recorded from one frame of its
+    main path: kernel against plain on the `need` lanes, device ms, bound
+    (bytes), plain ms and the library yardstick, grid_sample on the map
+    padded with one wrapped column a side; and the poles and the u seam."""
+    import torch.nn.functional as F
+
+    from spt_tpu_torch import env as tenv
+    from spt_tpu_torch.ops import cuda_env
+    from spt_tpu_torch.ops.vec3 import Vec3
+
+    r = renderer("hdr", W, H, dev)
+    env = r.env
+    with capture_calls([(cuda_env, "env_sample")]) as calls:
+        r.render_frames(1)
+        torch.cuda.synchronize()
+    if len(calls) != 1:
+        raise AssertionError(f"the hdr frame called env_sample {len(calls)} "
+                             "times, expected once")
+    (_, args, kw), = calls
+    _, direction, need = args
+    n = direction.x.shape[0]
+    h, w = env.image.shape[0], env.image.shape[1]
+    k = cuda_env.env_sample(*args, **kw)
+    p = cuda_env.env_sample_reference(*args, **kw)
+    # after a warm-up: the plain version's first call compiles its
+    # elementwise kernels
+    plain_ms = time_call(torch, lambda: cuda_env.env_sample_reference(
+        *args, **kw), warmup=1, iters=5)
+    m = need
+    worst = check_planes(torch, f"env_sample on the hdr frame's {n} lanes "
+                         f"({int(m.sum())} need the term)",
+                         {"rgb": (_v(torch, k)[m], _v(torch, p)[m])},
+                         phase=19)
+    zero = bool((_v(torch, k)[~m] == 0).all())
+    log(f"phase 19 env_sample: lanes outside need all 0: {zero}")
+    if not zero:
+        raise AssertionError("env_sample wrote a term outside need")
+    ms = queued_device_ms(torch, lambda: cuda_env.env_sample(*args, **kw))
+    # bytes: directions and need in, rgb out, and each distinct texel the
+    # needed lanes tap once
+    d_n = Vec3(*(c[m] for c in direction))
+    taps = tenv._equirect_taps(h, w, tenv.v3.safe_normalize(d_n))
+    x0, x1, y0, y1 = (t.long() for t in taps[:4])
+    texels = torch.unique(torch.cat([y0 * w + x0, y0 * w + x1, y1 * w + x0,
+                                     y1 * w + x1])).numel()
+    b = bound(n * (13 + 12) + texels * 12, float(m.sum()) * 46)
+    # the library yardstick: one grid_sample on precomputed coordinates
+    x, y = _env_xy(torch, tenv, h, w, direction)
+    padded = torch.cat([env.image[:, -1:], env.image, env.image[:, :1]], 1)
+    inp = padded.permute(2, 0, 1)[None].contiguous()
+    grid = torch.stack([(x + 1.5) / (w + 2) * 2 - 1, (y + 0.5) / h * 2 - 1],
+                       -1)[None, None].contiguous()
+
+    def lib():
+        return F.grid_sample(inp, grid, mode="bilinear",
+                             padding_mode="border", align_corners=False)
+
+    lib_ms = queued_device_ms(torch, lib)
+    g = torch.clamp(lib()[0, :, 0].T, max=env.max_clamp) * env.intensity
+    lib_err = float((g[m] - _v(torch, p)[m]).abs().max())
+    out = dict(max_abs_err=worst, ms=ms, plain_ms=plain_ms, bound=b,
+               library_ms=lib_ms)
+    log(f"phase 19 env_sample on the hdr frame's call ({n} lanes, map "
+        f"{h}x{w}): kernel {ms:.4f} ms (device time, CUDA events behind a "
+        f"spin kernel), plain {plain_ms:.4f} ms, grid_sample {lib_ms:.4f} ms "
+        f"(the same timing; max |d| against plain on the need "
+        f"lanes {lib_err:.3g}), bound {b[0]:.4f} ms ({b[1]}; {texels} "
+        f"distinct texels) [{smi}]")
+    # the poles and the u seam, every lane needed
+    pts = torch.tensor([[0.0, 1.0, 0.0], [0.0, -1.0, 0.0], [-1.0, 0.0, 1e-7],
+                        [-1.0, 0.0, -1e-7], [-1.0, 0.0, 0.0], [1.0, 0.0, 0.0]],
+                       device=dev).repeat(64, 1)
+    dv = Vec3(*(c.contiguous() for c in pts.unbind(1)))
+    check_planes(torch, "env_sample at the poles and the u seam",
+                 {"rgb": (_v(torch, cuda_env.env_sample(env, dv)),
+                          _v(torch, cuda_env.env_sample_reference(env, dv)))},
+                 phase=19)
+    return out
+
+
+def _env_xy(torch, tenv, h, w, direction):
+    """The plain sampler's continuous texel coordinates (x, y) of each lane
+    (env._equirect_taps before the floor)."""
+    d = tenv.v3.safe_normalize(direction)
+    theta = torch.atan2(d.z, d.x)
+    phi = torch.acos(torch.clamp(d.y, -1.0, 1.0))
+    u = (theta + math.pi) / (2.0 * math.pi)
+    v = phi / math.pi
+    return u * w - 0.5, v * h - 0.5
+
+
 def main() -> int:
     try:
         import torch
@@ -1501,7 +2147,8 @@ def main() -> int:
     os.makedirs(out_dir, exist_ok=True)
 
     small = phase_kernel_vs_plain(torch, cuda_bounce, dev, smi)
-    small_launches = phase_main_path(torch, np, cuda_bounce, dev, out_dir)
+    small_launches, env_launches = phase_main_path(torch, np, cuda_bounce,
+                                                   dev, out_dir)
     phase_image_vs_plain(torch, np, dev)
     phase_times(torch, dev, smi)
 
@@ -1515,6 +2162,13 @@ def main() -> int:
     inst_counts = phase_inst_main_path(torch, np, dev, out_dir, smi)
     inst_regen = phase_inst_regen_path(torch, np, dev, out_dir)
     phase_inst_images(torch, np, dev)
+
+    stream = phase_stream_kernels(torch, np, dev, smi)
+    stream_counts = phase_stream_main_path(torch, np, dev, out_dir, smi)
+    stream_regen = phase_stream_regen_path(torch, np, dev, out_dir)
+    phase_stream_images(torch, np, dev)
+    phase_any_size(torch, np, dev, smi)
+    env_k = phase_env_kernel(torch, np, dev, smi)
 
     def entry(name, source, replaces, launches, k):
         for key in ("max_abs_err", "ms", "plain_ms"):
@@ -1563,6 +2217,21 @@ def main() -> int:
         entry("texture_sampler", "spt_common.cuh",
               "spt_tpu/ops/pallas_bounce.py:527", inst_counts["fused_frame"],
               inst["texture_sampler"]),
+        entry("fused_frame_stream", "fused_frame.cu",
+              "spt_tpu/ops/pallas_bounce.py:1090",
+              stream_counts["fused_frame"], stream["fused_frame_stream"]),
+        entry("fused_bounce_stream", "fused_bounce.cu",
+              "spt_tpu/ops/pallas_bounce.py:752",
+              stream_counts["fused_bounce"], stream["fused_bounce_stream"]),
+        entry("closest_hit_stream", "stream_trace.cu",
+              "spt_tpu/ops/pallas_stream.py:104",
+              stream_regen["closest_hit_stream"],
+              stream["closest_hit_stream"]),
+        entry("any_hit_stream", "stream_trace.cu",
+              "spt_tpu/ops/pallas_stream.py:250",
+              stream_regen["any_hit_stream"], stream["any_hit_stream"]),
+        entry("env_sample", "env_sample.cu", "spt_tpu/ops/pallas_env.py:158",
+              env_launches, env_k),
     ]
     log(smi)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -6,9 +6,9 @@
 // the bounce index and is_last as arguments.  It writes the 15 state planes
 // back and the `missed` mask (the caller owes throughput * env(direction)
 // to those lanes).  Dead lanes are copied through.  It is the per-thread
-// body of fused_frame for one bounce, in the same three forms (small:
-// RolledTracer, resident: ClusterTracer, instanced: InstTracer), textured
-// or not; the sorted mesh frame (integrators/wavefront.py) runs it for the
+// body of fused_frame for one bounce, in the same four forms (small:
+// RolledTracer, resident: ClusterTracer, instanced: InstTracer, stream:
+// StreamTracer), textured or not; the sorted mesh frame (integrators/wavefront.py) runs it for the
 // bounces between its sorts.
 //
 // What bounds it on an H100: the state is read and written once per bounce,
@@ -34,7 +34,7 @@ struct BounceIO {
 };
 
 // kMode: 0 small (RolledTracer), 1 resident (ClusterTracer), 2 instanced
-// (InstTracer).
+// (InstTracer), 3 stream (StreamTracer).
 template <int kMode>
 __global__ void __launch_bounds__(kBlock)
     fused_bounce_kernel(BounceIO io, SceneArgs sc, ShadeArgs sa) {
@@ -52,7 +52,10 @@ __global__ void __launch_bounds__(kBlock)
   bool emok = io.emok[i] != 0;
   bool missed = false;
   if (alive) {
-    if constexpr (kMode == 2) {
+    if constexpr (kMode == 3) {
+      alive = shade_bounce(tb, stream_tracer(tb, sc), sa, io.bounce, io.is_last != 0, o, d, thr,
+                           rad, rng, emok, missed);
+    } else if constexpr (kMode == 2) {
       alive = shade_bounce(tb, inst_tracer(tb, sc), sa, io.bounce, io.is_last != 0, o, d, thr,
                            rad, rng, emok, missed);
     } else if constexpr (kMode == 1) {
@@ -89,7 +92,8 @@ extern "C" {
 // Replaces spt_tpu/ops/pallas_bounce.py:965 (fused_bounce, pallas_call
 // :1063).  Launches the kernel on `stream` and returns the CUDA error of
 // the launch (0: accepted).  `pack` null selects the small form, n_inst > 0
-// the instanced one.  Allocates nothing and does not synchronise.
+// the instanced one, `cbox` (with `corder`) the stream one.  Allocates
+// nothing and does not synchronise.
 int spt_fused_bounce(const float* ox, const float* oy, const float* oz, const float* dx,
                      const float* dy, const float* dz, const float* tx, const float* ty,
                      const float* tz, const float* rx, const float* ry, const float* rz,
@@ -100,7 +104,8 @@ int spt_fused_bounce(const float* ox, const float* oy, const float* oz, const fl
                      uint8_t* o_missed, const float* tables, int n_tris, int n_sphs, int n_mats,
                      int n_lights, int n_emit, int flags, const float* pack, int pack_w,
                      int n_clusters, int cluster_size, int n_inst, int n_meshes,
-                     const int* tex, int tex_res, int n, int bounce,
+                     const int* tex, int tex_res, const float* cbox, const uint16_t* corder,
+                     int n, int bounce,
                      int is_last, int rr_after, float hit_eps, float ray_offset_dir,
                      float firefly_clamp, void* stream) {
   BounceIO io{ox,   oy,   oz,   dx,   dy,   dz,    tx,      ty,      tz,       rx,
@@ -108,7 +113,8 @@ int spt_fused_bounce(const float* ox, const float* oy, const float* oz, const fl
               o_dz, o_tx, o_ty, o_tz, o_rx, o_ry,  o_rz,    o_rng,   o_alive,  o_emok,
               o_missed, n, bounce, is_last};
   SceneArgs sc{tables, n_tris, n_sphs, n_mats, n_lights, n_emit, flags, pack,
-               pack_w, n_clusters, cluster_size, n_inst, n_meshes, tex, tex_res};
+               pack_w, n_clusters, cluster_size, n_inst, n_meshes, tex, tex_res,
+               cbox, corder};
   ShadeArgs sa{rr_after, flags, hit_eps, ray_offset_dir, firefly_clamp};
   const size_t smem = smem_bytes(sc);
   if (n_mats < 1 || smem > 227 * 1024) return static_cast<int>(cudaErrorInvalidValue);
@@ -122,6 +128,10 @@ int spt_fused_bounce(const float* ox, const float* oy, const float* oz, const fl
   } else if (n_inst > 0) {
     err = reserve_smem(fused_bounce_kernel<2>, smem);
     if (err == cudaSuccess) fused_bounce_kernel<2><<<grid, kBlock, smem, st>>>(io, sc, sa);
+  } else if (cbox != nullptr) {
+    if (corder == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+    err = reserve_smem(fused_bounce_kernel<3>, smem);
+    if (err == cudaSuccess) fused_bounce_kernel<3><<<grid, kBlock, smem, st>>>(io, sc, sa);
   } else {
     err = reserve_smem(fused_bounce_kernel<1>, smem);
     if (err == cudaSuccess) fused_bounce_kernel<1><<<grid, kBlock, smem, st>>>(io, sc, sa);
@@ -131,11 +141,12 @@ int spt_fused_bounce(const float* ox, const float* oy, const float* oz, const fl
 }
 
 // Registers per thread and local (spill) bytes of the small (mode 0),
-// resident (1) or instanced (2) form.
+// resident (1), instanced (2) or stream (3) form.
 int spt_fused_bounce_kernel_info(int mode, int* num_regs, int* local_bytes) {
   cudaFuncAttributes attr;
   const cudaError_t err =
-      mode == 2   ? cudaFuncGetAttributes(&attr, fused_bounce_kernel<2>)
+      mode == 3   ? cudaFuncGetAttributes(&attr, fused_bounce_kernel<3>)
+      : mode == 2 ? cudaFuncGetAttributes(&attr, fused_bounce_kernel<2>)
       : mode == 1 ? cudaFuncGetAttributes(&attr, fused_bounce_kernel<1>)
                   : cudaFuncGetAttributes(&attr, fused_bounce_kernel<0>);
   if (err == cudaSuccess) {

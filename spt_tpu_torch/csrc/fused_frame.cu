@@ -9,7 +9,12 @@
 //   visit orders) in shared memory (ClusterTracer, spt_tracers.cuh);
 // - instanced: the TLAS/BLAS tracer over the shared BLAS tri_pack in global
 //   memory, with the instance rows and the BLAS boxes and visit orders in
-//   shared memory (InstTracer).
+//   shared memory (InstTracer);
+// - stream: the two-level supercluster tracer (K8) over a tri_pack of any
+//   size in global memory, with only the super boxes and visit orders in
+//   shared memory and the cluster boxes and orders read from global memory
+//   (StreamTracer; the TPU form runs pallas_stream's tiles in the kernel,
+//   pallas_bounce.py:634-655).
 // It computes bounces [start_bounce, max_depth) of
 // spt_tpu_torch.integrators.transport (trace_bounce + shade_core) for every
 // lane and hands back what the deferred environment term needs: final
@@ -45,7 +50,7 @@ struct FrameIO {
 };
 
 // kMode: 0 small (RolledTracer), 1 resident (ClusterTracer), 2 instanced
-// (InstTracer).
+// (InstTracer), 3 stream (StreamTracer).
 template <int kMode>
 __global__ void __launch_bounds__(kBlock)
     fused_frame_kernel(FrameIO io, SceneArgs sc, ShadeArgs sa) {
@@ -68,7 +73,10 @@ __global__ void __launch_bounds__(kBlock)
     ++bounces;
     const bool is_last = bounce == io.max_depth - 1;
     bool missed;
-    if constexpr (kMode == 2) {
+    if constexpr (kMode == 3) {
+      alive = shade_bounce(tb, stream_tracer(tb, sc), sa, bounce, is_last, o, d, thr, rad, rng,
+                           emok, missed);
+    } else if constexpr (kMode == 2) {
       alive = shade_bounce(tb, inst_tracer(tb, sc), sa, bounce, is_last, o, d, thr, rad, rng,
                            emok, missed);
     } else if constexpr (kMode == 1) {
@@ -101,7 +109,8 @@ extern "C" {
 // Replaces spt_tpu/ops/pallas_bounce.py:1207 (fused_frame, pallas_call
 // :1298).  Launches the kernel on `stream` and returns the CUDA error of
 // the launch (0: accepted).  `pack` null selects the small form, n_inst > 0
-// the instanced one.  Allocates nothing and does not synchronise.
+// the instanced one, `cbox` (with `corder`) the stream one.  Allocates
+// nothing and does not synchronise.
 int spt_fused_frame(const float* ox, const float* oy, const float* oz, const float* dx,
                     const float* dy, const float* dz, const float* tx, const float* ty,
                     const float* tz, const float* rx, const float* ry, const float* rz,
@@ -111,13 +120,15 @@ int spt_fused_frame(const float* ox, const float* oy, const float* oz, const flo
                     int n_sphs, int n_mats, int n_lights, int n_emit, int flags,
                     const float* pack, int pack_w, int n_clusters, int cluster_size,
                     int n_inst, int n_meshes, const int* tex, int tex_res,
-                    int n, int start_bounce, int max_depth, int rr_after, float hit_eps,
+                    const float* cbox, const uint16_t* corder, int n, int start_bounce,
+                    int max_depth, int rr_after, float hit_eps,
                     float ray_offset_dir, float firefly_clamp, void* stream) {
   FrameIO io{ox,   oy,   oz,   dx,   dy,   dz,   tx,   ty,       tz,        rx,
              ry,   rz,   rng,  alive, emok, o_dx, o_dy, o_dz,    o_tx,      o_ty,
              o_tz, o_rx, o_ry, o_rz, o_missed, o_bounces, n, start_bounce, max_depth};
   SceneArgs sc{tables, n_tris, n_sphs, n_mats, n_lights, n_emit, flags, pack,
-               pack_w, n_clusters, cluster_size, n_inst, n_meshes, tex, tex_res};
+               pack_w, n_clusters, cluster_size, n_inst, n_meshes, tex, tex_res,
+               cbox, corder};
   ShadeArgs sa{rr_after, flags, hit_eps, ray_offset_dir, firefly_clamp};
   const size_t smem = smem_bytes(sc);
   if (n_mats < 1 || smem > 227 * 1024) return static_cast<int>(cudaErrorInvalidValue);
@@ -131,6 +142,10 @@ int spt_fused_frame(const float* ox, const float* oy, const float* oz, const flo
   } else if (n_inst > 0) {
     err = reserve_smem(fused_frame_kernel<2>, smem);
     if (err == cudaSuccess) fused_frame_kernel<2><<<grid, kBlock, smem, st>>>(io, sc, sa);
+  } else if (cbox != nullptr) {
+    if (corder == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+    err = reserve_smem(fused_frame_kernel<3>, smem);
+    if (err == cudaSuccess) fused_frame_kernel<3><<<grid, kBlock, smem, st>>>(io, sc, sa);
   } else {
     err = reserve_smem(fused_frame_kernel<1>, smem);
     if (err == cudaSuccess) fused_frame_kernel<1><<<grid, kBlock, smem, st>>>(io, sc, sa);
@@ -140,11 +155,12 @@ int spt_fused_frame(const float* ox, const float* oy, const float* oz, const flo
 }
 
 // Registers per thread and local (spill) bytes of the small (mode 0),
-// resident (1) or instanced (2) form.
+// resident (1), instanced (2) or stream (3) form.
 int spt_fused_frame_kernel_info(int mode, int* num_regs, int* local_bytes) {
   cudaFuncAttributes attr;
   const cudaError_t err =
-      mode == 2   ? cudaFuncGetAttributes(&attr, fused_frame_kernel<2>)
+      mode == 3   ? cudaFuncGetAttributes(&attr, fused_frame_kernel<3>)
+      : mode == 2 ? cudaFuncGetAttributes(&attr, fused_frame_kernel<2>)
       : mode == 1 ? cudaFuncGetAttributes(&attr, fused_frame_kernel<1>)
                   : cudaFuncGetAttributes(&attr, fused_frame_kernel<0>);
   if (err == cudaSuccess) {

@@ -34,6 +34,7 @@ constexpr int kNsWords = 9;     // n0 | n1-n0 | n2-n0
 constexpr int kUvWords = 6;     // uv0 | uv1-uv0 | uv2-uv0
 constexpr int kBoxWords = 6;    // cluster lo xyz | hi xyz
 constexpr int kInstWords = 22;  // world box lo xyz | hi xyz | bvh.InstAccel.inst row (16)
+constexpr int kSuperFan = 16;   // clusters per supercluster (bvh.SUPER_FAN)
 
 // RenderConfig toggles, one bit each.
 constexpr int kNee = 1 << 0;            // cfg.nee and the scene has emitters
@@ -55,11 +56,13 @@ constexpr int kTextured = 1 << 8;       // the scene has a texture table
 // bvh.MeshAccel.cl_okey (8 x C int32 bits, (rank << 16) | cluster id).  The
 // instanced form fills the boxes of every BLAS (M x CMAX, padding clusters
 // inverted), the instance rows and the BLAS keys (8M x CMAX, row
-// octant * M + mesh, ranks 0..CMAX-1 per row).  From the keys every block
-// builds the front-to-back visit orders (uint16 cluster ids, one row of
-// C / M per key row) in shared memory after the tables.  The mesh forms'
-// triangles stay in global memory (tri_pack), and so does the texture
-// table.
+// octant * M + mesh, ranks 0..CMAX-1 per row).  The stream form fills the
+// supercluster level only: the G super boxes and sup_okey (8 x G), with
+// n_clusters = G; its cluster boxes and per-super visit orders stay in
+// global memory (cbox, corder).  From the keys every block builds the
+// front-to-back visit orders (uint16 ids, one row of C / M per key row) in
+// shared memory after the tables.  The mesh forms' triangles stay in
+// global memory (tri_pack), and so does the texture table.
 struct SceneArgs {
   const float* tables;
   int n_tris, n_sphs, n_mats, n_lights, n_emit, flags;
@@ -68,6 +71,10 @@ struct SceneArgs {
   int n_inst, n_meshes;  // instanced form: I, M (C = M * CMAX); else 0, 1
   const int* tex;        // textured: (n_tex, res^2, 2) int32, else null
   int tex_res;
+  // stream form: (G * kSuperFan, 6) cluster boxes and bvh.MeshAccel.cl_order
+  // (8 x G * kSuperFan local ids), both in global memory; else null
+  const float* cbox;
+  const uint16_t* corder;
 };
 
 struct Tables {

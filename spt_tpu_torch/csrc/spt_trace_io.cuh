@@ -1,4 +1,5 @@
-// The standalone tracers' launch plumbing (cluster_trace.cu, inst_trace.cu):
+// The standalone tracers' launch plumbing (cluster_trace.cu, inst_trace.cu,
+// stream_trace.cu):
 // the ray and hit planes, one thread per ray, and the launch with its
 // shared-memory opt-in.  Each source defines its own __global__ kernels
 // over trace_body, so every kernel keeps a name of its own in a profile.
@@ -48,11 +49,14 @@ __device__ inline void trace_body(const TraceIO& io, const Tracer& tr) {
 }
 
 // The scene arguments of a standalone trace: spheres, boxes, [instances,]
-// keys in `tables`; no triangles, materials, lights or textures.
+// keys in `tables`; no triangles, materials, lights or textures.  The
+// stream tracer adds its cluster boxes and visit orders in global memory.
 inline SceneArgs trace_scene(const float* tables, int n_sphs, const float* pack, int pack_w,
-                             int n_clusters, int cluster_size, int n_inst, int n_meshes) {
+                             int n_clusters, int cluster_size, int n_inst, int n_meshes,
+                             const float* cbox = nullptr, const uint16_t* corder = nullptr) {
   return SceneArgs{tables, 0,      n_sphs,     0,            0,      0,        0,       pack,
-                   pack_w, n_clusters, cluster_size, n_inst, n_meshes, nullptr, 0};
+                   pack_w, n_clusters, cluster_size, n_inst, n_meshes, nullptr, 0, cbox,
+                   corder};
 }
 
 template <class K>

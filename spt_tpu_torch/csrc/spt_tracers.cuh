@@ -1,4 +1,4 @@
-// The three tracers the kernels are templated on.  Each answers
+// The four tracers the kernels are templated on.  Each answers
 //   int  closest(o, d, tmin, tmax, t, mat, normal, u, v) -> kind (0 miss, 1 tri, 2 sphere)
 //   bool occluded(o, d, tmin, tmax)
 // for one ray per thread; (u, v) are the hit's interpolated texture
@@ -37,12 +37,28 @@
 //   union hybrid and its per-round mesh serialisation are tile devices and
 //   are not ported; any-hit visits the crossed instances in id order, which
 //   cannot change a flag.
+// - StreamTracer: the two-level tracer of meshes past the resident tier
+//   (K8), the counterpart of spt_tpu/ops/pallas_stream.py
+//   stream_closest_tile / stream_any_tile (:104, :250).  One thread walks
+//   the supercluster boxes (one box over each kSuperFan consecutive
+//   clusters) in its octant's front-to-back order (sup_okey), re-tests each
+//   against min(tmax, best) when its turn comes (the TPU's recheck,
+//   :211-217), and walks an opened super's 16 clusters with the
+//   ClusterTracer's loop in the order of bvh.MeshAccel.cl_order (cl_okey's
+//   order within the super).  The TPU streams each opened super's
+//   128-padded triangle block HBM -> VMEM by DMA, double-buffered; on the
+//   card the threads read tri_pack where it lies, through L2, so neither
+//   the padded copy nor the DMA schedule is ported.  Only the super level
+//   (G <= 1024 boxes and orders) sits in shared memory; the cluster boxes
+//   (C * 24 B, up to 384 KiB) and orders stay in global memory.
 //
 // What bounds the mesh tracers: per-thread ALU (a cluster open is 64
 // Moller-Trumbore tests) and the latency of tri_pack reads.  The boxes,
 // instance rows and visit orders (a few KB) sit in shared memory; tri_pack
 // (C*K rows of 24 or 25 floats, ~1.2 MB for the 12 288-slot BLAS) is read
 // through the read-only cache (__ldg) and stays resident in the 50 MB L2.
+// The stream tier's tri_pack (12 MB at 104k triangles, 109 MB at 940k)
+// stays in L2 up to ~50 MB and is read from device memory past it.
 // Padding clusters (inverted boxes, degenerate triangles only) are skipped
 // without a test; the TPU's slab test flags them and opens triangles that
 // cannot hit.
@@ -528,6 +544,79 @@ __device__ inline InstTracer inst_tracer(const Tables& tb, const SceneArgs& s) {
   return InstTracer{tb.sph,     tb.n_sphs,  tb.box, tb.order,        tb.inst,
                     s.n_inst,   s.n_meshes, s.n_clusters / s.n_meshes, s.pack,
                     s.pack_w,   s.cluster_size};
+}
+
+struct StreamTracer {
+  const float* sph;                      // shared: kSphWords rows
+  int n_sphs;
+  const float* sbox;                     // shared: G super boxes
+  const uint16_t* sorder;                // shared: 8 x G super ids, front to back
+  int n_supers;
+  const float* __restrict__ cbox;        // global: G * kSuperFan cluster boxes
+  const uint16_t* __restrict__ corder;   // global: 8 x G * kSuperFan local ids
+  const float* __restrict__ pack;        // global: (C*K, pack_w)
+  int pack_w, k;
+
+  __device__ int closest(V3 o, V3 d, float tmin, float tmax, float& t_out, int& mat,
+                         V3& normal, float& hu, float& hv) const {
+    float best = kBig;
+    int kind = 0;
+    mat = 0;
+    hu = 0.0f;
+    hv = 0.0f;
+    float ax = 0.0f, ay = 0.0f, az = 0.0f, rinv = 0.0f;
+    sphere_pass(sph, n_sphs, o, d, tmin, tmax, best, kind, mat, ax, ay, az, rinv);
+    const V3 inv = inv_dir3(d);
+    const int oct = octant(d);
+    const uint16_t* so = sorder + oct * n_supers;
+    const uint16_t* co = corder + static_cast<size_t>(oct) * n_supers * kSuperFan;
+    Winner w;
+    bool won = false;
+    for (int j = 0; j < n_supers; ++j) {
+      const int g = so[j];
+      const float* b = sbox + g * kBoxWords;
+      // all-padding supers are inverted; a super is opened only while the
+      // bound tightened by the supers before it still reaches its box
+      if (b[0] > b[3] || !box_hit(b, o, inv, tmin, fminf(tmax, best))) continue;
+      if (walk_closest(cbox, co + g * kSuperFan, kSuperFan, g * kSuperFan, pack, pack_w, k, o,
+                       d, inv, tmin, tmax, best, w))
+        won = true;
+    }
+    if (won) {
+      V3 n;
+      bool geom;
+      resolve(w, pack_w, mat, n, geom, hu, hv);
+      ax = n.x;
+      ay = n.y;
+      az = n.z;
+      kind = 1;
+    }
+    return epilogue(kind, o, d, best, ax, ay, az, rinv, t_out, normal);
+  }
+
+  __device__ bool occluded(V3 o, V3 d, float tmin, float tmax) const {
+    // empty intervals count as blocked (stream_any_tile :262-265)
+    if (tmax <= tmin) return true;
+    if (sphere_any(sph, n_sphs, o, d, tmin, tmax)) return true;
+    const V3 inv = inv_dir3(d);
+    const int oct = octant(d);
+    const uint16_t* so = sorder + oct * n_supers;
+    const uint16_t* co = corder + static_cast<size_t>(oct) * n_supers * kSuperFan;
+    for (int j = 0; j < n_supers; ++j) {
+      const int g = so[j];
+      const float* b = sbox + g * kBoxWords;
+      if (b[0] > b[3] || !box_hit(b, o, inv, tmin, tmax)) continue;
+      if (walk_any(cbox, co + g * kSuperFan, kSuperFan, g * kSuperFan, pack, pack_w, k, o, d,
+                   inv, tmin, tmax))
+        return true;
+    }
+    return false;
+  }
+};
+
+__device__ inline StreamTracer stream_tracer(const Tables& tb, const SceneArgs& s) {
+  return StreamTracer{tb.sph, tb.n_sphs, tb.box, tb.order, s.n_clusters,
+                      s.cbox, s.corder,  s.pack, s.pack_w, s.cluster_size};
 }
 
 }  // namespace spt

@@ -131,7 +131,7 @@ def shade(
     """Shade (__raygen__shade, cu:315-690) with the environment term applied
     to the lanes that missed."""
     new_ps, missed = shade_core(cfg, scene, lights, ps, hit, bounce, is_last)
-    env_c = environment_color_v(env, ps.direction)
+    env_c = environment_color_v(env, ps.direction, need=missed)
     zero = torch.zeros_like(missed, dtype=torch.float32)
     radiance = new_ps.radiance + v3.where(
         missed, ps.throughput * env_c, Vec3(zero, zero, zero))

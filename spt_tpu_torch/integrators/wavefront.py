@@ -8,9 +8,9 @@ after the loop replaces one per bounce.
 
 - Small scenes and mesh scenes whose lane count cannot be sorted: the whole
   loop in ``cuda_bounce.fused_frame``.
-- Mesh scenes (a cluster accel, instanced or not) at a sortable lane count
-  (``_ray_sort_ok``, after the JAX package's dead-lane padding):
-  ``_fused_mesh_sorted_frame`` — fused_bounce, chunked coherence sorts,
+- Mesh scenes (a cluster accel: resident, instanced or stream) at a
+  sortable lane count (``_ray_sort_ok``, after the JAX package's dead-lane
+  padding): ``_fused_mesh_sorted_frame`` — fused_bounce, chunked coherence sorts,
   condense, fused_frame from bounce ``ray_sort_stages``, un-condense,
   unsort.  Sorting only regroups lanes; the image matches the unsorted
   frame to float tolerance.
@@ -146,7 +146,7 @@ def _fused_mesh_sorted_frame(cfg: RenderConfig, scene: DeviceScene,
 
     ps, missed0 = cuda_bounce.fused_bounce(cfg, scene, lights, ps, 0,
                                            cfg.max_depth == 1)
-    env0 = environment_color_v(env, ps.direction)
+    env0 = environment_color_v(env, ps.direction, need=missed0)
     rad0 = ps.radiance + v3.where(missed0, ps.throughput * env0,
                                   _zeros3(ps.radiance.x))
 
@@ -208,7 +208,7 @@ def _fused_mesh_sorted_frame(cfg: RenderConfig, scene: DeviceScene,
             cuda_bounce.fused_frame(cfg, scene, lights, ps,
                                     start_bounce=stages))
         missed_ever = missed_ever | missed
-        env_c = environment_color_v(env, direction)
+        env_c = environment_color_v(env, direction, need=missed_ever)
         radiance = radiance + v3.where(missed_ever, throughput * env_c,
                                        _zeros3(radiance.x))
         rays = torch.stack([torch.zeros_like(rays_f[0])] + rays_tail
@@ -291,7 +291,7 @@ def _wavefront_masked(cfg: RenderConfig, scene: DeviceScene, env: Environment,
     else:
         radiance, direction, throughput, missed_ever, rays = (
             cuda_bounce.fused_frame(cfg, scene, lights, ps))
-        env_c = environment_color_v(env, direction)
+        env_c = environment_color_v(env, direction, need=missed_ever)
         radiance = radiance + v3.where(missed_ever, throughput * env_c,
                                        _zeros3(radiance.x))
     bounces = (rays > 0).sum()

@@ -19,7 +19,7 @@ from spt_tpu_torch.env import Environment
 from spt_tpu_torch.integrators.transport import PathState
 from spt_tpu_torch.lights import DeviceLights
 from spt_tpu_torch.materials import DeviceMaterials
-from spt_tpu_torch.ops.bvh import InstAccel, MeshAccel
+from spt_tpu_torch.ops.bvh import InstAccel, MeshAccel, cluster_visit_order
 from spt_tpu_torch.ops.vec3 import Vec3
 from spt_tpu_torch.scene.flatten import DeviceScene, EmitterTable
 
@@ -39,10 +39,15 @@ def _vec3(v, device) -> Vec3:
 
 def accel(src, device) -> MeshAccel:
     """The JAX package's ``MeshAccel``, converted array by array (not
-    rebuilt), so both packages trace the same cluster tables."""
+    rebuilt), so both packages trace the same cluster tables.  Its
+    128-padded ``tri_stream`` copy (about 53 MB at 104k triangles) is not
+    read: the port's stream tier walks ``tri_pack`` and the per-super visit
+    orders derived here from ``cl_okey``."""
     ints = ("tri_mat", "cl_okey", "sup_okey")
-    return MeshAccel(**{f: (_i32 if f in ints else _f32)(getattr(src, f), device)
-                        for f in MeshAccel._fields})
+    arrays = {f: (_i32 if f in ints else _f32)(getattr(src, f), device)
+              for f in MeshAccel._fields if f != "cl_order"}
+    order = cluster_visit_order(np.asarray(src.cl_okey))
+    return MeshAccel(**arrays, cl_order=torch.as_tensor(order, device=device))
 
 
 def inst_accel(src, device) -> InstAccel:

@@ -1,4 +1,4 @@
-"""Mesh acceleration for the resident tier: the cluster build.
+"""Mesh acceleration for the resident and stream tiers: the cluster build.
 
 The counterpart of ``spt_tpu.ops.bvh`` (copied and adapted, numpy host
 code): order the triangles by a recursive longest-axis object-median split
@@ -7,15 +7,18 @@ with cluster-aligned cuts (``_split_order``), cut the order into clusters of
 over ``SUPER_FAN`` consecutive clusters, and per ray-direction octant the
 clusters' front-to-back visit keys.  ``tri_pack`` holds the same triangles
 in one dense row per triangle for the tracers
-(``csrc/spt_tracers.cuh`` reads it from global memory).
+(``csrc/spt_tracers.cuh`` reads it from global memory), and ``cl_order``
+each supercluster's clusters in front-to-back order per octant, the table
+the stream tier walks inside an opened supercluster.
 
 The build is the JAX package's numpy fallback; its native builder
 (``native/spt_native.cpp``) produces bit-identical tables, so both packages
 trace the same clusters.  ``build_inst_accel`` builds the instanced
 TLAS/BLAS pair (``InstAccel``) over the same per-mesh cluster tables.  Not
-ported: the streaming table beyond ``MAX_RESIDENT_TRIS`` (built here only
-as the 1-row dummy: the stream tier is not ported) and the
-``SPT_CLUSTER=morton`` build.
+ported: the 128-padded ``tri_stream`` copy the JAX package builds beyond
+``MAX_RESIDENT_TRIS`` (a Mosaic DMA-alignment device; the card's stream
+tracer reads ``tri_pack`` where it lies) and the ``SPT_CLUSTER=morton``
+build.
 """
 
 from __future__ import annotations
@@ -40,8 +43,12 @@ PACK_NS = 25
 NS_FIELDS = ((0, 1), (2, 3), (4, 5), (6, 7), (8, None))
 NS_STEP = np.float32(4.0 / 4094.0)
 
-# Largest triangle table the resident tracer takes.
+# Largest triangle table the resident tracer takes; past it the stream
+# tier traces the accel.
 MAX_RESIDENT_TRIS = 12288
+# Clusters the stream tier takes: the 16-bit id / 15-bit rank packing of
+# the octant keys (spt_tpu/ops/pallas_bounce.py:74).
+MAX_STREAM_CLUSTERS = 1 << 14
 
 
 def encode_ns(ns: np.ndarray) -> np.ndarray:
@@ -100,7 +107,9 @@ class MeshAccel(NamedTuple):
     sup_lo: torch.Tensor      # (G, 3)
     sup_hi: torch.Tensor      # (G, 3)
     sup_okey: torch.Tensor    # (8, G, 1)
-    tri_stream: torch.Tensor  # (1, 1, 128) dummy: the streaming tier is not ported
+    # (8, C) int16: per octant, each supercluster's SUPER_FAN local cluster
+    # ids (0..15) in cl_okey's front-to-back order (cluster_visit_order)
+    cl_order: torch.Tensor
 
     @property
     def num_clusters(self) -> int:
@@ -109,6 +118,18 @@ class MeshAccel(NamedTuple):
     @property
     def cluster_size(self) -> int:
         return self.tri_v0.shape[0] // self.cluster_lo.shape[0]
+
+
+def cluster_visit_order(cl_okey) -> np.ndarray:
+    """(8, C[, 1]) octant keys -> (8, C) int16: row o holds, for supercluster
+    g at [g * SUPER_FAN, (g + 1) * SUPER_FAN), its clusters' local ids in the
+    order pallas_stream's min-extraction opens them (lowest cl_okey first,
+    :186-190)."""
+    okey = np.asarray(cl_okey, np.int32).reshape(8, -1)
+    g = okey.shape[1] // SUPER_FAN
+    keys = np.sort(okey.reshape(8, g, SUPER_FAN), axis=2)
+    local = (keys & 0xFFFF) - (np.arange(g, dtype=np.int32) * SUPER_FAN)[:, None]
+    return local.reshape(8, g * SUPER_FAN).astype(np.int16)
 
 
 def _split_order(lo: np.ndarray, hi: np.ndarray, cs: int) -> np.ndarray:
@@ -221,7 +242,7 @@ def build_mesh_accel(v0, e1, e2, mat, cluster_size: int = 64, uv=None,
                 [nss, np.zeros((pad_c * cluster_size, 9), np.float32)])
 
     c_total = cl_lo.shape[0]
-    if c_total > (1 << 14):
+    if c_total > MAX_STREAM_CLUSTERS:
         raise ValueError(f"{c_total} clusters overflow the 16-bit id / "
                          "15-bit rank packing")
     cl_okey = _octant_keys(cl_lo, cl_hi)
@@ -253,7 +274,7 @@ def build_mesh_accel(v0, e1, e2, mat, cluster_size: int = 64, uv=None,
         cl_okey=t_(cl_okey.reshape(8, c_total, 1)),
         sup_lo=t_(sup_lo), sup_hi=t_(sup_hi),
         sup_okey=t_(sup_okey.reshape(8, g_total, 1)),
-        tri_stream=t_(np.zeros((1, 1, 128), np.float32)),
+        cl_order=t_(cluster_visit_order(cl_okey)),
     )
 
 

@@ -1,13 +1,16 @@
 """The wavefront kernels for Hopper: ``fused_frame`` and ``fused_bounce``.
 
 The counterparts of ``spt_tpu.ops.pallas_bounce.fused_frame`` (K1) and
-``fused_bounce`` (K3) in three accel modes (``_accel_mode``, as
+``fused_bounce`` (K3) in four accel modes (``_accel_mode``, as
 pallas_bounce._accel_mode :161-182): None, the small scenes of at most
 ``MAX_PRIMS`` primitives traced by brute force; "resident", mesh scenes
 whose cluster accel (``ops/bvh``) holds at most ``MAX_ACCEL_TRIS``
 triangles, traced by the cluster tracer; "instanced", scenes with an
 instanced TLAS/BLAS pair (``ops/bvh.InstAccel``), traced by the instanced
-tracer.  Every mode samples the scene's texture table in-kernel (K6) when
+tracer; "stream", cluster accels past ``MAX_ACCEL_TRIS`` of at most
+``bvh.MAX_STREAM_CLUSTERS`` clusters, traced by the two-level supercluster
+tracer (K8), whose cluster boxes and orders stay in global memory.  Every
+mode samples the scene's texture table in-kernel (K6) when
 it has one.  ``fused_frame`` runs bounces [start_bounce, max_depth) of one
 sample and returns what the deferred environment term needs;
 ``fused_bounce`` runs one bounce and returns the new path state and the
@@ -36,7 +39,7 @@ from spt_tpu_torch.config import RenderConfig
 from spt_tpu_torch.integrators import transport
 from spt_tpu_torch.lights import DeviceLights
 from spt_tpu_torch.materials import tex_res_of
-from spt_tpu_torch.ops import cuda_lib, cuda_trace
+from spt_tpu_torch.ops import bvh, cuda_lib, cuda_trace
 from spt_tpu_torch.ops.vec3 import Vec3
 from spt_tpu_torch.scene.flatten import MAX_ACCEL_SPHERES, DeviceScene
 
@@ -67,9 +70,10 @@ _TEXTURED = 256
 
 def _accel_mode(scene: DeviceScene):
     """None (small scene, brute force), "resident" (cluster tracer over the
-    accel) or "instanced" (the TLAS/BLAS tracer over scene.inst), as
-    pallas_bounce._accel_mode (:161-182).  The stream tier is not ported:
-    such a scene raises."""
+    accel), "instanced" (the TLAS/BLAS tracer over scene.inst) or "stream"
+    (the supercluster tracer over an accel past MAX_ACCEL_TRIS), as
+    pallas_bounce._accel_mode (:161-182); raises where that returns None on
+    a scene past MAX_PRIMS."""
     if scene.num_triangles + scene.num_spheres <= MAX_PRIMS:
         return None
     if scene.num_spheres > MAX_ACCEL_SPHERES:
@@ -82,19 +86,24 @@ def _accel_mode(scene: DeviceScene):
         raise NotImplementedError(
             f"{scene.num_triangles + scene.num_spheres} primitives > "
             f"MAX_PRIMS={MAX_PRIMS} and no cluster accel built")
-    if a.num_clusters * a.cluster_size > MAX_ACCEL_TRIS:
+    if a.num_clusters * a.cluster_size <= MAX_ACCEL_TRIS:
+        return "resident"
+    if a.num_clusters > bvh.MAX_STREAM_CLUSTERS:
         raise NotImplementedError(
-            f"{a.num_clusters * a.cluster_size} accel triangles > "
-            f"MAX_ACCEL_TRIS={MAX_ACCEL_TRIS}: the stream tier is not ported")
-    return "resident"
+            f"{a.num_clusters} clusters > "
+            f"MAX_STREAM_CLUSTERS={bvh.MAX_STREAM_CLUSTERS}")
+    return "stream"
 
 
 def _clusters(scene: DeviceScene, mode) -> int:
-    """Cluster boxes in the kernels' tables: the accel's, or every BLAS's."""
+    """Boxes in the kernels' shared tables: the accel's clusters, every
+    BLAS's, or in the stream mode the superclusters only."""
     if mode == "resident":
         return scene.accel.num_clusters
     if mode == "instanced":
         return scene.inst.num_meshes * scene.inst.cmax
+    if mode == "stream":
+        return scene.accel.sup_lo.shape[0]
     return 0
 
 
@@ -106,7 +115,7 @@ def _table_words(scene: DeviceScene, lights: DeviceLights, nee_on: bool,
              + _clusters(scene, mode) * (_BOX + _OKEY))
     if mode == "instanced":
         return words + scene.inst.num_instances * cuda_trace.INST_WORDS
-    if mode == "resident":
+    if mode in ("resident", "stream"):
         return words
     ns = scene.num_triangles if scene.tri_ns is not None else 0
     uv = scene.num_triangles if scene.textures is not None else 0
@@ -186,7 +195,7 @@ def _pack_tables(scene: DeviceScene, lights: DeviceLights, nee_on: bool,
     """The scene, material, light and emitter tables as one float32 buffer
     in the kernels' row layout (int columns stored as their bits); in the
     resident mode the cluster boxes and octant keys instead of the
-    triangles."""
+    triangles, in the stream mode the supercluster boxes and keys."""
     def col(t):
         return t.to(torch.float32).reshape(-1, 1)
 
@@ -212,6 +221,9 @@ def _pack_tables(scene: DeviceScene, lights: DeviceLights, nee_on: bool,
     if mode == "resident":
         a = scene.accel
         parts += [torch.cat([a.cluster_lo, a.cluster_hi], 1), bits(a.cl_okey)]
+    elif mode == "stream":
+        a = scene.accel
+        parts += [cuda_trace.super_boxes(a), bits(a.sup_okey)]
     elif mode == "instanced":
         ia = scene.inst
         parts += [torch.cat([ia.blas_lo, ia.blas_hi], 2),
@@ -278,11 +290,11 @@ def _kernel_inputs(cfg: RenderConfig, scene: DeviceScene,
         accel = (None, 0, 0, 0, 0, 1)
         n_tris = scene.num_triangles
     else:
-        src = scene.accel if mode == "resident" else scene.inst
+        src = scene.inst if mode == "instanced" else scene.accel
         pack = src.tri_pack.contiguous()
         keep.append(pack)
-        inst = ((0, 1) if mode == "resident"
-                else (scene.inst.num_instances, scene.inst.num_meshes))
+        inst = ((scene.inst.num_instances, scene.inst.num_meshes)
+                if mode == "instanced" else (0, 1))
         accel = (pack.data_ptr(), pack.shape[-1], _clusters(scene, mode),
                  src.cluster_size) + inst
         n_tris = 0
@@ -291,10 +303,15 @@ def _kernel_inputs(cfg: RenderConfig, scene: DeviceScene,
         textures = scene.textures.contiguous()
         keep.append(textures)
         tex = (textures.data_ptr(), tex_res_of(textures))
+    stream = (None, None)
+    if mode == "stream":
+        cbox, corder = cuda_trace.stream_globals(scene.accel)
+        keep += [cbox, corder]
+        stream = (cbox.data_ptr(), corder.data_ptr())
     scene_args = (tables.data_ptr(), n_tris, scene.num_spheres,
                   scene.materials.count, lights.count,
                   scene.emitters.count if nee_on else 0,
-                  _flags(cfg, scene, nee_on, mode)) + accel + tex
+                  _flags(cfg, scene, nee_on, mode)) + accel + tex + stream
     return [t.data_ptr() for t in planes + ints], scene_args, keep
 
 

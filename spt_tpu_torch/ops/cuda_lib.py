@@ -20,7 +20,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = ("fused_frame.cu", "fused_bounce.cu", "cluster_trace.cu",
-           "inst_trace.cu", "sort_chunks.cu")
+           "inst_trace.cu", "stream_trace.cu", "sort_chunks.cu",
+           "env_sample.cu")
 HEADERS = ("spt_common.cuh", "spt_tracers.cuh", "spt_trace_io.cuh")
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "spt_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
@@ -97,8 +98,9 @@ def build() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(lib_path))
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     # tables, n_tris, n_sphs, n_mats, n_lights, n_emit, flags, pack,
-    # pack_w, n_clusters, cluster_size, n_inst, n_meshes, tex, tex_res
-    scene = [p, i, i, i, i, i, i, p, i, i, i, i, i, p, i]
+    # pack_w, n_clusters, cluster_size, n_inst, n_meshes, tex, tex_res,
+    # cbox, corder
+    scene = [p, i, i, i, i, i, i, p, i, i, i, i, i, p, i, p, p]
     lib.spt_fused_frame.argtypes = [p] * 26 + scene + [i] * 4 + [f] * 3 + [p]
     lib.spt_fused_bounce.argtypes = [p] * 31 + scene + [i] * 4 + [f] * 3 + [p]
     # tables, n_sphs, pack, pack_w, n_clusters, cluster_size, n_inst,
@@ -108,16 +110,28 @@ def build() -> ctypes.CDLL:
         getattr(lib, fn).argtypes = [p] * 16 + trace
     for fn in ("spt_any_hit", "spt_inst_any_hit"):
         getattr(lib, fn).argtypes = [p] * 9 + trace
+    # the stream tracer: tables, n_sphs, pack, pack_w, n_supers,
+    # cluster_size, cbox, corder, n, tmin, stream
+    stream = [i, p, i, i, i, p, p, i, f, p]
+    lib.spt_stream_closest_hit.argtypes = [p] * 16 + stream
+    lib.spt_stream_any_hit.argtypes = [p] * 9 + stream
+    # dx, dy, dz, need, map, h, w, max_clamp, intensity, out rgb, n, stream
+    lib.spt_env_sample.argtypes = [p] * 5 + [i, i, f, f] + [p] * 3 + [i, p]
     lib.spt_sort_chunks.argtypes = [p] * 6 + [i, i, i, p]
     for fn in ("spt_fused_frame_kernel_info", "spt_fused_bounce_kernel_info",
-               "spt_trace_kernel_info", "spt_inst_trace_kernel_info"):
+               "spt_trace_kernel_info", "spt_inst_trace_kernel_info",
+               "spt_stream_trace_kernel_info"):
         getattr(lib, fn).argtypes = [i, p, p]
     lib.spt_sort_kernel_info.argtypes = [p, p]
+    lib.spt_env_sample_kernel_info.argtypes = [p, p]
     for fn in ("spt_fused_frame", "spt_fused_bounce", "spt_closest_hit",
                "spt_any_hit", "spt_inst_closest_hit", "spt_inst_any_hit",
-               "spt_sort_chunks", "spt_fused_frame_kernel_info",
-               "spt_fused_bounce_kernel_info", "spt_trace_kernel_info",
-               "spt_inst_trace_kernel_info", "spt_sort_kernel_info"):
+               "spt_stream_closest_hit", "spt_stream_any_hit",
+               "spt_sort_chunks", "spt_env_sample",
+               "spt_fused_frame_kernel_info", "spt_fused_bounce_kernel_info",
+               "spt_trace_kernel_info", "spt_inst_trace_kernel_info",
+               "spt_stream_trace_kernel_info", "spt_sort_kernel_info",
+               "spt_env_sample_kernel_info"):
         getattr(lib, fn).restype = i
     lib.spt_cuda_error_string.argtypes = [i]
     lib.spt_cuda_error_string.restype = ctypes.c_char_p
@@ -146,14 +160,19 @@ def kernel_info() -> dict:
             ("fused_frame", lib.spt_fused_frame_kernel_info, (0,)),
             ("fused_frame_resident", lib.spt_fused_frame_kernel_info, (1,)),
             ("fused_frame_instanced", lib.spt_fused_frame_kernel_info, (2,)),
+            ("fused_frame_stream", lib.spt_fused_frame_kernel_info, (3,)),
             ("fused_bounce", lib.spt_fused_bounce_kernel_info, (0,)),
             ("fused_bounce_resident", lib.spt_fused_bounce_kernel_info, (1,)),
             ("fused_bounce_instanced", lib.spt_fused_bounce_kernel_info, (2,)),
+            ("fused_bounce_stream", lib.spt_fused_bounce_kernel_info, (3,)),
             ("closest_hit", lib.spt_trace_kernel_info, (0,)),
             ("any_hit", lib.spt_trace_kernel_info, (1,)),
             ("closest_hit_inst", lib.spt_inst_trace_kernel_info, (0,)),
             ("any_hit_inst", lib.spt_inst_trace_kernel_info, (1,)),
-            ("sort_chunks", lib.spt_sort_kernel_info, ())):
+            ("closest_hit_stream", lib.spt_stream_trace_kernel_info, (0,)),
+            ("any_hit_stream", lib.spt_stream_trace_kernel_info, (1,)),
+            ("sort_chunks", lib.spt_sort_kernel_info, ()),
+            ("env_sample", lib.spt_env_sample_kernel_info, ())):
         regs, local = ctypes.c_int(0), ctypes.c_int(0)
         err = fn(*args, ctypes.addressof(regs), ctypes.addressof(local))
         if err != 0:

@@ -1,12 +1,18 @@
-"""The mesh tracers for Hopper: resident (K4) and instanced (K7).
+"""The mesh tracers for Hopper: resident (K4), instanced (K7) and stream (K8).
 
 - ``closest_hit`` / ``any_hit``: the resident cluster tracer, the
   counterpart of ``spt_tpu.ops.pallas_trace`` (K4: ``closest_hit`` :732,
   ``any_hit`` :753, via ``_common_call`` :685), over the scene's cluster
-  accel (``ops/bvh.MeshAccel``).
+  accel (``ops/bvh.MeshAccel``) while it holds at most
+  ``bvh.MAX_RESIDENT_TRIS`` triangles.
 - ``inst_closest_hit`` / ``inst_any_hit``: the instanced TLAS/BLAS tracer,
   the counterpart of ``spt_tpu.ops.pallas_inst`` (K7: ``closest_hit`` :893,
   ``any_hit`` :915, via ``_inst_call`` :854), over ``ops/bvh.InstAccel``.
+- ``stream_closest_hit`` / ``stream_any_hit``: the two-level supercluster
+  tracer, the counterpart of ``spt_tpu.ops.pallas_stream`` (K8:
+  ``closest_hit`` :511, ``any_hit`` :534, via ``_stream_call`` :465), over
+  a cluster accel past ``bvh.MAX_RESIDENT_TRIS`` (``is_stream``), up to
+  ``bvh.MAX_STREAM_CLUSTERS`` clusters.
 
 Contracts, as the TPU kernels':
 
@@ -18,12 +24,14 @@ Contracts, as the TPU kernels':
   kernels' do (every caller masks them out).
 
 On a CUDA tensor each launches its kernel (``csrc/cluster_trace.cu``,
-``csrc/inst_trace.cu``: the ClusterTracer and InstTracer of
-``csrc/spt_tracers.cuh``, which fused_frame and fused_bounce inline) or
-raises.  On a CPU tensor each runs its plain version:
+``csrc/inst_trace.cu``, ``csrc/stream_trace.cu``: the ClusterTracer,
+InstTracer and StreamTracer of ``csrc/spt_tracers.cuh``, which fused_frame
+and fused_bounce inline) or raises.  On a CPU tensor each runs its plain
+version:
 
 - ``closest_hit_reference`` / ``any_hit_reference``: the chunked brute
-  force of ``intersect`` over the scene's flat tables;
+  force of ``intersect`` over the scene's flat tables, for the resident and
+  the stream tracer alike;
 - ``inst_closest_hit_reference`` / ``inst_any_hit_reference``: the
   instanced walk in PyTorch.  Closest runs the kernel's rounds: each round
   every lane takes its next crossed instance in (tnear, id) order
@@ -35,8 +43,9 @@ raises.  On a CPU tensor each runs its plain version:
 
 Kernel and plain version agree except on exact ties in t and on a grazing
 ray whose cluster box test and triangle test round apart.
-``CLOSEST_LAUNCHES``, ``ANY_LAUNCHES``, ``INST_CLOSEST_LAUNCHES`` and
-``INST_ANY_LAUNCHES`` count kernel launches.
+``CLOSEST_LAUNCHES``, ``ANY_LAUNCHES``, ``INST_CLOSEST_LAUNCHES``,
+``INST_ANY_LAUNCHES``, ``STREAM_CLOSEST_LAUNCHES`` and
+``STREAM_ANY_LAUNCHES`` count kernel launches.
 """
 
 from __future__ import annotations
@@ -45,15 +54,16 @@ import math
 
 import torch
 
-from spt_tpu_torch.ops import cuda_lib
+from spt_tpu_torch.ops import bvh, cuda_lib
 from spt_tpu_torch.ops import intersect as isect
-from spt_tpu_torch.ops.bvh import MAX_RESIDENT_TRIS
 from spt_tpu_torch.ops.vec3 import Vec3
 
 CLOSEST_LAUNCHES = 0
 ANY_LAUNCHES = 0
 INST_CLOSEST_LAUNCHES = 0
 INST_ANY_LAUNCHES = 0
+STREAM_CLOSEST_LAUNCHES = 0
+STREAM_ANY_LAUNCHES = 0
 
 _BIG = 1e30          # pallas_trace._BIG
 _MT_EPS = 1e-9
@@ -414,9 +424,18 @@ def inst_rows(ia) -> torch.Tensor:
     return torch.cat([ia.inst_lo, ia.inst_hi, ia.inst], 1)
 
 
+def is_stream(accel) -> bool:
+    """Whether the accel is past the resident tier, so that the stream
+    tracer traces it (intersect._trace_module's gate, intersect.py:460-479)."""
+    return accel.num_clusters * accel.cluster_size > bvh.MAX_RESIDENT_TRIS
+
+
 def _resident_inputs(accel, scene):
-    if accel.num_clusters * accel.cluster_size > MAX_RESIDENT_TRIS:
-        raise NotImplementedError("the stream tier is not ported")
+    if is_stream(accel):
+        raise ValueError(
+            f"{accel.num_clusters} clusters of {accel.cluster_size} are past "
+            f"MAX_RESIDENT_TRIS={bvh.MAX_RESIDENT_TRIS}: the stream tracer "
+            "(stream_closest_hit / stream_any_hit) traces this accel")
     tables = torch.cat([
         _sph_rows(scene),
         torch.cat([accel.cluster_lo, accel.cluster_hi], 1).reshape(-1),
@@ -434,6 +453,36 @@ def _inst_inputs(ia, scene):
         _bits(visit_keys(ia.blas_okey.reshape(8 * m, ia.cmax)))])
     pack = ia.tri_pack.contiguous()
     return tables, pack, (m * ia.cmax, ia.cluster_size, ia.num_instances, m)
+
+
+def super_boxes(accel) -> torch.Tensor:
+    """(G, 6) float32: the supercluster boxes lo | hi."""
+    return torch.cat([accel.sup_lo, accel.sup_hi], 1)
+
+
+def stream_globals(accel):
+    """(cluster boxes (C, 6) float32 lo | hi, cl_order (8, C) int16): the
+    stream kernels' tables in global memory.  Raises unless the accel's
+    clusters fill whole superclusters within the 16-bit ids."""
+    c = accel.num_clusters
+    if c > bvh.MAX_STREAM_CLUSTERS or accel.sup_lo.shape[0] * bvh.SUPER_FAN != c:
+        raise ValueError(f"{c} clusters: the stream tracer takes a multiple "
+                         f"of {bvh.SUPER_FAN} up to "
+                         f"MAX_STREAM_CLUSTERS={bvh.MAX_STREAM_CLUSTERS}")
+    return (torch.cat([accel.cluster_lo, accel.cluster_hi], 1).contiguous(),
+            accel.cl_order.contiguous())
+
+
+def _stream_inputs(accel, scene):
+    """The stream tracer's shared tables (spheres, super boxes, sup_okey),
+    tri_pack, and (G, K, cluster boxes, cl_order) with the global tables
+    as pointers; the tensors behind the pointers ride in `dims`' tail."""
+    tables = torch.cat([_sph_rows(scene), super_boxes(accel).reshape(-1),
+                        _bits(accel.sup_okey)])
+    cbox, corder = stream_globals(accel)
+    pack = accel.tri_pack.contiguous()
+    return tables, pack, (accel.sup_lo.shape[0], accel.cluster_size,
+                          cbox.data_ptr(), corder.data_ptr()), (cbox, corder)
 
 
 def _closest(what, fn, tables, pack, dims, scene, o, d, tmin, tmax):
@@ -532,4 +581,35 @@ def inst_any_hit(ia, scene, o: Vec3, d: Vec3, tmin=0.0,
     blocked = _any("inst_any_hit", cuda_lib.build().spt_inst_any_hit, tables,
                    pack, dims, scene, o, d, tmin, tmax)
     INST_ANY_LAUNCHES += 1
+    return blocked
+
+
+def stream_closest_hit(accel, scene, o: Vec3, d: Vec3, tmin=0.0,
+                       tmax=math.inf) -> isect.HitV:
+    """Closest hit of every lane against the spheres and the clusters of a
+    stream-tier accel."""
+    global STREAM_CLOSEST_LAUNCHES
+    if _device_of(o, "stream_closest_hit").type == "cpu":
+        return closest_hit_reference(accel, scene, o, d, tmin, tmax)
+    tables, pack, dims, keep = _stream_inputs(accel, scene)
+    hit = _closest("stream_closest_hit",
+                   cuda_lib.build().spt_stream_closest_hit, tables, pack, dims,
+                   scene, o, d, tmin, tmax)
+    del keep
+    STREAM_CLOSEST_LAUNCHES += 1
+    return hit
+
+
+def stream_any_hit(accel, scene, o: Vec3, d: Vec3, tmin=0.0,
+                   tmax=math.inf) -> torch.Tensor:
+    """Whether anything blocks each lane's ray within (tmin, tmax), through
+    a stream-tier accel."""
+    global STREAM_ANY_LAUNCHES
+    if _device_of(o, "stream_any_hit").type == "cpu":
+        return any_hit_reference(accel, scene, o, d, tmin, tmax)
+    tables, pack, dims, keep = _stream_inputs(accel, scene)
+    blocked = _any("stream_any_hit", cuda_lib.build().spt_stream_any_hit,
+                   tables, pack, dims, scene, o, d, tmin, tmax)
+    del keep
+    STREAM_ANY_LAUNCHES += 1
     return blocked

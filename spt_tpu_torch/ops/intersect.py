@@ -12,11 +12,13 @@
     ``ops/cuda_trace`` (the counterpart of ``spt_tpu.ops.pallas_inst``) on
     a CUDA tensor, its plain version on a CPU tensor or with ``plain=True``;
   - else on a CUDA tensor the resident cluster tracer (``ops/cuda_trace``,
-    the counterpart of ``spt_tpu.ops.pallas_trace``); on a CPU tensor, or
+    the counterpart of ``spt_tpu.ops.pallas_trace``), or past
+    ``bvh.MAX_RESIDENT_TRIS`` the stream tier's supercluster tracer (the
+    counterpart of ``spt_tpu.ops.pallas_stream``); on a CPU tensor, or
     with ``plain=True``, ``_intersect_chunked`` / ``_occluded_chunked``
     (intersect.py:272,380): (N, chunk) broadcast tests over the flat tables
-    with a running minimum — the plain version of the cluster tracer.  The
-    two agree except on exact ties.
+    with a running minimum — the plain version of both tracers.  They agree
+    except on exact ties.
 - Textured scenes (``scene.tri_uv``) resolve the hit's interpolated texture
   coordinates (``HitV.uvx`` / ``uvy``) on every route.
 
@@ -122,7 +124,9 @@ def intersect_v(scene, o: Vec3, d: Vec3, tmin=1e-4, tmax=INF,
               else cuda_trace.inst_closest_hit_reference)
         return fn(scene.inst, scene, o, d, tmin, tmax)
     if kernel:
-        return cuda_trace.closest_hit(scene.accel, scene, o, d, tmin, tmax)
+        fn = (cuda_trace.stream_closest_hit if cuda_trace.is_stream(scene.accel)
+              else cuda_trace.closest_hit)
+        return fn(scene.accel, scene, o, d, tmin, tmax)
     return _intersect_chunked(scene, o, d, tmin, tmax)
 
 
@@ -141,7 +145,9 @@ def occluded_v(scene, o: Vec3, d: Vec3, tmin=1e-4, tmax=INF,
               else cuda_trace.inst_any_hit_reference)
         return fn(scene.inst, scene, o, d, tmin, tmax)
     if kernel:
-        return cuda_trace.any_hit(scene.accel, scene, o, d, tmin, tmax)
+        fn = (cuda_trace.stream_any_hit if cuda_trace.is_stream(scene.accel)
+              else cuda_trace.any_hit)
+        return fn(scene.accel, scene, o, d, tmin, tmax)
     return _occluded_chunked(scene, o, d, tmin, tmax)
 
 

@@ -8,13 +8,13 @@ mesh material, then 0.  Above ``ACCEL_THRESHOLD`` primitives the cluster
 accel of ``ops/bvh`` is built over the flattened triangles, as
 ``spt_tpu.scene.flatten`` does; when those exceed ``MAX_RESIDENT_TRIS`` but
 the unique meshes fit it, the instanced TLAS/BLAS pair is built beside it
-(``_maybe_build_inst``).  Textured materials get the packed texture table
-and the flattened triangles their texture coordinates.
+(``_maybe_build_inst``).  Past ``MAX_RESIDENT_TRIS`` without one, the
+stream tier traces the same accel (its supercluster level, K8), up to
+``bvh.MAX_STREAM_CLUSTERS`` clusters.  Textured materials get the packed
+texture table and the flattened triangles their texture coordinates.
 
-Scenes the JAX package would trace through its HBM-streaming tier (K8,
-``spt_tpu/ops/pallas_stream.py``) raise NotImplementedError naming the
-reason.  The JAX package's ``SPT_NS``, ``SPT_CLUSTER``,
-``SPT_CLUSTER_SIZE`` and ``SPT_INSTANCED`` switches are not ported.
+The JAX package's ``SPT_NS``, ``SPT_CLUSTER``, ``SPT_CLUSTER_SIZE`` and
+``SPT_INSTANCED`` switches are not ported.
 """
 
 from __future__ import annotations
@@ -144,14 +144,14 @@ def explain_unsupported(desc: SceneDesc, cluster_size: int = 64) -> Optional[str
     recs = _inst_records(desc)
     n_tris = sum(desc.meshes[mid].triangle_count for mid, _, _ in recs)
     if n_tris + len(desc.spheres) > ACCEL_THRESHOLD:
-        if n_tris > bvh.MAX_RESIDENT_TRIS:
-            why = _inst_declines(desc, recs, n_tris, cluster_size)
-            if why is not None:
-                reasons.append(
-                    f"{n_tris} triangles > MAX_RESIDENT_TRIS="
-                    f"{bvh.MAX_RESIDENT_TRIS} and no instanced TLAS/BLAS "
-                    f"({why}): the scene needs the stream tier of the mesh "
-                    "path (K8, spt_tpu/ops/pallas_stream.py), not ported yet")
+        clusters = -(-n_tris // cluster_size)
+        clusters += -clusters % bvh.SUPER_FAN
+        if clusters > bvh.MAX_STREAM_CLUSTERS:
+            # the flattened accel is built whatever the tier
+            reasons.append(
+                f"{n_tris} triangles in {clusters} clusters of {cluster_size}"
+                f" > MAX_STREAM_CLUSTERS={bvh.MAX_STREAM_CLUSTERS} (the "
+                "16-bit id / 15-bit rank packing of the octant keys)")
         if n_tris <= ACCEL_THRESHOLD:
             # the accel is built over triangles only
             reasons.append(f"{n_tris + len(desc.spheres)} primitives > "

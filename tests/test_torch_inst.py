@@ -312,16 +312,20 @@ def test_instanced_tables_layout(jx, monkeypatch):
     assert cuda_bounce.explain_decline(cfg, ts, lights) is None
 
 
-def test_stream_tier_still_raises():
-    # three distinct meshes past the gate: no shared BLAS fits, and the
-    # stream tier (K8) is not ported
+def test_stream_tier_still_raises(monkeypatch):
+    # three distinct meshes past the gate: no shared BLAS fits, so the
+    # stream tier (K8) traces the flattened accel; past its cluster limit
+    # the scene still raises
     d = tscene.SceneDesc()
     d.add_material(tscene.Material())
     for k in range(3):
         mid = d.add_mesh(tscene.create_sphere_mesh(stacks=48 + k, slices=64))
         d.add_instance(mid, _m4((2.0 * k, 0.0, 0.0)))
         d.add_instance(mid, _m4((2.0 * k, 2.0, 0.0)))
-    with pytest.raises(NotImplementedError, match="K8"):
+    ts = tscene.flatten_scene(d, CPU)
+    assert ts.inst is None and cuda_bounce._accel_mode(ts) == "stream"
+    monkeypatch.setattr(tbvh, "MAX_STREAM_CLUSTERS", ts.accel.num_clusters - 16)
+    with pytest.raises(NotImplementedError, match="MAX_STREAM_CLUSTERS"):
         tscene.flatten_scene(d, CPU)
 
 

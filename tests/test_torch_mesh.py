@@ -125,9 +125,14 @@ def _tv(a):
 def test_accel_build_bit_exact(name):
     js, ts = _scenes(name)
     assert js.accel is not None and ts.accel is not None
-    for f in tbvh.MeshAccel._fields:
+    # cl_order is the port's own table, derived from cl_okey
+    # (tests/test_torch_stream.py holds it to pallas_stream's walk)
+    for f in tbvh.MeshAccel._fields[:-1]:
         np.testing.assert_array_equal(getattr(ts.accel, f).numpy(),
                                       np.asarray(getattr(js.accel, f)), f)
+    np.testing.assert_array_equal(
+        ts.accel.cl_order.numpy(),
+        tbvh.cluster_visit_order(np.asarray(js.accel.cl_okey)))
     if name == "mesh":
         assert ts.num_triangles == 6156 and ts.num_spheres == 1
         assert cuda_bounce._accel_mode(ts) == "resident"
@@ -142,7 +147,7 @@ def test_build_mesh_accel_direct_bit_exact(cluster_size):
     ns = np.random.default_rng(5).uniform(-1, 1, (400, 9)).astype(np.float32)
     j = jbvh.build_mesh_accel(*args, cluster_size=cluster_size, ns=ns)
     t = tbvh.build_mesh_accel(*args, cluster_size=cluster_size, ns=ns)
-    for f in tbvh.MeshAccel._fields:
+    for f in tbvh.MeshAccel._fields[:-1]:  # cl_order: the port's own
         np.testing.assert_array_equal(getattr(t, f).numpy(),
                                       np.asarray(getattr(j, f)), f)
 

@@ -2,8 +2,8 @@
 
 - On the CPU: each wrapper (closest_hit, any_hit, fused_bounce, the
   resident fused_frame, sort_chunks) runs its plain version and launches
-  nothing; the resident tables have the layout the kernels read; the
-  stream tier, which is not ported, raises, naming why.
+  nothing; the resident tables have the layout the kernels read; a scene
+  past the stream tier's cluster limit raises, naming why.
 - On a CUDA card (marker ``cuda``; skipped without one): each kernel against
   its plain version on the same tensors, on the procedural mesh scene of
   chip_smoke.py.  Gates: closest_hit kind and t (1e-4) and any_hit flags on
@@ -27,6 +27,7 @@ from spt_tpu_torch import scene as tscene  # noqa: E402
 from spt_tpu_torch.integrators import transport as ttr  # noqa: E402
 from spt_tpu_torch.integrators import wavefront as twf  # noqa: E402
 from spt_tpu_torch.lights import default_lights  # noqa: E402
+from spt_tpu_torch.ops import bvh as tbvh  # noqa: E402
 from spt_tpu_torch.ops import cuda_bounce, cuda_sort, cuda_trace  # noqa: E402
 from spt_tpu_torch.ops.vec3 import Vec3  # noqa: E402
 
@@ -103,8 +104,12 @@ def test_unported_tiers_raise(monkeypatch):
     big.add_material(tscene.Material())
     big.add_instance(big.add_mesh(tscene.create_sphere_mesh(stacks=80,
                                                             slices=80)))
-    with pytest.raises(NotImplementedError, match="stream tier"):
+    # the stream tier takes it (K8); past MAX_STREAM_CLUSTERS it raises
+    assert cuda_bounce._accel_mode(tscene.flatten_scene(big, CPU)) == "stream"
+    monkeypatch.setattr(tbvh, "MAX_STREAM_CLUSTERS", 192)
+    with pytest.raises(NotImplementedError, match="MAX_STREAM_CLUSTERS"):
         tscene.flatten_scene(big, CPU)
+    monkeypatch.undo()
     # two instances of one 6400-triangle mesh take the instanced tier now
     inst = tscene.SceneDesc()
     inst.add_material(tscene.Material())
@@ -115,8 +120,7 @@ def test_unported_tiers_raise(monkeypatch):
     assert cuda_bounce._accel_mode(tscene.flatten_scene(inst, CPU)) == "instanced"
     inst.add_instance(inst.add_mesh(tscene.create_sphere_mesh(stacks=40,
                                                               slices=80)))
-    with pytest.raises(NotImplementedError, match="stream tier"):
-        tscene.flatten_scene(inst, CPU)
+    assert cuda_bounce._accel_mode(tscene.flatten_scene(inst, CPU)) == "stream"
     balls = tscene.SceneDesc()
     balls.add_material(tscene.Material())
     balls.add_instance(balls.add_mesh(tscene.create_sphere_mesh(8, 16)))
@@ -130,10 +134,13 @@ def test_unported_tiers_raise(monkeypatch):
         only.add_sphere((i, 0.0, 0.0), 0.4, 0)
     with pytest.raises(NotImplementedError, match="no cluster accel"):
         tscene.flatten_scene(only, CPU)
-    # an accel past the resident tier has no kernel route
+    # an accel past the resident tier takes the stream route, up to
+    # MAX_STREAM_CLUSTERS clusters
     _, scene, _, _ = _mesh(CPU, 8, 8, stacks=8, slices=12)
     monkeypatch.setattr(cuda_bounce, "MAX_ACCEL_TRIS", 64)
-    with pytest.raises(NotImplementedError, match="stream tier"):
+    assert cuda_bounce._accel_mode(scene) == "stream"
+    monkeypatch.setattr(tbvh, "MAX_STREAM_CLUSTERS", 0)
+    with pytest.raises(NotImplementedError, match="MAX_STREAM_CLUSTERS"):
         cuda_bounce._accel_mode(scene)
 
 

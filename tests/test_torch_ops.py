@@ -113,10 +113,12 @@ def test_shading_normals_quantized_like_jax():
     np.testing.assert_array_equal(ts.tri_ns.numpy(), np.asarray(js.tri_ns))
 
 
-def test_scenes_beyond_the_slice_raise():
+def test_scenes_beyond_the_slice_raise(monkeypatch):
     # a 512-triangle mesh gets the resident cluster accel; past
-    # MAX_RESIDENT_TRIS without a shared BLAS the stream tier (K8) is not
-    # ported
+    # MAX_RESIDENT_TRIS without a shared BLAS the stream tier (K8) traces
+    # the same accel, up to MAX_STREAM_CLUSTERS clusters
+    from spt_tpu_torch.ops import bvh as tbvh, cuda_bounce
+
     mesh = tscene.SceneDesc()
     mesh.add_material(tscene.Material())
     mesh.add_instance(mesh.add_mesh(tscene.create_sphere_mesh(stacks=16, slices=16)))
@@ -124,8 +126,13 @@ def test_scenes_beyond_the_slice_raise():
     big = tscene.SceneDesc()
     big.add_material(tscene.Material())
     big.add_instance(big.add_mesh(tscene.create_sphere_mesh(stacks=80, slices=80)))
-    with pytest.raises(NotImplementedError, match="stream tier.*K8"):
+    bs = tscene.flatten_scene(big, CPU)
+    assert bs.inst is None and cuda_bounce._accel_mode(bs) == "stream"
+    assert bs.accel.num_clusters == 208 and bs.accel.sup_lo.shape[0] == 13
+    monkeypatch.setattr(tbvh, "MAX_STREAM_CLUSTERS", 192)
+    with pytest.raises(NotImplementedError, match="MAX_STREAM_CLUSTERS"):
         tscene.flatten_scene(big, CPU)
+    monkeypatch.undo()
     # textured scenes flatten with the packed texture table
     tex = tscene.build_default_scene()
     tex.materials[0] = tscene.Material(
@@ -140,14 +147,15 @@ def test_scenes_beyond_the_slice_raise():
 
     grid, _ = chip_smoke.inst_grid_scene(tscene, tmaterials, tdesc)
     assert tscene.flatten_scene(grid, CPU).inst is not None
-    # three distinct meshes over the gate share no BLAS that fits
+    # three distinct meshes over the gate share no BLAS that fits: the
+    # stream tier
     three = tscene.SceneDesc()
     three.add_material(tscene.Material())
     for k in range(3):
         mid = three.add_mesh(tscene.create_sphere_mesh(stacks=48 + k, slices=64))
         three.add_instance(mid)
-    with pytest.raises(NotImplementedError, match="stream tier.*K8"):
-        tscene.flatten_scene(three, CPU)
+    ts3 = tscene.flatten_scene(three, CPU)
+    assert ts3.inst is None and cuda_bounce._accel_mode(ts3) == "stream"
 
 
 def test_lights_match():

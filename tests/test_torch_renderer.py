@@ -142,14 +142,17 @@ def test_port_imports_no_jax():
 @pytest.mark.parametrize("change", [
     {"integrator": "compact"}, {"stream_tier": True},
     {"integrator": "megakernel"}, {"multi_device": True}])
-def test_unported_options_raise(change):
+def test_unported_options_raise(change, monkeypatch):
     cfg = tconfig.RenderConfig(width=16, height=8)
     if "integrator" in change:
         cfg = cfg.replace(integrator=change["integrator"])
     desc = tscene.build_default_scene()
     if "stream_tier" in change:
-        # textured scenes render now; a single mesh past MAX_RESIDENT_TRIS
-        # needs the stream tier (K8), which is not ported
+        # a single mesh past MAX_RESIDENT_TRIS takes the stream tier (K8)
+        # now; past its cluster limit (lowered here) it still raises
+        from spt_tpu_torch.ops import bvh as tbvh
+
+        monkeypatch.setattr(tbvh, "MAX_STREAM_CLUSTERS", 192)
         desc.add_instance(desc.add_mesh(tscene.create_sphere_mesh(
             stacks=80, slices=80)))
     with pytest.raises(NotImplementedError):
