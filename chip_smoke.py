@@ -76,6 +76,13 @@ this file; exits non-zero (printing no result) without them.  Phases:
     others; device ms, bound, plain ms and ``grid_sample``'s time; the
     poles and the u seam.
 
+A mesh kernel's bound counts the operations of its walks from the plain
+version's own results: each traced ray's box tests and the 64 triangle
+tests of every cluster its final bound reaches (``_walk_ops``: the closest
+hit and every shadow and NEE ray of the fused kernels).  Phases 5, 10, 14
+and 18 print each mesh form's registers, spill bytes, shared memory per
+block and blocks per SM at their tables.
+
 PNGs go to ``build/chip_smoke/`` beside this file.  The line before the last
 lists the kernels; the last line is ``{"ok": true, "device": {...}}``.
 """
@@ -119,6 +126,12 @@ def bound(nbytes: float, flops: float):
     the operations over the float32 peak."""
     tb, to = nbytes / PEAK_BYTES * 1e3, flops / PEAK_F32 * 1e3
     return (tb, "bytes") if tb >= to else (to, "operations")
+
+
+def ops_note(flops: float) -> str:
+    """A launch's counted operations and their time at the float32 peak,
+    for a log line beside its bound."""
+    return f"{flops:.4g} operations: {flops / PEAK_F32 * 1e3:.4f} ms"
 
 
 # --- scenes -------------------------------------------------------------------
@@ -340,6 +353,54 @@ def port_mesh_scene(stacks=32, slices=48, **cfg_kw):
     return desc, cfg, Camera(aspect_ratio=MW / MH, **cam)
 
 
+# The cases the cooperative cluster walk (csrc/spt_tracers.cuh) has to get
+# right beside a coherent frame; the card tests hold the kernels to their
+# plain versions on each.
+WALK_CASES = ("mixed_octants", "every_other_dead", "ragged", "blocked_early")
+
+
+def walk_case(torch, np, case, scene, lights, ps):
+    """(lights, PathState) of one of WALK_CASES, from a mesh scene's primary
+    state: every lane a random direction (warps of mixed octants); every
+    other lane dead (partial active masks); 13 lanes fewer (a lane count
+    that is not a multiple of 32); or, beside the scene's light, a light
+    grazing along the scene and a point light at its centre, whose shadow
+    rays other geometry blocks a few clusters out."""
+    from spt_tpu_torch.lights import LightManager
+    from spt_tpu_torch.ops.vec3 import Vec3
+
+    dev = ps.rng.device
+    n = ps.num_paths
+    if case == "mixed_octants":
+        d = np.random.default_rng(11).normal(size=(n, 3)).astype(np.float32)
+        d /= np.linalg.norm(d, axis=1, keepdims=True)
+        return lights, ps._replace(direction=Vec3(*(
+            torch.from_numpy(np.ascontiguousarray(d[:, k])).to(dev)
+            for k in range(3))))
+    if case == "every_other_dead":
+        return lights, ps._replace(
+            alive=ps.alive & (torch.arange(n, device=dev) % 2 == 0))
+    if case == "ragged":
+        return lights, type(ps)(*(
+            Vec3(*(c[:n - 13].contiguous() for c in f)) if isinstance(f, Vec3)
+            else f[:n - 13].contiguous() for f in ps))
+    if case != "blocked_early":
+        raise ValueError(f"unknown walk case {case!r}")
+    if scene.inst is not None:
+        lo = scene.inst.inst_lo.min(0).values
+        hi = scene.inst.inst_hi.max(0).values
+    else:
+        a = scene.accel
+        real = a.cluster_lo[:, 0] <= a.cluster_hi[:, 0]
+        lo = a.cluster_lo[real].min(0).values
+        hi = a.cluster_hi[real].max(0).values
+    lm = LightManager()
+    lm.add_directional_light([-0.5, -1.0, 0.3], [1.0, 0.95, 0.8], 2.0)
+    lm.add_directional_light([-1.0, -0.05, 0.0], [0.8, 0.9, 1.0], 1.0)
+    lm.add_point_light(((lo + hi) * 0.5).cpu().numpy(), intensity=3.0)
+    return lm.device(dev), ps
+
+
 def hdr_file() -> str:
     """The hdr config's map as bench.py:79-94 makes it: the 1024x2048
     synthetic sun-sky written once as a Radiance .hdr file (here under
@@ -496,12 +557,18 @@ def kernel_device_ms(torch, fn, kernel_name: str, iters: int = 10,
                      launches_per_call: int = 1) -> float:
     """Mean device time of the named kernel per launch, from a trace of
     `iters` calls of `fn` that each launch it `launches_per_call` times (the
-    trace has dropped up to a fifth of a short kernel's launches; the mean
-    is over those it saw)."""
-    ms, count = profile_kernels(torch, fn, [kernel_name], iters)[kernel_name]
-    if count < iters * launches_per_call // 2 or ms <= 0:
-        raise AssertionError(f"profiler saw {count} launches of {kernel_name}"
-                             f" in {iters} calls, {ms} ms of device time")
+    trace has dropped up to a fifth of a short kernel's launches, and once
+    every launch of a 0.04 ms kernel; the mean is over those it saw).  A
+    trace that sees fewer than half is taken again; after two, the calls
+    are timed with CUDA events behind a spin kernel (queued_device_ms)."""
+    for _ in range(2):
+        ms, count = profile_kernels(torch, fn, [kernel_name],
+                                    iters)[kernel_name]
+        if count >= iters * launches_per_call // 2 and ms > 0:
+            return ms
+    ms = queued_device_ms(torch, fn, iters) / launches_per_call
+    log(f"  the profiler saw {count} launches of {kernel_name} in {iters} "
+        f"calls; CUDA events behind a spin kernel: {ms:.4f} ms per launch")
     return ms
 
 
@@ -704,40 +771,83 @@ def _mesh_inputs(torch, dev):
     return cfg, scene, default_lights(dev), cam.rays(dev)
 
 
-def _trace_flops(scene, n_rays) -> float:
-    """The operations a closest-hit trace needs per ray, at the least: it
-    slab-tests every real cluster box (~24 flops) and every sphere (~20);
-    the triangle tests of the boxes it opens are not counted."""
+def _cluster_trace_ops(torch, scene, o, d, tmin, tmax, t_end, blocked=None):
+    """The operations the resident tracer needs on these rays, counted from
+    the plain version's result: every lane with a non-empty interval
+    slab-tests every real cluster box (~24 flops) and every sphere (~20),
+    and runs the 64 Moller-Trumbore tests (~40 flops each) of every cluster
+    box its final bound min(tmax, t_end) still reaches.  A blocked any-hit
+    lane counts one test."""
+    from spt_tpu_torch.ops import cuda_trace as ct
+    from spt_tpu_torch.ops.vec3 import Vec3
+
     a = scene.accel
-    real = int((a.cluster_lo[:, 0] <= a.cluster_hi[:, 0]).sum())
-    return float(n_rays) * (real * 24 + scene.num_spheres * 20)
+    n = o.x.shape[0]
+    tmax = torch.broadcast_to(torch.as_tensor(tmax, device=o.x.device,
+                                              dtype=torch.float32), (n,))
+    live = tmax > tmin
+    if blocked is not None:
+        live = live & ~blocked
+    bound = torch.minimum(tmax, t_end).clamp(max=1e30)
+    real = a.cluster_lo[:, 0] <= a.cluster_hi[:, 0]
+    lo, hi = a.cluster_lo[real], a.cluster_hi[real]
+    ops = float(live.sum()) * (int(real.sum()) * 24 + scene.num_spheres * 20)
+    for s0 in range(0, n, 16384):
+        sl = slice(s0, min(n, s0 + 16384))
+        tn, tf = ct._slab(lo, hi, Vec3(*(c[sl] for c in o)),
+                          Vec3(*(ct._inv_dir(c[sl]) for c in d)), tmin,
+                          bound[sl])
+        ops += float(((tn <= tf) & live[sl][None]).sum()) * a.cluster_size * 40
+    if blocked is not None:
+        ops += 20.0 * int((blocked & (tmax > tmin)).sum())
+    return ops
 
 
-def _nonempty(torch, tmin, tmax, n):
-    """(N,) mask of the rays whose interval (tmin, tmax) is not empty."""
-    return torch.broadcast_to(torch.as_tensor(tmax) > tmin, (n,))
+def _walk_ops(torch, scene, plain):
+    """(plain(), operations): runs the plain version of a fused kernel and
+    counts, from the plain tracers' own results, the operations of every
+    walk the kernel's tracer makes on the scene: each live lane's closest
+    hit to its final t and each shadow or NEE ray that shade_core traces
+    (intersect_v / occluded_v)."""
+    from spt_tpu_torch.ops import cuda_bounce
+    from spt_tpu_torch.ops import intersect as isect
 
+    trace_ops = {"resident": _cluster_trace_ops, "instanced": _inst_trace_ops,
+                 "stream": _stream_trace_ops}[cuda_bounce._accel_mode(scene)]
 
-def _any_hit_flops(torch, scene, blocked, tmin, tmax) -> float:
-    """The operations any_hit needs on these rays: an unblocked ray tests
-    every real box and every sphere, a blocked one stops at its first
-    blocker (one test, ~20 flops, at the least), an empty interval none."""
-    live = _nonempty(torch, tmin, tmax, blocked.shape[0]).to(blocked.device)
-    return (_trace_flops(scene, int((live & ~blocked).sum()))
-            + 20.0 * int((live & blocked).sum()))
+    with capture_calls([(isect, "intersect_v"), (isect, "occluded_v")],
+                       results=True) as calls:
+        out = plain()
+    ops = 0.0
+    for name, args, kw, res in calls:
+        _, o, d = args
+        tmin, tmax = kw["tmin"], kw["tmax"]
+        if name == "intersect_v":
+            ops += trace_ops(torch, scene, o, d, tmin, tmax, res.t)
+        else:
+            t_end = torch.as_tensor(tmax, device=o.x.device,
+                                    dtype=torch.float32)
+            ops += trace_ops(torch, scene, o, d, tmin, tmax, t_end,
+                             blocked=res)
+    return out, ops
 
 
 @contextlib.contextmanager
-def capture_calls(targets):
+def capture_calls(targets, results=False):
     """Record (name, args, kwargs) of every call of the (module, function
-    name) targets made while the context is open; the calls still run."""
+    name) targets made while the context is open, with the call's result
+    appended when `results`; the calls still run."""
     calls = []
     saved = [(m, name, getattr(m, name)) for m, name in targets]
 
     def recording(name, fn):
         def call(*args, **kw):
-            calls.append((name, args, kw))
-            return fn(*args, **kw)
+            if not results:
+                calls.append((name, args, kw))
+                return fn(*args, **kw)
+            out = fn(*args, **kw)
+            calls.append((name, args, kw, out))
+            return out
         return call
 
     try:
@@ -835,6 +945,34 @@ def _state_planes(torch, ks, km, ps_, pm):
     return out
 
 
+def _trace_shared_bytes(fn_name, acc, scene) -> int:
+    """Dynamic shared memory of a standalone tracer's block on this scene."""
+    from spt_tpu_torch.ops import cuda_lib
+    from spt_tpu_torch.ops import cuda_trace as ct
+
+    inputs = {"closest_hit": ct._resident_inputs, "any_hit": ct._resident_inputs,
+              "inst_closest_hit": ct._inst_inputs, "inst_any_hit": ct._inst_inputs,
+              "stream_closest_hit": ct._stream_inputs,
+              "stream_any_hit": ct._stream_inputs}[fn_name]
+    tables, _, dims = inputs(acc, scene)[:3]
+    return cuda_lib.shared_bytes(4 * tables.numel() + 2 * 8 * dims[0], True)
+
+
+def log_occupancy(phase: int, smi: str, smem: dict) -> dict:
+    """Registers, spill bytes, dynamic shared memory per block and blocks
+    per SM of each mesh form in `smem` (name -> shared bytes of its main
+    path's launch); logs and returns them."""
+    from spt_tpu_torch.ops import cuda_lib
+
+    info = cuda_lib.kernel_info(smem)
+    rows = {k: info[k] for k in smem}
+    log(f"phase {phase} occupancy at the main path's tables: " + "; ".join(
+        f"{k} {v['registers']} registers, {v['local_bytes']} B local, "
+        f"{v['smem_bytes']} B shared a block, {v['blocks_per_sm']} blocks/SM"
+        for k, v in rows.items()) + f" [{smi}]")
+    return rows
+
+
 def _over_calls(torch, fn, calls, kernel_name, plain, plain_iters=2):
     """(device ms per launch, plain ms per call), each the mean over the
     recorded calls: the kernel from a torch.profiler trace of all of them,
@@ -909,17 +1047,20 @@ def phase_mesh_kernels(torch, np, dev, smi):
             raise AssertionError(f"the regen frame made no {kname} call")
         nbytes = flops = 0.0
         for i, (args, kw) in enumerate(mine):
-            _, _, o, _, tmin, tmax = args
+            _, _, o, d, tmin, tmax = args
             rays = o.x.shape[0]
             pk, pp = kern(*args, **kw), ref(*args, **kw)
             if kname == "closest_hit":
                 planes = _hit_planes(torch, pk, pp)
-                flops += _trace_flops(scene, int(
-                    _nonempty(torch, tmin, tmax, rays).sum()))
+                flops += _cluster_trace_ops(torch, scene, o, d, tmin, tmax,
+                                            pp.t)
                 nbytes += rays * (7 * 4 + 24)
             else:
                 planes = {"blocked": (pk, pp)}
-                flops += _any_hit_flops(torch, scene, pp, tmin, tmax)
+                t_end = torch.as_tensor(tmax, device=o.x.device,
+                                        dtype=torch.float32)
+                flops += _cluster_trace_ops(torch, scene, o, d, tmin, tmax,
+                                            t_end, blocked=pp)
                 nbytes += rays * (7 * 4 + 1)
             worst[kname] = max(worst[kname], check_planes(
                 torch, f"{kname} regen call {i + 1} of {len(mine)} ({rays} "
@@ -931,7 +1072,8 @@ def phase_mesh_kernels(torch, np, dev, smi):
                           bound=b, library_ms=None)
         log(f"phase 5 {kname} at the regen frame's {len(mine)} calls: kernel "
             f"{ms:.4f} ms per launch (device time), plain {plain_ms:.4f} ms, "
-            f"bound {b[0]:.4f} ms ({b[1]}) [{smi}]")
+            f"bound {b[0]:.4f} ms ({b[1]}; {ops_note(flops / len(mine))}) "
+            f"[{smi}]")
 
     # --- K3, K1 resident and K5 at their main path's inputs: one frame of
     # --- the sorted mesh frame ---
@@ -952,7 +1094,9 @@ def phase_mesh_kernels(torch, np, dev, smi):
     for args, kw in mine:
         bcfg, bscene, blights, bps, bounce, is_last = args
         ks, km = cuda_bounce.fused_bounce(*args, **kw)
-        ps_, pm = cuda_bounce.fused_bounce_reference(*args, **kw)
+        (ps_, pm), ops = _walk_ops(
+            torch, scene,
+            lambda: cuda_bounce.fused_bounce_reference(*args, **kw))
         lanes = bps.num_paths
         worst_b = max(worst_b, check_planes(
             torch, f"fused_bounce bounce {bounce} ({lanes} lanes, "
@@ -960,7 +1104,7 @@ def phase_mesh_kernels(torch, np, dev, smi):
             _state_planes(torch, ks, km, ps_, pm)))
         # 15 planes in, 16 out (12 float, int64 rng, three byte flags)
         nbytes += lanes * (15 * 4 + 12 * 4 + 8 + 3) + a.tri_pack.numel() * 4
-        flops += _trace_flops(scene, int(bps.alive.sum()))
+        flops += ops
     ms, plain_ms = _over_calls(torch, cuda_bounce.fused_bounce, mine,
                                "fused_bounce_kernel<1>",
                                cuda_bounce.fused_bounce_reference)
@@ -969,13 +1113,16 @@ def phase_mesh_kernels(torch, np, dev, smi):
                                bound=b, library_ms=None)
     log(f"phase 5 fused_bounce at the sorted frame's {len(mine)} calls: "
         f"kernel {ms:.4f} ms per launch (device time), plain {plain_ms:.4f} "
-        f"ms, bound {b[0]:.4f} ms ({b[1]}) [{smi}]")
+        f"ms, bound {b[0]:.4f} ms ({b[1]}; {ops_note(flops / len(mine))}) "
+        f"[{smi}]")
 
     def check_frame(what, args, kw):
         """fused_frame against its plain version: every plane per lane, and
-        rays_per_bounce within 0.1 %.  Returns (max |d|, kernel rays)."""
+        rays_per_bounce within 0.1 %.  Returns (max |d|, the operations of
+        its walks)."""
         fk = cuda_bounce.fused_frame(*args, **kw)
-        fp = cuda_bounce.fused_frame_reference(*args, **kw)
+        fp, ops = _walk_ops(torch, args[1],
+                            lambda: cuda_bounce.fused_frame_reference(*args, **kw))
         rk, rp = fk[4].cpu().numpy(), fp[4].cpu().numpy()
         ray_diff = float((abs(rk - rp) / rp.clip(min=1)).max())
         worst_f = check_planes(
@@ -989,7 +1136,7 @@ def phase_mesh_kernels(torch, np, dev, smi):
         if ray_diff > 1e-3:
             raise AssertionError(f"{what}: rays_per_bounce differ from the "
                                  "plain version's")
-        return worst_f, rk
+        return worst_f, ops
 
     mine = by_name["fused_frame"]
     if len(mine) != 1:
@@ -998,20 +1145,19 @@ def phase_mesh_kernels(torch, np, dev, smi):
     (args, kw), = mine
     fps = args[3]
     start = kw.get("start_bounce", args[4] if len(args) > 4 else 0)
-    worst_f, rk = check_frame(
+    worst_f, ops = check_frame(
         f"fused_frame resident from bounce {start} ({fps.num_paths} lanes, "
         f"{int(fps.alive.sum())} alive)", args, kw)
     ms, plain_ms = _over_calls(torch, cuda_bounce.fused_frame, mine,
                                "fused_frame_kernel<1>",
                                cuda_bounce.fused_frame_reference, plain_iters=3)
-    b = bound(fps.num_paths * 26 * 4 + a.tri_pack.numel() * 4,
-              _trace_flops(scene, float(rk.sum())))
+    b = bound(fps.num_paths * 26 * 4 + a.tri_pack.numel() * 4, ops)
     out["fused_frame_resident"] = dict(max_abs_err=worst_f, ms=ms,
                                        plain_ms=plain_ms, bound=b,
                                        library_ms=None)
     log(f"phase 5 fused_frame resident at the sorted frame's call: kernel "
         f"{ms:.4f} ms (device time), plain {plain_ms:.4f} ms, bound "
-        f"{b[0]:.4f} ms ({b[1]}) [{smi}]")
+        f"{b[0]:.4f} ms ({b[1]}; {ops_note(ops)}) [{smi}]")
 
     # the resident fused_frame over every bounce of all lanes: the route of
     # ray_sort=False and of lane counts the sort cannot take
@@ -1021,6 +1167,12 @@ def phase_mesh_kernels(torch, np, dev, smi):
         cfg, scene, lights, ps0), "fused_frame_kernel<1>")
     log(f"phase 5 fused_frame resident from bounce 0 at {MW}x{MH} "
         f"d{cfg.max_depth}: kernel {ms0:.4f} ms (device time) [{smi}]")
+
+    log_occupancy(5, smi, {
+        "closest_hit": _trace_shared_bytes("closest_hit", a, scene),
+        "any_hit": _trace_shared_bytes("any_hit", a, scene),
+        "fused_bounce_resident": cuda_bounce.shared_bytes(*args[:3]),
+        "fused_frame_resident": cuda_bounce.shared_bytes(*args[:3])})
 
     # --- K5: at the sorted frame's inputs, then with 15 random planes ---
     def check_sort(what, key, ops, chunk):
@@ -1369,8 +1521,9 @@ def phase_inst_kernels(torch, np, dev, smi):
                           bound=b, library_ms=None)
         log(f"phase 10 {kname} at the regen frame's {len(mine)} calls: kernel "
             f"{ms:.4f} ms per launch (device time), plain {plain_ms:.4f} ms, "
-            f"bound {b[0]:.4f} ms ({b[1]}; operations count the triangle "
-            f"tests of the clusters each lane's final bound reaches) [{smi}]")
+            f"bound {b[0]:.4f} ms ({b[1]}; {ops_note(flops / len(mine))}, "
+            f"counting the triangle tests of the clusters each lane's final "
+            f"bound reaches) [{smi}]")
 
     # --- K3 and K1 instanced (textured) at the sorted frame's inputs ---
     r = inst_renderer(dev)
@@ -1384,7 +1537,6 @@ def phase_inst_kernels(torch, np, dev, smi):
     log(f"phase 10 the instanced sorted frame's calls: "
         f"{ {k: len(v) for k, v in by_name.items()} }")
     tex_bytes = scene.textures.numel() * 4
-    per_ray = ia.num_instances * 24 + scene.num_spheres * 20
     for i, (args, kw) in enumerate(by_name["sort_chunks"]):
         key, ops, chunk = args
         sk, lane, so = cuda_sort.sort_chunks(key, ops, chunk)
@@ -1402,14 +1554,16 @@ def phase_inst_kernels(torch, np, dev, smi):
     for args, kw in mine:
         bps, bounce = args[3], args[4]
         ks, km = cuda_bounce.fused_bounce(*args, **kw)
-        ps_, pm = cuda_bounce.fused_bounce_reference(*args, **kw)
+        (ps_, pm), ops = _walk_ops(
+            torch, scene,
+            lambda: cuda_bounce.fused_bounce_reference(*args, **kw))
         worst = max(worst, check_planes(
             torch, f"fused_bounce instanced bounce {bounce} "
             f"({bps.num_paths} lanes, {int(bps.alive.sum())} alive)",
             _state_planes(torch, ks, km, ps_, pm), phase=10))
         nbytes += (bps.num_paths * (15 * 4 + 12 * 4 + 8 + 3) + pack_bytes
                    + tex_bytes)
-        flops += float(bps.alive.sum()) * per_ray
+        flops += ops
     ms, plain_ms = _over_calls(torch, cuda_bounce.fused_bounce, mine,
                                "fused_bounce_kernel<2>",
                                cuda_bounce.fused_bounce_reference,
@@ -1420,11 +1574,15 @@ def phase_inst_kernels(torch, np, dev, smi):
                                          library_ms=None)
     log(f"phase 10 fused_bounce instanced at the sorted frame's {len(mine)} "
         f"calls: kernel {ms:.4f} ms per launch (device time), plain "
-        f"{plain_ms:.4f} ms, bound {b[0]:.4f} ms ({b[1]}) [{smi}]")
+        f"{plain_ms:.4f} ms, bound {b[0]:.4f} ms ({b[1]}; "
+        f"{ops_note(flops / len(mine))}) [{smi}]")
 
     def check_frame(what, args, kw):
+        """fused_frame against its plain version on every plane; returns
+        (max |d|, the operations of its walks)."""
         fk = cuda_bounce.fused_frame(*args, **kw)
-        fp = cuda_bounce.fused_frame_reference(*args, **kw)
+        fp, ops = _walk_ops(torch, args[1],
+                            lambda: cuda_bounce.fused_frame_reference(*args, **kw))
         rk, rp = fk[4].cpu().numpy(), fp[4].cpu().numpy()
         if not np.array_equal(rk, rp):
             raise AssertionError(f"{what}: rays_per_bounce kernel "
@@ -1434,7 +1592,7 @@ def phase_inst_kernels(torch, np, dev, smi):
             {"radiance": (_v(torch, fk[0]), _v(torch, fp[0])),
              "direction": (_v(torch, fk[1]), _v(torch, fp[1])),
              "throughput": (_v(torch, fk[2]), _v(torch, fp[2])),
-             "missed": (fk[3], fp[3])}, phase=10), rk
+             "missed": (fk[3], fp[3])}, phase=10), ops
 
     mine = by_name["fused_frame"]
     if len(mine) != 1:
@@ -1442,21 +1600,25 @@ def phase_inst_kernels(torch, np, dev, smi):
                              f"{len(mine)} times")
     (args, kw), = mine
     fps = args[3]
-    worst, rk = check_frame(
+    worst, ops = check_frame(
         f"fused_frame instanced from bounce {kw.get('start_bounce')} "
         f"({fps.num_paths} lanes, {int(fps.alive.sum())} alive)", args, kw)
     ms, plain_ms = _over_calls(torch, cuda_bounce.fused_frame, mine,
                                "fused_frame_kernel<2>",
                                cuda_bounce.fused_frame_reference,
                                plain_iters=1)
-    b = bound(fps.num_paths * 26 * 4 + pack_bytes + tex_bytes,
-              float(rk.sum()) * per_ray)
+    b = bound(fps.num_paths * 26 * 4 + pack_bytes + tex_bytes, ops)
     out["fused_frame_instanced"] = dict(max_abs_err=worst, ms=ms,
                                         plain_ms=plain_ms, bound=b,
                                         library_ms=None)
     log(f"phase 10 fused_frame instanced at the sorted frame's call: kernel "
         f"{ms:.4f} ms (device time), plain {plain_ms:.4f} ms, bound "
-        f"{b[0]:.4f} ms ({b[1]}) [{smi}]")
+        f"{b[0]:.4f} ms ({b[1]}; {ops_note(ops)}) [{smi}]")
+    log_occupancy(10, smi, {
+        "closest_hit_inst": _trace_shared_bytes("inst_closest_hit", ia, scene),
+        "any_hit_inst": _trace_shared_bytes("inst_any_hit", ia, scene),
+        "fused_bounce_instanced": cuda_bounce.shared_bytes(*args[:3]),
+        "fused_frame_instanced": cuda_bounce.shared_bytes(*args[:3])})
     # the sampler's share of that launch: the same call without the table
     bare = (args[0], args[1]._replace(textures=None)) + tuple(args[2:])
     check_frame("fused_frame instanced on the same call without the "
@@ -1753,7 +1915,8 @@ def phase_stream_kernels(torch, np, dev, smi):
                           bound=b, library_ms=None)
         log(f"phase 14 {kname} at the regen frame's {len(mine)} calls: kernel "
             f"{ms:.4f} ms per launch (device time), plain {plain_ms:.4f} ms, "
-            f"bound {b[0]:.4f} ms ({b[1]}; operations count the super boxes, "
+            f"bound {b[0]:.4f} ms ({b[1]}; {ops_note(flops / len(mine))}, "
+            f"counting the super boxes, "
             f"the cluster boxes of the supers and the triangles of the "
             f"clusters each lane's final bound reaches) [{smi}]")
 
@@ -1769,15 +1932,13 @@ def phase_stream_kernels(torch, np, dev, smi):
     log(f"phase 14 the stream sorted frame's calls: "
         f"{ {k: len(v) for k, v in by_name.items()} }")
     tex_bytes = scene.textures.numel() * 4
-    # each live lane slab-tests every super box and the sphere, at the least
-    per_ray = a.sup_lo.shape[0] * 24 + scene.num_spheres * 20
     mine = by_name["fused_bounce"]
     nbytes = flops = worst = plain_total = 0.0
     for args, kw in mine:
         bps, bounce = args[3], args[4]
         ks, km = cuda_bounce.fused_bounce(*args, **kw)
-        (ps_, pm), pms = _timed(torch, lambda: cuda_bounce.fused_bounce_reference(
-            *args, **kw))
+        ((ps_, pm), pms), ops = _walk_ops(torch, scene, lambda: _timed(
+            torch, lambda: cuda_bounce.fused_bounce_reference(*args, **kw)))
         plain_total += pms
         worst = max(worst, check_planes(
             torch, f"fused_bounce stream bounce {bounce} ({bps.num_paths} "
@@ -1785,7 +1946,7 @@ def phase_stream_kernels(torch, np, dev, smi):
             _state_planes(torch, ks, km, ps_, pm), phase=14))
         nbytes += (bps.num_paths * (15 * 4 + 12 * 4 + 8 + 3) + pack_bytes
                    + tex_bytes)
-        flops += float(bps.alive.sum()) * per_ray
+        flops += ops
     ms = kernel_device_ms(torch, lambda: [cuda_bounce.fused_bounce(*a_, **k_)
                                           for a_, k_ in mine],
                           "fused_bounce_kernel<3>", iters=10,
@@ -1796,8 +1957,8 @@ def phase_stream_kernels(torch, np, dev, smi):
                                       bound=b, library_ms=None)
     log(f"phase 14 fused_bounce stream at the sorted frame's {len(mine)} "
         f"calls: kernel {ms:.4f} ms per launch (device time), plain "
-        f"{plain_total / len(mine):.4f} ms, bound {b[0]:.4f} ms ({b[1]}) "
-        f"[{smi}]")
+        f"{plain_total / len(mine):.4f} ms, bound {b[0]:.4f} ms ({b[1]}; "
+        f"{ops_note(flops / len(mine))}) [{smi}]")
 
     mine = by_name["fused_frame"]
     if len(mine) != 1:
@@ -1806,8 +1967,8 @@ def phase_stream_kernels(torch, np, dev, smi):
     (args, kw), = mine
     fps = args[3]
     fk = cuda_bounce.fused_frame(*args, **kw)
-    fp, plain_ms = _timed(torch, lambda: cuda_bounce.fused_frame_reference(
-        *args, **kw))
+    (fp, plain_ms), ops = _walk_ops(torch, scene, lambda: _timed(
+        torch, lambda: cuda_bounce.fused_frame_reference(*args, **kw)))
     rk, rp = fk[4].cpu().numpy(), fp[4].cpu().numpy()
     if not np.array_equal(rk, rp):
         raise AssertionError(f"fused_frame stream: rays_per_bounce kernel "
@@ -1822,14 +1983,18 @@ def phase_stream_kernels(torch, np, dev, smi):
          "missed": (fk[3], fp[3])}, phase=14)
     ms = kernel_device_ms(torch, lambda: cuda_bounce.fused_frame(*args, **kw),
                           "fused_frame_kernel<3>")
-    b = bound(fps.num_paths * 26 * 4 + pack_bytes + tex_bytes,
-              float(rk.sum()) * per_ray)
+    b = bound(fps.num_paths * 26 * 4 + pack_bytes + tex_bytes, ops)
     out["fused_frame_stream"] = dict(max_abs_err=worst, ms=ms,
                                      plain_ms=plain_ms, bound=b,
                                      library_ms=None)
     log(f"phase 14 fused_frame stream at the sorted frame's call: kernel "
         f"{ms:.4f} ms (device time), plain {plain_ms:.4f} ms, bound "
-        f"{b[0]:.4f} ms ({b[1]}) [{smi}]")
+        f"{b[0]:.4f} ms ({b[1]}; {ops_note(ops)}) [{smi}]")
+    log_occupancy(14, smi, {
+        "closest_hit_stream": _trace_shared_bytes("stream_closest_hit", a, scene),
+        "any_hit_stream": _trace_shared_bytes("stream_any_hit", a, scene),
+        "fused_bounce_stream": cuda_bounce.shared_bytes(*args[:3]),
+        "fused_frame_stream": cuda_bounce.shared_bytes(*args[:3])})
     for i, (args, kw) in enumerate(by_name["sort_chunks"]):
         key, ops, chunk = args
         sk, lane, so = cuda_sort.sort_chunks(key, ops, chunk)
@@ -2006,6 +2171,9 @@ def phase_any_size(torch, np, dev, smi):
         log(f"phase 18 any-size {fn_name}: kernel {ms:.4f} ms per launch "
             f"(device time, {len(mine)} calls of {o.x.shape[0]} rays); the "
             f"plain version on {m} lanes {pms:.1f} ms [{smi}]")
+    log_occupancy(18, smi, {
+        "closest_hit_stream": _trace_shared_bytes("stream_closest_hit", a, scene),
+        "any_hit_stream": _trace_shared_bytes("stream_any_hit", a, scene)})
 
 
 # --- the environment sampler (phase 19) ---------------------------------------

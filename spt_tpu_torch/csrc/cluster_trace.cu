@@ -63,11 +63,12 @@ int spt_any_hit(const float* ox, const float* oy, const float* oz, const float* 
                       stream);
 }
 
-// Registers per thread and local (spill) bytes of closest_hit (any = 0) or
+// Registers per thread, local (spill) bytes and blocks per SM at `smem`
+// bytes of dynamic shared memory of closest_hit (any = 0) or
 // any_hit (1).
-int spt_trace_kernel_info(int any, int* num_regs, int* local_bytes) {
-  return any ? kernel_info(trace_kernel<true>, num_regs, local_bytes)
-             : kernel_info(trace_kernel<false>, num_regs, local_bytes);
+int spt_trace_kernel_info(int any, int smem, int* num_regs, int* local_bytes, int* blocks) {
+  return any ? kernel_info(trace_kernel<true>, smem, num_regs, local_bytes, blocks)
+             : kernel_info(trace_kernel<false>, smem, num_regs, local_bytes, blocks);
 }
 
 }  // extern "C"

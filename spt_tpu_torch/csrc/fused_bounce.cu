@@ -11,10 +11,17 @@
 // StreamTracer), textured or not; the sorted mesh frame (integrators/wavefront.py) runs it for the
 // bounces between its sorts.
 //
-// What bounds it on an H100: the state is read and written once per bounce,
-// 15 planes in and 16 out (the RNG word goes out as int64, the flags as
-// bytes): 60 + 63 B per lane.  As in fused_frame the trace and shade ALU
-// work per lane and its divergence bound it, not bytes.
+// What bounds it on an H100: not bytes (the state is read and written once
+// per bounce, 15 planes in and 16 out — the RNG word goes out as int64, the
+// flags as bytes: 60 + 63 B per lane) but, in the mesh forms, the tracer's
+// walks (the closest hit and every shadow ray): the Moller-Trumbore tests of
+// each opened 64-triangle cluster, which a lane walking alone runs while
+// the lanes of its warp that did not open the cluster idle.  The walks are
+// warp-cooperative (spt_tracers.cuh): the lanes step through their clusters
+// together, the tests of a cluster few of them open are spread over the
+// whole warp, and a cluster many open is staged once in the warp's
+// shared-memory buffer and scanned there by each; the sorted frame's
+// octant-major ray order puts many lanes on one cluster.
 
 #include "spt_tracers.cuh"
 
@@ -23,6 +30,7 @@ namespace {
 using namespace spt;
 
 constexpr int kBlock = 128;
+static_assert(kBlock == 32 * kWarps, "the staging buffers are laid out per warp");
 
 struct BounceIO {
   const float *ox, *oy, *oz, *dx, *dy, *dz, *tx, *ty, *tz, *rx, *ry, *rz;
@@ -140,20 +148,15 @@ int spt_fused_bounce(const float* ox, const float* oy, const float* oz, const fl
   return static_cast<int>(cudaGetLastError());
 }
 
-// Registers per thread and local (spill) bytes of the small (mode 0),
-// resident (1), instanced (2) or stream (3) form.
-int spt_fused_bounce_kernel_info(int mode, int* num_regs, int* local_bytes) {
-  cudaFuncAttributes attr;
-  const cudaError_t err =
-      mode == 3   ? cudaFuncGetAttributes(&attr, fused_bounce_kernel<3>)
-      : mode == 2 ? cudaFuncGetAttributes(&attr, fused_bounce_kernel<2>)
-      : mode == 1 ? cudaFuncGetAttributes(&attr, fused_bounce_kernel<1>)
-                  : cudaFuncGetAttributes(&attr, fused_bounce_kernel<0>);
-  if (err == cudaSuccess) {
-    *num_regs = attr.numRegs;
-    *local_bytes = static_cast<int>(attr.localSizeBytes);
-  }
-  return static_cast<int>(err);
+// Registers per thread, local (spill) bytes and blocks per SM at `smem`
+// bytes of dynamic shared memory of the small (mode 0), resident (1),
+// instanced (2) or stream (3) form.
+int spt_fused_bounce_kernel_info(int mode, int smem, int* num_regs, int* local_bytes,
+                                 int* blocks) {
+  return mode == 3   ? kernel_info(fused_bounce_kernel<3>, smem, num_regs, local_bytes, blocks)
+         : mode == 2 ? kernel_info(fused_bounce_kernel<2>, smem, num_regs, local_bytes, blocks)
+         : mode == 1 ? kernel_info(fused_bounce_kernel<1>, smem, num_regs, local_bytes, blocks)
+                     : kernel_info(fused_bounce_kernel<0>, smem, num_regs, local_bytes, blocks);
 }
 
 }  // extern "C"

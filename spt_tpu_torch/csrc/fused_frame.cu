@@ -40,6 +40,7 @@ namespace {
 using namespace spt;
 
 constexpr int kBlock = 128;
+static_assert(kBlock == 32 * kWarps, "the staging buffers are laid out per warp");
 
 struct FrameIO {
   const float *ox, *oy, *oz, *dx, *dy, *dz, *tx, *ty, *tz, *rx, *ry, *rz;
@@ -154,20 +155,15 @@ int spt_fused_frame(const float* ox, const float* oy, const float* oz, const flo
   return static_cast<int>(cudaGetLastError());
 }
 
-// Registers per thread and local (spill) bytes of the small (mode 0),
-// resident (1), instanced (2) or stream (3) form.
-int spt_fused_frame_kernel_info(int mode, int* num_regs, int* local_bytes) {
-  cudaFuncAttributes attr;
-  const cudaError_t err =
-      mode == 3   ? cudaFuncGetAttributes(&attr, fused_frame_kernel<3>)
-      : mode == 2 ? cudaFuncGetAttributes(&attr, fused_frame_kernel<2>)
-      : mode == 1 ? cudaFuncGetAttributes(&attr, fused_frame_kernel<1>)
-                  : cudaFuncGetAttributes(&attr, fused_frame_kernel<0>);
-  if (err == cudaSuccess) {
-    *num_regs = attr.numRegs;
-    *local_bytes = static_cast<int>(attr.localSizeBytes);
-  }
-  return static_cast<int>(err);
+// Registers per thread, local (spill) bytes and blocks per SM at `smem`
+// bytes of dynamic shared memory of the small (mode 0), resident (1),
+// instanced (2) or stream (3) form.
+int spt_fused_frame_kernel_info(int mode, int smem, int* num_regs, int* local_bytes,
+                                int* blocks) {
+  return mode == 3   ? kernel_info(fused_frame_kernel<3>, smem, num_regs, local_bytes, blocks)
+         : mode == 2 ? kernel_info(fused_frame_kernel<2>, smem, num_regs, local_bytes, blocks)
+         : mode == 1 ? kernel_info(fused_frame_kernel<1>, smem, num_regs, local_bytes, blocks)
+                     : kernel_info(fused_frame_kernel<0>, smem, num_regs, local_bytes, blocks);
 }
 
 const char* spt_cuda_error_string(int err) {

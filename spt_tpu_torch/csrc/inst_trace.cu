@@ -70,11 +70,12 @@ int spt_inst_any_hit(const float* ox, const float* oy, const float* oz, const fl
                       stream);
 }
 
-// Registers per thread and local (spill) bytes of the instanced closest
+// Registers per thread, local (spill) bytes and blocks per SM at `smem`
+// bytes of dynamic shared memory of the instanced closest
 // (any = 0) or any (1) kernel.
-int spt_inst_trace_kernel_info(int any, int* num_regs, int* local_bytes) {
-  return any ? kernel_info(inst_trace_kernel<true>, num_regs, local_bytes)
-             : kernel_info(inst_trace_kernel<false>, num_regs, local_bytes);
+int spt_inst_trace_kernel_info(int any, int smem, int* num_regs, int* local_bytes, int* blocks) {
+  return any ? kernel_info(inst_trace_kernel<true>, smem, num_regs, local_bytes, blocks)
+             : kernel_info(inst_trace_kernel<false>, smem, num_regs, local_bytes, blocks);
 }
 
 }  // extern "C"

@@ -36,6 +36,15 @@ constexpr int kBoxWords = 6;    // cluster lo xyz | hi xyz
 constexpr int kInstWords = 22;  // world box lo xyz | hi xyz | bvh.InstAccel.inst row (16)
 constexpr int kSuperFan = 16;   // clusters per supercluster (bvh.SUPER_FAN)
 
+// Every kernel runs blocks of kWarps warps (128 threads).  In the mesh forms
+// each warp owns a staging buffer in shared memory (spt_tracers.cuh): the
+// kMtCols Moller-Trumbore columns (v0 | e1 | e2) of up to kStageRows
+// cluster rows, 2304 B, and a lock word.
+constexpr int kWarps = 4;
+constexpr int kMtCols = 9;
+constexpr int kStageRows = 64;
+constexpr int kStageFloats = kStageRows * kMtCols;
+
 // RenderConfig toggles, one bit each.
 constexpr int kNee = 1 << 0;            // cfg.nee and the scene has emitters
 constexpr int kShadowRays = 1 << 1;
@@ -81,6 +90,8 @@ struct Tables {
   const float *tri, *sph, *mat, *light, *emit, *ns, *uv, *box, *inst;
   const uint16_t* order;
   const int* tex;
+  float* stage;     // mesh forms: kWarps staging buffers, else null
+  int* stage_lock;  // mesh forms: kWarps lock words, else null
   int n_tris, n_sphs, n_mats, n_lights, n_emit, tex_res;
 };
 
@@ -92,14 +103,28 @@ __host__ __device__ inline int table_words(const SceneArgs& s) {
          s.n_clusters * (kBoxWords + 8) + s.n_inst * kInstWords;
 }
 
-// Dynamic shared memory of a block: the tables plus the visit orders.
-__host__ __device__ inline size_t smem_bytes(const SceneArgs& s) {
+// Bytes of the tables plus the visit orders.
+__host__ __device__ inline size_t table_bytes(const SceneArgs& s) {
   return sizeof(float) * static_cast<size_t>(table_words(s)) +
          sizeof(uint16_t) * 8 * static_cast<size_t>(s.n_clusters);
 }
 
+// The mesh forms' staging buffers start at the first 16-byte boundary
+// after the tables.
+__host__ __device__ inline size_t stage_offset(const SceneArgs& s) {
+  return (table_bytes(s) + 15) / 16 * 16;
+}
+
+// Dynamic shared memory of a block: the tables and visit orders, then in
+// the mesh forms the warps' staging buffers and lock words.
+__host__ __device__ inline size_t smem_bytes(const SceneArgs& s) {
+  if (s.pack == nullptr) return table_bytes(s);
+  return stage_offset(s) + kWarps * (sizeof(float) * kStageFloats + sizeof(int));
+}
+
 // Copies the tables into shared memory, builds the visit orders (the whole
-// block takes part) and returns the pointers into it.
+// block takes part), frees the staging buffers and returns the pointers
+// into it.
 __device__ inline Tables load_tables(float* smem, const SceneArgs& s) {
   const int words = table_words(s);
   for (int k = threadIdx.x; k < words; k += blockDim.x) smem[k] = s.tables[k];
@@ -112,8 +137,17 @@ __device__ inline Tables load_tables(float* smem, const SceneArgs& s) {
     const int key = okey[k];
     order[(k / cmax) * cmax + (key >> 16)] = static_cast<uint16_t>(key & 0xFFFF);
   }
+  float* stage = nullptr;
+  int* stage_lock = nullptr;
+  if (s.pack != nullptr) {
+    stage = reinterpret_cast<float*>(reinterpret_cast<char*>(smem) + stage_offset(s));
+    stage_lock = reinterpret_cast<int*>(stage + kWarps * kStageFloats);
+    if (threadIdx.x < kWarps) stage_lock[threadIdx.x] = 0;
+  }
   __syncthreads();
   Tables tb;
+  tb.stage = stage;
+  tb.stage_lock = stage_lock;
   tb.tri = smem;
   tb.sph = tb.tri + s.n_tris * kTriWords;
   tb.mat = tb.sph + s.n_sphs * kSphWords;
@@ -604,6 +638,24 @@ inline cudaError_t reserve_smem(K kernel, size_t bytes) {
   if (bytes <= 48 * 1024) return cudaSuccess;
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                               static_cast<int>(bytes));
+}
+
+// Registers per thread and local (spill) bytes of a kernel, and the blocks
+// of kWarps warps an SM holds at once with `smem` bytes of dynamic shared
+// memory each.  Returns the CUDA error (0: filled).
+template <class K>
+inline int kernel_info(K kernel, int smem, int* num_regs, int* local_bytes, int* blocks) {
+  cudaFuncAttributes attr;
+  cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
+  if (err == cudaSuccess) err = reserve_smem(kernel, static_cast<size_t>(smem));
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, kernel, 32 * kWarps,
+                                                        static_cast<size_t>(smem));
+  if (err == cudaSuccess) {
+    *num_regs = attr.numRegs;
+    *local_bytes = static_cast<int>(attr.localSizeBytes);
+  }
+  return static_cast<int>(err);
 }
 
 }  // namespace spt

@@ -11,6 +11,7 @@
 namespace spt {
 
 constexpr int kTraceBlock = 128;
+static_assert(kTraceBlock == 32 * kWarps, "the staging buffers are laid out per warp");
 
 struct TraceIO {
   const float *ox, *oy, *oz, *dx, *dy, *dz, *tmax;
@@ -70,17 +71,6 @@ inline int launch_trace(K kernel, const TraceIO& io, const SceneArgs& sc, void* 
     kernel<<<grid, kTraceBlock, smem, static_cast<cudaStream_t>(stream)>>>(io, sc);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
-}
-
-template <class K>
-inline int kernel_info(K kernel, int* num_regs, int* local_bytes) {
-  cudaFuncAttributes attr;
-  const cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
-  if (err == cudaSuccess) {
-    *num_regs = attr.numRegs;
-    *local_bytes = static_cast<int>(attr.localSizeBytes);
-  }
-  return static_cast<int>(err);
 }
 
 }  // namespace spt

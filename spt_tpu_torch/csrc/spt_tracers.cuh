@@ -9,13 +9,13 @@
 // - ClusterTracer: the resident cluster tracer, the counterpart of
 //   spt_tpu/ops/pallas_trace.py closest_hit_tile / any_hit_tile
 //   (:497-669).  The TPU tests every cluster box against a whole ray
-//   subtile in one broadcast pass and opens the union; here each thread
-//   walks the clusters in its own direction octant's front-to-back order
-//   (the octant keys of bvh.MeshAccel.cl_okey), slab-tests each box against
+//   subtile in one broadcast pass and opens the union; here each ray walks
+//   the clusters in its own direction octant's front-to-back order (the
+//   octant keys of bvh.MeshAccel.cl_okey), slab-tests each box against
 //   min(tmax, best_t) with _box_flags' arithmetic (:75-107) and opens a box
 //   it hits: Moller-Trumbore over the cluster's rows of tri_pack in
-//   _tri_sub_test's formulation (:220-248).  The octant is the thread's
-//   own, not the subtile's; that changes only the visit order, and so only
+//   _tri_sub_test's formulation (:220-248).  The octant is the ray's own,
+//   not the subtile's; that changes only the visit order, and so only
 //   which triangle wins an exact tie in t.  Within a cluster the winner
 //   follows tri_block_min (:262-312): the lowest t, ties to the highest row
 //   of an 8-row sub-block, strict across sub-blocks; across clusters strict
@@ -24,13 +24,13 @@
 //   coordinates interpolate columns 13-18 (make_cluster_opener.resolve).
 // - InstTracer: the instanced TLAS/BLAS tracer (K7), the counterpart of
 //   spt_tpu/ops/pallas_inst.py inst_closest_tile_rounds / inst_any_tile_rounds
-//   (:306, :483).  One thread walks its own crossed instances front to back
+//   (:306, :483).  Each ray walks its own crossed instances front to back
 //   in the (tnear, id) order of _next_inst (:199-238): each round rescans the
 //   instance boxes against min(tmax, best) for the nearest one strictly
-//   after the thread's cursor, so the cursor advances every round and the
+//   after the ray's cursor, so the cursor advances every round and the
 //   walk ends after at most I rounds.  The ray goes into the instance's
 //   object space unnormalized (_xform_rays :72-86: t stays world t), walks
-//   that mesh's BLAS clusters with the ClusterTracer's loop in its own
+//   that mesh's BLAS clusters with the cluster walk in its own
 //   object-space octant's order, and a win takes _lane_finish (:284-303):
 //   the material override, sign(det) R^T on geometric normals, R^T alone on
 //   interpolated ones.  The TPU's per-instance union scheme, its bounce-0
@@ -39,26 +39,45 @@
 //   cannot change a flag.
 // - StreamTracer: the two-level tracer of meshes past the resident tier
 //   (K8), the counterpart of spt_tpu/ops/pallas_stream.py
-//   stream_closest_tile / stream_any_tile (:104, :250).  One thread walks
+//   stream_closest_tile / stream_any_tile (:104, :250).  Each ray walks
 //   the supercluster boxes (one box over each kSuperFan consecutive
 //   clusters) in its octant's front-to-back order (sup_okey), re-tests each
 //   against min(tmax, best) when its turn comes (the TPU's recheck,
-//   :211-217), and walks an opened super's 16 clusters with the
-//   ClusterTracer's loop in the order of bvh.MeshAccel.cl_order (cl_okey's
-//   order within the super).  The TPU streams each opened super's
-//   128-padded triangle block HBM -> VMEM by DMA, double-buffered; on the
-//   card the threads read tri_pack where it lies, through L2, so neither
-//   the padded copy nor the DMA schedule is ported.  Only the super level
-//   (G <= 1024 boxes and orders) sits in shared memory; the cluster boxes
-//   (C * 24 B, up to 384 KiB) and orders stay in global memory.
+//   :211-217), and walks an opened super's 16 clusters with the cluster
+//   walk in the order of bvh.MeshAccel.cl_order (cl_okey's order within
+//   the super).  Only the super level (G <= 1024 boxes and orders) sits in
+//   shared memory; the cluster boxes (C * 24 B, up to 384 KiB) and orders
+//   stay in global memory.
 //
-// What bounds the mesh tracers: per-thread ALU (a cluster open is 64
-// Moller-Trumbore tests) and the latency of tri_pack reads.  The boxes,
-// instance rows and visit orders (a few KB) sit in shared memory; tri_pack
-// (C*K rows of 24 or 25 floats, ~1.2 MB for the 12 288-slot BLAS) is read
-// through the read-only cache (__ldg) and stays resident in the 50 MB L2.
-// The stream tier's tri_pack (12 MB at 104k triangles, 109 MB at 940k)
-// stays in L2 up to ~50 MB and is read from device memory past it.
+// What bounds the mesh tracers: the 64 Moller-Trumbore tests of each opened
+// cluster (ALU, an IEEE division each) and the wait for their rows.  The
+// boxes, instance rows and visit orders (a few KB) sit in shared memory;
+// tri_pack (C*K rows of 24 or 25 floats: 1.2 MB for the 12 288-slot BLAS,
+// 10.4 MB at the stream tier's 104k triangles, 94 MB at 940k) lies in
+// global memory, behind the 50 MB L2.  A lane that walks alone scans an
+// opened cluster's 64 rows itself while the lanes of its warp that did not
+// open that cluster idle: on a cluster a few lanes open, most of the warp's
+// issue slots go to nothing.
+//
+// What the design does about it: one cluster walk, warp-cooperative, serves
+// all three mesh tracers.  The lanes that enter a tracer together step
+// through their supers, instances and clusters in lockstep, each in its own
+// front-to-back order with its own ray, bound and arithmetic; at each step
+// a ballot says which lanes open a cluster, and the lanes that open the
+// same one are served together.  Few of them (below kStageMin): the whole
+// warp takes each one's 64 tests in turn, two rows a lane, and reduces them
+// to that lane's winner (two min-reductions on keys that order the hits as
+// the lone scan does) or blocked flag.  Many of them: the warp copies the
+// nine Moller-Trumbore columns of the cluster's rows into its staging buffer
+// in shared memory (coalesced loads, all in flight at once) and each scans
+// the rows there, every lane reading the same row (a broadcast).  Each lane
+// keeps its own visit order, bound and winner (a pointer into tri_pack,
+// which resolve reads), so every result is the lone walk's, bit for bit;
+// the sorted frame's octant-major ray order (ray_sort.sort_key) is what
+// puts many lanes on one cluster.  The TPU streams each opened super's
+// 128-padded triangle block HBM -> VMEM by DMA, double-buffered; the
+// staging copy is its counterpart here, one cluster at a time and not
+// overlapped.
 // Padding clusters (inverted boxes, degenerate triangles only) are skipped
 // without a test; the TPU's slab test flags them and opens triangles that
 // cannot hit.
@@ -220,12 +239,25 @@ __device__ __forceinline__ bool box_hit(const float* b, V3 o, V3 inv, float tmin
   return tnear <= tfar;
 }
 
-// pallas_trace._tri_sub_test for one packed row and one ray.
+// pallas_trace._tri_sub_test for one packed row and one ray: the row's
+// Moller-Trumbore columns v0 | e1 | e2 at p[0..9), read from tri_pack in
+// global memory (through the read-only cache) or from a staging buffer in
+// shared memory (kStaged).
+template <bool kStaged>
 __device__ __forceinline__ bool pack_test(const float* __restrict__ p, V3 o, V3 d, float tmin,
                                           float tmax, float& t, float& u, float& v) {
-  const float v0x = __ldg(p + 0), v0y = __ldg(p + 1), v0z = __ldg(p + 2);
-  const float e1x = __ldg(p + 3), e1y = __ldg(p + 4), e1z = __ldg(p + 5);
-  const float e2x = __ldg(p + 6), e2y = __ldg(p + 7), e2z = __ldg(p + 8);
+  float c[kMtCols];
+#pragma unroll
+  for (int i = 0; i < kMtCols; ++i) {
+    if constexpr (kStaged) {
+      c[i] = p[i];
+    } else {
+      c[i] = __ldg(p + i);
+    }
+  }
+  const float v0x = c[0], v0y = c[1], v0z = c[2];
+  const float e1x = c[3], e1y = c[4], e1z = c[5];
+  const float e2x = c[6], e2y = c[7], e2z = c[8];
   const float hx = d.y * e2z - d.z * e2y;
   const float hy = d.z * e2x - d.x * e2z;
   const float hz = d.x * e2y - d.y * e2x;
@@ -303,54 +335,219 @@ struct Winner {
   float u, v;
 };
 
-// Walks n clusters (ids ord[0..n), offset by base) front to back, opening
-// each box that min(tmax, best) still reaches; lowers best and records the
-// winner on a strict improvement.  Returns whether any cluster improved.
-__device__ inline bool walk_closest(const float* box, const uint16_t* ord, int n, int base,
-                                    const float* __restrict__ pack, int pack_w, int k, V3 o, V3 d,
-                                    V3 inv, float tmin, float tmax, float& best, Winner& win) {
+// Lanes that must open one cluster before the warp stages it in shared
+// memory and each of them scans the 64 rows alone; fewer spread their
+// tests over the warp.  Chosen on the card with walk_sweep.py (PERF.md).
+constexpr int kStageMin = 24;
+
+__device__ __forceinline__ unsigned lane_bit() { return 1u << (threadIdx.x & 31); }
+
+// This warp's staging buffer and lock word (spt_common.cuh), or null in a
+// form without one.
+__device__ __forceinline__ float* warp_stage(const Tables& tb) {
+  return tb.stage != nullptr ? tb.stage + (threadIdx.x >> 5) * kStageFloats : nullptr;
+}
+__device__ __forceinline__ int* warp_lock(const Tables& tb) {
+  return tb.stage_lock != nullptr ? tb.stage_lock + (threadIdx.x >> 5) : nullptr;
+}
+
+// The lanes m take their warp's staging buffer for one walk (their first
+// lane locks it) and get it back, or null when a walk of other lanes of the
+// warp holds it (those then read tri_pack in place).
+__device__ inline float* take_stage(unsigned m, float* buf, int* lock) {
+  const int first = __ffs(m) - 1;
+  int held = 0;
+  if ((threadIdx.x & 31) == first && buf != nullptr) held = atomicCAS(lock, 0, 1) == 0;
+  return __shfl_sync(m, held, first) ? buf : nullptr;
+}
+
+__device__ inline void drop_stage(unsigned m, float* rows, int* lock) {
+  __syncwarp(m);
+  if (rows != nullptr && (threadIdx.x & 31) == __ffs(m) - 1) {
+    __threadfence_block();
+    atomicExch(lock, 0);
+  }
+}
+
+// The lanes m copy the Moller-Trumbore columns of a cluster's k rows (blk,
+// row stride pack_w) into the staging buffer, kMtCols floats a row.
+__device__ inline void stage_cluster(unsigned m, const float* __restrict__ blk, int pack_w,
+                                     int k, float* rows) {
+  const int rank = __popc(m & (lane_bit() - 1u));
+  const int size = __popc(m);
+  for (int e = rank; e < k * kMtCols; e += size) {
+    const int r = e / kMtCols;
+    rows[e] = __ldg(blk + r * pack_w + (e - r * kMtCols));
+  }
+}
+
+// A lane's tests of one opened cluster, rows at `rows` with row stride
+// `stride`: closest keeps tri_block_min's winner (the lowest t, ties to the
+// highest row of an 8-row sub-block, strict across sub-blocks).
+template <bool kStaged>
+__device__ inline void open_closest(const float* __restrict__ rows, int stride, int k, V3 o,
+                                    V3 d, float tmin, float tmax, float& tm, int& wi, float& pu,
+                                    float& pv) {
   const int kb = (k % 8 == 0) ? 8 : k;  // pallas_trace._sub_k
-  bool any = false;
+  for (int row = 0; row < k; ++row) {
+    float t, u, v;
+    if (!pack_test<kStaged>(rows + row * stride, o, d, tmin, tmax, t, u, v)) continue;
+    if (t < tm || (t == tm && wi >= 0 && row / kb == wi / kb)) {
+      tm = t;
+      wi = row;
+      pu = u;
+      pv = v;
+    }
+  }
+}
+
+template <bool kStaged>
+__device__ inline bool open_any(const float* __restrict__ rows, int stride, int k, V3 o, V3 d,
+                                float tmin, float tmax) {
+  for (int row = 0; row < k; ++row) {
+    float t, u, v;
+    if (pack_test<kStaged>(rows + row * stride, o, d, tmin, tmax, t, u, v)) return true;
+  }
+  return false;
+}
+
+// open_closest's winner as an order of unsigned keys, so that the warp can
+// pick it with two min-reductions: t's bits in the order of the values
+// (-0 taken as +0, which equals it), then the row's place in the tie order
+// (the lowest sub-block first, within it the highest row).
+__device__ __forceinline__ unsigned t_key(float t) {
+  const unsigned b = __float_as_uint(t + 0.0f);
+  return (b & 0x80000000u) ? ~b : (b | 0x80000000u);
+}
+
+__device__ __forceinline__ unsigned row_key(int row, int kb) {
+  return (static_cast<unsigned>(row / kb) << 16) | static_cast<unsigned>(0xFFFF - row);
+}
+
+// The tests of one cluster (blk) for each lane of `voters`, spread over the
+// lanes m: for each voter in turn every lane of m takes the voter's ray and
+// tests its share of the rows (read from tri_pack; for the voters after the
+// first they come from L1), and the warp reduces the shares to
+// open_closest's winner (closest) or to whether any row hit (any-hit).
+template <bool kAny>
+__device__ inline void spread_cluster(unsigned m, unsigned voters,
+                                      const float* __restrict__ blk, int pack_w, int k, V3 o,
+                                      V3 d, float tmin, float tmax, float& best, Winner& win,
+                                      bool& hit) {
+  const int lane = threadIdx.x & 31;
+  const int rank = __popc(m & (lane_bit() - 1u));
+  const int size = __popc(m);
+  const int kb = (k % 8 == 0) ? 8 : k;
+  while (voters != 0u) {
+    const int src = __ffs(voters) - 1;
+    voters &= voters - 1u;
+    const V3 ro = v3(__shfl_sync(m, o.x, src), __shfl_sync(m, o.y, src), __shfl_sync(m, o.z, src));
+    const V3 rd = v3(__shfl_sync(m, d.x, src), __shfl_sync(m, d.y, src), __shfl_sync(m, d.z, src));
+    const float rtmin = __shfl_sync(m, tmin, src), rtmax = __shfl_sync(m, tmax, src);
+    if constexpr (kAny) {
+      bool h = false;
+      for (int row = rank; row < k && !h; row += size) {
+        float t, u, v;
+        h = pack_test<false>(blk + row * pack_w, ro, rd, rtmin, rtmax, t, u, v);
+      }
+      if (__ballot_sync(m, h) != 0u && lane == src) hit = true;
+    } else {
+      unsigned bk = 0xFFFFFFFFu, bk2 = 0xFFFFFFFFu;
+      float bt = 0.0f, bu = 0.0f, bv = 0.0f;
+      for (int row = rank; row < k; row += size) {
+        float t, u, v;
+        if (!pack_test<false>(blk + row * pack_w, ro, rd, rtmin, rtmax, t, u, v)) continue;
+        const unsigned k1 = t_key(t), k2 = row_key(row, kb);
+        if (k1 < bk || (k1 == bk && k2 < bk2)) {
+          bk = k1;
+          bk2 = k2;
+          bt = t;
+          bu = u;
+          bv = v;
+        }
+      }
+      const unsigned kmin = __reduce_min_sync(m, bk);
+      if (kmin == 0xFFFFFFFFu) continue;
+      const unsigned k2min = __reduce_min_sync(m, bk == kmin ? bk2 : 0xFFFFFFFFu);
+      const int win_lane = __ffs(__ballot_sync(m, bk == kmin && bk2 == k2min)) - 1;
+      const float tm = __shfl_sync(m, bt, win_lane);
+      const float pu = __shfl_sync(m, bu, win_lane), pv = __shfl_sync(m, bv, win_lane);
+      if (lane == src && tm < best) {
+        best = tm;
+        win = Winner{blk + (0xFFFF - static_cast<int>(k2min & 0xFFFFu)) * pack_w, pu, pv};
+        hit = true;
+      }
+    }
+  }
+}
+
+// The cluster walk, warp-cooperative: the lanes m step through n clusters
+// together, each lane through its own visit order (ids ord[0..n), offset by
+// base), with its own ray.  A lane with `open` false votes no at every
+// step.  Closest (kAny false): a lane opens each box that min(tmax, best)
+// still reaches, lowers best and records its winner on a strict
+// improvement, and sets `hit` when a cluster improved.  Any-hit: a lane
+// opens each box (tmin, tmax) reaches until `hit` (its blocked flag) is
+// set; the walk ends when no lane of m is left to open one.  At each step
+// the lanes that open the same cluster are served together: at least
+// kStageMin of them copy it into the staging buffer `rows` (when the walk
+// holds it) and each scans its rows there, a broadcast; fewer spread their
+// tests over the warp.
+template <bool kAny>
+__device__ inline void walk_clusters(unsigned m, bool open, float* rows, const float* box,
+                                     const uint16_t* ord, int n, int base,
+                                     const float* __restrict__ pack, int pack_w, int k, V3 o,
+                                     V3 d, V3 inv, float tmin, float tmax, float& best,
+                                     Winner& win, bool& hit) {
+  const bool can_stage = rows != nullptr && k <= kStageRows;
   for (int j = 0; j < n; ++j) {
+    if constexpr (kAny) {
+      if (__ballot_sync(m, open && !hit) == 0u) return;
+    }
     const int c = base + ord[j];
     const float* b = box + c * kBoxWords;
     // padding clusters (inverted boxes) hold only degenerate triangles
-    if (b[0] > b[3] || !box_hit(b, o, inv, tmin, fminf(tmax, best))) continue;
-    const float* __restrict__ blk = pack + static_cast<size_t>(c) * k * pack_w;
-    float tm = kBig, pu = 0.0f, pv = 0.0f;
-    int wi = -1;
-    for (int row = 0; row < k; ++row) {
-      float t, u, v;
-      if (!pack_test(blk + row * pack_w, o, d, tmin, tmax, t, u, v)) continue;
-      if (t < tm || (t == tm && wi >= 0 && row / kb == wi / kb)) {
-        tm = t;
-        wi = row;
-        pu = u;
-        pv = v;
+    const bool want = open && !(kAny && hit) && !(b[0] > b[3]) &&
+                      box_hit(b, o, inv, tmin, kAny ? tmax : fminf(tmax, best));
+    unsigned todo = __ballot_sync(m, want);
+    if (todo == 0u) continue;
+    const unsigned same = __match_any_sync(m, c) & todo;
+    while (todo != 0u) {
+      const int lead = __ffs(todo) - 1;
+      const unsigned voters = __shfl_sync(m, same, lead);
+      const int cl = __shfl_sync(m, c, lead);
+      todo &= ~voters;
+      const float* __restrict__ blk = pack + static_cast<size_t>(cl) * k * pack_w;
+      if (__popc(voters) < kStageMin) {
+        spread_cluster<kAny>(m, voters, blk, pack_w, k, o, d, tmin, tmax, best, win, hit);
+        continue;
       }
+      if (can_stage) {
+        stage_cluster(m, blk, pack_w, k, rows);
+        __syncwarp(m);
+      }
+      if (voters & lane_bit()) {
+        if constexpr (kAny) {
+          hit = can_stage ? open_any<true>(rows, kMtCols, k, o, d, tmin, tmax)
+                          : open_any<false>(blk, pack_w, k, o, d, tmin, tmax);
+        } else {
+          float tm = kBig, pu = 0.0f, pv = 0.0f;
+          int wi = -1;
+          if (can_stage) {
+            open_closest<true>(rows, kMtCols, k, o, d, tmin, tmax, tm, wi, pu, pv);
+          } else {
+            open_closest<false>(blk, pack_w, k, o, d, tmin, tmax, tm, wi, pu, pv);
+          }
+          if (tm < best) {
+            best = tm;
+            win = Winner{blk + wi * pack_w, pu, pv};
+            hit = true;
+          }
+        }
+      }
+      if (can_stage) __syncwarp(m);
     }
-    if (!(tm < best)) continue;
-    best = tm;
-    win = Winner{blk + wi * pack_w, pu, pv};
-    any = true;
   }
-  return any;
-}
-
-__device__ inline bool walk_any(const float* box, const uint16_t* ord, int n, int base,
-                                const float* __restrict__ pack, int pack_w, int k, V3 o, V3 d,
-                                V3 inv, float tmin, float tmax) {
-  for (int j = 0; j < n; ++j) {
-    const int c = base + ord[j];
-    const float* b = box + c * kBoxWords;
-    if (b[0] > b[3] || !box_hit(b, o, inv, tmin, tmax)) continue;
-    const float* __restrict__ blk = pack + static_cast<size_t>(c) * k * pack_w;
-    for (int row = 0; row < k; ++row) {
-      float t, u, v;
-      if (pack_test(blk + row * pack_w, o, d, tmin, tmax, t, u, v)) return true;
-    }
-  }
-  return false;
 }
 
 // Winner resolution (make_cluster_opener.resolve): material, the geometric
@@ -404,9 +601,12 @@ struct ClusterTracer {
   int n_clusters;
   const float* __restrict__ pack;  // global: (C*K, pack_w)
   int pack_w, k;
+  float* stage;                    // shared: this warp's staging buffer, or null
+  int* lock;
 
   __device__ int closest(V3 o, V3 d, float tmin, float tmax, float& t_out, int& mat,
                          V3& normal, float& hu, float& hv) const {
+    const unsigned m = __activemask();
     float best = kBig;
     int kind = 0;
     mat = 0;
@@ -416,8 +616,12 @@ struct ClusterTracer {
     // analytic spheres first (_sphere_pass_closest)
     sphere_pass(sph, n_sphs, o, d, tmin, tmax, best, kind, mat, ax, ay, az, rinv);
     Winner w;
-    if (walk_closest(box, order + octant(d) * n_clusters, n_clusters, 0, pack, pack_w, k, o, d,
-                     inv_dir3(d), tmin, tmax, best, w)) {
+    bool won = false;
+    float* rows = take_stage(m, stage, lock);
+    walk_clusters<false>(m, true, rows, box, order + octant(d) * n_clusters, n_clusters, 0, pack,
+                         pack_w, k, o, d, inv_dir3(d), tmin, tmax, best, w, won);
+    drop_stage(m, rows, lock);
+    if (won) {
       V3 n;
       bool geom;
       resolve(w, pack_w, mat, n, geom, hu, hv);
@@ -430,17 +634,23 @@ struct ClusterTracer {
   }
 
   __device__ bool occluded(V3 o, V3 d, float tmin, float tmax) const {
+    const unsigned m = __activemask();
     // empty intervals count as blocked (any_hit_tile :631-637)
-    if (tmax <= tmin) return true;
-    if (sphere_any(sph, n_sphs, o, d, tmin, tmax)) return true;
-    return walk_any(box, order + octant(d) * n_clusters, n_clusters, 0, pack, pack_w, k, o, d,
-                    inv_dir3(d), tmin, tmax);
+    bool blocked = tmax <= tmin || sphere_any(sph, n_sphs, o, d, tmin, tmax);
+    float best = kBig;
+    Winner w;
+    float* rows = take_stage(m, stage, lock);
+    walk_clusters<true>(m, true, rows, box, order + octant(d) * n_clusters, n_clusters, 0, pack,
+                        pack_w, k, o, d, inv_dir3(d), tmin, tmax, best, w, blocked);
+    drop_stage(m, rows, lock);
+    return blocked;
   }
 };
 
 __device__ inline ClusterTracer cluster_tracer(const Tables& tb, const SceneArgs& s) {
-  return ClusterTracer{tb.sph, tb.n_sphs, tb.box, tb.order, s.n_clusters, s.pack, s.pack_w,
-                       s.cluster_size};
+  return ClusterTracer{tb.sph,   tb.n_sphs,    tb.box,         tb.order,
+                       s.n_clusters, s.pack,   s.pack_w,       s.cluster_size,
+                       warp_stage(tb), warp_lock(tb)};
 }
 
 // One instance row of the kernels' table: world box lo | hi at 0..5, then
@@ -457,6 +667,10 @@ __device__ __forceinline__ void xform(const float* r, V3 o, V3 d, V3& oo, V3& dd
           r[6] * d.x + r[7] * d.y + r[8] * d.z);
 }
 
+// The instanced walk: the lanes of a warp go through their rounds together;
+// each round a lane takes its next crossed instance and walks that mesh's
+// BLAS in its own object-space octant's order, in step with the others.
+// The rounds go on while any lane of the warp has an instance left.
 struct InstTracer {
   const float* sph;                // shared: kSphWords rows
   int n_sphs;
@@ -466,9 +680,12 @@ struct InstTracer {
   int n_inst, n_meshes, cmax;
   const float* __restrict__ pack;  // global: (M*CMAX*K, pack_w) object space
   int pack_w, k;
+  float* stage;                    // shared: this warp's staging buffer, or null
+  int* lock;
 
   __device__ int closest(V3 o, V3 d, float tmin, float tmax, float& t_out, int& mat,
                          V3& normal, float& hu, float& hv) const {
+    const unsigned m = __activemask();
     float best = kBig;
     int kind = 0;
     mat = 0;
@@ -479,29 +696,39 @@ struct InstTracer {
     const V3 inv = inv_dir3(d);
     float last_tn = -kBig;
     int last_id = -1;
-    for (;;) {
+    bool pending = true;
+    float* rows = take_stage(m, stage, lock);
+    while (__ballot_sync(m, pending) != 0u) {
       // _next_inst: the nearest crossed instance strictly after the cursor
-      const float bound = fminf(tmax, best);
       float cur_tn = kBig;
       int cur_id = 0x7FFFFFFF;
-      for (int i = 0; i < n_inst; ++i) {
-        float tnear, tfar;
-        box_interval(inst + i * kInstWords, o, inv, tmin, bound, tnear, tfar);
-        const bool ok =
-            (tnear <= tfar) && ((tnear > last_tn) || ((tnear == last_tn) && (i > last_id)));
-        if (ok && ((tnear < cur_tn) || ((tnear == cur_tn) && (i < cur_id)))) {
-          cur_tn = tnear;
-          cur_id = i;
+      if (pending) {
+        const float bound = fminf(tmax, best);
+        for (int i = 0; i < n_inst; ++i) {
+          float tnear, tfar;
+          box_interval(inst + i * kInstWords, o, inv, tmin, bound, tnear, tfar);
+          const bool ok =
+              (tnear <= tfar) && ((tnear > last_tn) || ((tnear == last_tn) && (i > last_id)));
+          if (ok && ((tnear < cur_tn) || ((tnear == cur_tn) && (i < cur_id)))) {
+            cur_tn = tnear;
+            cur_id = i;
+          }
         }
+        pending = cur_tn < kBig;
       }
-      if (!(cur_tn < kBig)) break;
-      const float* r = inst + cur_id * kInstWords + kInstRow;
-      V3 oo, dd;
-      xform(r, o, d, oo, dd);
-      const int mesh = static_cast<int>(r[12]);
+      const float* r = inst + (pending ? cur_id : 0) * kInstWords + kInstRow;
+      V3 oo = o, dd = d;
+      int mesh = 0;
+      if (pending) {
+        xform(r, o, d, oo, dd);
+        mesh = static_cast<int>(r[12]);
+      }
       Winner w;
-      if (walk_closest(box, order + (octant(dd) * n_meshes + mesh) * cmax, cmax, mesh * cmax,
-                       pack, pack_w, k, oo, dd, inv_dir3(dd), tmin, tmax, best, w)) {
+      bool won = false;
+      walk_clusters<false>(m, pending, rows, box, order + (octant(dd) * n_meshes + mesh) * cmax,
+                           cmax, mesh * cmax, pack, pack_w, k, oo, dd, inv_dir3(dd), tmin, tmax,
+                           best, w, won);
+      if (won) {
         V3 n;
         bool geom;
         resolve(w, pack_w, mat, n, geom, hu, hv);
@@ -514,36 +741,46 @@ struct InstTracer {
         az = s * (r[2] * n.x + r[5] * n.y + r[8] * n.z);
         kind = 1;
       }
-      last_tn = cur_tn;
-      last_id = cur_id;
+      if (pending) {
+        last_tn = cur_tn;
+        last_id = cur_id;
+      }
     }
+    drop_stage(m, rows, lock);
     return epilogue(kind, o, d, best, ax, ay, az, rinv, t_out, normal);
   }
 
   __device__ bool occluded(V3 o, V3 d, float tmin, float tmax) const {
+    const unsigned m = __activemask();
     // empty intervals count as blocked (pallas_inst any_hit :915-925)
-    if (tmax <= tmin) return true;
-    if (sphere_any(sph, n_sphs, o, d, tmin, tmax)) return true;
+    bool blocked = tmax <= tmin || sphere_any(sph, n_sphs, o, d, tmin, tmax);
     const V3 inv = inv_dir3(d);
+    float best = kBig;
+    Winner w;
+    float* rows = take_stage(m, stage, lock);
     for (int i = 0; i < n_inst; ++i) {
+      if (__ballot_sync(m, !blocked) == 0u) break;
       const float* b = inst + i * kInstWords;
-      if (!box_hit(b, o, inv, tmin, tmax)) continue;
+      const bool cross = !blocked && box_hit(b, o, inv, tmin, tmax);
+      if (__ballot_sync(m, cross) == 0u) continue;
       const float* r = b + kInstRow;
-      V3 oo, dd;
-      xform(r, o, d, oo, dd);
+      V3 oo = o, dd = d;
+      if (cross) xform(r, o, d, oo, dd);
       const int mesh = static_cast<int>(r[12]);
-      if (walk_any(box, order + (octant(dd) * n_meshes + mesh) * cmax, cmax, mesh * cmax, pack,
-                   pack_w, k, oo, dd, inv_dir3(dd), tmin, tmax))
-        return true;
+      walk_clusters<true>(m, cross, rows, box, order + (octant(dd) * n_meshes + mesh) * cmax,
+                          cmax, mesh * cmax, pack, pack_w, k, oo, dd, inv_dir3(dd), tmin, tmax,
+                          best, w, blocked);
     }
-    return false;
+    drop_stage(m, rows, lock);
+    return blocked;
   }
 };
 
 __device__ inline InstTracer inst_tracer(const Tables& tb, const SceneArgs& s) {
-  return InstTracer{tb.sph,     tb.n_sphs,  tb.box, tb.order,        tb.inst,
-                    s.n_inst,   s.n_meshes, s.n_clusters / s.n_meshes, s.pack,
-                    s.pack_w,   s.cluster_size};
+  return InstTracer{tb.sph,         tb.n_sphs,      tb.box,   tb.order,
+                    tb.inst,        s.n_inst,       s.n_meshes, s.n_clusters / s.n_meshes,
+                    s.pack,         s.pack_w,       s.cluster_size, warp_stage(tb),
+                    warp_lock(tb)};
 }
 
 struct StreamTracer {
@@ -556,9 +793,12 @@ struct StreamTracer {
   const uint16_t* __restrict__ corder;   // global: 8 x G * kSuperFan local ids
   const float* __restrict__ pack;        // global: (C*K, pack_w)
   int pack_w, k;
+  float* stage;                          // shared: this warp's staging buffer, or null
+  int* lock;
 
   __device__ int closest(V3 o, V3 d, float tmin, float tmax, float& t_out, int& mat,
                          V3& normal, float& hu, float& hv) const {
+    const unsigned m = __activemask();
     float best = kBig;
     int kind = 0;
     mat = 0;
@@ -572,16 +812,18 @@ struct StreamTracer {
     const uint16_t* co = corder + static_cast<size_t>(oct) * n_supers * kSuperFan;
     Winner w;
     bool won = false;
+    float* rows = take_stage(m, stage, lock);
     for (int j = 0; j < n_supers; ++j) {
-      const int g = so[j];
-      const float* b = sbox + g * kBoxWords;
+      const int s = so[j];
+      const float* b = sbox + s * kBoxWords;
       // all-padding supers are inverted; a super is opened only while the
       // bound tightened by the supers before it still reaches its box
-      if (b[0] > b[3] || !box_hit(b, o, inv, tmin, fminf(tmax, best))) continue;
-      if (walk_closest(cbox, co + g * kSuperFan, kSuperFan, g * kSuperFan, pack, pack_w, k, o,
-                       d, inv, tmin, tmax, best, w))
-        won = true;
+      const bool open = !(b[0] > b[3]) && box_hit(b, o, inv, tmin, fminf(tmax, best));
+      if (__ballot_sync(m, open) == 0u) continue;
+      walk_clusters<false>(m, open, rows, cbox, co + s * kSuperFan, kSuperFan, s * kSuperFan,
+                           pack, pack_w, k, o, d, inv, tmin, tmax, best, w, won);
     }
+    drop_stage(m, rows, lock);
     if (won) {
       V3 n;
       bool geom;
@@ -595,28 +837,34 @@ struct StreamTracer {
   }
 
   __device__ bool occluded(V3 o, V3 d, float tmin, float tmax) const {
+    const unsigned m = __activemask();
     // empty intervals count as blocked (stream_any_tile :262-265)
-    if (tmax <= tmin) return true;
-    if (sphere_any(sph, n_sphs, o, d, tmin, tmax)) return true;
+    bool blocked = tmax <= tmin || sphere_any(sph, n_sphs, o, d, tmin, tmax);
     const V3 inv = inv_dir3(d);
     const int oct = octant(d);
     const uint16_t* so = sorder + oct * n_supers;
     const uint16_t* co = corder + static_cast<size_t>(oct) * n_supers * kSuperFan;
+    float best = kBig;
+    Winner w;
+    float* rows = take_stage(m, stage, lock);
     for (int j = 0; j < n_supers; ++j) {
-      const int g = so[j];
-      const float* b = sbox + g * kBoxWords;
-      if (b[0] > b[3] || !box_hit(b, o, inv, tmin, tmax)) continue;
-      if (walk_any(cbox, co + g * kSuperFan, kSuperFan, g * kSuperFan, pack, pack_w, k, o, d,
-                   inv, tmin, tmax))
-        return true;
+      if (__ballot_sync(m, !blocked) == 0u) break;
+      const int s = so[j];
+      const float* b = sbox + s * kBoxWords;
+      const bool open = !blocked && !(b[0] > b[3]) && box_hit(b, o, inv, tmin, tmax);
+      if (__ballot_sync(m, open) == 0u) continue;
+      walk_clusters<true>(m, open, rows, cbox, co + s * kSuperFan, kSuperFan, s * kSuperFan,
+                          pack, pack_w, k, o, d, inv, tmin, tmax, best, w, blocked);
     }
-    return false;
+    drop_stage(m, rows, lock);
+    return blocked;
   }
 };
 
 __device__ inline StreamTracer stream_tracer(const Tables& tb, const SceneArgs& s) {
-  return StreamTracer{tb.sph, tb.n_sphs, tb.box, tb.order, s.n_clusters,
-                      s.cbox, s.corder,  s.pack, s.pack_w, s.cluster_size};
+  return StreamTracer{tb.sph,   tb.n_sphs, tb.box,   tb.order,       s.n_clusters,
+                      s.cbox,   s.corder,  s.pack,   s.pack_w,       s.cluster_size,
+                      warp_stage(tb), warp_lock(tb)};
 }
 
 }  // namespace spt

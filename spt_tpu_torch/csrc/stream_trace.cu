@@ -76,11 +76,12 @@ int spt_stream_any_hit(const float* ox, const float* oy, const float* oz, const 
                       stream);
 }
 
-// Registers per thread and local (spill) bytes of the stream closest (any =
-// 0) or any (1) kernel.
-int spt_stream_trace_kernel_info(int any, int* num_regs, int* local_bytes) {
-  return any ? kernel_info(stream_trace_kernel<true>, num_regs, local_bytes)
-             : kernel_info(stream_trace_kernel<false>, num_regs, local_bytes);
+// Registers per thread, local (spill) bytes and blocks per SM at `smem`
+// bytes of dynamic shared memory of the stream closest
+// (any = 0) or any (1) kernel.
+int spt_stream_trace_kernel_info(int any, int smem, int* num_regs, int* local_bytes, int* blocks) {
+  return any ? kernel_info(stream_trace_kernel<true>, smem, num_regs, local_bytes, blocks)
+             : kernel_info(stream_trace_kernel<false>, smem, num_regs, local_bytes, blocks);
 }
 
 }  // extern "C"

@@ -122,6 +122,18 @@ def _table_words(scene: DeviceScene, lights: DeviceLights, nee_on: bool,
     return words + scene.num_triangles * _TRI + ns * _NS + uv * _UV
 
 
+def shared_bytes(cfg: RenderConfig, scene: DeviceScene,
+                 lights: DeviceLights) -> int:
+    """Dynamic shared memory of a fused_frame / fused_bounce block on this
+    workload: the tables, the visit orders and, in a mesh form, the warps'
+    staging buffers (cuda_lib.shared_bytes)."""
+    mode = _accel_mode(scene)
+    nee_on = cfg.nee and scene.emitters is not None
+    return cuda_lib.shared_bytes(
+        4 * _table_words(scene, lights, nee_on, mode)
+        + 2 * 8 * _clusters(scene, mode), mode is not None)
+
+
 def explain_decline(cfg: RenderConfig, scene: DeviceScene,
                     lights: DeviceLights):
     """Why the kernels cannot take this workload, or None when they can.
@@ -143,12 +155,11 @@ def explain_decline(cfg: RenderConfig, scene: DeviceScene,
     if nee_on and scene.emitters.count > MAX_EMITTERS:
         reasons.append(f"{scene.emitters.count} emitters > "
                        f"MAX_EMITTERS={MAX_EMITTERS}")
-    nbytes = (4 * _table_words(scene, lights, nee_on, mode)
-              + 2 * 8 * _clusters(scene, mode))
+    nbytes = shared_bytes(cfg, scene, lights)
     cap = MAX_TABLE_BYTES if mode is None else MAX_RESIDENT_TABLE_BYTES
     if nbytes > cap:
-        reasons.append(f"scene tables take {nbytes} B > {cap} B of shared "
-                       "memory")
+        reasons.append(f"a block's shared memory (scene tables and staging "
+                       f"buffers) takes {nbytes} B > {cap} B")
     return "; ".join(reasons) if reasons else None
 
 

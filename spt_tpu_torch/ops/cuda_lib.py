@@ -27,6 +27,10 @@ BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "spt_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
               "-Xcompiler", "-fPIC", "--fmad=false", "-Xptxas", "-v")
 
+# The mesh forms' per-warp staging buffers (csrc/spt_common.cuh): kWarps 4
+# warps a block, each kStageRows 64 rows x kMtCols 9 floats and a lock word.
+STAGE_BYTES = 4 * (64 * 9 * 4 + 4)
+
 # Filled by build(): seconds per source (0 when the cached library loaded)
 # and the ptxas report (registers, spill stores and loads per kernel).
 BUILD_SECONDS: dict = {}
@@ -118,10 +122,11 @@ def build() -> ctypes.CDLL:
     # dx, dy, dz, need, map, h, w, max_clamp, intensity, out rgb, n, stream
     lib.spt_env_sample.argtypes = [p] * 5 + [i, i, f, f] + [p] * 3 + [i, p]
     lib.spt_sort_chunks.argtypes = [p] * 6 + [i, i, i, p]
+    # form, dynamic shared bytes, registers, local bytes, blocks per SM
     for fn in ("spt_fused_frame_kernel_info", "spt_fused_bounce_kernel_info",
                "spt_trace_kernel_info", "spt_inst_trace_kernel_info",
                "spt_stream_trace_kernel_info"):
-        getattr(lib, fn).argtypes = [i, p, p]
+        getattr(lib, fn).argtypes = [i, i, p, p, p]
     lib.spt_sort_kernel_info.argtypes = [p, p]
     lib.spt_env_sample_kernel_info.argtypes = [p, p]
     for fn in ("spt_fused_frame", "spt_fused_bounce", "spt_closest_hit",
@@ -152,29 +157,50 @@ def stream_of(device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
-def kernel_info() -> dict:
-    """Registers per thread and local (spill) bytes of every kernel."""
+def shared_bytes(table_bytes: int, mesh: bool) -> int:
+    """Dynamic shared memory of a block whose tables and visit orders take
+    `table_bytes` (csrc/spt_common.cuh smem_bytes): in a mesh form the
+    staging buffers of its warps follow at the next 16-byte boundary."""
+    if not mesh:
+        return table_bytes
+    return (table_bytes + 15) // 16 * 16 + STAGE_BYTES
+
+
+def kernel_info(smem: dict | None = None) -> dict:
+    """Registers per thread and local (spill) bytes of every kernel; for the
+    kernels named in `smem` (name -> dynamic shared bytes of a launch) also
+    those bytes and the blocks an SM holds at once with them."""
     lib = build()
+    smem = smem or {}
     out = {}
-    for name, fn, args in (
-            ("fused_frame", lib.spt_fused_frame_kernel_info, (0,)),
-            ("fused_frame_resident", lib.spt_fused_frame_kernel_info, (1,)),
-            ("fused_frame_instanced", lib.spt_fused_frame_kernel_info, (2,)),
-            ("fused_frame_stream", lib.spt_fused_frame_kernel_info, (3,)),
-            ("fused_bounce", lib.spt_fused_bounce_kernel_info, (0,)),
-            ("fused_bounce_resident", lib.spt_fused_bounce_kernel_info, (1,)),
-            ("fused_bounce_instanced", lib.spt_fused_bounce_kernel_info, (2,)),
-            ("fused_bounce_stream", lib.spt_fused_bounce_kernel_info, (3,)),
-            ("closest_hit", lib.spt_trace_kernel_info, (0,)),
-            ("any_hit", lib.spt_trace_kernel_info, (1,)),
-            ("closest_hit_inst", lib.spt_inst_trace_kernel_info, (0,)),
-            ("any_hit_inst", lib.spt_inst_trace_kernel_info, (1,)),
-            ("closest_hit_stream", lib.spt_stream_trace_kernel_info, (0,)),
-            ("any_hit_stream", lib.spt_stream_trace_kernel_info, (1,)),
-            ("sort_chunks", lib.spt_sort_kernel_info, ()),
-            ("env_sample", lib.spt_env_sample_kernel_info, ())):
+    modes = (
+        ("fused_frame", lib.spt_fused_frame_kernel_info, 0),
+        ("fused_frame_resident", lib.spt_fused_frame_kernel_info, 1),
+        ("fused_frame_instanced", lib.spt_fused_frame_kernel_info, 2),
+        ("fused_frame_stream", lib.spt_fused_frame_kernel_info, 3),
+        ("fused_bounce", lib.spt_fused_bounce_kernel_info, 0),
+        ("fused_bounce_resident", lib.spt_fused_bounce_kernel_info, 1),
+        ("fused_bounce_instanced", lib.spt_fused_bounce_kernel_info, 2),
+        ("fused_bounce_stream", lib.spt_fused_bounce_kernel_info, 3),
+        ("closest_hit", lib.spt_trace_kernel_info, 0),
+        ("any_hit", lib.spt_trace_kernel_info, 1),
+        ("closest_hit_inst", lib.spt_inst_trace_kernel_info, 0),
+        ("any_hit_inst", lib.spt_inst_trace_kernel_info, 1),
+        ("closest_hit_stream", lib.spt_stream_trace_kernel_info, 0),
+        ("any_hit_stream", lib.spt_stream_trace_kernel_info, 1))
+    for name, fn, mode in modes:
+        regs, local, blocks = ctypes.c_int(0), ctypes.c_int(0), ctypes.c_int(0)
+        err = fn(mode, smem.get(name, 0), ctypes.addressof(regs),
+                 ctypes.addressof(local), ctypes.addressof(blocks))
+        if err != 0:
+            raise RuntimeError(f"kernel info of {name} failed: CUDA error {err}")
+        out[name] = {"registers": regs.value, "local_bytes": local.value}
+        if name in smem:
+            out[name].update(smem_bytes=smem[name], blocks_per_sm=blocks.value)
+    for name, fn in (("sort_chunks", lib.spt_sort_kernel_info),
+                     ("env_sample", lib.spt_env_sample_kernel_info)):
         regs, local = ctypes.c_int(0), ctypes.c_int(0)
-        err = fn(*args, ctypes.addressof(regs), ctypes.addressof(local))
+        err = fn(ctypes.addressof(regs), ctypes.addressof(local))
         if err != 0:
             raise RuntimeError(f"cudaFuncGetAttributes({name}) failed: "
                                f"CUDA error {err}")

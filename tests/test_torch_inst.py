@@ -25,7 +25,12 @@ as tests/test_inst.py:86-106 lowers it.  Gates, each with its reason:
   < 1 %.
 
 On a CUDA card (marker ``cuda``; skipped without one) the instanced
-kernels against their plain versions.  Run there with
+kernels against their plain versions, and, bit for bit on the untextured
+grid, fused_bounce's instanced form and the instanced tracer on the cases
+the warp-cooperative cluster walk has to get right (chip_smoke.WALK_CASES:
+warps of mixed object-space octants, every other lane dead, a lane count
+that is not a multiple of 32, shadow rays blocked a few clusters out).  Run
+there with
 ``python -m pytest --noconftest tests/test_torch_inst.py -m cuda``.
 """
 
@@ -46,6 +51,7 @@ from spt_tpu_torch.integrators import transport as ttr  # noqa: E402
 from spt_tpu_torch.integrators import wavefront as twf  # noqa: E402
 from spt_tpu_torch.ops import bvh as tbvh  # noqa: E402
 from spt_tpu_torch.ops import cuda_bounce, cuda_trace  # noqa: E402
+from spt_tpu_torch.ops import intersect as tisect  # noqa: E402
 from spt_tpu_torch.ops.vec3 import Vec3  # noqa: E402
 from spt_tpu_torch.scene import desc as tdesc  # noqa: E402
 
@@ -540,3 +546,47 @@ def test_instanced_fused_kernels_match_plain_on_card(cuda_device, start):
     for x, y in ((kb.rng, pbs.rng), (kb.alive, pbs.alive),
                  (kb.emission_ok, pbs.emission_ok), (km, pm)):
         assert _planes_agree(x, y)
+
+
+def _bits_equal(planes):
+    """{plane: whether kernel and plain version agree bit for bit}."""
+    out = {}
+    for name, (k, p) in planes.items():
+        same = k == p
+        if k.dtype.is_floating_point:
+            same = same | (torch.isnan(k) & torch.isnan(p))
+        out[name] = bool(same.all())
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", chip_smoke.WALK_CASES)
+def test_inst_cooperative_walk_bit_for_bit_on_card(cuda_device, case):
+    cfg, scene, lights, ps = _grid(cuda_device, 256, 192)
+    # untextured: the textured radiance is held to its 3 ulp above
+    scene = scene._replace(textures=None)
+    lights, ps = chip_smoke.walk_case(torch, np, case, scene, lights, ps)
+    ia = scene.inst
+    o, d = ps.origin, ps.direction
+    tmax = torch.where(ps.alive, 1e30, 0.0)
+    k = cuda_trace.inst_closest_hit(ia, scene, o, d, 0.0, tmax)
+    p = cuda_trace.inst_closest_hit_reference(ia, scene, o, d, 0.0, tmax)
+    kb = cuda_trace.inst_any_hit(ia, scene, o, d, 1e-4, tmax)
+    pb = cuda_trace.inst_any_hit_reference(ia, scene, o, d, 1e-4, tmax)
+    torch.cuda.synchronize()
+    assert all(_bits_equal(chip_smoke._hit_planes(torch, k, p)).values())
+    assert torch.equal(kb, pb)
+    ks, km = cuda_bounce.fused_bounce(cfg, scene, lights, ps, 0, False)
+    with chip_smoke.capture_calls([(tisect, "occluded_v")],
+                                  results=True) as shadows:
+        ps_, pm = cuda_bounce.fused_bounce_reference(cfg, scene, lights, ps,
+                                                     0, False)
+    torch.cuda.synchronize()
+    same = _bits_equal(chip_smoke._state_planes(torch, ks, km, ps_, pm))
+    assert all(same.values()), same
+    if case == "blocked_early":
+        live = sum(int((kw["tmax"] > kw["tmin"]).sum())
+                   for _, _, kw, _ in shadows)
+        blocked = sum(int((res & (kw["tmax"] > kw["tmin"])).sum())
+                      for _, _, kw, res in shadows)
+        assert blocked >= 0.2 * live > 0

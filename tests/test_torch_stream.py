@@ -26,7 +26,11 @@ with its reason:
   frame against the unsorted one on every lane.
 
 On a CUDA card (marker ``cuda``; skipped without one) the stream kernels
-against their plain versions.  Run there with
+against their plain versions, and, bit for bit on the untextured grid,
+fused_bounce's stream form and the stream tracer on the cases the
+warp-cooperative cluster walk has to get right (chip_smoke.WALK_CASES:
+warps of mixed octants, every other lane dead, a lane count that is not a
+multiple of 32, shadow rays blocked a few clusters out).  Run there with
 ``python -m pytest --noconftest tests/test_torch_stream.py -m cuda``.
 """
 
@@ -527,3 +531,47 @@ def test_stream_fused_kernels_match_plain_on_card(cuda_device, start):
     for x, y in ((kb.rng, pbs.rng), (kb.alive, pbs.alive),
                  (kb.emission_ok, pbs.emission_ok), (km, pm)):
         assert _planes_agree(x, y)
+
+
+def _bits_equal(planes):
+    """{plane: whether kernel and plain version agree bit for bit}."""
+    out = {}
+    for name, (k, p) in planes.items():
+        same = k == p
+        if k.dtype.is_floating_point:
+            same = same | (torch.isnan(k) & torch.isnan(p))
+        out[name] = bool(same.all())
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", chip_smoke.WALK_CASES)
+def test_stream_cooperative_walk_bit_for_bit_on_card(cuda_device, case):
+    cfg, scene, lights, ps = _card_grid(cuda_device, 128, 96)
+    # untextured: the textured radiance is held to its 3 ulp above
+    scene = scene._replace(textures=None)
+    lights, ps = chip_smoke.walk_case(torch, np, case, scene, lights, ps)
+    a = scene.accel
+    o, d = ps.origin, ps.direction
+    tmax = torch.where(ps.alive, 1e30, 0.0)
+    k = cuda_trace.stream_closest_hit(a, scene, o, d, 0.0, tmax)
+    p = cuda_trace.closest_hit_reference(a, scene, o, d, 0.0, tmax)
+    kb = cuda_trace.stream_any_hit(a, scene, o, d, 1e-4, tmax)
+    pb = cuda_trace.any_hit_reference(a, scene, o, d, 1e-4, tmax)
+    torch.cuda.synchronize()
+    assert all(_bits_equal(chip_smoke._hit_planes(torch, k, p)).values())
+    assert torch.equal(kb, pb)
+    ks, km = cuda_bounce.fused_bounce(cfg, scene, lights, ps, 0, False)
+    with chip_smoke.capture_calls([(tisect, "occluded_v")],
+                                  results=True) as shadows:
+        ps_, pm = cuda_bounce.fused_bounce_reference(cfg, scene, lights, ps,
+                                                     0, False)
+    torch.cuda.synchronize()
+    same = _bits_equal(chip_smoke._state_planes(torch, ks, km, ps_, pm))
+    assert all(same.values()), same
+    if case == "blocked_early":
+        live = sum(int((kw["tmax"] > kw["tmin"]).sum())
+                   for _, _, kw, _ in shadows)
+        blocked = sum(int((res & (kw["tmax"] > kw["tmin"])).sum())
+                      for _, _, kw, res in shadows)
+        assert blocked >= 0.2 * live > 0
