@@ -23,7 +23,10 @@ this file; exits non-zero (printing no result) without them.  Phases:
    the sorted frame, closest_hit / any_hit from regen), where its time and
    bound are taken; besides, closest_hit / any_hit on camera rays and on
    196 608 random rays, the resident fused_frame from bounce 0 on all
-   lanes, sort_chunks at chunks 8192 and 32768 with 15 random planes;
+   lanes, sort_chunks at chunks 8192 and 32768 with 15 random planes, and
+   the sort's launch shape (cluster size, registers, shared bytes, active
+   clusters) at each chunk; sort_chunks is held to its plain version (a
+   stable torch.sort) bit for bit in keys, lane ids and every plane;
 6. the mesh main path: ``Renderer.render_frames(8)`` at 512x384 depth 4 in
    accel mode "resident" through the sorted frame, launch counts reset
    before and read after;
@@ -39,8 +42,9 @@ this file; exits non-zero (printing no result) without them.  Phases:
     textured instanced grid (``inst_grid_scene``, 104 448 world triangles)
     at 512x384, every returned plane per lane, at the inputs recorded from
     one regen frame (closest_hit_inst / any_hit_inst) and one sorted frame
-    (fused_bounce and fused_frame instanced, textured), where their times
-    and bounds are taken; the textured fused_frame's time without its
+    (fused_bounce and fused_frame instanced, textured, their radiance bit
+    for bit; sort_chunks at the full-width calls), where their times and
+    bounds are taken; the textured fused_frame's time without its
     texture table (the sampler's share); the instanced fused_frame from
     bounce 0 on all lanes; the textured resident forms on the mesh scene;
 11. the instanced main path: ``Renderer.render_frames(8)`` on the grid at
@@ -57,7 +61,8 @@ this file; exits non-zero (printing no result) without them.  Phases:
     accel mode "stream") at 512x384, every returned plane per lane, at the
     inputs recorded from one regen frame (closest_hit_stream /
     any_hit_stream) and one sorted frame (fused_bounce and fused_frame
-    stream, textured), where their times and bounds are taken;
+    stream, textured, their radiance bit for bit; sort_chunks at the
+    full-width calls), where their times and bounds are taken;
 15. the stream main path: ``Renderer.render_frames(8)`` on the baked grid
     at 512x384 depth 4 through the sorted frame, launch counts reset before
     and read after; ms/frame, Mrays/s, device busy and idle share, sorted
@@ -104,7 +109,7 @@ MW, MH = 512, 384          # the JAX package's mesh resolution (bench.py:195-203
 MESH_DEPTH = 4
 
 # H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s, float32 outside
-# the tensor cores (also used for the sort's integer compare-exchanges).
+# the tensor cores (also used for the sort's integer operations).
 PEAK_BYTES = 3.35e12
 PEAK_F32 = 67e12
 
@@ -639,7 +644,9 @@ def phase_kernel_vs_plain(torch, cuda_bounce, dev, smi):
         scene = flatten_scene(desc, dev)
         ps = transport.gen_primary(cfg, cam.rays(dev), 0)
         k = cuda_bounce.fused_frame(cfg, scene, lights, ps)
-        p = cuda_bounce.fused_frame_reference(cfg, scene, lights, ps)
+        p, ops = _walk_ops(torch, scene,
+                           lambda: cuda_bounce.fused_frame_reference(
+                               cfg, scene, lights, ps))
         torch.cuda.synchronize()
         dk = torch.stack([*k[0]], -1) - torch.stack([*p[0]], -1)
         err = dk.abs().amax(-1)
@@ -669,14 +676,14 @@ def phase_kernel_vs_plain(torch, cuda_bounce, dev, smi):
                 torch, lambda: cuda_bounce.fused_frame_reference(
                     cfg, scene, lights, ps), warmup=1, iters=3)
             n = cfg.width * cfg.height
-            # 15 planes in, 11 out; operations: at least the 12 triangle
-            # and 8 sphere tests of every traced ray (~30 and ~20 flops)
-            result["bound"] = bound(n * 26 * 4, float(rk.sum()) * (12 * 30 + 8 * 20))
+            # 15 planes in, 11 out; operations: the triangle and sphere
+            # tests of every closest-hit, shadow and NEE ray (_walk_ops)
+            result["bound"] = bound(n * 26 * 4, ops)
             log(f"phase 1 fused_frame at {width}x{height} d{cfg.max_depth}: "
                 f"kernel {result['ms']:.4f} ms (device time), wrapper "
                 f"{wrapper_ms:.4f} ms, plain {result['plain_ms']:.4f} ms per "
                 f"call, bound {result['bound'][0]:.4f} ms "
-                f"({result['bound'][1]}) [{smi}]")
+                f"({result['bound'][1]}; {ops_note(ops)}) [{smi}]")
     return result
 
 
@@ -803,6 +810,22 @@ def _cluster_trace_ops(torch, scene, o, d, tmin, tmax, t_end, blocked=None):
     return ops
 
 
+def _brute_trace_ops(torch, scene, o, d, tmin, tmax, t_end, blocked=None):
+    """The operations the small form's brute-force loops need on these rays:
+    every lane with a non-empty interval tests every triangle (~30 flops)
+    and every sphere (~20); a blocked any-hit lane, which stops at its first
+    blocker, counts one test."""
+    n = o.x.shape[0]
+    tmax = torch.broadcast_to(torch.as_tensor(tmax, device=o.x.device,
+                                              dtype=torch.float32), (n,))
+    live = tmax > tmin
+    per_lane = scene.num_triangles * 30 + scene.num_spheres * 20
+    if blocked is None:
+        return float(live.sum()) * per_lane
+    return (float((live & ~blocked).sum()) * per_lane
+            + 30.0 * int((live & blocked).sum()))
+
+
 def _walk_ops(torch, scene, plain):
     """(plain(), operations): runs the plain version of a fused kernel and
     counts, from the plain tracers' own results, the operations of every
@@ -812,7 +835,8 @@ def _walk_ops(torch, scene, plain):
     from spt_tpu_torch.ops import cuda_bounce
     from spt_tpu_torch.ops import intersect as isect
 
-    trace_ops = {"resident": _cluster_trace_ops, "instanced": _inst_trace_ops,
+    trace_ops = {None: _brute_trace_ops, "resident": _cluster_trace_ops,
+                 "instanced": _inst_trace_ops,
                  "stream": _stream_trace_ops}[cuda_bounce._accel_mode(scene)]
 
     with capture_calls([(isect, "intersect_v"), (isect, "occluded_v")],
@@ -886,10 +910,12 @@ def ulps_apart(torch, k, p):
     return float(unequal.float().mean()), int(d.max()) if d.numel() else 0
 
 
-def check_planes(torch, what, planes: dict, phase: int = 5) -> float:
+def check_planes(torch, what, planes: dict, phase: int = 5,
+                 exact=()) -> float:
     """Hold every plane of a kernel's result against the plain version's;
     fails when more than 0.1 % of the lanes differ in any one plane (by
-    more than 1e-3 for floats).  Reports, per float plane, the share of
+    more than 1e-3 for floats), and when a float plane named in `exact` is
+    not bit-equal on every lane.  Reports, per float plane, the share of
     lanes that are not bit-equal and the largest distance in ulps.
     Returns the largest finite |kernel - plain| over the float and the
     boolean planes."""
@@ -900,7 +926,10 @@ def check_planes(torch, what, planes: dict, phase: int = 5) -> float:
         if k.dtype == torch.float32:
             neq, ulps = ulps_apart(torch, k, p)
             report.append(f"{name} {frac * 100:.4f} % (not bit-equal "
-                          f"{neq * 100:.5f} %, max {ulps} ulp)")
+                          f"{neq * 100:.5f} %, max {ulps} ulp"
+                          f"{', limit 0' if name in exact else ''})")
+            if name in exact and neq > 0:
+                bad.append(name)
         else:
             report.append(f"{name} {frac * 100:.4f} %")
         if k.dtype.is_floating_point:
@@ -910,7 +939,7 @@ def check_planes(torch, what, planes: dict, phase: int = 5) -> float:
                 worst = max(worst, float(d.max()))
         elif k.dtype == torch.bool:
             worst = max(worst, float(off.any()))
-        if frac > 1e-3:
+        if frac > 1e-3 and name not in bad:
             bad.append(name)
     log(f"phase {phase} {what}: lanes off per plane: {', '.join(report)} (limit "
         f"0.1 % each), max |d| {worst:.6g}")
@@ -985,13 +1014,85 @@ def _over_calls(torch, fn, calls, kernel_name, plain, plain_iters=2):
     return ms, plain_ms
 
 
+def _same_bits(torch, a, b) -> bool:
+    """Whether two tensors of one dtype hold the same bits."""
+    if a.dtype.is_floating_point:
+        a = a.view({2: torch.int16, 4: torch.int32, 8: torch.int64}[
+            a.element_size()])
+        b = b.view(a.dtype)
+    return torch.equal(a, b)
+
+
+def check_sort(torch, phase, what, key, ops, chunk) -> float:
+    """sort_chunks against its plain version (a stable torch.sort and a
+    gather per plane): the keys, the lane ids and every plane bit for bit.
+    Returns the largest |kernel key - plain key| (0)."""
+    from spt_tpu_torch.ops import cuda_sort
+
+    sk, lane, so = cuda_sort.sort_chunks(key, ops, chunk)
+    rk, rl, ro = cuda_sort.sort_chunks_reference(key, ops, chunk)
+    keys_ok = torch.equal(sk, rk)
+    lanes_ok = torch.equal(lane, rl)
+    planes_ok = all(_same_bits(torch, a, b) for a, b in zip(so, ro))
+    log(f"phase {phase} sort_chunks {what}: chunk {chunk} x "
+        f"{key.shape[0] // chunk} chunks, {len(ops)} planes, "
+        f"{int((key == 0xFFFFFFFF).sum())} dead lanes: equal bit for bit to "
+        f"the plain version's keys {keys_ok}, lane ids {lanes_ok}, planes "
+        f"{planes_ok}")
+    if not (keys_ok and lanes_ok and planes_ok):
+        raise AssertionError(f"sort_chunks wrong ({what})")
+    return float((sk - rk).abs().max())
+
+
+def sort_bound(torch, key, ops, chunk):
+    """(bytes, operations) of one sort: the key in (8 B), every plane in and
+    out, the keys and lane ids out (8 B each); the radix passes these keys
+    need (a pass whose 8-bit digit is one value over a chunk is skipped),
+    about 6 integer operations a key a pass."""
+    k = key.reshape(-1, chunk)
+    passes = 0
+    for p in range(4):
+        digit = (k >> (8 * p)) & 255
+        passes += int((digit.amax(1) != digit.amin(1)).sum())
+    return (key.shape[0] * (8 + 2 * sum(x.element_size() for x in ops) + 16),
+            passes * chunk * 6.0)
+
+
+def sort_at_calls(torch, phase, label, calls, smi) -> dict:
+    """K5 at a frame's recorded sort_chunks calls: each held to its plain
+    version bit for bit, then the kernel's device time per launch, the
+    time of torch.sort + gathers (the plain version, and the one-call
+    library equivalent) and the bound, means over the calls."""
+    from spt_tpu_torch.ops import cuda_sort
+
+    if not calls:
+        raise AssertionError(f"{label} frame made no sort_chunks call")
+    err = nbytes = flops = 0.0
+    for i, (args, kw) in enumerate(calls):
+        key, ops, chunk = args
+        err = max(err, check_sort(torch, phase, f"{label} call {i + 1} of "
+                                  f"{len(calls)}", key, ops, chunk))
+        by, fl = sort_bound(torch, key, ops, chunk)
+        nbytes, flops = nbytes + by, flops + fl
+    ms, lib_ms = _over_calls(torch, cuda_sort.sort_chunks, calls,
+                             "sort_chunks_kernel",
+                             cuda_sort.sort_chunks_reference, plain_iters=10)
+    b = bound(nbytes / len(calls), flops / len(calls))
+    log(f"phase {phase} sort_chunks at {label} {len(calls)} calls: kernel "
+        f"{ms:.4f} ms per launch (device time), torch.sort + gathers "
+        f"{lib_ms:.4f} ms, bound {b[0]:.4f} ms ({b[1]}; "
+        f"{ops_note(flops / len(calls))}) [{smi}]")
+    return dict(max_abs_err=err, ms=ms, plain_ms=lib_ms, bound=b,
+                library_ms=lib_ms)
+
+
 def phase_mesh_kernels(torch, np, dev, smi):
     """Phase 5: every mesh kernel against its plain version on the card, at
     the inputs its main path gives it (recorded from one frame of that
     path) and on the checks' own rays and keys.  Returns the kernel-line
     numbers per kernel, measured at the main path's inputs."""
     from spt_tpu_torch.integrators import transport
-    from spt_tpu_torch.ops import cuda_bounce, cuda_sort, cuda_trace
+    from spt_tpu_torch.ops import cuda_bounce, cuda_lib, cuda_sort, cuda_trace
     from spt_tpu_torch.ops.vec3 import Vec3
 
     cfg, scene, lights, cam = _mesh_inputs(torch, dev)
@@ -1175,49 +1276,16 @@ def phase_mesh_kernels(torch, np, dev, smi):
         "fused_frame_resident": cuda_bounce.shared_bytes(*args[:3])})
 
     # --- K5: at the sorted frame's inputs, then with 15 random planes ---
-    def check_sort(what, key, ops, chunk):
-        sk, lane, so = cuda_sort.sort_chunks(key, ops, chunk)
-        rk_, _, _ = cuda_sort.sort_chunks_reference(key, ops, chunk)
-        width = key.shape[0]
-        keys_ok = torch.equal(sk, rk_)
-        perm_ok = (torch.equal(sk, key[lane])
-                   and all(torch.equal(s, x[lane]) for s, x in zip(so, ops)))
-        chunk_ok = torch.equal(lane // chunk, torch.arange(width, device=dev)
-                               // chunk)
-        log(f"phase 5 sort_chunks {what}: chunk {chunk} x {width // chunk} "
-            f"chunks, {len(ops)} planes: keys equal to torch.sort's "
-            f"{keys_ok}, key and payloads one permutation {perm_ok}, lanes "
-            f"stay in their chunk {chunk_ok}")
-        if not (keys_ok and perm_ok and chunk_ok):
-            raise AssertionError(f"sort_chunks wrong ({what})")
-        return float((sk - rk_).abs().max())
-
-    def sort_bound(key, ops, chunk):
-        # key in (8 B), the planes in and out, key and lane out (8 B each);
-        # the compare-exchanges of the bitonic network
-        width = key.shape[0]
-        lg = int(math.log2(chunk))
-        return (width * (8 + 2 * sum(x.element_size() for x in ops) + 16),
-                width / 2 * lg * (lg + 1) / 2)
-
-    mine = by_name["sort_chunks"]
-    err = 0.0
-    nbytes = flops = 0.0
-    for i, (args, kw) in enumerate(mine):
-        key, ops, chunk = args
-        err = max(err, check_sort(f"sorted-frame call {i + 1} of "
-                                  f"{len(mine)}", key, ops, chunk))
-        by, fl = sort_bound(key, ops, chunk)
-        nbytes, flops = nbytes + by, flops + fl
-    ms, lib_ms = _over_calls(torch, cuda_sort.sort_chunks, mine,
-                             "sort_chunks_kernel",
-                             cuda_sort.sort_chunks_reference, plain_iters=10)
-    b = bound(nbytes / len(mine), flops / len(mine))
-    out["sort_chunks"] = dict(max_abs_err=err, ms=ms, plain_ms=lib_ms,
-                              bound=b, library_ms=lib_ms)
-    log(f"phase 5 sort_chunks at the sorted frame's {len(mine)} calls: "
-        f"kernel {ms:.4f} ms per launch (device time), torch.sort + gathers "
-        f"{lib_ms:.4f} ms, bound {b[0]:.4f} ms ({b[1]}) [{smi}]")
+    out["sort_chunks"] = sort_at_calls(torch, 5, "the sorted frame's",
+                                       by_name["sort_chunks"], smi)
+    for chunk in sorted({args[2] for args, _ in by_name["sort_chunks"]}
+                        | {8192, 32768}):
+        info = cuda_lib.kernel_info(sort_chunk=chunk)["sort_chunks"]
+        log(f"phase 5 sort_chunks launch at chunk {chunk}: clusters of "
+            f"{info['cluster']} blocks x {info['threads']} threads, "
+            f"{info['registers']} registers, {info['local_bytes']} B local, "
+            f"{info['smem_bytes']} B shared a block, {info['active_clusters']} "
+            f"clusters active per device [{smi}]")
 
     g = torch.Generator(device="cpu").manual_seed(11)
     for chunk, width in ((8192, n), (32768, 65536)):
@@ -1230,12 +1298,12 @@ def phase_mesh_kernels(torch, np, dev, smi):
                   torch.randint(0, 7, (width,), generator=g,
                                 dtype=torch.int32).to(dev),
                   torch.arange(width, dtype=torch.int64, device=dev)])
-        check_sort("random keys", key, ops, chunk)
+        check_sort(torch, 5, "random keys", key, ops, chunk)
         ms = kernel_device_ms(torch, lambda: cuda_sort.sort_chunks(
             key, ops, chunk), "sort_chunks_kernel")
         lib_ms = time_call(torch, lambda: cuda_sort.sort_chunks_reference(
             key, ops, chunk), warmup=2, iters=10)
-        b = bound(*sort_bound(key, ops, chunk))
+        b = bound(*sort_bound(torch, key, ops, chunk))
         log(f"phase 5 sort_chunks random keys, chunk {chunk} x {width}: "
             f"kernel {ms:.4f} ms (device time), torch.sort + 15 gathers "
             f"{lib_ms:.4f} ms, bound {b[0]:.4f} ms ({b[1]}) [{smi}]")
@@ -1537,17 +1605,8 @@ def phase_inst_kernels(torch, np, dev, smi):
     log(f"phase 10 the instanced sorted frame's calls: "
         f"{ {k: len(v) for k, v in by_name.items()} }")
     tex_bytes = scene.textures.numel() * 4
-    for i, (args, kw) in enumerate(by_name["sort_chunks"]):
-        key, ops, chunk = args
-        sk, lane, so = cuda_sort.sort_chunks(key, ops, chunk)
-        rk, _, _ = cuda_sort.sort_chunks_reference(key, ops, chunk)
-        ok = (torch.equal(sk, rk) and torch.equal(sk, key[lane])
-              and all(torch.equal(s, x[lane]) for s, x in zip(so, ops)))
-        log(f"phase 10 sort_chunks instanced-frame call {i + 1}: chunk "
-            f"{chunk} x {key.shape[0] // chunk}, {len(ops)} planes: keys "
-            f"equal to torch.sort's and payloads one permutation {ok}")
-        if not ok:
-            raise AssertionError("sort_chunks wrong on the instanced frame")
+    out["sort_chunks"] = sort_at_calls(torch, 10, "the instanced sorted "
+                                       "frame's", by_name["sort_chunks"], smi)
 
     mine = by_name["fused_bounce"]
     nbytes = flops = worst = 0.0
@@ -1560,7 +1619,8 @@ def phase_inst_kernels(torch, np, dev, smi):
         worst = max(worst, check_planes(
             torch, f"fused_bounce instanced bounce {bounce} "
             f"({bps.num_paths} lanes, {int(bps.alive.sum())} alive)",
-            _state_planes(torch, ks, km, ps_, pm), phase=10))
+            _state_planes(torch, ks, km, ps_, pm), phase=10,
+            exact=("radiance",)))
         nbytes += (bps.num_paths * (15 * 4 + 12 * 4 + 8 + 3) + pack_bytes
                    + tex_bytes)
         flops += ops
@@ -1592,7 +1652,7 @@ def phase_inst_kernels(torch, np, dev, smi):
             {"radiance": (_v(torch, fk[0]), _v(torch, fp[0])),
              "direction": (_v(torch, fk[1]), _v(torch, fp[1])),
              "throughput": (_v(torch, fk[2]), _v(torch, fp[2])),
-             "missed": (fk[3], fp[3])}, phase=10), ops
+             "missed": (fk[3], fp[3])}, phase=10, exact=("radiance",)), ops
 
     mine = by_name["fused_frame"]
     if len(mine) != 1:
@@ -1658,7 +1718,8 @@ def phase_inst_kernels(torch, np, dev, smi):
     ps_, pm = cuda_bounce.fused_bounce_reference(mcfg, mscene, lights, mps, 0,
                                                  False)
     check_planes(torch, "fused_bounce resident textured bounce 0",
-                 _state_planes(torch, ks, km, ps_, pm), phase=10)
+                 _state_planes(torch, ks, km, ps_, pm), phase=10,
+                 exact=("radiance",))
     return out
 
 
@@ -1943,7 +2004,8 @@ def phase_stream_kernels(torch, np, dev, smi):
         worst = max(worst, check_planes(
             torch, f"fused_bounce stream bounce {bounce} ({bps.num_paths} "
             f"lanes, {int(bps.alive.sum())} alive)",
-            _state_planes(torch, ks, km, ps_, pm), phase=14))
+            _state_planes(torch, ks, km, ps_, pm), phase=14,
+            exact=("radiance",)))
         nbytes += (bps.num_paths * (15 * 4 + 12 * 4 + 8 + 3) + pack_bytes
                    + tex_bytes)
         flops += ops
@@ -1980,7 +2042,7 @@ def phase_stream_kernels(torch, np, dev, smi):
         {"radiance": (_v(torch, fk[0]), _v(torch, fp[0])),
          "direction": (_v(torch, fk[1]), _v(torch, fp[1])),
          "throughput": (_v(torch, fk[2]), _v(torch, fp[2])),
-         "missed": (fk[3], fp[3])}, phase=14)
+         "missed": (fk[3], fp[3])}, phase=14, exact=("radiance",))
     ms = kernel_device_ms(torch, lambda: cuda_bounce.fused_frame(*args, **kw),
                           "fused_frame_kernel<3>")
     b = bound(fps.num_paths * 26 * 4 + pack_bytes + tex_bytes, ops)
@@ -1995,17 +2057,8 @@ def phase_stream_kernels(torch, np, dev, smi):
         "any_hit_stream": _trace_shared_bytes("stream_any_hit", a, scene),
         "fused_bounce_stream": cuda_bounce.shared_bytes(*args[:3]),
         "fused_frame_stream": cuda_bounce.shared_bytes(*args[:3])})
-    for i, (args, kw) in enumerate(by_name["sort_chunks"]):
-        key, ops, chunk = args
-        sk, lane, so = cuda_sort.sort_chunks(key, ops, chunk)
-        rk_, _, _ = cuda_sort.sort_chunks_reference(key, ops, chunk)
-        ok = (torch.equal(sk, rk_) and torch.equal(sk, key[lane])
-              and all(torch.equal(x, y[lane]) for x, y in zip(so, ops)))
-        log(f"phase 14 sort_chunks stream-frame call {i + 1}: chunk {chunk} x "
-            f"{key.shape[0] // chunk}: keys equal to torch.sort's and "
-            f"payloads one permutation {ok}")
-        if not ok:
-            raise AssertionError("sort_chunks wrong on the stream frame")
+    out["sort_chunks"] = sort_at_calls(torch, 14, "the stream sorted frame's",
+                                       by_name["sort_chunks"], smi)
     return out
 
 
@@ -2400,6 +2453,12 @@ def main() -> int:
               stream_regen["any_hit_stream"], stream["any_hit_stream"]),
         entry("env_sample", "env_sample.cu", "spt_tpu/ops/pallas_env.py:158",
               env_launches, env_k),
+        entry("sort_chunks_instanced", "sort_chunks.cu",
+              "spt_tpu/ops/pallas_sort.py:70", inst_counts["sort_chunks"],
+              inst["sort_chunks"]),
+        entry("sort_chunks_stream", "sort_chunks.cu",
+              "spt_tpu/ops/pallas_sort.py:70", stream_counts["sort_chunks"],
+              stream["sort_chunks"]),
     ]
     log(smi)
     print(json.dumps({"kernels": kernels}), flush=True)

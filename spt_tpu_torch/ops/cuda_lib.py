@@ -127,7 +127,9 @@ def build() -> ctypes.CDLL:
                "spt_trace_kernel_info", "spt_inst_trace_kernel_info",
                "spt_stream_trace_kernel_info"):
         getattr(lib, fn).argtypes = [i, i, p, p, p]
-    lib.spt_sort_kernel_info.argtypes = [p, p]
+    # chunk, cluster, threads, shared bytes, active clusters, registers,
+    # local bytes
+    lib.spt_sort_kernel_info.argtypes = [i] + [p] * 6
     lib.spt_env_sample_kernel_info.argtypes = [p, p]
     for fn in ("spt_fused_frame", "spt_fused_bounce", "spt_closest_hit",
                "spt_any_hit", "spt_inst_closest_hit", "spt_inst_any_hit",
@@ -166,10 +168,27 @@ def shared_bytes(table_bytes: int, mesh: bool) -> int:
     return (table_bytes + 15) // 16 * 16 + STAGE_BYTES
 
 
-def kernel_info(smem: dict | None = None) -> dict:
+def sort_kernel_info(chunk: int) -> dict:
+    """The sort kernel's launch shape at `chunk` (blocks per cluster,
+    threads and dynamic shared bytes a block), the clusters of that shape
+    the current device holds at once, and its registers per thread and
+    local (spill) bytes."""
+    vals = [ctypes.c_int(0) for _ in range(6)]
+    err = build().spt_sort_kernel_info(chunk,
+                                       *(ctypes.addressof(v) for v in vals))
+    if err != 0:
+        raise RuntimeError(f"kernel info of sort_chunks at chunk {chunk} "
+                           f"failed: CUDA error {err}")
+    return dict(zip(("cluster", "threads", "smem_bytes", "active_clusters",
+                     "registers", "local_bytes"), (v.value for v in vals)))
+
+
+def kernel_info(smem: dict | None = None, sort_chunk: int = 32768) -> dict:
     """Registers per thread and local (spill) bytes of every kernel; for the
     kernels named in `smem` (name -> dynamic shared bytes of a launch) also
-    those bytes and the blocks an SM holds at once with them."""
+    those bytes and the blocks an SM holds at once with them; for the sort,
+    its launch shape and active clusters at `sort_chunk`
+    (``sort_kernel_info``)."""
     lib = build()
     smem = smem or {}
     out = {}
@@ -197,12 +216,12 @@ def kernel_info(smem: dict | None = None) -> dict:
         out[name] = {"registers": regs.value, "local_bytes": local.value}
         if name in smem:
             out[name].update(smem_bytes=smem[name], blocks_per_sm=blocks.value)
-    for name, fn in (("sort_chunks", lib.spt_sort_kernel_info),
-                     ("env_sample", lib.spt_env_sample_kernel_info)):
-        regs, local = ctypes.c_int(0), ctypes.c_int(0)
-        err = fn(ctypes.addressof(regs), ctypes.addressof(local))
-        if err != 0:
-            raise RuntimeError(f"cudaFuncGetAttributes({name}) failed: "
-                               f"CUDA error {err}")
-        out[name] = {"registers": regs.value, "local_bytes": local.value}
+    regs, local = ctypes.c_int(0), ctypes.c_int(0)
+    err = lib.spt_env_sample_kernel_info(ctypes.addressof(regs),
+                                         ctypes.addressof(local))
+    if err != 0:
+        raise RuntimeError("cudaFuncGetAttributes(env_sample) failed: "
+                           f"CUDA error {err}")
+    out["env_sample"] = {"registers": regs.value, "local_bytes": local.value}
+    out["sort_chunks"] = dict(sort_kernel_info(sort_chunk), chunk=sort_chunk)
     return out

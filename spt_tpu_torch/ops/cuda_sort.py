@@ -5,14 +5,19 @@ a key and up to ``MAX_OPERANDS`` payload planes within fixed chunks.  Keys
 are int64 tensors holding uint32 values (dead lanes 0xFFFFFFFF land last);
 payload planes are 4- or 8-byte tensors (float32, int32, int64) of the
 key's length.  Returns (sorted keys, lane ids, sorted planes): lane id i is
-the pre-sort position of the lane now at i.  The order among equal keys is
-not specified.
+the pre-sort position of the lane now at i.  The sort is stable: lanes of
+equal keys keep their order, so every output equals
+``sort_chunks_reference``'s bit for bit.
 
-On a CUDA tensor it launches the kernel of ``csrc/sort_chunks.cu`` (a
-bitonic network in shared memory over key and local lane, then one gather
-of each plane) or raises; chunks are powers of two up to ``MAX_CHUNK``.  On
-a CPU tensor it runs ``sort_chunks_reference``: ``torch.sort`` per chunk
-plus a gather per plane.  ``LAUNCHES`` counts kernel launches.
+On a CUDA tensor it launches the kernel of ``csrc/sort_chunks.cu`` once
+(a cluster of up to 16 blocks per chunk runs a stable radix sort of key
+and local lane through distributed shared memory, then each block gathers
+every plane for its tile) or raises; chunks are powers of two from 2 to
+``MAX_CHUNK``.  Before the first launch at a chunk size it checks that the
+device can hold one cluster of that shape and raises, naming the shape,
+when it cannot.  On a CPU tensor it runs ``sort_chunks_reference``:
+``torch.sort`` per chunk plus a gather per plane.  ``LAUNCHES`` counts
+kernel launches.
 """
 
 from __future__ import annotations
@@ -26,6 +31,9 @@ from spt_tpu_torch.ops import cuda_lib
 LAUNCHES = 0
 MAX_OPERANDS = 16
 MAX_CHUNK = 32768
+
+# (device index, chunk) whose cluster shape the device was found to hold
+_FITS: set = set()
 
 
 def sort_chunks_reference(key: torch.Tensor, operands, chunk: int):
@@ -68,6 +76,8 @@ def sort_chunks(key: torch.Tensor, operands, chunk: int):
     sizes = (ctypes.c_int * max(k, 1))(*(a.element_size() for a in operands))
     lib = cuda_lib.build()
     with torch.cuda.device(device):
+        if (device.index, chunk) not in _FITS:
+            _check_fits(device, chunk)
         err = lib.spt_sort_chunks(
             key.data_ptr(), o_key.data_ptr(), o_lane.data_ptr(),
             ctypes.addressof(ins), ctypes.addressof(outp),
@@ -75,3 +85,16 @@ def sort_chunks(key: torch.Tensor, operands, chunk: int):
     cuda_lib.check(err, "sort_chunks")
     LAUNCHES += 1
     return o_key, o_lane, outs
+
+
+def _check_fits(device, chunk: int) -> None:
+    """Raise unless the current device holds at least one cluster of the
+    sort's shape at `chunk`."""
+    info = cuda_lib.sort_kernel_info(chunk)
+    if info["active_clusters"] < 1:
+        raise RuntimeError(
+            f"sort_chunks at chunk {chunk}: {torch.cuda.get_device_name(device)}"
+            f" holds no cluster of {info['cluster']} blocks of "
+            f"{info['threads']} threads with {info['smem_bytes']} B of shared "
+            f"memory each (cudaOccupancyMaxActiveClusters gives 0)")
+    _FITS.add((device.index, chunk))

@@ -7,7 +7,8 @@ within fixed chunks.  uint32 words are held in int64 tensors, as the port
 holds its RNG words.
 
 - ``sort_by_key`` goes to ``cuda_sort.sort_chunks``: the hand-written
-  chunked sort on a CUDA tensor, its plain PyTorch version on a CPU one.
+  chunked sort (stable) on a CUDA tensor, its plain PyTorch version on a
+  CPU one.
 - ``unsort_by_lane`` is an inverse-permutation scatter within each chunk
   (``out[lane_id[i]] = x[i]``): lane ids are all distinct, so it computes
   what the JAX package's second sort keyed on lane id computes.
@@ -65,8 +66,9 @@ def sort_by_key(key: torch.Tensor, operands, chunk: int):
     """Sort the (N,) operand tensors by `key` within `chunk`-lane chunks.
 
     Returns (lane_id, sorted_operands): lane_id[i] (int64) is the pre-sort
-    position of the lane now at i.  The order among equal keys is not
-    specified (the CUDA kernel's bitonic network is not stable)."""
+    position of the lane now at i.  The sort is stable: lanes of equal keys
+    keep their order, in the CUDA kernel's radix sort as in the plain
+    version's torch.sort, so a sorted frame is reproducible lane for lane."""
     _, lane_id, out = cuda_sort.sort_chunks(key, list(operands), chunk)
     return lane_id, out
 

@@ -106,8 +106,18 @@ def evaluate_brdf_v(
     spec_scale = (d * g) / (4.0 * cos_nv * cos_nl + 1e-4)
     specular = f * spec_scale
     kd = 1.0 - f
-    diffuse = base_color * ((1.0 - metallic) / PI)
+    diffuse = base_color * diffuse_scale(metallic)
     return (kd * diffuse + specular) * cos_nl
+
+
+def diffuse_scale(metallic: torch.Tensor) -> torch.Tensor:
+    """(1 - metallic) / pi as a true float32 division on every device.
+
+    PI is a 0-dim tensor on metallic's device: PyTorch's CUDA kernel
+    multiplies by the reciprocal when the divisor is a Python scalar (or a
+    CPU scalar tensor), which departs from the kernels and from
+    spt_tpu/ops/sampling.py:247 by up to a few ulp."""
+    return (1.0 - metallic) / metallic.new_full((), PI)
 
 
 # --- Direction sampling ------------------------------------------------------

@@ -24,13 +24,13 @@ as tests/test_inst.py:86-106 lowers it.  Gates, each with its reason:
   through pallas_inst, as it does on its chip: hdr_image relative RMSE
   < 1 %.
 
-On a CUDA card (marker ``cuda``; skipped without one) the instanced
-kernels against their plain versions, and, bit for bit on the untextured
-grid, fused_bounce's instanced form and the instanced tracer on the cases
-the warp-cooperative cluster walk has to get right (chip_smoke.WALK_CASES:
-warps of mixed object-space octants, every other lane dead, a lane count
-that is not a multiple of 32, shadow rays blocked a few clusters out).  Run
-there with
+On a CUDA card (marker ``cuda``; skipped without one) the instanced kernels
+against their plain versions (the textured radiance bit for bit), and, bit
+for bit on the untextured grid, fused_bounce's instanced form and the
+instanced tracer on the cases the warp-cooperative cluster walk has to get
+right (chip_smoke.WALK_CASES: warps of mixed object-space octants, every
+other lane dead, a lane count that is not a multiple of 32, shadow rays
+blocked a few clusters out). Run there with
 ``python -m pytest --noconftest tests/test_torch_inst.py -m cuda``.
 """
 
@@ -534,6 +534,10 @@ def test_instanced_fused_kernels_match_plain_on_card(cuda_device, start):
         for x, y in zip(a, b):
             assert _planes_agree(x, y)
     assert _planes_agree(k[3], p[3])
+    # the textured radiance too is bit for bit since the plain BRDF divides
+    # by pi on the card as the kernels do
+    assert all(_bits_equal({"radiance": (chip_smoke._v(torch, k[0]),
+                                         chip_smoke._v(torch, p[0]))}).values())
     rk, rp = k[4].cpu().numpy(), p[4].cpu().numpy()
     assert (np.abs(rk - rp) <= 1e-3 * rp.clip(min=1)).all()
     kb, km = cuda_bounce.fused_bounce(cfg, scene, lights, ps, 0, False)
@@ -546,6 +550,9 @@ def test_instanced_fused_kernels_match_plain_on_card(cuda_device, start):
     for x, y in ((kb.rng, pbs.rng), (kb.alive, pbs.alive),
                  (kb.emission_ok, pbs.emission_ok), (km, pm)):
         assert _planes_agree(x, y)
+    assert all(_bits_equal({"radiance": (chip_smoke._v(torch, kb.radiance),
+                                         chip_smoke._v(torch, pbs.radiance))}
+                           ).values())
 
 
 def _bits_equal(planes):
@@ -563,7 +570,8 @@ def _bits_equal(planes):
 @pytest.mark.parametrize("case", chip_smoke.WALK_CASES)
 def test_inst_cooperative_walk_bit_for_bit_on_card(cuda_device, case):
     cfg, scene, lights, ps = _grid(cuda_device, 256, 192)
-    # untextured: the textured radiance is held to its 3 ulp above
+    # untextured: the walk's own cases (the textured forms are held bit for
+    # bit above)
     scene = scene._replace(textures=None)
     lights, ps = chip_smoke.walk_case(torch, np, case, scene, lights, ps)
     ia = scene.inst

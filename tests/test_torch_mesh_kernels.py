@@ -11,8 +11,10 @@
   so only exact ties may resolve otherwise); fused_bounce and fused_frame
   radiance within 1e-3 on >= 99.9 % of lanes, rays_per_bounce within 0.1 %
   (both are built with --fmad=false and evaluate in the plain version's
-  order); sort_chunks keys equal to torch.sort's and every payload the
-  same permutation.  Run there with
+  order); sort_chunks keys, lane ids and every plane bit for bit equal to
+  its plain version's (a stable torch.sort), at chunks 2 to 32 768 on
+  random, all-dead, all-equal, sorted and reversed keys with 0 or 16
+  planes, one launch a call.  Run there with
   ``python -m pytest --noconftest tests/test_torch_mesh_kernels.py -m cuda``.
 """
 
@@ -242,30 +244,65 @@ def test_resident_fused_frame_matches_plain_on_card(cuda_device, start,
     assert (np.abs(rk - rp) <= 1e-3 * rp.clip(min=1)).all()
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("chunk", [2048, 8192, 32768])
-def test_sort_chunks_matches_torch_sort_on_card(cuda_device, chunk):
-    g = torch.Generator().manual_seed(chunk)
+def _sort_keys(chunk, pattern, g):
+    """(4 * chunk,) int64 keys holding uint32 values: random with 40 % dead
+    lanes and a long run of one key, all dead, all equal, or few distinct
+    values (so, many ties) already sorted or reversed within each chunk."""
     n = 4 * chunk
-    key = torch.randint(0, 2 ** 32, (n,), generator=g, dtype=torch.int64)
-    key[torch.rand(n, generator=g) < 0.4] = 0xFFFFFFFF
-    key[: n // 8] = 5  # long runs of equal keys
+    if pattern == "random":
+        key = torch.randint(0, 2 ** 32, (n,), generator=g, dtype=torch.int64)
+        key[torch.rand(n, generator=g) < 0.4] = 0xFFFFFFFF
+        key[: n // 8] = 5  # long runs of equal keys
+        return key
+    if pattern in ("dead", "equal"):
+        return torch.full((n,), 0xFFFFFFFF if pattern == "dead" else 0x5EED,
+                          dtype=torch.int64)
+    few = torch.randint(0, 2 ** 32, (max(2, chunk // 16),), generator=g,
+                        dtype=torch.int64)
+    key = few[torch.randint(0, few.numel(), (n,), generator=g)]
+    key = torch.sort(key.reshape(-1, chunk), dim=1).values
+    return (key if pattern == "sorted" else key.flip(1)).reshape(n)
+
+
+def _sort_planes(n, count, g):
+    """`count` planes: float32, int32 and int64 in turn."""
+    planes = []
+    for i in range(count):
+        if i % 3 == 0:
+            planes.append(torch.randn(n, generator=g))
+        elif i % 3 == 1:
+            planes.append(torch.randint(-2 ** 31, 2 ** 31, (n,), generator=g,
+                                        dtype=torch.int64).to(torch.int32))
+        else:
+            planes.append(torch.randint(-2 ** 62, 2 ** 62, (n,), generator=g,
+                                        dtype=torch.int64))
+    return planes
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("planes", [0, 16])
+@pytest.mark.parametrize("pattern", ["random", "dead", "equal", "sorted",
+                                     "reversed"])
+@pytest.mark.parametrize("chunk", [2, 256, 2048, 8192, 32768])
+def test_sort_chunks_matches_torch_sort_on_card(cuda_device, chunk, pattern,
+                                                planes):
+    # the sort is stable: keys, lane ids and every plane bit for bit equal
+    # to the plain version's stable torch.sort and gathers, in one launch
+    g = torch.Generator().manual_seed(chunk)
+    key = _sort_keys(chunk, pattern, g)
+    ops = [a.to(cuda_device) for a in _sort_planes(key.shape[0], planes, g)]
     key = key.to(cuda_device)
-    ops = [torch.randn(n, generator=g).to(cuda_device) for _ in range(12)]
-    ops += [torch.randint(-9, 9, (n,), generator=g,
-                          dtype=torch.int32).to(cuda_device),
-            torch.arange(n, dtype=torch.int64, device=cuda_device)]
     before = cuda_sort.LAUNCHES
     sk, lane, out = cuda_sort.sort_chunks(key, ops, chunk)
     assert cuda_sort.LAUNCHES == before + 1
-    rk, _, _ = cuda_sort.sort_chunks_reference(key, ops, chunk)
+    rk, rl, ro = cuda_sort.sort_chunks_reference(key, ops, chunk)
     torch.cuda.synchronize()
     assert torch.equal(sk, rk)
-    assert torch.equal(lane // chunk, torch.arange(n, device=cuda_device) // chunk)
-    for src, got in zip(ops, out):
-        assert torch.equal(got, src[lane])
-    assert torch.equal(torch.sort(lane).values,
-                       torch.arange(n, device=cuda_device))
+    assert torch.equal(lane, rl)
+    for got, want in zip(out, ro):
+        if got.dtype.is_floating_point:
+            got, want = got.view(torch.int32), want.view(torch.int32)
+        assert torch.equal(got, want)
 
 
 @pytest.mark.cuda

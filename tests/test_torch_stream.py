@@ -26,11 +26,12 @@ with its reason:
   frame against the unsorted one on every lane.
 
 On a CUDA card (marker ``cuda``; skipped without one) the stream kernels
-against their plain versions, and, bit for bit on the untextured grid,
-fused_bounce's stream form and the stream tracer on the cases the
-warp-cooperative cluster walk has to get right (chip_smoke.WALK_CASES:
-warps of mixed octants, every other lane dead, a lane count that is not a
-multiple of 32, shadow rays blocked a few clusters out).  Run there with
+against their plain versions (the textured radiance bit for bit), and, bit
+for bit on the untextured grid, fused_bounce's stream form and the stream
+tracer on the cases the warp-cooperative cluster walk has to get right
+(chip_smoke.WALK_CASES: warps of mixed octants, every other lane dead, a
+lane count that is not a multiple of 32, shadow rays blocked a few clusters
+out). Run there with
 ``python -m pytest --noconftest tests/test_torch_stream.py -m cuda``.
 """
 
@@ -519,6 +520,10 @@ def test_stream_fused_kernels_match_plain_on_card(cuda_device, start):
         for x, y in zip(a, b):
             assert _planes_agree(x, y)
     assert _planes_agree(k[3], p[3])
+    # the textured radiance too is bit for bit since the plain BRDF divides
+    # by pi on the card as the kernels do
+    assert all(_bits_equal({"radiance": (chip_smoke._v(torch, k[0]),
+                                         chip_smoke._v(torch, p[0]))}).values())
     rk, rp = k[4].cpu().numpy(), p[4].cpu().numpy()
     assert (np.abs(rk - rp) <= 1e-3 * rp.clip(min=1)).all()
     kb, km = cuda_bounce.fused_bounce(cfg, scene, lights, ps, 0, False)
@@ -531,6 +536,9 @@ def test_stream_fused_kernels_match_plain_on_card(cuda_device, start):
     for x, y in ((kb.rng, pbs.rng), (kb.alive, pbs.alive),
                  (kb.emission_ok, pbs.emission_ok), (km, pm)):
         assert _planes_agree(x, y)
+    assert all(_bits_equal({"radiance": (chip_smoke._v(torch, kb.radiance),
+                                         chip_smoke._v(torch, pbs.radiance))}
+                           ).values())
 
 
 def _bits_equal(planes):
@@ -548,7 +556,8 @@ def _bits_equal(planes):
 @pytest.mark.parametrize("case", chip_smoke.WALK_CASES)
 def test_stream_cooperative_walk_bit_for_bit_on_card(cuda_device, case):
     cfg, scene, lights, ps = _card_grid(cuda_device, 128, 96)
-    # untextured: the textured radiance is held to its 3 ulp above
+    # untextured: the walk's own cases (the textured forms are held bit for
+    # bit above)
     scene = scene._replace(textures=None)
     lights, ps = chip_smoke.walk_case(torch, np, case, scene, lights, ps)
     a = scene.accel

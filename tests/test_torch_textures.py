@@ -20,9 +20,15 @@ each with its reason:
   small form: its quadrants reach the film, and the image is within 1 %
   relative RMSE of the JAX Renderer's.
 
+The plain BRDF's diffuse term (1 - metallic) / pi is a true float32
+division: bit for bit numpy's on the CPU, and on a card the same as on the
+CPU (PyTorch's CUDA kernels multiply by the reciprocal of a Python-scalar
+divisor, which the kernels and the JAX package do not).
+
 On a CUDA card (marker ``cuda``; skipped without one) the textured small
 and resident forms of fused_frame and fused_bounce against their plain
-versions.  Run there with
+versions, and evaluate_brdf_v against its CPU result bit for bit.  Run
+there with
 ``python -m pytest --noconftest tests/test_torch_textures.py -m cuda``.
 """
 
@@ -233,6 +239,15 @@ def test_quad_checker_reaches_film_through_the_small_form():
     assert _rel_rmse(img, jr.hdr_image()) < 0.01
 
 
+def test_diffuse_scale_divides_as_numpy_float32():
+    from spt_tpu_torch.ops import sampling
+
+    m = np.random.default_rng(5).uniform(0.0, 1.0, 65536).astype(np.float32)
+    want = (np.float32(1.0) - m) / np.float32(np.pi)
+    got = sampling.diffuse_scale(torch.from_numpy(m)).numpy()
+    np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))
+
+
 # --- the card ------------------------------------------------------------------------
 
 @pytest.fixture
@@ -293,6 +308,9 @@ def test_textured_fused_kernels_match_plain_on_card(cuda_device, form):
             assert _agree(x, y)
     assert _agree(k[3], p[3])
     assert torch.equal(k[4], p[4])
+    # radiance bit for bit: the plain BRDF divides by pi as the kernels do
+    assert all(torch.equal(x.view(torch.int32), y.view(torch.int32))
+               for x, y in zip(k[0], p[0]))
     kb, km = cuda_bounce.fused_bounce(cfg, scene, lights, ps, 0, False)
     pb, pm = cuda_bounce.fused_bounce_reference(cfg, scene, lights, ps, 0,
                                                 False)
@@ -303,6 +321,57 @@ def test_textured_fused_kernels_match_plain_on_card(cuda_device, form):
     for x, y in ((kb.rng, pb.rng), (kb.alive, pb.alive),
                  (kb.emission_ok, pb.emission_ok), (km, pm)):
         assert _agree(x, y)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("textured", [False, True])
+def test_brdf_on_card_equals_cpu_bit_for_bit(cuda_device, textured):
+    """evaluate_brdf_v at fractional metallic values, on the card and on the
+    CPU.  Every v + l is (0, 0, 1) exactly (v.z a multiple of 1/64), so the
+    half vector's rsqrt, the one operation the two devices may round apart,
+    takes 1 on both; the rest are float32 adds, multiplies, true divisions,
+    square roots and clamps, which both round alike."""
+    from spt_tpu_torch.ops import sampling
+    from spt_tpu_torch.ops.vec3 import Vec3
+
+    rng = np.random.default_rng(6)
+    n = 65536
+    nrm = rng.normal(size=(3, n))
+    nrm = (nrm / np.linalg.norm(nrm, axis=0)).astype(np.float32)
+    v = rng.uniform(-1.0, 1.0, (3, n)).astype(np.float32)
+    v[2] = rng.integers(1, 64, n) / np.float32(64.0)
+    l = np.stack([-v[0], -v[1], np.float32(1.0) - v[2]])
+    roughness = rng.uniform(0.02, 1.0, n).astype(np.float32)
+    metallic = rng.uniform(0.05, 0.95, n).astype(np.float32)
+    base = rng.uniform(0.0, 1.0, (3, n)).astype(np.float32)
+    if textured:
+        # the multipliers the texture sampler gives: 10-bit colour and
+        # 16-bit metallic / roughness steps, bilinearly blended
+        img, mr = chip_smoke._checker_texture(np, rng, res=64)
+        mats = [tscene.Material([1.0, 1.0, 1.0], base_color_texture=img,
+                                metallic_roughness_texture=mr)] * 2
+        _, table = tmaterials.build_texture_table(mats)
+        rgb, rough_m, metal_m = ttr.sample_texture_v(
+            table, torch.from_numpy(rng.integers(0, 2, n).astype(np.int32)),
+            *(torch.from_numpy(rng.uniform(0.0, 1.0, n).astype(np.float32))
+              for _ in range(2)))
+        base = base * np.stack([c.numpy() for c in rgb])
+        roughness = np.clip(roughness * rough_m.numpy(), 0.02, 1.0)
+        metallic = metallic * metal_m.numpy()
+    ior = rng.choice(np.float32([1.0, 1.5, 2.4]), n)
+
+    def run(dev):
+        def t(a):
+            return torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(dev)
+
+        out = sampling.evaluate_brdf_v(Vec3(*t(nrm)), Vec3(*t(v)),
+                                       Vec3(*t(l)), Vec3(*t(base)),
+                                       t(metallic), t(roughness), t(ior))
+        return torch.stack(list(out), -1).cpu()
+
+    got, want = run(cuda_device), run(CPU)
+    assert float((want != 0).float().mean()) > 0.25
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
 
 
 def test_untextured_lanes_keep_their_colour_beside_textured_ones():
