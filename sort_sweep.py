@@ -23,16 +23,13 @@ bit for bit there (the other checkout's keys only: its sort need not be
 stable), and times every variant in turns, forward then backward
 (torch.profiler device time per launch), with torch.sort + gathers (CUDA
 events) beside.  Needs ``nvcc`` and one card; prints the card's name and
-power limit with every time.
+power limit with every time.  The builds are made by ``sweep_builds.py``.
 """
 
 from __future__ import annotations
 
 import argparse
-import re
-import shutil
 import sys
-import time
 from pathlib import Path
 
 HERE = Path(__file__).resolve().parent
@@ -50,6 +47,7 @@ def main() -> int:
     import torch
 
     import chip_smoke as cs
+    import sweep_builds
     from spt_tpu_torch.ops import cuda_lib, cuda_sort
 
     if not torch.cuda.is_available():
@@ -58,54 +56,27 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     smi = cs.smi_line()
     cs.log(f"torch {torch.__version__}, {torch.cuda.get_device_name(0)} [{smi}]")
-    root = HERE / "build" / "sort_sweep"
-    src = HERE / "spt_tpu_torch" / "csrc"
-    libs = {}
-
-    def load(name, csrc):
-        cuda_lib._LIB = None
-        cuda_lib.CSRC = Path(csrc)
-        cuda_lib.BUILD_ROOT = root / name
-        t0 = time.perf_counter()
-        libs[name] = cuda_lib.build()
-        cs.log(f"built {name} in {time.perf_counter() - t0:.1f} s")
-
-    def variant(name, *subs):
-        d = root / f"src_{name}"
-        shutil.rmtree(d, ignore_errors=True)
-        shutil.copytree(src, d)
-        p = d / "sort_chunks.cu"
-        txt = p.read_text()
-        for pattern, repl in subs:
-            txt, n = re.subn(pattern, repl, txt)
-            if n != 1:
-                raise RuntimeError(f"{pattern!r} not found once in sort_chunks.cu")
-        p.write_text(txt)
-        load(name, d)
-
-    load("committed", src)
+    builds = sweep_builds.Builds(cuda_lib, "sort_sweep", cs.log)
+    use = builds.use
+    builds.load("committed")
     checked = ["committed"]
     for const, tag, values in (("kPlaneBatch", "batch", args.batches),
                                ("kItems", "items", args.items),
                                ("kBlockKeys", "keys", args.block_keys)):
         for v in (int(x) for x in values.split(",") if x):
-            variant(f"{tag}{v}", (rf"constexpr int {const} = \d+;",
-                                  f"constexpr int {const} = {v};"))
+            builds.variant(f"{tag}{v}", [sweep_builds.const(const, v)])
             checked.append(f"{tag}{v}")
     # the local scatter leaves slots of garbage: its lane ids are kept in
     # the chunk, so that the gathers stay in bounds
-    variant("local",
-            (re.escape("cluster.map_shared_rank(dst, owner)[pos - owner * tile]"),
-             "dst[pos - owner * tile]"),
-            (re.escape("lanes[q] = static_cast<int>(x & 0xffffffffu);"),
-             "lanes[q] = static_cast<int>(x & 0xffffffffu) & (chunk - 1);"))
+    builds.variant("local", [
+        sweep_builds.literal("cluster.map_shared_rank(dst, owner)[pos - owner * tile]",
+                             "dst[pos - owner * tile]"),
+        sweep_builds.literal("lanes[q] = static_cast<int>(x & 0xffffffffu);",
+                             "lanes[q] = static_cast<int>(x & 0xffffffffu) & (chunk - 1);")])
     variants = checked + ["local"]
     if args.other:
-        load("other", Path(args.other) / "spt_tpu_torch" / "csrc")
+        builds.load("other", Path(args.other) / "spt_tpu_torch" / "csrc")
         variants.append("other")
-
-    def use(name):
-        cuda_lib._LIB = libs[name]
 
     # the recorded calls of one sorted frame on each scene, then random keys
     jobs = []

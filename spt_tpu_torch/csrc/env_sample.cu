@@ -10,12 +10,17 @@
 // normalizes its direction (vec3.safe_normalize), computes the equirect
 // taps as env._equirect_taps does (atan2f / acosf, texel-centre floor, wrap
 // in u by a true modulo, per-tap clamp in v from the unclipped floor),
-// loads its four texels from the (H, W, 3) map in global memory, blends
-// them in the plain version's order and applies min(., max_clamp) *
-// intensity; a lane outside `need` writes 0 and loads nothing.  The TPU
-// kernel min-extracts the distinct (8, 128) map tiles a lane tile touches
-// and DMAs each; here every thread loads its own texels through L2 (the
-// 1024 x 2048 bench map is 24 MiB, inside the 50 MB L2).
+// loads its four texels, blends them in the plain version's order and
+// applies min(., max_clamp) * intensity; a lane outside `need` writes 0 and
+// loads nothing.  The TPU kernel min-extracts the distinct (8, 128) map
+// tiles a lane tile touches and DMAs each, from a copy of the map pre-tiled
+// for that DMA (pallas_env.env_pretile :149); here every thread loads its
+// own texels through L2, from the map held in its texel layout
+// (env.equirect_texels: each texel's RGB and a zero pad, 16 bytes, the
+// layout every environment is made in), so that a tap is one aligned
+// 16-byte load: 4 vector loads a lane where the
+// (H, W, 3) map takes 12 scalar ones at a 12-byte stride (the 1024 x 2048
+// bench map is 32 MiB so, still inside the 50 MB L2).
 //
 // Numerics: built with --fmad=false, every expression in the order of the
 // plain PyTorch version (env.environment_color_v); PyTorch's CUDA division
@@ -23,8 +28,14 @@
 // two divisions here do too.
 //
 // What bounds it on an H100: bytes — 13 B in and 12 B out per lane and up
-// to 48 B of texels per needed lane, about 46 operations a lane; the
-// gathers are scattered wherever the deferred field's directions are.
+// to 48 B of texels per needed lane (counted on the 12-byte texels of the
+// map), about 46 operations a lane; the gathers are scattered wherever the
+// deferred field's directions are.  A 16-byte texel never straddles two
+// 32-byte sectors, as a third of the 12-byte ones do, and takes one load
+// instruction in place of three; the column wrap divides only at the seam.
+// On the card (frame_sweep.py, PERF.md) two or four lanes a thread with
+// every load issued first, and blocks of 128 or 512, gained nothing, and
+// the exact atan2f / acosf take about a tenth of the time.
 
 #include "spt_common.cuh"
 
@@ -37,7 +48,7 @@ constexpr int kEnvBlock = 256;
 struct EnvIO {
   const float *dx, *dy, *dz;
   const uint8_t* need;  // null: every lane
-  const float* __restrict__ map;
+  const float4* __restrict__ texels;  // (H, W, 4): RGB and a pad
   float *o_r, *o_g, *o_b;
   int n, h, w;
   float max_clamp, intensity;
@@ -66,26 +77,28 @@ __global__ void __launch_bounds__(kEnvBlock) env_sample_kernel(EnvIO io) {
   const float y0 = floorf(y);
   const float fx = x - x0;
   const float fy = y - y0;
-  int x0i = static_cast<int>(x0) % io.w;  // x0 may be -1: torch.remainder
-  if (x0i < 0) x0i += io.w;
-  const int x1i = (x0i + 1) % io.w;
-  const int y0f = static_cast<int>(y0);
-  const int y0i = min(max(y0f, 0), io.h - 1);
-  const int y1i = min(max(y0f + 1, 0), io.h - 1);
-  const float* c00 = io.map + (static_cast<size_t>(y0i) * io.w + x0i) * 3;
-  const float* c01 = io.map + (static_cast<size_t>(y0i) * io.w + x1i) * 3;
-  const float* c10 = io.map + (static_cast<size_t>(y1i) * io.w + x0i) * 3;
-  const float* c11 = io.map + (static_cast<size_t>(y1i) * io.w + x1i) * 3;
-  const float gx = 1.0f - fx, gy = 1.0f - fy;
-  float out[3];
-  for (int c = 0; c < 3; ++c) {
-    const float top = __ldg(c00 + c) * gx + __ldg(c01 + c) * fx;
-    const float bot = __ldg(c10 + c) * gx + __ldg(c11 + c) * fx;
-    out[c] = clamp_max(top * gy + bot * fy, io.max_clamp) * io.intensity;
+  // torch.remainder, whose integer division only a column outside [0, w)
+  // needs (x0 = -1 left of the u seam)
+  int x0i = static_cast<int>(x0);
+  if (x0i < 0 || x0i >= io.w) {
+    x0i %= io.w;
+    if (x0i < 0) x0i += io.w;
   }
-  io.o_r[i] = out[0];
-  io.o_g[i] = out[1];
-  io.o_b[i] = out[2];
+  const int x1i = x0i + 1 == io.w ? 0 : x0i + 1;
+  const int y0f = static_cast<int>(y0);
+  const size_t r0 = static_cast<size_t>(min(max(y0f, 0), io.h - 1)) * io.w;
+  const size_t r1 = static_cast<size_t>(min(max(y0f + 1, 0), io.h - 1)) * io.w;
+  const float4 c00 = __ldg(io.texels + r0 + x0i);
+  const float4 c01 = __ldg(io.texels + r0 + x1i);
+  const float4 c10 = __ldg(io.texels + r1 + x0i);
+  const float4 c11 = __ldg(io.texels + r1 + x1i);
+  const float gx = 1.0f - fx, gy = 1.0f - fy;
+  const float top_r = c00.x * gx + c01.x * fx, bot_r = c10.x * gx + c11.x * fx;
+  const float top_g = c00.y * gx + c01.y * fx, bot_g = c10.y * gx + c11.y * fx;
+  const float top_b = c00.z * gx + c01.z * fx, bot_b = c10.z * gx + c11.z * fx;
+  io.o_r[i] = clamp_max(top_r * gy + bot_r * fy, io.max_clamp) * io.intensity;
+  io.o_g[i] = clamp_max(top_g * gy + bot_g * fy, io.max_clamp) * io.intensity;
+  io.o_b[i] = clamp_max(top_b * gy + bot_b * fy, io.max_clamp) * io.intensity;
 }
 
 }  // namespace
@@ -93,15 +106,19 @@ __global__ void __launch_bounds__(kEnvBlock) env_sample_kernel(EnvIO io) {
 extern "C" {
 
 // Replaces spt_tpu/ops/pallas_env.py:192 (sample_equirect_pallas,
-// pallas_call :218) and its sorted variant :262.  `need` may be null (every
-// lane).  Returns the CUDA error of the launch (0: accepted); allocates
-// nothing and does not synchronise.
+// pallas_call :218) and its sorted variant :262.  `texels` is the map in
+// its texel layout, (h, w, 4), 16-byte aligned; `need` may be null (every
+// lane).
+// Returns the CUDA error of the launch (0: accepted); allocates nothing and
+// does not synchronise.
 int spt_env_sample(const float* dx, const float* dy, const float* dz, const uint8_t* need,
-                   const float* map, int h, int w, float max_clamp, float intensity,
+                   const float* texels, int h, int w, float max_clamp, float intensity,
                    float* o_r, float* o_g, float* o_b, int n, void* stream) {
-  if (h < 1 || w < 1 || map == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  if (h < 1 || w < 1 || texels == nullptr || reinterpret_cast<uintptr_t>(texels) % 16 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
   if (n <= 0) return static_cast<int>(cudaGetLastError());
-  EnvIO io{dx, dy, dz, need, map, o_r, o_g, o_b, n, h, w, max_clamp, intensity};
+  EnvIO io{dx, dy, dz, need, reinterpret_cast<const float4*>(texels), o_r, o_g, o_b,
+           n, h, w, max_clamp, intensity};
   const int grid = (n + kEnvBlock - 1) / kEnvBlock;
   env_sample_kernel<<<grid, kEnvBlock, 0, static_cast<cudaStream_t>(stream)>>>(io);
   return static_cast<int>(cudaGetLastError());

@@ -46,8 +46,13 @@ struct BounceIO {
 template <int kMode>
 __global__ void __launch_bounds__(kBlock)
     fused_bounce_kernel(BounceIO io, SceneArgs sc, ShadeArgs sa) {
-  extern __shared__ float smem[];
-  const Tables tb = load_tables(smem, sc);
+  extern __shared__ __align__(16) float smem[];
+  Tables tb;
+  if constexpr (kMode == 0) {
+    tb = load_small_tables(smem, sc);
+  } else {
+    tb = load_tables(smem, sc);
+  }
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= io.n) return;
 
@@ -124,7 +129,8 @@ int spt_fused_bounce(const float* ox, const float* oy, const float* oz, const fl
                pack_w, n_clusters, cluster_size, n_inst, n_meshes, tex, tex_res,
                cbox, corder};
   ShadeArgs sa{rr_after, flags, hit_eps, ray_offset_dir, firefly_clamp};
-  const size_t smem = smem_bytes(sc);
+  const size_t smem =
+      pack == nullptr ? sizeof(float) * static_cast<size_t>(small_table_words(sc)) : smem_bytes(sc);
   if (n_mats < 1 || smem > 227 * 1024) return static_cast<int>(cudaErrorInvalidValue);
   if (n <= 0) return static_cast<int>(cudaGetLastError());
   const int grid = (n + kBlock - 1) / kBlock;

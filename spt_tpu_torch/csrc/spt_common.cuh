@@ -25,8 +25,7 @@ namespace spt {
 constexpr double kPi = 3.14159265358979323846;
 
 // Packed table layout, in 32-bit words (ints are stored as their bits).
-constexpr int kTriWords = 10;   // v0 xyz | e1 xyz | e2 xyz | mat
-constexpr int kSphWords = 5;    // center xyz | radius | mat
+constexpr int kSphWords = 5;    // center xyz | radius | mat (mesh forms)
 constexpr int kMatWords = 12;   // base xyz | metallic | roughness | ior | type | emission xyz | transparency | tex_id
 constexpr int kLightWords = 11; // kind | vec xyz | color xyz | intensity | attenuation xyz
 constexpr int kEmitWords = 13;  // v0 xyz | e1 xyz | e2 xyz | le xyz | area
@@ -35,6 +34,11 @@ constexpr int kUvWords = 6;     // uv0 | uv1-uv0 | uv2-uv0
 constexpr int kBoxWords = 6;    // cluster lo xyz | hi xyz
 constexpr int kInstWords = 22;  // world box lo xyz | hi xyz | bvh.InstAccel.inst row (16)
 constexpr int kSuperFan = 16;   // clusters per supercluster (bvh.SUPER_FAN)
+
+// The small forms' (accel mode None) triangle and sphere rows, padded to
+// 16-byte words so that a test reads its row with float4 shared loads.
+constexpr int kSmallTriWords = 12;  // v0 xyz e1x | e1yz e2xy | e2z mat, 2 unused
+constexpr int kSmallSphWords = 8;   // center xyz radius | mat, 3 unused
 
 // Every kernel runs blocks of kWarps warps (128 threads).  In the mesh forms
 // each warp owns a staging buffer in shared memory (spt_tracers.cuh): the
@@ -56,13 +60,11 @@ constexpr int kDirectLightDielectric = 1 << 6;
 constexpr int kHasNs = 1 << 7;          // the flat tables carry shading normals
 constexpr int kTextured = 1 << 8;       // the scene has a texture table
 
-// The scene tables as one float buffer in global memory, copied whole into
-// shared memory by every block:
-//   tri | sph | mat | light | emit | ns | uv | cluster boxes | instances |
-//   octant keys
-// The small form fills tri (and ns, and uv on a textured scene).  The
-// resident form leaves them empty and fills the cluster boxes and
-// bvh.MeshAccel.cl_okey (8 x C int32 bits, (rank << 16) | cluster id).  The
+// The mesh forms' scene tables as one float buffer in global memory,
+// copied whole into shared memory by every block:
+//   sph | mat | light | emit | cluster boxes | instances | octant keys
+// (the small forms read their own layout, small_table_words).  The
+// resident form fills the cluster boxes and bvh.MeshAccel.cl_okey (8 x C int32 bits, (rank << 16) | cluster id).  The
 // instanced form fills the boxes of every BLAS (M x CMAX, padding clusters
 // inverted), the instance rows and the BLAS keys (8M x CMAX, row
 // octant * M + mesh, ranks 0..CMAX-1 per row).  The stream form fills the
@@ -96,11 +98,8 @@ struct Tables {
 };
 
 __host__ __device__ inline int table_words(const SceneArgs& s) {
-  const bool uv = (s.flags & kTextured) && s.pack == nullptr;
-  return s.n_tris * kTriWords + s.n_sphs * kSphWords + s.n_mats * kMatWords +
-         s.n_lights * kLightWords + s.n_emit * kEmitWords +
-         ((s.flags & kHasNs) ? s.n_tris * kNsWords : 0) + (uv ? s.n_tris * kUvWords : 0) +
-         s.n_clusters * (kBoxWords + 8) + s.n_inst * kInstWords;
+  return s.n_sphs * kSphWords + s.n_mats * kMatWords + s.n_lights * kLightWords +
+         s.n_emit * kEmitWords + s.n_clusters * (kBoxWords + 8) + s.n_inst * kInstWords;
 }
 
 // Bytes of the tables plus the visit orders.
@@ -115,10 +114,9 @@ __host__ __device__ inline size_t stage_offset(const SceneArgs& s) {
   return (table_bytes(s) + 15) / 16 * 16;
 }
 
-// Dynamic shared memory of a block: the tables and visit orders, then in
-// the mesh forms the warps' staging buffers and lock words.
+// Dynamic shared memory of a mesh form's block: the tables and visit
+// orders, then the warps' staging buffers and lock words.
 __host__ __device__ inline size_t smem_bytes(const SceneArgs& s) {
-  if (s.pack == nullptr) return table_bytes(s);
   return stage_offset(s) + kWarps * (sizeof(float) * kStageFloats + sizeof(int));
 }
 
@@ -137,31 +135,63 @@ __device__ inline Tables load_tables(float* smem, const SceneArgs& s) {
     const int key = okey[k];
     order[(k / cmax) * cmax + (key >> 16)] = static_cast<uint16_t>(key & 0xFFFF);
   }
-  float* stage = nullptr;
-  int* stage_lock = nullptr;
-  if (s.pack != nullptr) {
-    stage = reinterpret_cast<float*>(reinterpret_cast<char*>(smem) + stage_offset(s));
-    stage_lock = reinterpret_cast<int*>(stage + kWarps * kStageFloats);
-    if (threadIdx.x < kWarps) stage_lock[threadIdx.x] = 0;
-  }
+  float* stage = reinterpret_cast<float*>(reinterpret_cast<char*>(smem) + stage_offset(s));
+  int* stage_lock = reinterpret_cast<int*>(stage + kWarps * kStageFloats);
+  if (threadIdx.x < kWarps) stage_lock[threadIdx.x] = 0;
   __syncthreads();
   Tables tb;
   tb.stage = stage;
   tb.stage_lock = stage_lock;
-  tb.tri = smem;
-  tb.sph = tb.tri + s.n_tris * kTriWords;
+  tb.tri = tb.ns = tb.uv = nullptr;  // the mesh forms' triangles are in tri_pack
+  tb.sph = smem;
   tb.mat = tb.sph + s.n_sphs * kSphWords;
+  tb.light = tb.mat + s.n_mats * kMatWords;
+  tb.emit = tb.light + s.n_lights * kLightWords;
+  tb.box = tb.emit + s.n_emit * kEmitWords;
+  tb.inst = tb.box + s.n_clusters * kBoxWords;
+  tb.order = order;
+  tb.tex = (s.flags & kTextured) ? s.tex : nullptr;
+  tb.tex_res = s.tex_res;
+  tb.n_tris = s.n_tris;
+  tb.n_sphs = s.n_sphs;
+  tb.n_mats = s.n_mats;
+  tb.n_lights = s.n_lights;
+  tb.n_emit = s.n_emit;
+  return tb;
+}
+
+// The small forms' tables, copied whole into shared memory by every
+// block (the first 16-byte aligned):
+//   tri (kSmallTriWords) | sph (kSmallSphWords) | mat | light | emit | ns | uv
+// with ns on a scene with shading normals and uv on a textured one.
+__host__ __device__ inline int small_table_words(const SceneArgs& s) {
+  return s.n_tris * kSmallTriWords + s.n_sphs * kSmallSphWords + s.n_mats * kMatWords +
+         s.n_lights * kLightWords + s.n_emit * kEmitWords +
+         ((s.flags & kHasNs) ? s.n_tris * kNsWords : 0) +
+         ((s.flags & kTextured) ? s.n_tris * kUvWords : 0);
+}
+
+// load_tables for the small layout; `smem` 16-byte aligned.
+__device__ inline Tables load_small_tables(float* smem, const SceneArgs& s) {
+  const int words = small_table_words(s);
+  for (int k = threadIdx.x; k < words; k += blockDim.x) smem[k] = s.tables[k];
+  __syncthreads();
+  Tables tb;
+  tb.tri = smem;
+  tb.sph = tb.tri + s.n_tris * kSmallTriWords;
+  tb.mat = tb.sph + s.n_sphs * kSmallSphWords;
   tb.light = tb.mat + s.n_mats * kMatWords;
   tb.emit = tb.light + s.n_lights * kLightWords;
   const float* after_emit = tb.emit + s.n_emit * kEmitWords;
   tb.ns = (s.flags & kHasNs) ? after_emit : nullptr;
-  const float* after_ns = after_emit + ((s.flags & kHasNs) ? s.n_tris * kNsWords : 0);
-  const bool uv = (s.flags & kTextured) && s.pack == nullptr;
-  tb.uv = uv ? after_ns : nullptr;
-  tb.box = after_ns + (uv ? s.n_tris * kUvWords : 0);
-  tb.inst = tb.box + s.n_clusters * kBoxWords;
-  tb.order = order;
+  tb.uv = (s.flags & kTextured)
+              ? after_emit + ((s.flags & kHasNs) ? s.n_tris * kNsWords : 0)
+              : nullptr;
+  tb.box = tb.inst = nullptr;
+  tb.order = nullptr;
   tb.tex = (s.flags & kTextured) ? s.tex : nullptr;
+  tb.stage = nullptr;
+  tb.stage_lock = nullptr;
   tb.tex_res = s.tex_res;
   tb.n_tris = s.n_tris;
   tb.n_sphs = s.n_sphs;
@@ -641,15 +671,17 @@ inline cudaError_t reserve_smem(K kernel, size_t bytes) {
 }
 
 // Registers per thread and local (spill) bytes of a kernel, and the blocks
-// of kWarps warps an SM holds at once with `smem` bytes of dynamic shared
-// memory each.  Returns the CUDA error (0: filled).
+// of `threads` threads (by default kWarps warps) an SM holds at once with
+// `smem` bytes of dynamic shared memory each.  Returns the CUDA error (0:
+// filled).
 template <class K>
-inline int kernel_info(K kernel, int smem, int* num_regs, int* local_bytes, int* blocks) {
+inline int kernel_info(K kernel, int smem, int* num_regs, int* local_bytes, int* blocks,
+                       int threads = 32 * kWarps) {
   cudaFuncAttributes attr;
   cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
   if (err == cudaSuccess) err = reserve_smem(kernel, static_cast<size_t>(smem));
   if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, kernel, 32 * kWarps,
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, kernel, threads,
                                                         static_cast<size_t>(smem));
   if (err == cudaSuccess) {
     *num_regs = attr.numRegs;

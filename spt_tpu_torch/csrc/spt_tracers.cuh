@@ -5,7 +5,8 @@
 // coordinates (0 where no triangle won).
 //
 // - RolledTracer: the small-scene brute force over the triangle and sphere
-//   tables in shared memory (ops/intersect.py, unrolled semantics).
+//   tables in shared memory (ops/intersect.py, unrolled semantics), rows in
+//   the small layout (spt_common.cuh small_table_words).
 // - ClusterTracer: the resident cluster tracer, the counterpart of
 //   spt_tpu/ops/pallas_trace.py closest_hit_tile / any_hit_tile
 //   (:497-669).  The TPU tests every cluster box against a whole ray
@@ -88,46 +89,60 @@
 
 namespace spt {
 
-// Moller-Trumbore for triangle record r; returns whether t lies in
-// (tmin, tmax) and below best, with t and the barycentrics (u, v).
-__device__ __forceinline__ bool tri_test(const float* r, V3 o, V3 d, float tmin, float tmax,
+// Moller-Trumbore for the small layout's triangle row r (three float4
+// loads); whether t lies in (tmin, tmax) and below best, with t and the
+// barycentrics (u, v).  Every condition is evaluated, in the plain
+// version's order: a test that returns on its first failed condition
+// measured slower on the card (frame_sweep.py, PERF.md), since the lanes of
+// a warp seldom fail together past the primary rays.
+__device__ __forceinline__ bool tri_test(const float4* r, V3 o, V3 d, float tmin, float tmax,
                                          float best, float& t, float& u, float& v) {
-  float v0x = r[0], v0y = r[1], v0z = r[2];
-  float e1x = r[3], e1y = r[4], e1z = r[5];
-  float e2x = r[6], e2y = r[7], e2z = r[8];
-  float hx = d.y * e2z - d.z * e2y;
-  float hy = d.z * e2x - d.x * e2z;
-  float hz = d.x * e2y - d.y * e2x;
-  float a = e1x * hx + e1y * hy + e1z * hz;
-  bool big = fabsf(a) > F32(1e-9);
-  float inv = 1.0f / (big ? a : 1.0f);
-  float sx = o.x - v0x, sy = o.y - v0y, sz = o.z - v0z;
+  const float4 r0 = r[0], r1 = r[1], r2 = r[2];
+  const float v0x = r0.x, v0y = r0.y, v0z = r0.z;
+  const float e1x = r0.w, e1y = r1.x, e1z = r1.y;
+  const float e2x = r1.z, e2y = r1.w, e2z = r2.x;
+  const float hx = d.y * e2z - d.z * e2y;
+  const float hy = d.z * e2x - d.x * e2z;
+  const float hz = d.x * e2y - d.y * e2x;
+  const float a = e1x * hx + e1y * hy + e1z * hz;
+  const bool big = fabsf(a) > F32(1e-9);
+  const float inv = 1.0f / (big ? a : 1.0f);
+  const float sx = o.x - v0x, sy = o.y - v0y, sz = o.z - v0z;
   u = inv * (sx * hx + sy * hy + sz * hz);
-  float qx = sy * e1z - sz * e1y;
-  float qy = sz * e1x - sx * e1z;
-  float qz = sx * e1y - sy * e1x;
+  const float qx = sy * e1z - sz * e1y;
+  const float qy = sz * e1x - sx * e1z;
+  const float qz = sx * e1y - sy * e1x;
   v = inv * (d.x * qx + d.y * qy + d.z * qz);
   t = inv * (e2x * qx + e2y * qy + e2z * qz);
   return big && (u >= 0.0f) && (v >= 0.0f) && (u + v <= 1.0f) && (t > tmin) && (t < tmax) &&
          (t < best);
 }
 
-__device__ __forceinline__ bool sph_test(const float* r, V3 o, V3 d, float tmin, float tmax,
+// The ray against the small layout's sphere row r (one float4 load).
+__device__ __forceinline__ bool sph_test(const float4* r, V3 o, V3 d, float tmin, float tmax,
                                          float best, float& t) {
-  float cx = r[0], cy = r[1], cz = r[2], rad = r[3];
-  float ocx = o.x - cx, ocy = o.y - cy, ocz = o.z - cz;
-  float b = ocx * d.x + ocy * d.y + ocz * d.z;
-  float c = ocx * ocx + ocy * ocy + ocz * ocz - rad * rad;
-  float disc = b * b - c;
-  float sq = safe_sqrt(disc);
-  float t0 = -b - sq;
-  float t1 = -b + sq;
+  const float4 c = r[0];
+  const float rad = c.w;
+  const float ocx = o.x - c.x, ocy = o.y - c.y, ocz = o.z - c.z;
+  const float b = ocx * d.x + ocy * d.y + ocz * d.z;
+  const float cc = ocx * ocx + ocy * ocy + ocz * ocz - rad * rad;
+  const float disc = b * b - cc;
+  const float sq = safe_sqrt(disc);
+  const float t0 = -b - sq;
+  const float t1 = -b + sq;
   t = ((t0 > tmin) && (t0 < tmax)) ? t0 : t1;
   return (disc > 0.0f) && (rad > 0.0f) && (t > tmin) && (t < tmax) && (t < best);
 }
 
 struct RolledTracer {
   const Tables* tb;
+
+  __device__ const float4* tri_row(int i) const {
+    return reinterpret_cast<const float4*>(tb->tri + i * kSmallTriWords);
+  }
+  __device__ const float4* sph_row(int i) const {
+    return reinterpret_cast<const float4*>(tb->sph + i * kSmallSphWords);
+  }
 
   __device__ int closest(V3 o, V3 d, float tmin, float tmax, float& best, int& mat,
                          V3& normal, float& hu, float& hv) const {
@@ -138,9 +153,9 @@ struct RolledTracer {
     hv = 0.0f;
     float ax = 0.0f, ay = 0.0f, az = 0.0f, rinv = 0.0f;
     for (int i = 0; i < tb->n_tris; ++i) {
-      const float* r = tb->tri + i * kTriWords;
       float t, u, v;
-      if (!tri_test(r, o, d, tmin, tmax, best, t, u, v)) continue;
+      if (!tri_test(tri_row(i), o, d, tmin, tmax, best, t, u, v)) continue;
+      const float* r = tb->tri + i * kSmallTriWords;
       float e1x = r[3], e1y = r[4], e1z = r[5];
       float e2x = r[6], e2y = r[7], e2z = r[8];
       float nx = e1y * e2z - e1z * e2y;
@@ -172,9 +187,9 @@ struct RolledTracer {
       az = nz;
     }
     for (int i = 0; i < tb->n_sphs; ++i) {
-      const float* r = tb->sph + i * kSphWords;
       float t;
-      if (!sph_test(r, o, d, tmin, tmax, best, t)) continue;
+      if (!sph_test(sph_row(i), o, d, tmin, tmax, best, t)) continue;
+      const float* r = tb->sph + i * kSmallSphWords;
       best = t;
       kind = 2;
       mat = as_int(r[4]);
@@ -197,9 +212,9 @@ struct RolledTracer {
   __device__ bool occluded(V3 o, V3 d, float tmin, float tmax) const {
     float t, u, v;
     for (int i = 0; i < tb->n_tris; ++i)
-      if (tri_test(tb->tri + i * kTriWords, o, d, tmin, tmax, INFINITY, t, u, v)) return true;
+      if (tri_test(tri_row(i), o, d, tmin, tmax, INFINITY, t, u, v)) return true;
     for (int i = 0; i < tb->n_sphs; ++i)
-      if (sph_test(tb->sph + i * kSphWords, o, d, tmin, tmax, INFINITY, t)) return true;
+      if (sph_test(sph_row(i), o, d, tmin, tmax, INFINITY, t)) return true;
     return false;
   }
 };

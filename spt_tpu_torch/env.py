@@ -8,9 +8,11 @@ The counterpart of ``spt_tpu.env`` (EnvironmentManager.cpp, Cubemap.cpp):
 - equirect mapping theta = atan2(z, x), phi = acos(y), u = (theta+pi)/2pi,
   v = phi/pi, texel-center bilinear with wrap in u and per-tap clamp in v
   (device_programs.cu:374-387).  On a CUDA tensor the HDR term is the
-  equirect sampler kernel (K2, ``ops/cuda_env``); its plain version
-  indexes the four taps of ``sample_equirect_v`` with plain tensor
-  indexing, the counterpart of the JAX package's flat ``jnp.take``;
+  equirect sampler kernel (K2, ``ops/cuda_env``), which reads the map in
+  its texel layout (``equirect_texels``: 16 bytes a texel, one load a tap,
+  the layout every environment is made in); its plain version indexes the
+  four taps of ``sample_equirect_v`` with plain tensor indexing, the
+  counterpart of the JAX package's flat ``jnp.take``;
 - ``load_environment`` reads a Radiance ``.hdr`` file (``io/hdr``),
   resampling a 4:3 cross cubemap to equirect once.
 
@@ -39,7 +41,9 @@ _PI = float(np.pi)
 class Environment(NamedTuple):
     """Environment.  `enabled`, `intensity` and `max_clamp` are host values:
     the choice between the HDR map and the procedural sky is made on the
-    host, so neither side is computed for nothing and nothing syncs."""
+    host, so neither side is computed for nothing and nothing syncs.
+    `image` is held in the texel layout (``equirect_texels``), which the
+    sampler kernel requires and the plain version reads as any map."""
 
     image: torch.Tensor   # (H, W, 3) float32 linear HDR ((1, 1, 3) placeholder)
     enabled: bool
@@ -49,11 +53,30 @@ class Environment(NamedTuple):
 
 def make_procedural_environment(device="cuda") -> Environment:
     return Environment(
-        image=torch.zeros((1, 1, 3), dtype=torch.float32, device=device),
+        image=equirect_texels(torch.zeros((1, 1, 3), dtype=torch.float32,
+                                          device=device)),
         enabled=False,
         intensity=0.8,
         max_clamp=5.0,
     )
+
+
+def equirect_texels(image: torch.Tensor) -> torch.Tensor:
+    """An (H, W, 3) map in the sampler kernel's texel layout: the (H, W, 3)
+    view of an (H, W, 4) float32 buffer that holds each texel's RGB and a
+    zero, so that a tap is one aligned 16-byte load (the Hopper counterpart
+    of pallas_env.env_pretile, which tiles the map for the TPU's DMA)."""
+    return torch.nn.functional.pad(image.to(torch.float32), (0, 1))[..., :3]
+
+
+def has_texel_layout(image: torch.Tensor) -> bool:
+    """Whether an (H, W, 3) float32 map is held as equirect_texels holds it:
+    16-byte texels, 16-byte aligned, the pad word of the last one in the
+    buffer."""
+    h, w, _ = image.shape
+    return (image.stride() == (4 * w, 4, 1) and image.data_ptr() % 16 == 0
+            and image.untyped_storage().nbytes()
+            >= 4 * (image.storage_offset() + 4 * h * w))
 
 
 def make_hdr_environment(image: np.ndarray, device, intensity: float = 0.8,
@@ -62,7 +85,8 @@ def make_hdr_environment(image: np.ndarray, device, intensity: float = 0.8,
     if img.ndim != 3 or img.shape[-1] != 3:
         raise ValueError(f"expected an (H, W, 3) HDR image, got {img.shape}")
     return Environment(
-        image=torch.as_tensor(np.ascontiguousarray(img), device=device),
+        image=equirect_texels(torch.as_tensor(np.ascontiguousarray(img),
+                                              device=device)),
         enabled=True,
         intensity=float(intensity),
         max_clamp=float(max_clamp),

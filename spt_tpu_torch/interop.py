@@ -15,7 +15,7 @@ import torch
 
 from spt_tpu_torch.camera import CameraRays
 from spt_tpu_torch.engine.state import RenderState
-from spt_tpu_torch.env import Environment
+from spt_tpu_torch.env import Environment, equirect_texels
 from spt_tpu_torch.integrators.transport import PathState
 from spt_tpu_torch.lights import DeviceLights
 from spt_tpu_torch.materials import DeviceMaterials
@@ -119,9 +119,10 @@ def lights(src, device) -> DeviceLights:
 
 def environment(src, device) -> Environment:
     """Only the exact four-tap lookup is ported: the JAX package's opt-in
-    snap and packed tables are ignored."""
+    snap and packed tables are ignored.  The map is held in the sampler
+    kernel's texel layout, as make_hdr_environment holds it."""
     return Environment(
-        image=_f32(src.image, device),
+        image=equirect_texels(_f32(src.image, device)),
         enabled=bool(np.asarray(src.enabled)),
         intensity=float(np.asarray(src.intensity, np.float32)),
         max_clamp=float(np.asarray(src.max_clamp, np.float32)),

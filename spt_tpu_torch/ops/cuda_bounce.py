@@ -26,6 +26,11 @@ missed mask.
   ``transport.sample_texture_v``).  Nothing on the CUDA path calls them;
   tests and ``chip_smoke.py`` hold the kernels against them.
 
+The small form of fused_frame (``csrc/fused_frame.cu``
+``small_frame_kernel``) reads the path state in the dtypes the port keeps
+it in and counts the rays per bounce itself; the mesh forms and
+fused_bounce take the RNG words and flags as int32.
+
 ``LAUNCHES`` counts fused_frame launches and ``BOUNCE_LAUNCHES``
 fused_bounce launches, so a run can show that its main path went through
 the kernels.
@@ -47,6 +52,9 @@ from spt_tpu_torch.scene.flatten import MAX_ACCEL_SPHERES, DeviceScene
 LAUNCHES = 0
 BOUNCE_LAUNCHES = 0
 
+# The small form of fused_frame as a profiler trace names it.
+SMALL_KERNEL = "small_frame_kernel"
+
 # Caps, as pallas_bounce's (MAX_PALLAS_PRIMS, MAX_PALLAS_MATERIALS,
 # MAX_PALLAS_EMITTERS, MAX_ACCEL_TRIS).  The small form's tables must fit
 # the 48 KiB of shared memory a block gets without opting in; the resident
@@ -58,9 +66,11 @@ MAX_ACCEL_TRIS = 12288
 MAX_TABLE_BYTES = 48 * 1024
 MAX_RESIDENT_TABLE_BYTES = 227 * 1024
 
-# Words per table row, as the k*Words constants in csrc/spt_common.cuh.
-_TRI, _SPH, _MAT, _LIGHT, _EMIT, _NS, _UV, _BOX, _OKEY = (10, 5, 12, 11, 13,
-                                                          9, 6, 6, 8)
+# Words per table row, as the k*Words constants in csrc/spt_common.cuh;
+# the small forms' triangle and sphere rows are padded to 16-byte words
+# (kSmallTriWords, kSmallSphWords).
+_SPH, _MAT, _LIGHT, _EMIT, _NS, _UV, _BOX, _OKEY = (5, 12, 11, 13, 9, 6, 6, 8)
+_SMALL_TRI, _SMALL_SPH = 12, 8
 
 # RenderConfig toggles, as the k* flag bits in csrc/spt_common.cuh.
 _NEE, _SHADOW_RAYS, _METAL_VNDF, _METAL_MIRROR = 1, 2, 4, 8
@@ -110,28 +120,31 @@ def _clusters(scene: DeviceScene, mode) -> int:
 def _table_words(scene: DeviceScene, lights: DeviceLights, nee_on: bool,
                  mode=None) -> int:
     e = scene.emitters.count if nee_on else 0
-    words = (scene.num_spheres * _SPH + scene.materials.count * _MAT
-             + lights.count * _LIGHT + e * _EMIT
+    words = (scene.materials.count * _MAT + lights.count * _LIGHT + e * _EMIT
              + _clusters(scene, mode) * (_BOX + _OKEY))
+    if mode is None:
+        ns = scene.num_triangles if scene.tri_ns is not None else 0
+        uv = scene.num_triangles if scene.textures is not None else 0
+        return (words + scene.num_triangles * _SMALL_TRI
+                + scene.num_spheres * _SMALL_SPH + ns * _NS + uv * _UV)
+    words += scene.num_spheres * _SPH
     if mode == "instanced":
         return words + scene.inst.num_instances * cuda_trace.INST_WORDS
-    if mode in ("resident", "stream"):
-        return words
-    ns = scene.num_triangles if scene.tri_ns is not None else 0
-    uv = scene.num_triangles if scene.textures is not None else 0
-    return words + scene.num_triangles * _TRI + ns * _NS + uv * _UV
+    return words
 
 
 def shared_bytes(cfg: RenderConfig, scene: DeviceScene,
                  lights: DeviceLights) -> int:
-    """Dynamic shared memory of a fused_frame / fused_bounce block on this
-    workload: the tables, the visit orders and, in a mesh form, the warps'
-    staging buffers (cuda_lib.shared_bytes)."""
+    """Dynamic shared memory of a fused_frame block on this workload (a
+    fused_bounce block takes no more): the tables, the visit orders and, in
+    a mesh form, the warps' staging buffers (cuda_lib.shared_bytes); in the
+    small form the histogram of bounces run from bounce 0."""
     mode = _accel_mode(scene)
     nee_on = cfg.nee and scene.emitters is not None
+    hist = 4 * (cfg.max_depth + 1) if mode is None else 0
     return cuda_lib.shared_bytes(
         4 * _table_words(scene, lights, nee_on, mode)
-        + 2 * 8 * _clusters(scene, mode), mode is not None)
+        + 2 * 8 * _clusters(scene, mode) + hist, mode is not None)
 
 
 def explain_decline(cfg: RenderConfig, scene: DeviceScene,
@@ -205,8 +218,9 @@ def _pack_tables(scene: DeviceScene, lights: DeviceLights, nee_on: bool,
                  mode=None):
     """The scene, material, light and emitter tables as one float32 buffer
     in the kernels' row layout (int columns stored as their bits); in the
-    resident mode the cluster boxes and octant keys instead of the
-    triangles, in the stream mode the supercluster boxes and keys."""
+    small mode the triangle and sphere rows padded to 16-byte words with
+    zeros, in the resident mode the cluster boxes and octant keys instead
+    of the triangles, in the stream mode the supercluster boxes and keys."""
     def col(t):
         return t.to(torch.float32).reshape(-1, 1)
 
@@ -214,12 +228,17 @@ def _pack_tables(scene: DeviceScene, lights: DeviceLights, nee_on: bool,
         return t.to(torch.int32).contiguous().view(torch.float32).reshape(-1, 1)
 
     m = scene.materials
-    parts = [] if mode else [
-        torch.cat([scene.tri_v0, scene.tri_e1, scene.tri_e2,
-                   bits(scene.tri_mat)], 1)]
+    nt, ns = scene.num_triangles, scene.num_spheres
+    sph = [scene.sph_center, col(scene.sph_radius), bits(scene.sph_mat)]
+    if mode is None:
+        pad = torch.zeros(max(2 * nt, 3 * ns), dtype=torch.float32,
+                          device=scene.sph_center.device)
+        parts = [torch.cat([scene.tri_v0, scene.tri_e1, scene.tri_e2,
+                            bits(scene.tri_mat), pad[:2 * nt].view(nt, 2)], 1),
+                 torch.cat(sph + [pad[:3 * ns].view(ns, 3)], 1)]
+    else:
+        parts = [torch.cat(sph, 1)]
     parts += [
-        torch.cat([scene.sph_center, col(scene.sph_radius),
-                   bits(scene.sph_mat)], 1),
         torch.cat([m.base_color, col(m.metallic), col(m.roughness),
                    col(m.ior), bits(m.mat_type), m.emission,
                    col(m.transparency), bits(m.tex_id)], 1),
@@ -269,9 +288,10 @@ def _rng_bits(rng: torch.Tensor) -> torch.Tensor:
 
 
 def _kernel_inputs(cfg: RenderConfig, scene: DeviceScene,
-                   lights: DeviceLights, ps, what: str):
+                   lights: DeviceLights, ps, what: str, raw_state=False):
     """Checks the lanes and the scene, and returns (state pointers, scene
-    arguments, keep-alive tensors) for a launch."""
+    arguments, keep-alive tensors) for a launch: the RNG words and flags as
+    the port holds them (int64, bool) with `raw_state`, else as int32."""
     device = ps.rng.device
     reason = explain_decline(cfg, scene, lights)
     if reason:
@@ -294,8 +314,12 @@ def _kernel_inputs(cfg: RenderConfig, scene: DeviceScene,
     mode = _accel_mode(scene)
     nee_on = cfg.nee and scene.emitters is not None
     tables = _pack_tables(scene, lights, nee_on, mode)
-    ints = [_rng_bits(ps.rng), ps.alive.to(torch.int32),
-            ps.emission_ok.to(torch.int32)]
+    if raw_state:
+        ints = [ps.rng.contiguous(), ps.alive.contiguous(),
+                ps.emission_ok.contiguous()]
+    else:
+        ints = [_rng_bits(ps.rng), ps.alive.to(torch.int32),
+                ps.emission_ok.to(torch.int32)]
     keep = planes + ints + [tables]
     if mode is None:
         accel = (None, 0, 0, 0, 0, 1)
@@ -344,21 +368,30 @@ def fused_frame(cfg: RenderConfig, scene: DeviceScene, lights: DeviceLights,
     if not 0 <= start_bounce <= cfg.max_depth:
         raise ValueError(f"start_bounce {start_bounce} outside "
                          f"[0, {cfg.max_depth}]")
+    small = _accel_mode(scene) is None
     ins, scene_args, keep = _kernel_inputs(cfg, scene, lights, ps,
-                                           "fused_frame")
+                                           "fused_frame", raw_state=small)
     n = ps.num_paths
     outs_f = [torch.empty(n, dtype=torch.float32, device=device)
               for _ in range(9)]
-    missed = torch.empty(n, dtype=torch.int32, device=device)
-    bounces = torch.empty(n, dtype=torch.int32, device=device)
+    if small:
+        missed = torch.empty(n, dtype=torch.bool, device=device)
+        # the rays per bounce, then the kernel's counter of lanes handed out
+        counts = torch.zeros(cfg.max_depth + 1, dtype=torch.int64,
+                             device=device)
+        launch, outs_i = "spt_small_frame", (missed, counts)
+    else:
+        missed = torch.empty(n, dtype=torch.int32, device=device)
+        bounces = torch.empty(n, dtype=torch.int32, device=device)
+        launch, outs_i = "spt_fused_frame", (missed, bounces)
 
     lib = cuda_lib.build()
     with torch.cuda.device(device):
-        err = lib.spt_fused_frame(
-            *ins, *(t.data_ptr() for t in outs_f), missed.data_ptr(),
-            bounces.data_ptr(), *scene_args, n, start_bounce, cfg.max_depth,
-            min(cfg.rr_after, 2 ** 31 - 1), cfg.hit_eps, cfg.ray_offset_dir,
-            cfg.firefly_clamp, cuda_lib.stream_of(device))
+        err = getattr(lib, launch)(
+            *ins, *(t.data_ptr() for t in outs_f),
+            *(t.data_ptr() for t in outs_i), *scene_args, n, start_bounce,
+            cfg.max_depth, min(cfg.rr_after, 2 ** 31 - 1), cfg.hit_eps,
+            cfg.ray_offset_dir, cfg.firefly_clamp, cuda_lib.stream_of(device))
     cuda_lib.check(err, "fused_frame")
     del keep
     LAUNCHES += 1
@@ -366,6 +399,8 @@ def fused_frame(cfg: RenderConfig, scene: DeviceScene, lights: DeviceLights,
     direction = Vec3(*outs_f[0:3])
     throughput = Vec3(*outs_f[3:6])
     radiance = Vec3(*outs_f[6:9])
+    if small:
+        return radiance, direction, throughput, missed, counts[:cfg.max_depth]
     rays = rays_from_counts(bounces, cfg.max_depth, start_bounce)
     return radiance, direction, throughput, missed != 0, rays
 

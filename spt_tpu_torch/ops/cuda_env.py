@@ -8,8 +8,10 @@ and of its sorted variant (:262), which computes the same function in
 another lane order, together with the tap setup and the clamp x intensity
 that their caller applies (spt_tpu/env.py:395-442).
 
-- On a CUDA tensor it launches ``csrc/env_sample.cu`` or raises: lanes in
-  `need` (all when None) get the term, the others 0, and load nothing.
+- On a CUDA tensor it launches ``csrc/env_sample.cu`` on the environment's
+  map, which must be held in the texel layout (``env.equirect_texels``, the
+  layout every environment is made in), or raises: lanes in `need` (all
+  when None) get the term, the others 0, and load nothing.
 - On a CPU tensor it runs the plain version, ``env_sample_reference``
   (``env.sample_equirect_v``, clamp and scale), on every lane (the caller
   masks the lanes it does not need).
@@ -21,7 +23,7 @@ from __future__ import annotations
 
 import torch
 
-from spt_tpu_torch.env import Environment, sample_equirect_v
+from spt_tpu_torch.env import Environment, has_texel_layout, sample_equirect_v
 from spt_tpu_torch.ops import cuda_lib
 from spt_tpu_torch.ops import vec3 as v3
 from spt_tpu_torch.ops.vec3 import Vec3
@@ -56,7 +58,11 @@ def env_sample(env: Environment, direction: Vec3, need=None) -> Vec3:
             or image.dim() != 3 or image.shape[2] != 3):
         raise ValueError(f"the environment map must be an (H, W, 3) float32 "
                          f"tensor on {device}")
-    image = image.contiguous()
+    if not has_texel_layout(image):
+        raise ValueError("the environment map must be held in the texel "
+                         "layout (env.equirect_texels; make_hdr_environment "
+                         "holds it so)")
+    h, w = image.shape[0], image.shape[1]
     if need is not None:
         need = torch.broadcast_to(need.to(device=device, dtype=torch.bool),
                                   (n,)).contiguous()
@@ -67,7 +73,7 @@ def env_sample(env: Environment, direction: Vec3, need=None) -> Vec3:
         err = lib.spt_env_sample(
             *(c.data_ptr() for c in direction),
             None if need is None else need.data_ptr(), image.data_ptr(),
-            image.shape[0], image.shape[1], env.max_clamp, env.intensity,
+            h, w, env.max_clamp, env.intensity,
             *(t.data_ptr() for t in out), n, cuda_lib.stream_of(device))
     cuda_lib.check(err, "env_sample")
     LAUNCHES += 1

@@ -106,6 +106,7 @@ def build() -> ctypes.CDLL:
     # cbox, corder
     scene = [p, i, i, i, i, i, i, p, i, i, i, i, i, p, i, p, p]
     lib.spt_fused_frame.argtypes = [p] * 26 + scene + [i] * 4 + [f] * 3 + [p]
+    lib.spt_small_frame.argtypes = lib.spt_fused_frame.argtypes
     lib.spt_fused_bounce.argtypes = [p] * 31 + scene + [i] * 4 + [f] * 3 + [p]
     # tables, n_sphs, pack, pack_w, n_clusters, cluster_size, n_inst,
     # n_meshes, n, tmin, stream
@@ -131,7 +132,8 @@ def build() -> ctypes.CDLL:
     # local bytes
     lib.spt_sort_kernel_info.argtypes = [i] + [p] * 6
     lib.spt_env_sample_kernel_info.argtypes = [p, p]
-    for fn in ("spt_fused_frame", "spt_fused_bounce", "spt_closest_hit",
+    for fn in ("spt_fused_frame", "spt_small_frame", "spt_fused_bounce",
+               "spt_closest_hit",
                "spt_any_hit", "spt_inst_closest_hit", "spt_inst_any_hit",
                "spt_stream_closest_hit", "spt_stream_any_hit",
                "spt_sort_chunks", "spt_env_sample",

@@ -22,8 +22,12 @@ through the JAX function and its port.  Gates, each with its reason:
 - the hdr config through the .hdr round trip: the Renderer against the JAX
   Renderer, hdr_image relative RMSE < 1 %.
 
-On a CUDA card (marker ``cuda``; skipped without one) the kernel against
-its plain version.  Run there with
+On the CPU also: the map in the kernel's texel layout
+(``env.equirect_texels``) holds the map's bits, odd widths and a one-row
+map included, and every environment is made in it.  On a CUDA card (marker ``cuda``; skipped without one) the
+kernel against its plain version, bit for bit, on maps of even, odd and
+one-row shape, at the poles and the u seam, with `need` None, all false
+and random.  Run there with
 ``python -m pytest --noconftest tests/test_torch_env.py -m cuda``.
 """
 
@@ -251,6 +255,46 @@ def test_environment_color_matches_jax(with_need):
     np.testing.assert_array_equal(got, ref)
 
 
+@pytest.mark.parametrize("h,w", [(64, 128), (7, 13), (1, 9)])
+def test_texel_copy_holds_the_map_bit_for_bit(h, w):
+    """The sampler kernel's texel layout: an (H, W, 3) view of an (H, W, 4)
+    buffer holding each texel's RGB bits and a zero pad, on odd widths and a
+    one-row map too; the plain sampler gives the same through it as through
+    the contiguous map, and every environment is made in it."""
+    img = torch.from_numpy(_map(23, h, w))
+    tex = tenv.equirect_texels(img)
+    assert tex.shape == (h, w, 3) and tex.dtype == torch.float32
+    assert tex.stride() == (4 * w, 4, 1) and tenv.has_texel_layout(tex)
+    assert not tenv.has_texel_layout(img)
+    assert torch.equal(tex.contiguous().view(torch.int32), img.view(torch.int32))
+    whole = tex.as_strided((h, w, 4), (4 * w, 4, 1))
+    assert torch.equal(whole[..., 3], torch.zeros(h, w))
+    d = tenv.v3.safe_normalize(_tv(_dirs(1024, 24)))
+    a = _np3(tenv.sample_equirect_v(img, d))
+    b = _np3(tenv.sample_equirect_v(tex, d))
+    np.testing.assert_array_equal(a.view(np.int32), b.view(np.int32))
+    made = tenv.make_hdr_environment(img.numpy(), CPU).image
+    assert tenv.has_texel_layout(made)
+    assert torch.equal(made.contiguous().view(torch.int32), img.view(torch.int32))
+    assert tenv.has_texel_layout(tenv.make_procedural_environment(CPU).image)
+
+
+def test_jitted_jax_divides_by_a_constant_as_a_reciprocal_multiply():
+    """Why the port's taps may multiply by 1 / (2 pi): the JAX package runs
+    env._equirect_taps jitted, and XLA rewrites the division by the
+    constant into that multiply (eager JAX and PyTorch on the CPU divide
+    truly, PyTorch on the card multiplies)."""
+    j = _jax()
+    import jax
+
+    jnp = j["jnp"]
+    t = np.random.default_rng(25).uniform(-np.pi, np.pi, 10 ** 6).astype(np.float32)
+    got = np.asarray(jax.jit(lambda x: (x + jnp.pi) / (2.0 * jnp.pi))(t))
+    s = t + np.float32(np.pi)
+    np.testing.assert_array_equal(got, s * (np.float32(1.0) / np.float32(2.0 * np.pi)))
+    assert (got != s / np.float32(2.0 * np.pi)).mean() > 0.1
+
+
 def test_procedural_env_ignores_need():
     env = tenv.make_procedural_environment(CPU)
     d = _tv(_dirs(64, 17))
@@ -305,23 +349,30 @@ def cuda_device():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("with_need", [False, True])
-def test_env_kernel_matches_plain_on_card(cuda_device, with_need):
-    env = tenv.make_hdr_environment(_map(18, 256, 512), cuda_device)
+@pytest.mark.parametrize("h,w", [(256, 512), (33, 67), (1, 9)])
+@pytest.mark.parametrize("need_kind", ["none", "all_false", "random"])
+def test_env_kernel_matches_plain_on_card(cuda_device, h, w, need_kind):
+    # random directions, then the poles and both sides of the u seam; maps
+    # of even, odd and one-row shape; built with --fmad=false in the plain
+    # version's order: bit for bit on the need lanes, 0 elsewhere, one
+    # launch a call
+    env = tenv.make_hdr_environment(_map(18, h, w), cuda_device)
     d = _dirs(1 << 16, 19) * np.float32(1.5)
     n = d.shape[0]
     dv = Vec3(*(c.to(cuda_device) for c in _tv(d)))
-    need = (torch.from_numpy(np.random.default_rng(20).uniform(size=n) < 0.4)
-            .to(cuda_device) if with_need else None)
+    need = {"none": None,
+            "all_false": torch.zeros(n, dtype=torch.bool),
+            "random": torch.from_numpy(
+                np.random.default_rng(20).uniform(size=n) < 0.4)}[need_kind]
+    if need is not None:
+        need = need.to(cuda_device)
     before = cuda_env.LAUNCHES
     k = torch.stack(list(cuda_env.env_sample(env, dv, need)), -1)
     assert cuda_env.LAUNCHES == before + 1
     p = torch.stack(list(cuda_env.env_sample_reference(env, dv)), -1)
     m = need if need is not None else torch.ones(n, dtype=torch.bool,
                                                  device=cuda_device)
-    # built with --fmad=false in the plain version's order: bit for bit on
-    # the need lanes, 0 elsewhere
-    assert torch.equal(k[m], p[m])
+    assert torch.equal(k[m].view(torch.int32), p[m].view(torch.int32))
     assert bool((k[~m] == 0).all())
 
 
@@ -333,3 +384,7 @@ def test_env_kernel_refuses_bad_inputs_on_card(cuda_device):
         cuda_env.env_sample(env, Vec3(d.x.double(), d.y, d.z))
     with pytest.raises(ValueError, match="environment map"):
         cuda_env.env_sample(env._replace(image=env.image.cpu()), d)
+    # the kernel reads only the texel layout: a map held otherwise is
+    # refused, never sampled as 12-byte texels
+    with pytest.raises(ValueError, match="texel layout"):
+        cuda_env.env_sample(env._replace(image=env.image.contiguous()), d)

@@ -8,7 +8,11 @@
   a last-bit difference of the frameworks' CPU rsqrt/sin/cos), and
   rays_per_bounce exact.
 - On a CUDA card (marker ``cuda``; skipped without one): the CUDA kernel
-  against its plain version on the same tensors.  Run there with
+  against its plain version on the same tensors, every plane bit for bit
+  and the rays per bounce exact, on every RenderConfig toggle the kernel
+  reads and on the lanes the small form's refill has to get right (a
+  ragged count, all dead, a start at max_depth, a handful of long paths).
+  Run there with
   ``python -m pytest --noconftest tests/test_torch_fused_frame.py -m cuda``
   (JAX is imported only by the CPU tests, and tests/conftest.py imports
   JAX, so the flag lets the card tests run where JAX is not installed).
@@ -130,13 +134,22 @@ def test_pack_tables_layout():
     buf = cuda_bounce._pack_tables(scene, lights, nee_on=True)
     assert buf.dtype == torch.float32 and buf.is_contiguous()
     assert buf.numel() == cuda_bounce._table_words(scene, lights, True)
+    # the small layout: triangle rows of 12 words and sphere rows of 8, so
+    # that each starts on a 16-byte boundary; the padding words are zero
     t, s, m = scene.num_triangles, scene.num_spheres, scene.materials.count
-    tri = buf[:t * 10].reshape(t, 10)
+    tri = buf[:t * 12].reshape(t, 12)
+    assert torch.equal(tri[:, 0:3], scene.tri_v0)
     assert torch.equal(tri[:, 3:6], scene.tri_e1)
+    assert torch.equal(tri[:, 6:9], scene.tri_e2)
     assert torch.equal(tri[:, 9].contiguous().view(torch.int32), scene.tri_mat)
-    sph = buf[t * 10:t * 10 + s * 5].reshape(s, 5)
+    assert (tri[:, 10:] == 0).all()
+    sph = buf[t * 12:t * 12 + s * 8].reshape(s, 8)
+    assert torch.equal(sph[:, 0:3], scene.sph_center)
     assert torch.equal(sph[:, 3], scene.sph_radius)
-    off = t * 10 + s * 5
+    assert torch.equal(sph[:, 4].contiguous().view(torch.int32), scene.sph_mat)
+    assert (sph[:, 5:] == 0).all()
+    off = t * 12 + s * 8
+    assert off % 4 == 0
     mat = buf[off:off + m * 12].reshape(m, 12)
     assert torch.equal(mat[:, 6].contiguous().view(torch.int32),
                        scene.materials.mat_type)
@@ -172,7 +185,7 @@ def cuda_device():
 
 
 # Card cases: every RenderConfig toggle the kernel reads, point lights,
-# shading normals and a start past bounce 0.
+# shading normals and starts past bounce 0 (cornell at depth 8).
 CARD_CASES = [
     ("default", {}, 0), ("cornell", {}, 0),
     ("default", "gpu_parity", 0), ("cornell", "gpu_parity", 0),
@@ -180,8 +193,14 @@ CARD_CASES = [
     ("cornell", {"cpu_transparency": True, "direct_light_dielectric": True}, 0),
     ("cornell", {"nee": False, "rr_after": 0}, 0),
     ("smooth_point", {}, 0), ("smooth_point", "gpu_parity", 0),
-    ("default", {}, 2),
+    ("default", {}, 2), ("cornell", {}, 2),
 ]
+
+# Lanes the small form's refill has to get right: a count that is no
+# multiple of a warp, a block or the kernel's chunk of lanes; every lane
+# dead; a start at max_depth, where no bounce runs; and only a handful of
+# long paths alive among dead lanes.
+EDGE_CASES = ["ragged", "all_dead", "start_at_depth", "few_long"]
 
 
 def _card_workload(name, preset, dev, w, h):
@@ -208,12 +227,25 @@ def _card_workload(name, preset, dev, w, h):
     return cfg, desc, lights, default_camera(w, h)
 
 
+def _assert_bit_equal(k, p, start):
+    """The kernel's five results against the plain version's: radiance,
+    direction and throughput bit for bit, missed_ever and rays_per_bounce
+    equal."""
+    for a, b in zip(k[:3], p[:3]):
+        for x, y in zip(a, b):
+            assert torch.equal(x.view(torch.int32), y.view(torch.int32))
+    assert torch.equal(k[3], p[3])
+    assert k[4].dtype == p[4].dtype == torch.int64
+    assert torch.equal(k[4], p[4])
+    assert not k[4][:start].any()
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("name,preset,start", CARD_CASES)
 def test_kernel_matches_plain_on_card(cuda_device, name, preset, start):
     # same lanes through the kernel and its plain version on the card; both
-    # round op for op alike (--fmad=false, no fast math): radiance within
-    # 1e-3 on >= 99.9 % of lanes, rays_per_bounce within 0.1 %
+    # round op for op alike (--fmad=false, no fast math), and a path's
+    # arithmetic does not depend on the thread that runs it: bit for bit
     w = h = 256
     cfg, desc, lights, cam = _card_workload(name, preset, cuda_device, w, h)
     scene = tscene.flatten_scene(desc, cuda_device)
@@ -226,10 +258,70 @@ def test_kernel_matches_plain_on_card(cuda_device, name, preset, start):
     p = cuda_bounce.fused_frame_reference(cfg, scene, lights, ps,
                                           start_bounce=start)
     torch.cuda.synchronize()
-    for a, b in zip(k[:3], p[:3]):
-        err = (torch.stack(list(a), -1) - torch.stack(list(b), -1)).abs().amax(-1)
-        assert float((err > 1e-3).float().mean()) <= 1e-3
-    assert float((k[3] != p[3]).float().mean()) <= 1e-3
-    rk, rp = k[4].cpu().numpy(), p[4].cpu().numpy()
-    assert (np.abs(rk - rp) <= 1e-3 * rp.clip(min=1)).all()
-    assert int(rk[start]) == w * h
+    _assert_bit_equal(k, p, start)
+    assert int(k[4][start]) == w * h
+
+
+def _lane_bounces(cfg, scene, lights, ps):
+    """Bounces each lane's path runs from bounce 0 (the plain version)."""
+    counts = torch.zeros(ps.num_paths, dtype=torch.int32, device=ps.rng.device)
+    for b in range(cfg.max_depth):
+        counts += ps.alive.to(torch.int32)
+        ps, _ = cuda_bounce.fused_bounce_reference(cfg, scene, lights, ps, b,
+                                                   b == cfg.max_depth - 1)
+    return counts
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", EDGE_CASES)
+def test_kernel_edge_lanes_match_plain_on_card(cuda_device, case):
+    cfg, desc, lights, cam = _card_workload("cornell", {}, cuda_device, 256, 256)
+    scene = tscene.flatten_scene(desc, cuda_device)
+    ps = ttr.gen_primary(cfg, cam.rays(cuda_device), 3)
+    start = 0
+    if case == "ragged":
+        n = 256 * 256 - 77
+        ps = type(ps)(*(type(f)(*(c[:n].contiguous() for c in f))
+                        if isinstance(f, tuple) else f[:n].contiguous()
+                        for f in ps))
+    elif case == "all_dead":
+        ps = ps._replace(alive=torch.zeros_like(ps.alive))
+    elif case == "start_at_depth":
+        start = cfg.max_depth
+    else:
+        longest = torch.topk(_lane_bounces(cfg, scene, lights, ps), 5).indices
+        alive = torch.zeros_like(ps.alive)
+        alive[longest] = True
+        ps = ps._replace(alive=alive)
+    k = cuda_bounce.fused_frame(cfg, scene, lights, ps, start_bounce=start)
+    p = cuda_bounce.fused_frame_reference(cfg, scene, lights, ps,
+                                          start_bounce=start)
+    torch.cuda.synchronize()
+    _assert_bit_equal(k, p, start)
+    live = {"ragged": 256 * 256 - 77, "all_dead": 0, "start_at_depth": 0,
+            "few_long": 5}[case]
+    assert int(k[4].max()) == live
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["default", "cornell", "smooth_point"])
+def test_small_fused_bounce_matches_plain_on_card(cuda_device, name):
+    # fused_bounce's small form reads the same small table layout: three
+    # bounces, every returned plane bit for bit
+    cfg, desc, lights, cam = _card_workload(name, {}, cuda_device, 128, 128)
+    scene = tscene.flatten_scene(desc, cuda_device)
+    ps = ttr.gen_primary(cfg, cam.rays(cuda_device), 1)
+    for bounce in range(3):
+        before = cuda_bounce.BOUNCE_LAUNCHES
+        k, km = cuda_bounce.fused_bounce(cfg, scene, lights, ps, bounce, False)
+        assert cuda_bounce.BOUNCE_LAUNCHES == before + 1
+        p, pm = cuda_bounce.fused_bounce_reference(cfg, scene, lights, ps,
+                                                   bounce, False)
+        torch.cuda.synchronize()
+        for a, b in zip(k, p):
+            for x, y in zip(*((a, b) if isinstance(a, tuple) else ((a,), (b,)))):
+                if x.dtype == torch.float32:
+                    x, y = x.view(torch.int32), y.view(torch.int32)
+                assert torch.equal(x, y)
+        assert torch.equal(km, pm)
+        ps = p

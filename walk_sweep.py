@@ -15,16 +15,14 @@ baked grid and the instanced grid (``chip_smoke.stream_renderer`` /
 committed build's there and on the textured mesh scene of chip_smoke's
 phase 10, and times every variant in turns, forward then backward
 (torch.profiler device time per launch).  Needs ``nvcc`` and one
-card; prints the card's name and power limit with every time.
+card; prints the card's name and power limit with every time.  The builds
+are made by ``sweep_builds.py``.
 """
 
 from __future__ import annotations
 
 import argparse
-import re
-import shutil
 import sys
-import time
 from pathlib import Path
 
 HERE = Path(__file__).resolve().parent
@@ -40,6 +38,7 @@ def main() -> int:
     import torch
 
     import chip_smoke as cs
+    import sweep_builds
     from spt_tpu_torch.ops import cuda_bounce, cuda_lib, cuda_trace
 
     if not torch.cuda.is_available():
@@ -48,38 +47,16 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     smi = cs.smi_line()
     cs.log(f"torch {torch.__version__}, {torch.cuda.get_device_name(0)} [{smi}]")
-    root = HERE / "build" / "walk_sweep"
-    src = HERE / "spt_tpu_torch" / "csrc"
-    libs = {}
-
-    def load(name, csrc):
-        cuda_lib._LIB = None
-        cuda_lib.CSRC = Path(csrc)
-        cuda_lib.BUILD_ROOT = root / name
-        t0 = time.perf_counter()
-        libs[name] = cuda_lib.build()
-        cs.log(f"built {name} in {time.perf_counter() - t0:.1f} s")
-
-    load("committed", src)
+    builds = sweep_builds.Builds(cuda_lib, "walk_sweep", cs.log)
+    use = builds.use
+    builds.load("committed")
     variants = []
     for t in (int(x) for x in args.thresholds.split(",")):
-        d = root / f"src{t}"
-        shutil.rmtree(d, ignore_errors=True)
-        shutil.copytree(src, d)
-        p = d / "spt_tracers.cuh"
-        txt, n = re.subn(r"constexpr int kStageMin = \d+;",
-                         f"constexpr int kStageMin = {t};", p.read_text())
-        if n != 1:
-            raise RuntimeError("kStageMin not found in spt_tracers.cuh")
-        p.write_text(txt)
-        load(f"T{t}", d)
+        builds.variant(f"T{t}", [sweep_builds.const("kStageMin", t)])
         variants.append(f"T{t}")
     if args.other:
-        load("other", Path(args.other) / "spt_tpu_torch" / "csrc")
+        builds.load("other", Path(args.other) / "spt_tpu_torch" / "csrc")
         variants.append("other")
-
-    def use(name):
-        cuda_lib._LIB = libs[name]
 
     def flat(x):
         if isinstance(x, torch.Tensor):
