@@ -85,7 +85,30 @@ this file; exits non-zero (printing no result) without them.  Phases:
     path: kernel against plain on the lanes that need the term, 0 on the
     others; device ms, bound, plain ms and ``grid_sample``'s time; its
     registers and the bytes of the map in its texel layout; the poles and the u
-    seam, bit for bit.
+    seam, bit for bit;
+20. integrator "compact" on default d6, cornell d8 and hdr d6 at 1920x1080
+    and on the mesh scene at 512x384 d4: K3 at the path's bounce-0 call
+    against its plain version (every plane bit for bit on the small scenes,
+    where it runs its small form), with its device time, bound and plain
+    time; K2 at each of the hdr frame's calls (one a bounce), bit for bit;
+    ``Renderer.render_frames(8)`` with the counts reset before and read
+    after, its image against the masked path's (< 1 % relative RMSE) and
+    its rays per bounce equal; ms/frame and device busy beside the masked
+    path's;
+21. integrator "megakernel" on default 1920x1080 d6 against the masked
+    path (< 1 % relative RMSE), ms/frame and launches a frame; the gradient
+    of an image MSE with respect to base_color on the card at 64x48 d3
+    against the CPU's; ``toggle_integrator`` resets accumulation;
+22. the five debug views on the default scene and the mesh scene at
+    512x384 against the CPU plain run on the card's primary rays
+    (every 4th pixel row on the mesh scene): geomtype, hitmiss and matid
+    equal, normal and depth within 1e-5;
+23. the entry points in subprocesses: ``python -m spt_tpu_torch.cli`` at
+    its defaults (800x600, spp 4, d6, 4 frames), with ``--integrator
+    compact``, ``--integrator megakernel``, ``--debug-mode normal``,
+    ``--stats`` and ``--i`` on a synthetic textured .glb, each exit 0 and a
+    PNG; ``python -m spt_tpu_torch.bench`` on default, cornell, hdr and
+    anim, each exit 0 and its JSON line, echoed.
 
 A mesh kernel's bound counts the operations of its walks from the plain
 version's own results: each traced ray's box tests and the 64 triangle
@@ -460,11 +483,12 @@ def workload(name, width, height, dev):
             default_camera(width, height))
 
 
-def renderer(name, width, height, dev):
+def renderer(name, width, height, dev, **cfg_kw):
     from spt_tpu_torch.engine.renderer import Renderer
 
     desc, cfg, env, lights, cam = workload(name, width, height, dev)
-    return Renderer(desc, cfg, env=env, lights=lights, camera=cam, device=dev)
+    return Renderer(desc, cfg.replace(**cfg_kw), env=env, lights=lights,
+                    camera=cam, device=dev)
 
 
 def mesh_renderer(dev, **cfg_kw):
@@ -2367,6 +2391,421 @@ def _env_xy(torch, tenv, h, w, direction):
     return u * w - 0.5, v * h - 0.5
 
 
+# --- this slice's entry points (phases 20-23) ---------------------------------
+
+def frame_ms(torch, r, frames: int) -> float:
+    """ms/frame of r.render_frames(frames) after one warm-up frame (CUDA
+    events around the chain)."""
+    r.render_frames(1)
+    torch.cuda.synchronize()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    r.render_frames(frames)
+    t1.record()
+    torch.cuda.synchronize()
+    return t0.elapsed_time(t1) / frames
+
+
+def _compact_bounce0(torch, smi, name, r):
+    """K3 at the compact path's bounce-0 call of one frame of `r`, held
+    against its plain version plane by plane; and, where the frame samples
+    an HDR map, K2 at each of the frame's calls.  Returns the kernel-line
+    numbers of the bounce-0 call."""
+    from spt_tpu_torch.ops import cuda_bounce, cuda_env
+
+    with capture_calls([(cuda_bounce, "fused_bounce"),
+                        (cuda_env, "env_sample")]) as calls:
+        r.render_frames(1)
+        torch.cuda.synchronize()
+    bounce0 = [(a, k) for nm, a, k in calls if nm == "fused_bounce"]
+    envs = [(a, k) for nm, a, k in calls if nm == "env_sample"]
+    if len(bounce0) != 1 or bounce0[0][0][4] != 0:
+        raise AssertionError(f"the compact frame made {len(bounce0)} "
+                             "fused_bounce calls, expected one at bounce 0")
+    (args, kw), = bounce0
+    bcfg, scene, lights, ps, _, _ = args
+    n = ps.num_paths
+    small = cuda_bounce._accel_mode(scene) is None
+    ks, km = cuda_bounce.fused_bounce(*args, **kw)
+    (ps_, pm), ops = _walk_ops(
+        torch, scene, lambda: cuda_bounce.fused_bounce_reference(*args, **kw))
+    planes = _state_planes(torch, ks, km, ps_, pm)
+    worst = check_planes(torch, f"fused_bounce at the compact {name} frame's "
+                         f"bounce-0 call ({n} lanes)", planes, phase=20,
+                         exact=tuple(planes) if small else ())
+    form = "fused_bounce_kernel<0>" if small else "fused_bounce_kernel<1>"
+    call = lambda: cuda_bounce.fused_bounce(*args, **kw)
+    ms = kernel_device_ms(torch, call, form)
+    plain_ms = time_call(torch, lambda: cuda_bounce.fused_bounce_reference(
+        *args, **kw), warmup=1, iters=3)
+    # bytes a lane: 12 float planes and the RNG word and two flags as int32
+    # in (60 B), 12 float planes, the int64 RNG word and three byte flags out
+    # (59 B); then the packed tables and a mesh form's tri_pack once
+    tables = cuda_bounce._pack_tables(scene, lights, bcfg.nee and
+                                      scene.emitters is not None,
+                                      cuda_bounce._accel_mode(scene))
+    pack = 0 if small else scene.accel.tri_pack.numel() * 4
+    b = bound(n * (60 + 59) + tables.numel() * 4 + pack, ops)
+    log(f"phase 20 {form} at the compact {name} frame's bounce-0 call "
+        f"({n} lanes, d{bcfg.max_depth}): kernel {ms:.4f} ms (device time), "
+        f"plain {plain_ms:.4f} ms, bound {b[0]:.4f} ms ({b[1]}; "
+        f"{ops_note(ops)}) [{smi}]")
+    for i, (eargs, ekw) in enumerate(envs):
+        env, direction, need = eargs
+        k = cuda_env.env_sample(*eargs, **ekw)
+        p = cuda_env.env_sample_reference(*eargs, **ekw)
+        check_planes(torch, f"env_sample at the compact {name} frame's call "
+                     f"{i + 1} of {len(envs)} ({direction.x.shape[0]} lanes, "
+                     f"{int(need.sum())} need the term)",
+                     {"rgb": (_v(torch, k)[need], _v(torch, p)[need])},
+                     phase=20, exact=("rgb",))
+        if not bool((_v(torch, k)[~need] == 0).all()):
+            raise AssertionError("env_sample wrote a term outside need")
+    return dict(max_abs_err=worst, ms=ms, plain_ms=plain_ms, bound=b,
+                library_ms=None), len(envs)
+
+
+def phase_compact(torch, np, dev, out_dir, smi):
+    """Phase 20: integrator "compact" (bounce 0 through K3 at full width,
+    then compacted chunks through trace_bounce + shade with the environment
+    each bounce) on default d6, cornell d8 and hdr d6 at 1920x1080 and on
+    the mesh scene at 512x384 d4: K3 at the bounce-0 call against its plain
+    version (bit for bit on the small scenes), K2 at the hdr frame's calls,
+    the image against the masked path's (< 1 % relative RMSE over 8 frames,
+    rays_per_bounce equal), launches counted over the 8 frames, ms/frame
+    and device busy.  Returns (the default config's K3 numbers, its
+    fused_bounce launches on the compact main path)."""
+    from spt_tpu_torch.engine import state as state_mod
+
+    frames = 8
+    result, launches = None, 0
+    for name in ("default", "cornell", "hdr", "mesh"):
+        if name == "mesh":
+            r = mesh_renderer(dev, integrator="compact")
+            m = mesh_renderer(dev)
+            size = f"{MW}x{MH}"
+        else:
+            r = renderer(name, W, H, dev, integrator="compact")
+            m = renderer(name, W, H, dev)
+            size = f"{W}x{H}"
+        # frame 0 of each path warms it; both then go on from frame 1
+        k3, env_calls = _compact_bounce0(torch, smi, name, r)
+        m.render_frames(1)
+        r.state, m.state = state_mod.reset(r.state), state_mod.reset(m.state)
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        r.render_frames(frames)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3 / frames
+        counts = read_counts()
+        t0 = time.perf_counter()
+        m.render_frames(frames)
+        torch.cuda.synchronize()
+        ms_m = (time.perf_counter() - t0) * 1e3 / frames
+        rays, path = check_image(np, r, f"{name}_compact", out_dir, frames)
+        mrays = m.last_stats.rays_per_bounce.cpu().numpy()
+        rel = rel_rmse(np, r.hdr_image(), m.hdr_image())
+        log(f"phase 20 {name} compact {size} d{r.cfg.max_depth}: {frames} "
+            f"frames, launches {counts}, rays_per_bounce {rays.tolist()} "
+            f"(masked {mrays.tolist()}), relative RMSE against the masked "
+            f"path {rel * 100:.5f} % (limit 1 %), png {path}")
+        if counts["fused_bounce"] != frames or counts["fused_frame"]:
+            raise AssertionError(f"{name} compact launched {counts}: expected "
+                                 f"fused_bounce {frames}, fused_frame 0")
+        if name == "hdr" and counts["env_sample"] <= frames:
+            raise AssertionError(f"hdr compact launched env_sample "
+                                 f"{counts['env_sample']} times in {frames} "
+                                 "frames, expected one a bounce")
+        if name == "mesh" and (counts["closest_hit"] < 1
+                               or counts["any_hit"] < 1):
+            raise AssertionError(f"the mesh compact chunks launched {counts}")
+        if not rel < 0.01 or rays.tolist() != mrays.tolist():
+            raise AssertionError(f"{name} compact differs from the masked "
+                                 f"path: relative RMSE {rel}, rays "
+                                 f"{rays.tolist()} against {mrays.tolist()}")
+        if name == "default":
+            result, launches = k3, counts["fused_bounce"]
+        busy, per = device_busy_ms(torch, lambda: r.render_frames(1), iters=1)
+        busy_m, per_m = device_busy_ms(torch, lambda: m.render_frames(1),
+                                       iters=2)
+        log(f"phase 20 {name} {size}: compact {ms:.4f} ms/frame, busy "
+            f"{busy:.4f} ms over {per:.1f} launches a frame ({env_calls} "
+            f"env_sample calls a frame); masked {ms_m:.4f} ms/frame, busy "
+            f"{busy_m:.4f} ms over {per_m:.1f} launches (host clock over the "
+            f"{frames} frames, each path synced at its end; profiler) [{smi}]")
+    return result, launches
+
+
+def phase_megakernel(torch, np, dev, out_dir, smi):
+    """Phase 21: integrator "megakernel" on default 1920x1080 d6 against the
+    masked path (< 1 % relative RMSE over 4 frames), its ms/frame and
+    launches a frame; the gradient of an image MSE with respect to
+    base_color on the card at 64x48 d3 against the same gradient on the
+    CPU; toggle_integrator's reset."""
+    from spt_tpu_torch.camera import default_camera
+    from spt_tpu_torch.config import RenderConfig
+    from spt_tpu_torch.env import make_procedural_environment
+    from spt_tpu_torch.integrators import megakernel
+    from spt_tpu_torch.lights import default_lights
+    from spt_tpu_torch.scene import build_default_scene, flatten_scene
+
+    frames = 4
+    r = renderer("default", W, H, dev, integrator="megakernel")
+    m = renderer("default", W, H, dev)
+    reset_counts()
+    r.render_frames(frames)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    m.render_frames(frames)
+    rel = rel_rmse(np, r.hdr_image(), m.hdr_image())
+    _, path = check_image(np, r, "default_megakernel", out_dir, frames)
+    ms = frame_ms(torch, r, 2)
+    busy, per = device_busy_ms(torch, lambda: r.render_frames(1), iters=1)
+    log(f"phase 21 default megakernel {W}x{H} d6: {frames} frames, launches "
+        f"of the port's kernels {counts}, relative RMSE against the masked "
+        f"path {rel * 100:.5f} % (limit 1 %), {ms:.4f} ms/frame (CUDA events "
+        f"over 2 frames), busy {busy:.4f} ms over {per:.1f} launches a frame, "
+        f"png {path} [{smi}]")
+    if not rel < 0.01:
+        raise AssertionError(f"the megakernel image differs from the masked "
+                             f"path's: {rel}")
+
+    grads = {}
+    cfg = RenderConfig(width=64, height=48, spp=1, max_depth=3)
+    for key, d in (("card", dev), ("cpu", torch.device("cpu"))):
+        scene = flatten_scene(build_default_scene(), d)
+        env, lights = make_procedural_environment(d), default_lights(d)
+        cam = default_camera(64, 48).rays(d)
+        with torch.no_grad():
+            dim = scene._replace(materials=scene.materials._replace(
+                base_color=scene.materials.base_color * 0.7))
+            target = megakernel.render_sample(cfg, dim, env, lights, cam, 0)
+        scene.materials.base_color.requires_grad_(True)
+        img = megakernel.render_sample(cfg, scene, env, lights, cam, 0)
+        ((img - target) ** 2).mean().backward()
+        grads[key] = scene.materials.base_color.grad.cpu()
+    gk, gc = grads["card"], grads["cpu"]
+    scale = float(gc.abs().max())
+    diff = float((gk - gc).abs().max())
+    ok = bool(torch.isfinite(gk).all()) and bool(
+        ((gk - gc).abs() <= 1e-2 * gc.abs() + 1e-4 * scale).all())
+    log(f"phase 21 d(image MSE)/d(base_color), default 64x48 d3: card against "
+        f"CPU max |d| {diff:.3g} (largest entry {scale:.3g}; limit 1e-2 "
+        f"relative + 1e-4 of the largest), {int((gc != 0).sum())} nonzero "
+        f"entries")
+    if not ok or not (gc.abs() > 0).sum() >= 6:
+        raise AssertionError(f"the card gradient differs from the CPU's:\n"
+                             f"{gk}\n{gc}")
+
+    t = renderer("default", 320, 240, dev)
+    t.render_frames(2)
+    name = t.toggle_integrator()
+    reset_after = t.accumulated_samples
+    t.render_frames(1)
+    back = t.toggle_integrator()
+    log(f"phase 21 toggle_integrator: masked -> {name} (samples after the "
+        f"toggle {reset_after}) -> {back} (samples {t.accumulated_samples})")
+    if (name, back, reset_after, t.accumulated_samples) != (
+            "megakernel", "masked", 0.0, 0.0):
+        raise AssertionError("toggle_integrator did not reset accumulation")
+
+
+def phase_debug_views(torch, np, dev, smi):
+    """Phase 22: the five debug views on the default scene and the mesh
+    scene at 512x384 against the CPU plain run on the same primary rays
+    (the card's, moved to the CPU: the two devices' PyTorch round the ray
+    directions apart by an ulp, which a grazing sphere hit amplifies to
+    6e-4 in the normal): geomtype, hitmiss and matid equal, normal and
+    depth within 1e-5.  The CPU run shares one closest-hit trace among the
+    five views; on the mesh scene it takes every 4th pixel row."""
+    from spt_tpu_torch.camera import default_camera
+    from spt_tpu_torch.config import RenderConfig
+    from spt_tpu_torch.integrators import debug, transport
+    from spt_tpu_torch.ops import intersect as isect
+    from spt_tpu_torch.scene import build_default_scene, flatten_scene
+
+    cpu = torch.device("cpu")
+    mdesc, mcfg, mcam = port_mesh_scene()
+    for name, desc, cfg, cam, stride in (
+            ("default", build_default_scene(),
+             RenderConfig(width=MW, height=MH), default_camera(MW, MH), 1),
+            ("mesh", mdesc, mcfg, mcam, 4)):
+        sk, sc = flatten_scene(desc, dev), flatten_scene(desc, cpu)
+        reset_counts()
+        with capture_calls([(transport, "gen_primary")], results=True) as rec:
+            imgs = {mode: debug.render_debug(cfg, sk, cam.rays(dev),
+                                             mode).cpu()
+                    for mode in debug.MODES}
+        torch.cuda.synchronize()
+        traced = read_counts()["closest_hit"]
+        rows = torch.arange(cfg.height)[::stride]
+        lanes = (rows[:, None] * cfg.width
+                 + torch.arange(cfg.width)[None]).reshape(-1).to(dev)
+
+        def to_cpu(x):
+            if isinstance(x, tuple):
+                return type(x)(*(to_cpu(c) for c in x))
+            return x[lanes].cpu()
+
+        ps_cpu = to_cpu(rec[0][3])
+        t0 = time.perf_counter()
+        gen, hit = transport.gen_primary, isect.intersect_v
+        cached = []
+
+        def once(*a, **k):
+            if not cached:
+                cached.append(hit(*a, **k))
+            return cached[0]
+
+        transport.gen_primary = lambda *a, **k: ps_cpu
+        isect.intersect_v = once
+        try:
+            sub = cfg.replace(height=len(rows))
+            plain = {mode: debug.render_debug(sub, sc, cam.rays(cpu), mode)
+                     for mode in debug.MODES}
+        finally:
+            transport.gen_primary, isect.intersect_v = gen, hit
+        report, bad = [], []
+        for mode in debug.MODES:
+            d = float((imgs[mode][::stride] - plain[mode]).abs().max())
+            tol = 1e-5 if mode in ("normal", "depth") else 0.0
+            report.append(f"{mode} {d:.3g}")
+            if not d <= tol:
+                bad.append(f"{mode} {d}")
+        log(f"phase 22 debug views, {name} {cfg.width}x{cfg.height}: max "
+            f"|card - CPU| over {len(rows)} rows: {', '.join(report)} "
+            f"(limits 0, 0, 1e-5, 1e-5, 0); closest_hit launches {traced}; "
+            f"the CPU run {time.perf_counter() - t0:.1f} s [{smi}]")
+        if bad:
+            raise AssertionError(f"debug views on {name}: card and CPU "
+                                 f"differ: {bad}")
+        if name == "mesh" and traced != len(debug.MODES):
+            raise AssertionError(f"the mesh debug views launched closest_hit "
+                                 f"{traced} times")
+
+
+def _textured_glb(np, path, res=64):
+    """A small textured .glb: a ground quad with a baseColor PNG held in the
+    BIN chunk, and a UV-textured box on it (uvs repeat twice)."""
+    import struct
+
+    from spt_tpu_torch.engine.image import write_png
+
+    png = path + ".png"
+    y, x = np.mgrid[0:res, 0:res] / res
+    write_png(png, np.stack([x, y, 0.5 + 0.5 * ((x * 8).astype(int) % 2)], -1))
+    with open(png, "rb") as f:
+        image = f.read()
+    pos = np.array([[-2, 0, -2], [2, 0, -2], [2, 0, 2], [-2, 0, 2],
+                    [-0.5, 0, 0], [0.5, 0, 0], [0.5, 1, 0], [-0.5, 1, 0]],
+                   np.float32)
+    uv = np.array([[0, 0], [2, 0], [2, 2], [0, 2],
+                   [0, 0], [1, 0], [1, 1], [0, 1]], np.float32)
+    idx = np.array([0, 2, 1, 0, 3, 2, 4, 5, 6, 4, 6, 7], np.uint32)
+    blobs = [pos.tobytes(), uv.tobytes(), idx.tobytes(), image]
+    views, off, binc = [], 0, b""
+    for blob in blobs:
+        views.append({"buffer": 0, "byteOffset": off, "byteLength": len(blob)})
+        blob += b"\x00" * (-len(blob) % 4)
+        binc += blob
+        off += len(blob)
+    doc = {"asset": {"version": "2.0"}, "scenes": [{"nodes": [0]}],
+           "nodes": [{"mesh": 0}],
+           "meshes": [{"primitives": [{"attributes": {"POSITION": 0,
+                                                      "TEXCOORD_0": 1},
+                                       "indices": 2, "material": 0}]}],
+           "materials": [{"pbrMetallicRoughness": {
+               "baseColorTexture": {"index": 0}, "metallicFactor": 0.0,
+               "roughnessFactor": 0.6}}],
+           "textures": [{"source": 0}],
+           "images": [{"bufferView": 3, "mimeType": "image/png"}],
+           "accessors": [
+               {"bufferView": 0, "componentType": 5126, "count": 8,
+                "type": "VEC3"},
+               {"bufferView": 1, "componentType": 5126, "count": 8,
+                "type": "VEC2"},
+               {"bufferView": 2, "componentType": 5125, "count": 12,
+                "type": "SCALAR"}],
+           "bufferViews": views, "buffers": [{"byteLength": len(binc)}]}
+    js = json.dumps(doc).encode()
+    js += b" " * (-len(js) % 4)
+    with open(path, "wb") as f:
+        f.write(struct.pack("<III", 0x46546C67, 2, 28 + len(js) + len(binc))
+                + struct.pack("<II", len(js), 0x4E4F534A) + js
+                + struct.pack("<II", len(binc), 0x004E4942) + binc)
+    return path
+
+
+def phase_entry_points(np, out_dir, smi):
+    """Phase 23: ``python -m spt_tpu_torch.cli`` on the card at the CLI's
+    defaults (800x600, spp 4, d6) for 4 frames, with --integrator compact,
+    --integrator megakernel, --debug-mode normal, --stats and --i on a
+    synthetic textured .glb (all started together); then ``python -m
+    spt_tpu_torch.bench`` on default, cornell, hdr and anim, one after
+    another.  Each must exit 0; each CLI run must write a non-empty PNG and
+    each bench run print its JSON line, which is echoed here.  Returns the
+    bench lines."""
+    from spt_tpu_torch.engine.image import read_png
+
+    glb = _textured_glb(np, os.path.join(out_dir, "textured.glb"))
+    runs = {"defaults": [], "compact": ["--integrator", "compact"],
+            "megakernel": ["--integrator", "megakernel"],
+            "debug_normal": ["--debug-mode", "normal"], "stats": ["--stats"],
+            "glb": ["--i", glb]}
+    procs = {}
+    t0 = time.perf_counter()
+    for label, flags in runs.items():
+        png = os.path.join(out_dir, f"cli_{label}.png")
+        if os.path.exists(png):
+            os.remove(png)
+        cmd = [sys.executable, "-m", "spt_tpu_torch.cli", "--frames", "4",
+               "-o", png] + flags
+        procs[label] = (png, subprocess.Popen(
+            cmd, cwd=HERE, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+            text=True))
+    failed = []
+    for label, (png, proc) in procs.items():
+        try:
+            out, err = proc.communicate(timeout=600)
+        finally:
+            proc.kill()
+        last = out.strip().splitlines()[-3:] if out.strip() else []
+        ok = (proc.returncode == 0 and os.path.exists(png)
+              and os.path.getsize(png) > 0)
+        if ok:
+            img = read_png(png)
+            ok = img.shape[:2] == (600, 800) and img.max() > 0
+        log(f"phase 23 cli {label}: exit {proc.returncode}, png "
+            f"{os.path.getsize(png) if os.path.exists(png) else 0} B; "
+            + " | ".join(last))
+        if not ok:
+            failed.append(f"cli {label}: exit {proc.returncode}\n{err[-2000:]}")
+    log(f"phase 23 the six CLI runs together: {time.perf_counter() - t0:.1f} s")
+    if failed:
+        raise AssertionError("\n".join(failed))
+    lines = {}
+    for scene in ("default", "cornell", "hdr", "anim"):
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m", "spt_tpu_torch.bench",
+                               "--scene", scene], cwd=HERE,
+                              capture_output=True, text=True, timeout=600)
+        found = [ln for ln in proc.stdout.splitlines() if ln.startswith("{")]
+        log(f"phase 23 bench {scene} ({time.perf_counter() - t0:.1f} s, exit "
+            f"{proc.returncode}): {found[-1] if found else '(no line)'} "
+            f"[{smi}]")
+        if proc.returncode != 0 or not found:
+            raise AssertionError(f"bench {scene} failed:\n{proc.stderr[-2000:]}")
+        res = json.loads(found[-1])
+        keys = {"metric", "value", "unit", "vs_baseline", "ms_per_frame",
+                "spp", "max_depth", "device"}
+        if not keys <= set(res) or not res["value"] > 0:
+            raise AssertionError(f"bench {scene} printed {res}")
+        lines[scene] = res
+    return lines
+
+
 def main() -> int:
     try:
         import torch
@@ -2433,6 +2872,11 @@ def main() -> int:
     phase_stream_images(torch, np, dev)
     phase_any_size(torch, np, dev, smi)
     env_k = phase_env_kernel(torch, np, dev, smi)
+
+    k3_small, k3_small_launches = phase_compact(torch, np, dev, out_dir, smi)
+    phase_megakernel(torch, np, dev, out_dir, smi)
+    phase_debug_views(torch, np, dev, smi)
+    phase_entry_points(np, out_dir, smi)
 
     def entry(name, source, replaces, launches, k):
         for key in ("max_abs_err", "ms", "plain_ms"):
@@ -2502,6 +2946,8 @@ def main() -> int:
         entry("sort_chunks_stream", "sort_chunks.cu",
               "spt_tpu/ops/pallas_sort.py:70", stream_counts["sort_chunks"],
               stream["sort_chunks"]),
+        entry("fused_bounce_small", "fused_bounce.cu",
+              "spt_tpu/ops/pallas_bounce.py:752", k3_small_launches, k3_small),
     ]
     log(smi)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -2,10 +2,11 @@
 
 A second package beside the JAX reference ``spt_tpu``, with the same module
 layout.  It imports ``torch`` and ``numpy`` and never ``jax`` or ``spt_tpu``.
-This slice covers the small-scene wavefront path: the ``Renderer`` renders
-the default, Cornell and HDR-glass scenes, with the whole depth loop in one
-hand-written CUDA kernel (``ops/cuda_bounce`` + ``csrc/fused_frame.cu``) on
-a CUDA device and in plain PyTorch on the CPU.
+The ``Renderer`` renders small scenes and resident, instanced and
+stream-tier mesh scenes with every integrator, through hand-written CUDA
+kernels (``csrc/``, bound in ``ops/cuda_*``) on a CUDA device and their
+plain PyTorch versions on the CPU.  Entry points: ``python -m
+spt_tpu_torch.cli`` and ``python -m spt_tpu_torch.bench``.
 """
 
 from spt_tpu_torch.config import GPU_PARITY, RenderConfig

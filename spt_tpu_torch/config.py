@@ -6,9 +6,9 @@ the JAX package and this port.  ``ray_sort``, ``ray_sort_stages``,
 (integrators/wavefront.py) on scenes with a cluster accel, as in the JAX
 package; they regroup lanes and leave the image unchanged to float
 tolerance.  ``swizzle`` is accepted and has no effect: the port keeps
-pixels in row-major lane order (RNG is seeded per pixel).  ``integrator``
-"masked" and "regen" are ported; "compact" and "megakernel" raise
-NotImplementedError.
+pixels in row-major lane order (RNG is seeded per pixel).  Every
+``integrator`` is ported: "masked", "compact" and "regen"
+(integrators/wavefront.py) and "megakernel" (integrators/megakernel.py).
 
 The reference scatters its knobs across compile-time constants: image size and
 tile size (GLRenderer.h:34-36), spp=4 / max_depth=6 (main.cpp:108-109), GPU

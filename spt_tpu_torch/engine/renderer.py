@@ -2,14 +2,17 @@
 
 The counterpart of ``spt_tpu.engine.renderer`` (GLRenderer::renderLoop,
 GLRenderer.cpp:111-188, minus the GL window): per frame it checks camera
-movement and resets accumulation, renders cfg.spp wavefront samples into
-the accumulation, and on demand resolves it to a display image (exposure ->
+movement and resets accumulation, renders cfg.spp samples (wavefront or
+megakernel, ``toggle_integrator`` flips between them) into the
+accumulation, and on demand resolves it to a display image (exposure ->
 Reinhard -> gamma, device_programs.cu:854-899).
 
 Every table and state tensor lives on the device given to the Renderer:
 the card unless the caller asks for the CPU (``device="cpu"``, which runs
 the kernels' plain PyTorch versions).
-``render_frames(k)`` queues k frames with no host sync inside the loop.
+``render_frames(k)`` queues k frames; the masked path syncs with the host
+only where the sorted mesh frame decides its condense, the compact and
+regen paths once a bounce.
 """
 
 from __future__ import annotations
@@ -24,6 +27,7 @@ from spt_tpu_torch.config import RenderConfig
 from spt_tpu_torch.engine import state as state_mod
 from spt_tpu_torch.engine.image import write_png
 from spt_tpu_torch.env import Environment, make_procedural_environment
+from spt_tpu_torch.integrators.megakernel import render_megakernel
 from spt_tpu_torch.integrators.wavefront import WavefrontStats, render_wavefront
 from spt_tpu_torch.lights import DeviceLights, default_lights
 from spt_tpu_torch.ops.tonemap import resolve
@@ -32,11 +36,40 @@ from spt_tpu_torch.scene.flatten import flatten_scene
 
 
 def _frame_step(cfg, scene, env, lights, camera, rstate):
-    """One progressive frame: cfg.spp samples folded into the accumulation."""
-    img, stats = render_wavefront(cfg, scene, env, lights, camera,
-                                  frame_index=rstate.frame_index)
+    """One progressive frame: cfg.spp samples folded into the accumulation.
+    The megakernel (the reference's CPU-backend role) reports primaries
+    only: per-bounce telemetry is a wavefront notion
+    (spt_tpu/engine/renderer.py:46-58)."""
+    if cfg.integrator == "megakernel":
+        img = render_megakernel(cfg, scene, env, lights, camera,
+                                frame_index=rstate.frame_index)
+        device = img.device
+        rays = torch.zeros(cfg.max_depth, dtype=torch.int64, device=device)
+        rays[0] = cfg.num_pixels
+        stats = WavefrontStats(
+            rays_per_bounce=rays,
+            bounces_run=torch.tensor(cfg.max_depth, dtype=torch.int64,
+                                     device=device))
+    else:
+        img, stats = render_wavefront(cfg, scene, env, lights, camera,
+                                      frame_index=rstate.frame_index)
     new_state = state_mod.accumulate(rstate, img.reshape(-1, 3), float(cfg.spp))
     return new_state, stats
+
+
+def render_device(device) -> torch.device:
+    """`device` as a torch.device with its index ("cuda" is the current
+    card, "cuda:0" on one card, as the tensors made on it report it); raises
+    when it is the card and there is none (there is no CPU fallback: the
+    caller asks for the CPU)."""
+    device = torch.device(device)
+    if device.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError("Renderer: no CUDA device (pass device='cpu' "
+                               "to run the plain PyTorch versions)")
+        if device.index is None:
+            device = torch.device("cuda", torch.cuda.current_device())
+    return device
 
 
 def _tensors(obj):
@@ -62,16 +95,10 @@ class Renderer:
         device="cuda",
     ):
         self.cfg = cfg or RenderConfig()
-        if self.cfg.integrator == "megakernel":
-            raise NotImplementedError(
-                "integrator='megakernel' is not ported yet")
         if multi_device:
             raise NotImplementedError(
                 "multi_device=True (pixel-band sharding) is not ported yet")
-        self.device = torch.device(device)
-        if self.device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError("Renderer: no CUDA device (pass device='cpu' "
-                               "to run the plain PyTorch versions)")
+        self.device = render_device(device)
         self.scene = flatten_scene(desc, self.device)
         self.env = (env if env is not None
                     else make_procedural_environment(self.device))
@@ -85,6 +112,24 @@ class Renderer:
         self.camera = camera or Camera(aspect_ratio=self.cfg.width / self.cfg.height)
         self.state = state_mod.init_state(self.cfg.num_pixels, self.device)
         self.last_stats = None
+        self._wavefront_integrator = (
+            "masked" if self.cfg.integrator == "megakernel"
+            else self.cfg.integrator)
+
+    def toggle_integrator(self) -> str:
+        """Flip wavefront <-> megakernel and reset accumulation, the
+        reference's 'G' backend toggle (GLRenderer.cpp:263-277): switching
+        backends resets accumulation so images stay comparable.  The second
+        toggle restores the wavefront integrator the renderer started with.
+        Returns the new integrator name."""
+        if self.cfg.integrator != "megakernel":
+            self._wavefront_integrator = self.cfg.integrator
+            new = "megakernel"
+        else:
+            new = self._wavefront_integrator
+        self.cfg = self.cfg.replace(integrator=new)
+        self.state = state_mod.reset(self.state)
+        return new
 
     def resize(self, width: int, height: int) -> None:
         """Change the render resolution in place: reset accumulation, keep

@@ -1,10 +1,11 @@
-"""Wavefront integrator, masked path: the depth loop in few kernel launches.
+"""Wavefront integrator: the depth loop in few kernel launches.
 
-The counterpart of ``spt_tpu.integrators.wavefront`` for
-``integrator="masked"``.  One sample is gen_primary, then the depth loop,
-then the deferred environment term: a lane dies at most once by missing and
-keeps its direction and throughput frozen, so one environment evaluation
-after the loop replaces one per bounce.
+The counterpart of ``spt_tpu.integrators.wavefront``: ``integrator``
+"masked" (the default), "compact" and "regen".  A masked sample is
+gen_primary, then the depth loop, then the deferred environment term: a
+lane dies at most once by missing and keeps its direction and throughput
+frozen, so one environment evaluation after the loop replaces one per
+bounce.
 
 - Small scenes and mesh scenes whose lane count cannot be sorted: the whole
   loop in ``cuda_bounce.fused_frame``.
@@ -14,6 +15,11 @@ after the loop replaces one per bounce.
   condense, fused_frame from bounce ``ray_sort_stages``, un-condense,
   unsort.  Sorting only regroups lanes; the image matches the unsorted
   frame to float tolerance.
+
+The compact path (``_wavefront_compact``) bounces every lane once through
+``cuda_bounce.fused_bounce``, then packs the live lanes into a queue
+(``ops/compaction``) and bounces them in fixed-width chunks through
+``transport.trace_bounce`` + ``shade``, the environment applied every bounce.
 
 Every stage is the kernel for a CUDA tensor and its plain PyTorch version
 for a CPU tensor; a CUDA run the kernels cannot take raises.  The JAX
@@ -36,6 +42,8 @@ from spt_tpu_torch.env import Environment, environment_color_v
 from spt_tpu_torch.integrators import transport
 from spt_tpu_torch.lights import DeviceLights
 from spt_tpu_torch.ops import cuda_bounce, ray_sort
+from spt_tpu_torch.ops.compaction import (compact_gather, compact_indices,
+                                          scatter_back)
 from spt_tpu_torch.ops import vec3 as v3
 from spt_tpu_torch.ops.vec3 import Vec3
 from spt_tpu_torch.scene.flatten import DeviceScene
@@ -48,6 +56,9 @@ SORTED_SAMPLES = collections.Counter()
 CONDENSE_CHUNK = 32768
 # Lanes a row-deal moves together (one 128-lane row).
 _DEAL = 128
+# Below this many lanes the compact integrator takes the masked path
+# (wavefront.py:205).
+COMPACT_MIN_LANES = 16384
 
 
 class WavefrontStats(NamedTuple):
@@ -56,6 +67,13 @@ class WavefrontStats(NamedTuple):
 
     rays_per_bounce: torch.Tensor   # (max_depth,) int64 — live rays traced
     bounces_run: torch.Tensor       # () int64 — bounces with any live ray
+
+
+def _queue_width(n: int) -> int:
+    """Chunk width of the compact bounce loop (wavefront.py:73-78): about a
+    quarter of the lanes, at least 8192, rounded up to a multiple of 1024."""
+    w = min(max(8192, n // 4), n)
+    return ((w + 1023) // 1024) * 1024 if w >= 1024 else w
 
 
 def _tile_rows(rows: int) -> int:
@@ -299,6 +317,75 @@ def _wavefront_masked(cfg: RenderConfig, scene: DeviceScene, env: Environment,
                                                bounces_run=bounces)
 
 
+def _bounce(cfg: RenderConfig, scene: DeviceScene, env: Environment,
+            lights: DeviceLights, ps, bounce: int, is_last: bool,
+            fused: bool = False):
+    """One full bounce with the environment term applied to the lanes that
+    missed (wavefront.py:150-158): through fused_bounce (K3) when `fused`,
+    else through trace_bounce + shade (the standalone tracers on a mesh
+    scene on the card)."""
+    if not fused:
+        hit = transport.trace_bounce(scene, ps)
+        return transport.shade(cfg, scene, env, lights, ps, hit, bounce,
+                               is_last)
+    new_ps, missed = cuda_bounce.fused_bounce(cfg, scene, lights, ps, bounce,
+                                              is_last)
+    env_c = environment_color_v(env, ps.direction, need=missed)
+    radiance = new_ps.radiance + v3.where(missed, ps.throughput * env_c,
+                                          _zeros3(ps.radiance.x))
+    return new_ps._replace(radiance=radiance)
+
+
+def _wavefront_compact(cfg: RenderConfig, scene: DeviceScene,
+                       env: Environment, lights: DeviceLights, ps):
+    """The compacted depth loop of one sample (wavefront.py:205-259).
+
+    Bounce 0 runs over every lane through fused_bounce (K3: the small form
+    on small scenes, the mesh forms on mesh scenes).  Each later bounce
+    packs the live lanes into a queue by an exclusive scan and bounces them
+    in chunks of ``_queue_width(N)`` lanes, fused=False as the JAX
+    package's chunks do.  The queue is padded to a whole number of chunks
+    with entries that point past the last lane: they gather a masked-dead
+    lane and scatter into a scratch lane, so no chunk slides backwards and
+    bounces a lane twice.  The JAX package keeps the live count and the
+    chunk count on the device (lax.while_loop / fori_loop); here the live
+    count is read to the host once per bounce, which decides both whether
+    the loop goes on and how many chunks to launch.
+
+    Returns ((N, 3) radiance, stats); rays_per_bounce equals the masked
+    path's."""
+    n = ps.num_paths
+    device = ps.rng.device
+    rays = torch.zeros(cfg.max_depth, dtype=torch.int64, device=device)
+    rays[0] = n
+    ps = _bounce(cfg, scene, env, lights, ps, 0, cfg.max_depth == 1,
+                 fused=True)
+    w = _queue_width(n)
+    pad = torch.full(((n + w - 1) // w * w - n,), n, dtype=torch.int64,
+                     device=device)
+    lane = torch.arange(w, device=device)
+    bounce = 1
+    while bounce < cfg.max_depth:
+        queue, count = compact_indices(ps.alive)
+        live = int(count)       # the one host read of the bounce
+        if live == 0:
+            break
+        rays[bounce] = count
+        queue = torch.cat([queue, pad])
+        is_last = bounce == cfg.max_depth - 1
+        for start in range(0, live, w):
+            idx = queue[start:start + w]
+            valid = (start + lane) < live
+            sub = compact_gather(ps, idx)
+            sub = sub._replace(alive=sub.alive & valid)
+            sub = _bounce(cfg, scene, env, lights, sub, bounce, is_last)
+            ps = scatter_back(sub, idx, ps, live - start)
+        bounce += 1
+    return ps.radiance.to_array(), WavefrontStats(
+        rays_per_bounce=rays,
+        bounces_run=torch.tensor(bounce, dtype=torch.int64, device=device))
+
+
 def wavefront_sample(
     cfg: RenderConfig,
     scene: DeviceScene,
@@ -307,9 +394,15 @@ def wavefront_sample(
     camera: CameraRays,
     frame_index,
     sample_index: int = 0,
+    compact: bool = False,
 ) -> Tuple[torch.Tensor, WavefrontStats]:
-    """One sample per pixel -> ((N, 3) radiance, stats)."""
+    """One sample per pixel -> ((N, 3) radiance, stats).  `compact` takes
+    the compacted loop, except below COMPACT_MIN_LANES lanes or at depth 1,
+    where the masked path runs (wavefront.py:205)."""
     ps = transport.gen_primary(cfg, camera, frame_index, sample_index)
+    if (compact and cfg.max_depth > 1
+            and ps.num_paths >= COMPACT_MIN_LANES):
+        return _wavefront_compact(cfg, scene, env, lights, ps)
     return _wavefront_masked(cfg, scene, env, lights, ps)
 
 
@@ -320,22 +413,29 @@ def render_wavefront(
     lights: DeviceLights,
     camera: CameraRays,
     frame_index=0,
+    compact: bool = False,
 ) -> Tuple[torch.Tensor, WavefrontStats]:
-    """cfg.spp samples -> ((H, W, 3) linear radiance, summed stats)."""
+    """cfg.spp samples -> ((H, W, 3) linear radiance, summed stats).
+
+    Lane scheduling comes from cfg.integrator ("masked" | "compact" |
+    "regen"); the `compact` argument is an explicit override for A/B runs,
+    as in the JAX package."""
     if cfg.integrator == "regen":
         return render_wavefront_regen(cfg, scene, env, lights, camera,
                                       frame_index)
-    if cfg.integrator != "masked":
-        raise NotImplementedError(
-            f"integrator={cfg.integrator!r} is not ported yet; spt_tpu_torch "
-            "runs the 'masked' and 'regen' wavefront integrators")
+    if cfg.integrator not in ("masked", "compact"):
+        raise ValueError(
+            f"integrator={cfg.integrator!r} is not a wavefront integrator "
+            "('masked', 'compact' or 'regen'); the megakernel renders "
+            "through integrators.megakernel")
+    compact = compact or cfg.integrator == "compact"
     device = camera.position.device
     acc = torch.zeros((cfg.num_pixels, 3), dtype=torch.float32, device=device)
     rays = torch.zeros(cfg.max_depth, dtype=torch.int64, device=device)
     bounces = torch.zeros((), dtype=torch.int64, device=device)
     for s in range(cfg.spp):
         rad, stats = wavefront_sample(cfg, scene, env, lights, camera,
-                                      frame_index, s)
+                                      frame_index, s, compact=compact)
         acc = acc + rad
         rays = rays + stats.rays_per_bounce
         bounces = torch.maximum(bounces, stats.bounces_run)

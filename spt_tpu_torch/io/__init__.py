@@ -1,4 +1,3 @@
-"""Asset ingestion: Radiance ``.hdr`` read/write and cross-layout cubemaps
-(numpy only; the counterparts of ``spt_tpu.io.hdr`` and
-``spt_tpu.io.cubemap_cross``).  The JAX package's glTF loader and native
-decoder are not ported."""
+"""Asset ingestion: Radiance ``.hdr`` read/write, cross-layout cubemaps,
+glTF 2.0 (``.gltf`` / ``.glb``) and the native host library's RGBE decode
+and cluster build (the counterparts of ``spt_tpu.io``)."""

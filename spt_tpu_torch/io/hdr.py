@@ -5,9 +5,10 @@ role stb_image's `stbi_loadf` plays for the reference's Cubemap
 (Cubemap.cpp:18-46), loading HDR environment maps as linear float RGB.
 Supports the common "32-bit_rle_rgbe" format, both adaptive-RLE and flat
 scanlines, plus a writer (flat scanlines) so tests and ``chip_smoke.py`` can
-round-trip without any external asset.  The JAX package's native scanline
-decoder (``native/spt_native.cpp``) is not ported: every file takes the
-numpy decode below, whose flat-scanline rows are one slice each.
+round-trip without any external asset.  The pixels are decoded by the
+native host library (``io/native``, ``native/spt_native.cpp``) when ``g++``
+can build it, else by the numpy decode below, whose flat-scanline rows are
+one slice each; both give the same floats.
 
 Layout detection mirrors Cubemap::loadFromFile (Cubemap.cpp:18-46): a 2:1
 aspect is an equirectangular panorama, 4:3 a horizontal-cross cubemap (see
@@ -63,6 +64,13 @@ def read_hdr(path: str) -> np.ndarray:
     if len(res) != 4 or res[0] != b"-Y" or res[2] != b"+X":
         raise ValueError(f"{path}: unsupported resolution line {res!r}")
     h, w = int(res[1]), int(res[3])
+
+    # the native decode (io/native, spt_native.cpp) when g++ can build it
+    from spt_tpu_torch.io import native
+
+    decoded = native.rgbe_decode(data[pos:], w, h)
+    if decoded is not None:
+        return decoded
 
     buf = np.frombuffer(data, np.uint8, offset=pos)
     img = np.zeros((h, w, 4), np.uint8)

@@ -11,9 +11,11 @@ in one dense row per triangle for the tracers
 each supercluster's clusters in front-to-back order per octant, the table
 the stream tier walks inside an opened supercluster.
 
-The build is the JAX package's numpy fallback; its native builder
-(``native/spt_native.cpp``) produces bit-identical tables, so both packages
-trace the same clusters.  ``build_inst_accel`` builds the instanced
+The build runs in the native host library (``io/native``:
+``native/spt_native.cpp``'s ``spt_split_build``, as the JAX package's
+does) when ``g++`` can build it, else in numpy (``_cluster_build_numpy``);
+the two give bit-identical tables, so both packages trace the same
+clusters.  ``build_inst_accel`` builds the instanced
 TLAS/BLAS pair (``InstAccel``) over the same per-mesh cluster tables.  Not
 ported: the 128-padded ``tri_stream`` copy the JAX package builds beyond
 ``MAX_RESIDENT_TRIS`` (a Mosaic DMA-alignment device; the card's stream
@@ -27,6 +29,8 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+
+from spt_tpu_torch.io import native
 
 # Clusters per supercluster (the DMA granule of the JAX package's streaming
 # tier); cluster counts are padded to a multiple of it.
@@ -173,6 +177,32 @@ def _octant_keys(lo: np.ndarray, hi: np.ndarray) -> np.ndarray:
     return keys
 
 
+def _cluster_build_numpy(v0, e1, e2, cluster_size: int):
+    """The median-split build in numpy (spt_tpu/ops/bvh.py:459-487): (order,
+    cluster lo, cluster hi), degenerate (padding) triangles last and out of
+    the boxes."""
+    v1 = v0 + e1
+    v2 = v0 + e2
+    lo = np.minimum(np.minimum(v0, v1), v2)
+    hi = np.maximum(np.maximum(v0, v1), v2)
+    degenerate = (np.abs(e1).sum(1) == 0) & (np.abs(e2).sum(1) == 0)
+    real = np.nonzero(~degenerate)[0]
+    if real.size:
+        order = np.concatenate(
+            [real[_split_order(lo[real], hi[real], cluster_size)],
+             np.nonzero(degenerate)[0]])
+    else:
+        order = np.arange(v0.shape[0])
+    los = np.where(degenerate[order][:, None], np.inf, lo[order])
+    his = np.where(degenerate[order][:, None], -np.inf, hi[order])
+    c = v0.shape[0] // cluster_size
+    cl_lo = los.reshape(c, cluster_size, 3).min(1)
+    cl_hi = his.reshape(c, cluster_size, 3).max(1)
+    cl_lo = np.where(np.isfinite(cl_lo), cl_lo, 1e30).astype(np.float32)
+    cl_hi = np.where(np.isfinite(cl_hi), cl_hi, -1e30).astype(np.float32)
+    return order, cl_lo, cl_hi
+
+
 def build_mesh_accel(v0, e1, e2, mat, cluster_size: int = 64, uv=None,
                      ns=None, device="cpu") -> MeshAccel:
     """Order triangles by the median split and cut them into clusters.
@@ -201,25 +231,11 @@ def build_mesh_accel(v0, e1, e2, mat, cluster_size: int = 64, uv=None,
         if with_ns:
             ns = np.concatenate([ns, np.zeros((pad, 9), np.float32)])
 
-    v1 = v0 + e1
-    v2 = v0 + e2
-    lo = np.minimum(np.minimum(v0, v1), v2)
-    hi = np.maximum(np.maximum(v0, v1), v2)
-    degenerate = (np.abs(e1).sum(1) == 0) & (np.abs(e2).sum(1) == 0)
-    real = np.nonzero(~degenerate)[0]
-    if real.size:
-        order = np.concatenate(
-            [real[_split_order(lo[real], hi[real], cluster_size)],
-             np.nonzero(degenerate)[0]])
+    built = native.cluster_build(v0, e1, e2, cluster_size)
+    if built is not None:
+        order, cl_lo, cl_hi = built
     else:
-        order = np.arange(v0.shape[0])
-    los = np.where(degenerate[order][:, None], np.inf, lo[order])
-    his = np.where(degenerate[order][:, None], -np.inf, hi[order])
-    c = v0.shape[0] // cluster_size
-    cl_lo = los.reshape(c, cluster_size, 3).min(1)
-    cl_hi = his.reshape(c, cluster_size, 3).max(1)
-    cl_lo = np.where(np.isfinite(cl_lo), cl_lo, 1e30).astype(np.float32)
-    cl_hi = np.where(np.isfinite(cl_hi), cl_hi, -1e30).astype(np.float32)
+        order, cl_lo, cl_hi = _cluster_build_numpy(v0, e1, e2, cluster_size)
 
     v0s, e1s, e2s, mats, uvs = (v0[order], e1[order], e2[order], mat[order],
                                 uv[order])

@@ -16,7 +16,9 @@ from spt_tpu_torch.scene.builder import (
     build_default_scene,
     build_test_triangle_scene,
     build_cornell_box_scene,
+    build_chair_grid_scene,
     build_hdr_glass_scene,
+    build_unique_grid_scene,
 )
 from spt_tpu_torch.scene.flatten import DeviceScene, EmitterTable, flatten_scene
 
@@ -34,7 +36,9 @@ __all__ = [
     "build_default_scene",
     "build_test_triangle_scene",
     "build_cornell_box_scene",
+    "build_chair_grid_scene",
     "build_hdr_glass_scene",
+    "build_unique_grid_scene",
     "DeviceScene",
     "EmitterTable",
     "flatten_scene",

@@ -12,13 +12,18 @@
 - :func:`build_cornell_box_scene` — the emissive multi-bounce benchmark scene
   (BASELINE.md config #2); not in the reference, which has no emissive scene
   despite supporting emission.
-- :func:`build_hdr_glass_scene` — the HDR-environment showcase.
-
-The chair-grid builders of the JAX package need the glTF loader and wait
-for the mesh path.
+- :func:`build_hdr_glass_scene` — the HDR-environment showcase;
+- :func:`build_chair_grid_scene` / :func:`build_unique_grid_scene` — the
+  big-mesh grids of the rattan chair (the bench's ``bigmesh`` and
+  ``stream`` configs).  They read the chair's glTF at ``CHAIR_GLTF``, an
+  asset the repository does not hold yet; without it they raise
+  FileNotFoundError naming the path.
 """
 
 from __future__ import annotations
+
+import errno
+import os
 
 import numpy as np
 
@@ -134,3 +139,99 @@ def build_cornell_box_scene(light_intensity: float = 15.0) -> SceneDesc:
     scene.add_sphere([1.1, 0.9, 0.6], 0.9, glass)
     return scene
 
+
+# The rattan chair of the bench's gltf / bigmesh / stream configs, where the
+# repository will hold it.
+CHAIR_GLTF = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
+    "assets", "models", "rattan_dining_chair", "scene.gltf")
+
+
+def chair_path(path=None) -> str:
+    """`path`, or CHAIR_GLTF by default; raises FileNotFoundError naming it
+    when it is not there."""
+    path = path or CHAIR_GLTF
+    if not os.path.exists(path):
+        raise FileNotFoundError(
+            errno.ENOENT, "the chair asset of the gltf, bigmesh and stream "
+            "configs is not there", path)
+    return path
+
+
+def build_chair_grid_scene(nx: int = 4, nz: int = 4, path: str = None):
+    """An nx x nz grid of rattan chairs (~98k triangles at 4x4) — the
+    big-mesh benchmark scene (BASELINE.md config #3 at reference scale; the
+    reference treats large glTFs as first-class input,
+    GLTFLoader.cpp:202-331, and its backends accept any size,
+    EmbreeBackend.cpp:181).  Returns (desc, center, radius) for camera
+    framing.  The bench's ``bigmesh`` config."""
+    from spt_tpu_torch.io.gltf import bounding_box, load_gltf
+
+    desc = load_gltf(chair_path(path))
+    lo, hi = bounding_box(desc)
+    dx, dz = (hi - lo)[0] * 1.3, (hi - lo)[2] * 1.3
+    base = list(desc.instances)
+    for gx in range(nx):
+        for gz in range(nz):
+            if gx == 0 and gz == 0:
+                continue
+            t = np.eye(4, dtype=np.float32)
+            t[0, 3], t[2, 3] = gx * dx, gz * dz
+            for inst in base:
+                desc.add_instance(inst.mesh_id, t @ inst.world_from_object,
+                                  inst.material_id)
+    center = 0.5 * (lo + hi)
+    center[0] += (nx - 1) * dx / 2
+    center[2] += (nz - 1) * dz / 2
+    radius = float(np.linalg.norm(hi - lo)) * max(nx, nz)
+    return desc, center, radius
+
+
+def build_unique_grid_scene(nx: int = 4, nz: int = 4, path: str = None):
+    """The chair grid with every copy baked to a UNIQUE mesh (~98k unique
+    triangles at 4x4): positions pre-transformed per cell, one instance per
+    mesh.  No shared BLAS exists, so the instanced tier declines and the
+    scene exercises the HBM-streaming tier (ops/pallas_stream) — the tier
+    that inherits the reference's any-mesh promise (EmbreeBackend.cpp:181,
+    one rtcCommitScene whatever the size).  The bench's ``stream`` config.
+    Returns (desc, center, radius)."""
+    from spt_tpu_torch.io.gltf import bounding_box, load_gltf
+    from spt_tpu_torch.scene.desc import MeshData, NO_MATERIAL
+
+    src = load_gltf(chair_path(path))
+    lo, hi = bounding_box(src)
+    dx, dz = (hi - lo)[0] * 1.3, (hi - lo)[2] * 1.3
+    desc = SceneDesc()
+    for m in src.materials:
+        desc.add_material(m)
+    for gx in range(nx):
+        for gz in range(nz):
+            t = np.eye(4, dtype=np.float32)
+            t[0, 3], t[2, 3] = gx * dx, gz * dz
+            for inst in src.instances:
+                mesh = src.meshes[inst.mesh_id]
+                xf = t @ inst.world_from_object
+                pos_h = np.concatenate(
+                    [mesh.positions,
+                     np.ones((mesh.vertex_count, 1), np.float32)], axis=1)
+                world = (pos_h @ xf.T)[:, :3].astype(np.float32)
+                nrm = None
+                if mesh.normals is not None:
+                    ofw = np.linalg.inv(np.asarray(xf, np.float64))[:3, :3]
+                    nrm = mesh.normals.astype(np.float64) @ ofw
+                    nrm /= np.maximum(
+                        np.linalg.norm(nrm, axis=1, keepdims=True), 1e-20)
+                    nrm = nrm.astype(np.float32)
+                mid = desc.add_mesh(MeshData(
+                    positions=world, indices=mesh.indices, normals=nrm,
+                    texcoords=mesh.texcoords,
+                    material_id=mesh.material_id))
+                desc.add_instance(
+                    mid, material_id=(inst.material_id
+                                      if inst.material_id != NO_MATERIAL
+                                      else NO_MATERIAL))
+    center = 0.5 * (lo + hi)
+    center[0] += (nx - 1) * dx / 2
+    center[2] += (nz - 1) * dz / 2
+    radius = float(np.linalg.norm(hi - lo)) * max(nx, nz)
+    return desc, center, radius

@@ -140,13 +140,20 @@ def test_port_imports_no_jax():
 
 
 @pytest.mark.parametrize("change", [
-    {"integrator": "compact"}, {"stream_tier": True},
-    {"integrator": "megakernel"}, {"multi_device": True}])
+    {"spheres_beside_mesh": 33}, {"stream_tier": True},
+    {"spheres_without_mesh": 200}, {"multi_device": True}])
 def test_unported_options_raise(change, monkeypatch):
+    # what the port still refuses: more than 32 spheres beside a cluster
+    # accel, more than 192 primitives without enough triangles for one, past
+    # the stream tier's cluster limit, and pixel-band sharding
     cfg = tconfig.RenderConfig(width=16, height=8)
-    if "integrator" in change:
-        cfg = cfg.replace(integrator=change["integrator"])
     desc = tscene.build_default_scene()
+    if "spheres_beside_mesh" in change:
+        desc.add_instance(desc.add_mesh(tscene.create_sphere_mesh(
+            stacks=16, slices=16)))
+    for key in ("spheres_beside_mesh", "spheres_without_mesh"):
+        for i in range(change.get(key, 0)):
+            desc.add_sphere((0.1 * i, 5.0, 0.0), 0.05)
     if "stream_tier" in change:
         # a single mesh past MAX_RESIDENT_TRIS takes the stream tier (K8)
         # now; past its cluster limit (lowered here) it still raises
@@ -159,6 +166,22 @@ def test_unported_options_raise(change, monkeypatch):
         r = Renderer(desc, cfg, device=CPU,
                      multi_device=change.get("multi_device"))
         r.render_frame()
+
+
+def test_cuda_device_names_the_current_card(monkeypatch):
+    # "cuda" becomes the current card's index, as the tensors made on it
+    # report their device: Renderer(desc) with its default device="cuda"
+    # used to refuse its own procedural environment ("cuda:0" != "cuda")
+    from spt_tpu_torch.engine.renderer import render_device
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 3)
+    assert render_device("cuda") == torch.device("cuda", 3)
+    assert render_device("cuda:1") == torch.device("cuda", 1)
+    assert render_device(CPU) == CPU
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        render_device("cuda")
 
 
 def test_env_on_another_device_is_refused():
