@@ -108,7 +108,16 @@ this file; exits non-zero (printing no result) without them.  Phases:
     compact``, ``--integrator megakernel``, ``--debug-mode normal``,
     ``--stats`` and ``--i`` on a synthetic textured .glb, each exit 0 and a
     PNG; ``python -m spt_tpu_torch.bench`` on default, cornell, hdr and
-    anim, each exit 0 and its JSON line, echoed.
+    anim, each exit 0 and its JSON line, echoed;
+24. pixel-band sharding: every band of worlds of 2 and 4, one after another
+    on the card through the per-shard body, on default and hdr 1920x1080 d6
+    and the mesh scene 512x384 d4 (sorted frame), put together and held to
+    the unsharded frame bit for bit with the rays summed exactly; per band
+    its launches, device busy and K1's time a band launch; then a real NCCL
+    world of ``device_count()`` ranks (at most 4, one card each) running
+    ``Renderer(multi_device=True).render_frames(8)`` on default 1080p d6,
+    its image bit for bit and its stats equal to a single-device Renderer's,
+    with the group's set-up, the frame times and the all_reduces timed.
 
 A mesh kernel's bound counts the operations of its walks from the plain
 version's own results: each traced ray's box tests and the 64 triangle
@@ -2806,6 +2815,197 @@ def phase_entry_points(np, out_dir, smi):
     return lines
 
 
+# --- pixel-band sharding (phase 24) --------------------------------------------
+
+def sharded_rank(rank, world, frames):
+    """One rank of phase 24's NCCL world: Renderer(multi_device=True) on
+    default 1920x1080 d6 on card `rank`, render_frames(frames) with the
+    launch counts reset before and read after (the gated run), then a
+    frame and a second chain timed with CUDA events (frame_ms), and the
+    step's two all_reduces timed alone on tensors of their shapes."""
+    import torch
+    import torch.distributed as dist
+
+    from spt_tpu_torch.engine.renderer import Renderer
+
+    dev = torch.device("cuda", rank)
+    t0 = time.perf_counter()
+    dist.all_reduce(torch.zeros(1, device=dev))
+    torch.cuda.synchronize(dev)
+    first_s = time.perf_counter() - t0
+    desc, cfg, env, lights, cam = workload("default", W, H, dev)
+    t0 = time.perf_counter()
+    r = Renderer(desc, cfg, env=env, lights=lights, camera=cam,
+                 multi_device=True)
+    setup_s = time.perf_counter() - t0
+    torch.cuda.synchronize(dev)
+    reset_counts()
+    r.render_frames(frames)
+    torch.cuda.synchronize(dev)
+    counts = read_counts()
+    img = r.image()
+    out = dict(world=r.mesh.size(), device=str(r.device),
+               rays=r.last_stats.rays_per_bounce.cpu().numpy(),
+               bounces=int(r.last_stats.bounces_run), counts=counts,
+               first_s=first_s, setup_s=setup_s,
+               image=img if rank == 0 else None)
+    out["ms"] = frame_ms(torch, r, frames)
+    rays = torch.zeros(cfg.max_depth, dtype=torch.int64, device=dev)
+    bounces = torch.zeros(1, dtype=torch.int64, device=dev)
+    out["collectives_ms"] = time_call(torch, lambda: (
+        dist.all_reduce(rays, op=dist.ReduceOp.SUM),
+        dist.all_reduce(bounces, op=dist.ReduceOp.MAX)), warmup=3, iters=20)
+    return out
+
+
+def phase_sharding(torch, np, dev, smi):
+    """Phase 24 (a), pixel-band sharding.  (a) Every band of worlds of 2 and 4,
+    one after another in this process on the card, through the per-shard
+    body (``parallel.sharding.shard_frames``, 2 frames) on default and hdr
+    1920x1080 d6 and the mesh scene 512x384 d4 (sorted frame): the bands put
+    together held to the unsharded frame's accumulation bit for bit, the
+    rays per bounce summed exactly; per band the port's kernel launches a
+    band-frame (counts reset before, read after), the device busy time and
+    kernel launches a band-frame and K1's device ms per band launch
+    (profiler).  (b) A real process group: ``device_count()`` ranks (at most
+    4), NCCL, one card each, ``Renderer(multi_device=True)``
+    .render_frames(8) on default 1080p d6 against a single-device Renderer
+    here: image bit for bit, last_stats equal; both chains timed with CUDA
+    events, the group's set-up and the step's all_reduces timed."""
+    from spt_tpu_torch.engine import state as state_mod
+    from spt_tpu_torch.env import make_procedural_environment
+    from spt_tpu_torch.integrators import wavefront
+    from spt_tpu_torch.lights import default_lights
+    from spt_tpu_torch.ops import cuda_bounce
+    from spt_tpu_torch.parallel import sharding
+    from spt_tpu_torch.scene import flatten_scene
+
+    frames = 2
+    configs = []
+    for name in ("default", "hdr"):
+        desc, cfg, env, lights, cam = workload(name, W, H, dev)
+        env = env if env is not None else make_procedural_environment(dev)
+        configs.append((name, cfg, (flatten_scene(desc, dev), env, lights,
+                                    cam.rays(dev)), cuda_bounce.SMALL_KERNEL))
+    mdesc, mcfg, mcam = port_mesh_scene()
+    configs.append(("mesh", mcfg, (flatten_scene(mdesc, dev),
+                                   make_procedural_environment(dev),
+                                   default_lights(dev), mcam.rays(dev)),
+                    "fused_frame_kernel<1>"))
+    failed = []
+    for name, cfg, args, k1_name in configs:
+        size = f"{cfg.width}x{cfg.height} d{cfg.max_depth}"
+        full, fstats = sharding.shard_frames(
+            cfg, *args, state_mod.init_state(cfg.num_pixels, dev), frames, 0,
+            1)
+        for world in (2, 4):
+            bands, rays = [], 0
+            for rank in range(world):
+                st0 = state_mod.init_state(cfg.num_pixels // world, dev)
+                torch.cuda.synchronize()
+                reset_counts()
+                st, stats = sharding.shard_frames(cfg, *args, st0, frames,
+                                                  rank, world)
+                torch.cuda.synchronize()
+                counts = {k: v for k, v in read_counts().items() if v}
+                branches = dict(wavefront.SORTED_SAMPLES)
+                bands.append(st.accum)
+                rays = rays + stats.rays_per_bounce
+                band_frame = lambda: sharding.shard_frames(
+                    cfg, *args, st0, 1, rank, world)
+                busy, per = device_busy_ms(torch, band_frame, iters=2)
+                k1_ms = kernel_device_ms(torch, band_frame, k1_name, iters=4)
+                row0, rows = sharding.band(cfg, rank, world)
+                log(f"phase 24 {name} {size}, band {rank} of {world} (rows "
+                    f"{row0}-{row0 + rows - 1}, {st0.num_pixels} lanes): "
+                    f"launches {counts} in {frames} band-frames"
+                    + (f", sorted-frame branches {branches}" if branches
+                       else "")
+                    + f"; {k1_name} {k1_ms:.4f} ms per launch; busy "
+                    f"{busy:.4f} ms over {per:.1f} kernel launches a "
+                    f"band-frame (profiler) [{smi}]")
+                want = ({"fused_frame": frames, "fused_bounce": 3 * frames}
+                        if name == "mesh" else {"fused_frame": frames})
+                if name == "hdr":
+                    want["env_sample"] = frames
+                if any(counts.get(k) != v for k, v in want.items()) or (
+                        name == "mesh" and counts.get("sort_chunks", 0)
+                        < 3 * frames):
+                    failed.append(f"{name} band {rank} of {world} launched "
+                                  f"{counts}, expected at least {want}")
+            got = torch.cat(bands)
+            off = float(lanes_off(torch, got, full.accum).float().mean())
+            share, ulps = ulps_apart(torch, got, full.accum)
+            same_rays = torch.equal(rays, fstats.rays_per_bounce)
+            log(f"phase 24 {name} {size}, {world} bands put together against "
+                f"the unsharded frame ({frames} frames): lanes not bit-equal "
+                f"{share:.6%}, largest distance {ulps} ulp, lanes off by more "
+                f"than 1e-3 {off:.6%}; rays per bounce summed "
+                f"{rays.tolist()} unsharded {fstats.rays_per_bounce.tolist()} "
+                f"(equal: {same_rays})")
+            if share or not same_rays:
+                failed.append(f"{name} over {world} bands: {share:.6%} of "
+                              f"lanes differ ({ulps} ulp), rays equal "
+                              f"{same_rays}")
+    if failed:
+        raise AssertionError("\n".join(failed))
+
+
+def phase_sharded_world(torch, np, dev, smi):
+    """Phase 24 (b): see phase_sharding."""
+    from spt_tpu_torch.engine.renderer import Renderer
+    from spt_tpu_torch.parallel import launch
+
+    failed = []
+    n = min(torch.cuda.device_count(), 4)
+    frames = 8
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    res = launch.spawn(sharded_rank, n, (frames,), backend="nccl",
+                       timeout=300)
+    spawn_s = time.perf_counter() - t0
+    desc, cfg, env, lights, cam = workload("default", W, H, dev)
+    r = Renderer(desc, cfg, env=env, lights=lights, camera=cam, device=dev,
+                 multi_device=False)
+    r.render_frames(frames)
+    img = r.image()
+    rays = r.last_stats.rays_per_bounce.cpu().numpy()
+    bounces = int(r.last_stats.bounces_run)
+    ms = frame_ms(torch, r, frames)
+    rank0 = res[0].value
+    share, ulps = ulps_apart(torch, torch.from_numpy(rank0["image"]).reshape(
+        -1, 3), torch.from_numpy(img).reshape(-1, 3))
+    same_stats = (all((v.value["rays"] == rays).all()
+                      and v.value["bounces"] == bounces for v in res))
+    for i, v in enumerate(res):
+        o = v.value
+        log(f"phase 24 NCCL rank {i} of {o['world']} on {o['device']}: "
+            f"init_process_group {v.init_seconds:.3f} s, first all_reduce "
+            f"{o['first_s']:.3f} s, Renderer(multi_device=True) "
+            f"{o['setup_s']:.3f} s; render_frames({frames}) launches "
+            f"{ {k: c for k, c in o['counts'].items() if c} }, "
+            f"{o['ms']:.4f} ms/frame (CUDA events over a chain after a warm-up "
+            f"frame); the "
+            f"step's two all_reduces {o['collectives_ms']:.4f} ms a "
+            f"render_frames call (CUDA events, 20 pairs) [{smi}]")
+        if o["counts"]["fused_frame"] != frames:
+            failed.append(f"rank {i} launched fused_frame "
+                          f"{o['counts']['fused_frame']} times in {frames} "
+                          "frames")
+    log(f"phase 24 NCCL world of {n} rank(s) ({spawn_s:.1f} s to spawn, run "
+        f"and join); single-device Renderer here: {ms:.4f} ms/frame (CUDA "
+        f"events over a chain after a warm-up frame); image against it: lanes not "
+        f"bit-equal {share:.6%}, largest distance {ulps} ulp; last_stats "
+        f"equal on every rank: {same_stats} (rays {rays.tolist()}, bounces "
+        f"{bounces}) [{smi}]")
+    if share or not same_stats:
+        failed.append(f"the NCCL world's image differs from the single-device "
+                      f"Renderer's on {share:.6%} of lanes, or its stats "
+                      f"({same_stats})")
+    if failed:
+        raise AssertionError("\n".join(failed))
+
+
 def main() -> int:
     try:
         import torch
@@ -2877,6 +3077,8 @@ def main() -> int:
     phase_megakernel(torch, np, dev, out_dir, smi)
     phase_debug_views(torch, np, dev, smi)
     phase_entry_points(np, out_dir, smi)
+    phase_sharding(torch, np, dev, smi)
+    phase_sharded_world(torch, np, dev, smi)
 
     def entry(name, source, replaces, launches, k):
         for key in ("max_abs_err", "ms", "plain_ms"):

@@ -9,7 +9,8 @@ warms up with the chain length it times, times three chains with one
 device sync each and prints one JSON line with the median:
 
   {"metric": "...", "value": Mrays/s, "unit": "Mrays/s", "vs_baseline": x,
-   "ms_per_frame": t, "spp": s, "max_depth": d, "device": "..."}
+   "ms_per_frame": t, "spp": s, "max_depth": d,
+   "device": {"kind": "...", "count": n}}
 
 (plus ``tier`` on bigmesh and stream).  Rays are counted with the JAX
 package's convention (``count_rays``, copied from bench.py:31-62, not
@@ -19,6 +20,8 @@ target ``TARGET_MRAYS``, a constant and not a measurement.  ``--all`` runs
 every config in its own subprocess and prints a ``FAILED_<scene>`` line
 for one that fails.  The gltf, bigmesh and stream configs need the chair
 asset (``scene.builder.CHAIR_GLTF``) and fail, naming its path, without it.
+Under ``torchrun --nproc-per-node N -m spt_tpu_torch.bench`` the frame is
+sharded into N row bands, one a card, and rank 0 prints the line.
 """
 
 from __future__ import annotations
@@ -182,14 +185,31 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def main(argv=None, device="cuda") -> int:
-    import torch
-
-    from spt_tpu_torch.engine.renderer import Renderer, render_device
+    """Under torchrun (WORLD_SIZE > 1 in the environment) every rank runs
+    this on its band of the image; rank 0 alone prints the line, whose rays
+    are the whole frame's and whose device count is the world."""
+    from spt_tpu_torch.parallel.launch import init_from_env
 
     args = build_parser().parse_args(argv)
     if args.all:
         run_all()
         return 0
+    created = init_from_env(device)
+    try:
+        return _bench(args, device)
+    finally:
+        if created:
+            import torch.distributed as dist
+
+            dist.destroy_process_group()
+
+
+def _bench(args, device) -> int:
+    import torch
+    import torch.distributed as dist
+
+    from spt_tpu_torch.engine.renderer import Renderer, render_device
+
     device = render_device(device)
     scene_name = args.scene
     width, height, iters = 1920, 1080, 128
@@ -266,14 +286,17 @@ def main(argv=None, device="cuda") -> int:
         "ms_per_frame": round(ms_per_frame, 2),
         "spp": cfg.spp,
         "max_depth": cfg.max_depth,
-        "device": (torch.cuda.get_device_name(device)
-                   if device.type == "cuda" else "cpu"),
+        "device": {"kind": (torch.cuda.get_device_name(device)
+                            if device.type == "cuda" else "cpu"),
+                   "count": dist.get_world_size() if r.mesh is not None
+                   else 1},
     }
     if scene_name in ("bigmesh", "stream"):
         from spt_tpu_torch.ops.cuda_bounce import _accel_mode
 
         result["tier"] = _accel_mode(r.scene) or "small"
-    print(json.dumps(result), flush=True)
+    if r.rank == 0:
+        print(json.dumps(result), flush=True)
     return 0
 
 

@@ -9,6 +9,11 @@ the card and writes a PNG; ``--interactive`` opens the terminal viewer
 (``engine/display``).  There is no ``--device`` flag, as the JAX CLI has
 none: ``make_renderer`` and ``main`` take a ``device`` keyword, the card
 by default; without one the Renderer raises.
+
+Under ``torchrun --nproc-per-node N -m spt_tpu_torch.cli ...`` each rank
+joins the process group (NCCL, one card a rank; gloo when ``main`` is
+called with ``device="cpu"``) and the image is sharded into N row bands,
+as the JAX CLI shards over a multi-chip host.
 """
 
 from __future__ import annotations
@@ -138,9 +143,30 @@ def make_renderer(args, device="cuda"):
 
 
 def main(argv=None, device="cuda") -> int:
-    import torch
+    """Under torchrun (WORLD_SIZE > 1 in the environment) every rank runs
+    this: the Renderer shards the image into one band a rank, and rank 0
+    alone prints the stats and the timing and writes the PNG and the
+    checkpoint."""
+    from spt_tpu_torch.parallel.launch import init_from_env
 
     args = build_parser().parse_args(argv)
+    created = init_from_env(device)
+    try:
+        return _run(args, device)
+    finally:
+        if created:
+            import torch.distributed as dist
+
+            dist.destroy_process_group()
+
+
+def _run(args, device) -> int:
+    import torch
+    import torch.distributed as dist
+
+    if args.interactive and dist.is_initialized() and dist.get_world_size() > 1:
+        raise ValueError("--interactive runs in one process; start it "
+                         "without torchrun")
     try:
         r = make_renderer(args, device)
     except FileNotFoundError as e:
@@ -150,14 +176,16 @@ def main(argv=None, device="cuda") -> int:
         print(f"error: {e}", file=sys.stderr)
         return 2
 
+    lead = r.rank == 0
     if args.debug_mode:
         from spt_tpu_torch.engine.image import write_png
         from spt_tpu_torch.integrators.debug import render_debug
 
         img = render_debug(r.cfg, r.scene, r.camera.rays(r.device),
                            args.debug_mode)
-        write_png(args.output, img.cpu().numpy())
-        print(f"Wrote {args.output} ({args.debug_mode} debug view)")
+        if lead:
+            write_png(args.output, img.cpu().numpy())
+            print(f"Wrote {args.output} ({args.debug_mode} debug view)")
         return 0
 
     if args.resume:
@@ -170,7 +198,9 @@ def main(argv=None, device="cuda") -> int:
             print(f"error: {e} (checkpoint was saved at a different "
                   f"resolution than --width/--height)", file=sys.stderr)
             return 2
-        print(f"Resumed from {args.resume} at {r.accumulated_samples:.0f} samples")
+        if lead:
+            print(f"Resumed from {args.resume} at {r.accumulated_samples:.0f} "
+                  "samples")
 
     if args.interactive:
         from spt_tpu_torch.engine.display import run_viewer
@@ -196,12 +226,12 @@ def main(argv=None, device="cuda") -> int:
                                        0.0)
             r.render_frame(check_camera=bool(args.orbit))
             f += 1
-            if args.stats and r.last_stats is not None:
+            if args.stats and lead and r.last_stats is not None:
                 rays = r.last_stats.rays_per_bounce.cpu().numpy()
                 print(f"frame {f - 1}: rays/bounce {rays.tolist()}")
         now = time.perf_counter()
         # FPS + samples every 5 s (GLRenderer.cpp:183-187)
-        if now - last_log > 5.0:
+        if lead and now - last_log > 5.0:
             fps = f / (now - t0)
             print(f"[{now - t0:6.1f}s] {fps:5.1f} fps, "
                   f"{r.accumulated_samples:.0f} samples/pixel")
@@ -209,14 +239,17 @@ def main(argv=None, device="cuda") -> int:
     if r.device.type == "cuda":
         torch.cuda.synchronize(r.device)
     dt = time.perf_counter() - t0
-    print(f"Rendered {args.frames} frames ({r.accumulated_samples:.0f} spp) "
-          f"in {dt:.2f}s ({args.frames / dt:.1f} fps)")
+    if lead:
+        print(f"Rendered {args.frames} frames ({r.accumulated_samples:.0f} "
+              f"spp) in {dt:.2f}s ({args.frames / dt:.1f} fps)")
 
     r.save_png(args.output)
-    print(f"Wrote {args.output}")
+    if lead:
+        print(f"Wrote {args.output}")
     if args.checkpoint:
         r.save_checkpoint(args.checkpoint)
-        print(f"Checkpointed to {args.checkpoint}")
+        if lead:
+            print(f"Checkpointed to {args.checkpoint}")
     return 0
 
 

@@ -14,7 +14,7 @@ CUDA kernel against.
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -55,28 +55,32 @@ def gen_primary(
     camera: CameraRays,
     frame_index,
     sample_index: int = 0,
+    row0: int = 0,
+    rows: Optional[int] = None,
 ) -> PathState:
     """Primary ray generation (__raygen__gen_primary,
     device_programs.cu:239-274) on the camera's device.
 
     Rays go through pixel centers unless cfg.jitter, in which case a
-    per-(frame, sample) subpixel offset is drawn from the path RNG.  Lanes
-    carry pixel indices in row-major order; RNG is seeded by pixel, so any
-    lane order renders the identical image.  (The JAX package's row0/rows
-    banding serves its pixel sharding, which is not ported.)"""
+    per-(frame, sample) subpixel offset is drawn from the path RNG.
+    `row0`/`rows` select a horizontal band of the image (pixel-band
+    sharding, ``parallel/sharding``): lanes carry GLOBAL pixel indices in
+    row-major order, so the RNG streams and ray directions of a band are
+    those of the same pixels in the whole frame, bit for bit."""
     return primary_lanes(cfg, camera, frame_index, sample_index,
-                         cfg.spp > 1 or bool(sample_index))
+                         cfg.spp > 1 or bool(sample_index), row0, rows)
 
 
 def primary_lanes(cfg: RenderConfig, camera: CameraRays, frame_index,
-                  sample_index, per_sample: bool) -> PathState:
+                  sample_index, per_sample: bool, row0: int = 0,
+                  rows: Optional[int] = None) -> PathState:
     """gen_primary with the per-sample seeding chosen by the caller;
     `sample_index` may be a per-lane tensor (path regeneration,
     wavefront.py:761-799)."""
     w, h = cfg.width, cfg.height
-    n = w * h
+    n = w * (h if rows is None else rows)
     device = camera.position.device
-    pixel = torch.arange(n, dtype=torch.int64, device=device)
+    pixel = row0 * w + torch.arange(n, dtype=torch.int64, device=device)
     px = (pixel % w).to(torch.float32)
     py = (pixel // w).to(torch.float32)
 

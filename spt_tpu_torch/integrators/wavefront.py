@@ -21,8 +21,12 @@ The compact path (``_wavefront_compact``) bounces every lane once through
 (``ops/compaction``) and bounces them in fixed-width chunks through
 ``transport.trace_bounce`` + ``shade``, the environment applied every bounce.
 
-Every stage is the kernel for a CUDA tensor and its plain PyTorch version
-for a CPU tensor; a CUDA run the kernels cannot take raises.  The JAX
+Every entry takes a band of rows (``row0``, ``rows``; the whole image by
+default), whose lanes carry global pixel indices: ``parallel/sharding``
+renders one band a rank, and every decision that depends on the lane count
+sees the band's.  Every stage is the kernel for a CUDA tensor and its plain
+PyTorch version for a CPU tensor; a CUDA run the kernels cannot take
+raises.  The JAX
 package's block swizzle of the lane -> pixel mapping is not ported (RNG is
 seeded per pixel, so the image does not depend on lane order), nor its
 ``SPT_SORT_ABLATE`` and ``SPT_CONDENSE_CHUNK`` hooks.
@@ -32,7 +36,7 @@ from __future__ import annotations
 
 import collections
 import warnings
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -394,12 +398,18 @@ def wavefront_sample(
     camera: CameraRays,
     frame_index,
     sample_index: int = 0,
+    row0: int = 0,
+    rows: Optional[int] = None,
     compact: bool = False,
 ) -> Tuple[torch.Tensor, WavefrontStats]:
-    """One sample per pixel -> ((N, 3) radiance, stats).  `compact` takes
-    the compacted loop, except below COMPACT_MIN_LANES lanes or at depth 1,
-    where the masked path runs (wavefront.py:205)."""
-    ps = transport.gen_primary(cfg, camera, frame_index, sample_index)
+    """One sample per pixel of the band of `rows` rows from `row0` (the
+    whole image by default) -> ((W * rows, 3) radiance, stats).  `compact`
+    takes the compacted loop, except below COMPACT_MIN_LANES lanes or at
+    depth 1, where the masked path runs (wavefront.py:205).  Every decision
+    that depends on the lane count (padding, sort chunk, condense, queue
+    width) sees the band's, as in the JAX package (wavefront.py:191)."""
+    ps = transport.gen_primary(cfg, camera, frame_index, sample_index,
+                               row0, rows)
     if (compact and cfg.max_depth > 1
             and ps.num_paths >= COMPACT_MIN_LANES):
         return _wavefront_compact(cfg, scene, env, lights, ps)
@@ -413,16 +423,22 @@ def render_wavefront(
     lights: DeviceLights,
     camera: CameraRays,
     frame_index=0,
+    row0: int = 0,
+    rows: Optional[int] = None,
     compact: bool = False,
 ) -> Tuple[torch.Tensor, WavefrontStats]:
-    """cfg.spp samples -> ((H, W, 3) linear radiance, summed stats).
+    """cfg.spp samples -> ((rows, W, 3) linear radiance, summed stats), for
+    the band of `rows` rows from `row0` (the whole image by default).
 
     Lane scheduling comes from cfg.integrator ("masked" | "compact" |
     "regen"); the `compact` argument is an explicit override for A/B runs,
-    as in the JAX package."""
+    as in the JAX package.  Nothing here talks to another process: each
+    band of a sharded frame runs it on its own."""
+    if rows is None:
+        rows = cfg.height
     if cfg.integrator == "regen":
         return render_wavefront_regen(cfg, scene, env, lights, camera,
-                                      frame_index)
+                                      frame_index, row0, rows)
     if cfg.integrator not in ("masked", "compact"):
         raise ValueError(
             f"integrator={cfg.integrator!r} is not a wavefront integrator "
@@ -430,16 +446,18 @@ def render_wavefront(
             "through integrators.megakernel")
     compact = compact or cfg.integrator == "compact"
     device = camera.position.device
-    acc = torch.zeros((cfg.num_pixels, 3), dtype=torch.float32, device=device)
+    acc = torch.zeros((cfg.width * rows, 3), dtype=torch.float32,
+                      device=device)
     rays = torch.zeros(cfg.max_depth, dtype=torch.int64, device=device)
     bounces = torch.zeros((), dtype=torch.int64, device=device)
     for s in range(cfg.spp):
         rad, stats = wavefront_sample(cfg, scene, env, lights, camera,
-                                      frame_index, s, compact=compact)
+                                      frame_index, s, row0, rows,
+                                      compact=compact)
         acc = acc + rad
         rays = rays + stats.rays_per_bounce
         bounces = torch.maximum(bounces, stats.bounces_run)
-    img = (acc / cfg.spp).reshape(cfg.height, cfg.width, 3)
+    img = (acc / cfg.spp).reshape(rows, cfg.width, 3)
     return img, WavefrontStats(rays_per_bounce=rays, bounces_run=bounces)
 
 
@@ -450,26 +468,31 @@ def render_wavefront_regen(
     lights: DeviceLights,
     camera: CameraRays,
     frame_index=0,
+    row0: int = 0,
+    rows: Optional[int] = None,
 ) -> Tuple[torch.Tensor, WavefrontStats]:
     """Path regeneration (wavefront.py:805-909): the whole cfg.spp budget in
-    one loop.  The moment a lane's path ends, its radiance is retired into
+    one loop, over the band of `rows` rows from `row0` (the whole image by
+    default).  The moment a lane's path ends, its radiance is retired into
     the lane's accumulator and the lane restarts with its pixel's next
     sample; the sample set and its RNG streams are those of
     render_wavefront.  Every iteration traces through
     ``transport.trace_bounce`` and ``transport.shade`` — on a mesh scene
     the standalone cluster or instanced tracer (``ops/cuda_trace``), with
-    no fused kernels and no coherence sorts.  One host read per iteration decides
-    whether any lane is left."""
+    no fused kernels and no coherence sorts.  One host read per iteration
+    decides whether any lane of the band is left."""
     if scene.accel is not None or scene.inst is not None:
         warnings.warn(
             "integrator 'regen' traces mesh scenes without the fused kernels "
             "or the coherence sorts: expect several times the 'masked' "
             "integrator's frame time on this scene", stacklevel=2)
-    n = cfg.num_pixels
+    if rows is None:
+        rows = cfg.height
+    n = cfg.width * rows
     device = camera.position.device
     sample_idx = torch.zeros(n, dtype=torch.int64, device=device)
     ps = transport.primary_lanes(cfg, camera, frame_index, sample_idx,
-                                 cfg.spp > 1)
+                                 cfg.spp > 1, row0, rows)
     accum = _zeros3(ps.radiance.x)
     bounce = torch.zeros(n, dtype=torch.int64, device=device)
     rays = torch.zeros(cfg.max_depth, dtype=torch.int64, device=device)
@@ -488,7 +511,7 @@ def render_wavefront_regen(
         sample_next = sample_idx + died.to(torch.int64)
         respawn = died & (sample_next < cfg.spp)
         fresh = transport.primary_lanes(cfg, camera, frame_index, sample_next,
-                                        cfg.spp > 1)
+                                        cfg.spp > 1, row0, rows)
         ps = transport.PathState(
             origin=v3.where(respawn, fresh.origin, ps.origin),
             direction=v3.where(respawn, fresh.direction, ps.direction),
@@ -502,6 +525,6 @@ def render_wavefront_regen(
         sample_idx = sample_next
         it += 1
     img = accum.to_array() / cfg.spp
-    return img.reshape(cfg.height, cfg.width, 3), WavefrontStats(
+    return img.reshape(rows, cfg.width, 3), WavefrontStats(
         rays_per_bounce=rays,
         bounces_run=torch.tensor(it, dtype=torch.int64, device=device))

@@ -149,9 +149,17 @@ def path_state(src, device) -> PathState:
     )
 
 
-def render_state(src, device) -> RenderState:
+def render_state(src, device, rank=None, world=None) -> RenderState:
+    """The whole frame's state, or with `rank` and `world` that rank's band
+    of it (the rows of ``accum`` that ``parallel.sharding.shard_pixels``
+    keeps)."""
+    accum = np.asarray(src.accum, np.float32)
+    if world is not None:
+        from spt_tpu_torch.parallel.sharding import band_lanes
+
+        accum = band_lanes(accum, rank, world)
     return RenderState(
-        accum=_f32(src.accum, device),
+        accum=_f32(accum, device),
         sample_count=_f32(src.sample_count, device),
         frame_index=_i32(src.frame_index, device),
     )

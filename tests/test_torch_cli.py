@@ -241,4 +241,5 @@ def test_bench_quick_chain_prints_the_line(capsys):
     assert res["metric"] == "wavefront_mrays_per_sec_default_scene_640x480"
     assert res["unit"] == "Mrays/s" and res["value"] > 0
     assert res["vs_baseline"] == round(res["value"] / bench.TARGET_MRAYS, 3)
-    assert (res["spp"], res["max_depth"], res["device"]) == (1, 6, "cpu")
+    assert (res["spp"], res["max_depth"], res["device"]) == (
+        1, 6, {"kind": "cpu", "count": 1})

@@ -299,7 +299,8 @@ def test_compact_bounce0_kernel_matches_plain_on_card(cuda_device, monkeypatch):
 @pytest.mark.parametrize("integrator", ["compact", "megakernel"])
 def test_renderer_default_device_renders_on_card(cuda_device, integrator):
     # the entry point's default device="cuda", with the integrators this
-    # slice ports; multi_device=True still raises
+    # slice ports; multi_device=True without a process group raises, naming
+    # how to start one
     from spt_tpu_torch.engine.renderer import Renderer
 
     cfg = tconfig.RenderConfig(width=160, height=120, max_depth=4,
@@ -311,5 +312,6 @@ def test_renderer_default_device_renders_on_card(cuda_device, integrator):
     img = r.hdr_image()
     assert img.shape == (120, 160, 3) and np.isfinite(img).all()
     assert img.max() > 0 and r.accumulated_samples == 2
-    with pytest.raises(NotImplementedError):
-        Renderer(tscene.build_default_scene(), cfg, multi_device=True)
+    with pytest.raises(RuntimeError, match="torchrun.*init_process_group"):
+        Renderer(tscene.build_default_scene(),
+                 cfg.replace(integrator="masked"), multi_device=True)

@@ -144,9 +144,16 @@ def test_port_imports_no_jax():
     {"spheres_without_mesh": 200}, {"multi_device": True}])
 def test_unported_options_raise(change, monkeypatch):
     # what the port still refuses: more than 32 spheres beside a cluster
-    # accel, more than 192 primitives without enough triangles for one, past
-    # the stream tier's cluster limit, and pixel-band sharding
+    # accel, more than 192 primitives without enough triangles for one, and
+    # past the stream tier's cluster limit; and pixel-band sharding without
+    # a process group, which names how to start one
     cfg = tconfig.RenderConfig(width=16, height=8)
+    if change.get("multi_device"):
+        with pytest.raises(RuntimeError,
+                           match="torchrun.*init_process_group"):
+            Renderer(tscene.build_default_scene(), cfg, device=CPU,
+                     multi_device=True)
+        return
     desc = tscene.build_default_scene()
     if "spheres_beside_mesh" in change:
         desc.add_instance(desc.add_mesh(tscene.create_sphere_mesh(
@@ -163,8 +170,7 @@ def test_unported_options_raise(change, monkeypatch):
         desc.add_instance(desc.add_mesh(tscene.create_sphere_mesh(
             stacks=80, slices=80)))
     with pytest.raises(NotImplementedError):
-        r = Renderer(desc, cfg, device=CPU,
-                     multi_device=change.get("multi_device"))
+        r = Renderer(desc, cfg, device=CPU)
         r.render_frame()
 
 
