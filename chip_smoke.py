@@ -28,10 +28,15 @@ this file; exits non-zero (printing no result) without them.  Phases:
    the sorted frame, closest_hit / any_hit from regen), where its time and
    bound are taken; besides, closest_hit / any_hit on camera rays and on
    196 608 random rays, the resident fused_frame from bounce 0 on all
-   lanes, sort_chunks at chunks 8192 and 32768 with 15 random planes, and
-   the sort's launch shape (cluster size, registers, shared bytes, active
-   clusters) at each chunk; sort_chunks is held to its plain version (a
-   stable torch.sort) bit for bit in keys, lane ids and every plane;
+   lanes and on the edge lanes of ``FRAME_EDGES`` (all dead, 2 % alive at
+   random, a ragged count, and live counts that give each warp 3 and 20
+   lanes at once, from bounce 3), sort_chunks at chunks 8192 and
+   32768 with 15 random planes, and the sort's launch shape (cluster size,
+   registers, shared bytes, active clusters) at each chunk; sort_chunks is
+   held to its plain version (a stable torch.sort) bit for bit in keys,
+   lane ids and every plane; every fused_frame call is held bit for bit on
+   every plane with the rays per bounce exact, and logs the live lanes the
+   kernel queued and the blocks it launched;
 6. the mesh main path: ``Renderer.render_frames(8)`` at 512x384 depth 4 in
    accel mode "resident" through the sorted frame, launch counts reset
    before and read after;
@@ -51,7 +56,8 @@ this file; exits non-zero (printing no result) without them.  Phases:
     for bit; sort_chunks at the full-width calls), where their times and
     bounds are taken; the textured fused_frame's time without its
     texture table (the sampler's share); the instanced fused_frame from
-    bounce 0 on all lanes; the textured resident forms on the mesh scene;
+    bounce 0 on all lanes, timed, and on ``FRAME_EDGES``; the textured
+    resident forms on the mesh scene;
 11. the instanced main path: ``Renderer.render_frames(8)`` on the grid at
     512x384 depth 4 in accel mode "instanced", textured, through the sorted
     frame, launch counts reset before and read after; ms/frame, Mrays/s
@@ -66,8 +72,10 @@ this file; exits non-zero (printing no result) without them.  Phases:
     accel mode "stream") at 512x384, every returned plane per lane, at the
     inputs recorded from one regen frame (closest_hit_stream /
     any_hit_stream) and one sorted frame (fused_bounce and fused_frame
-    stream, textured, their radiance bit for bit; sort_chunks at the
-    full-width calls), where their times and bounds are taken;
+    stream, textured, every fused_frame plane bit for bit; sort_chunks at
+    the full-width calls), where their times and bounds are taken; the
+    stream fused_frame from bounce 0 on all lanes, timed, and on
+    ``FRAME_EDGES``;
 15. the stream main path: ``Renderer.render_frames(8)`` on the baked grid
     at 512x384 depth 4 through the sorted frame, launch counts reset before
     and read after; ms/frame, Mrays/s, device busy and idle share, sorted
@@ -122,7 +130,10 @@ this file; exits non-zero (printing no result) without them.  Phases:
 A mesh kernel's bound counts the operations of its walks from the plain
 version's own results: each traced ray's box tests and the 64 triangle
 tests of every cluster its final bound reaches (``_walk_ops``: the closest
-hit and every shadow and NEE ray of the fused kernels).  Phases 5, 10, 14
+hit and every shadow and NEE ray of the fused kernels).  A mesh
+fused_frame's bytes are those the call needs (``frame_bytes``): the whole
+path state of a lane that runs a bounce, the planes a dead lane copies
+through, and the table rows its plain walks open.  Phases 5, 10, 14
 and 18 print each mesh form's registers, spill bytes, shared memory per
 block and blocks per SM at their tables.
 
@@ -843,13 +854,15 @@ def _mesh_inputs(torch, dev):
     return cfg, scene, default_lights(dev), cam.rays(dev)
 
 
-def _cluster_trace_ops(torch, scene, o, d, tmin, tmax, t_end, blocked=None):
+def _cluster_trace_ops(torch, scene, o, d, tmin, tmax, t_end, blocked=None,
+                       opened=None):
     """The operations the resident tracer needs on these rays, counted from
     the plain version's result: every lane with a non-empty interval
     slab-tests every real cluster box (~24 flops) and every sphere (~20),
     and runs the 64 Moller-Trumbore tests (~40 flops each) of every cluster
     box its final bound min(tmax, t_end) still reaches.  A blocked any-hit
-    lane counts one test."""
+    lane counts one test.  With `opened` (see ``_walk_ops``), marks the
+    clusters those tests open."""
     from spt_tpu_torch.ops import cuda_trace as ct
     from spt_tpu_torch.ops.vec3 import Vec3
 
@@ -869,7 +882,10 @@ def _cluster_trace_ops(torch, scene, o, d, tmin, tmax, t_end, blocked=None):
         tn, tf = ct._slab(lo, hi, Vec3(*(c[sl] for c in o)),
                           Vec3(*(ct._inv_dir(c[sl]) for c in d)), tmin,
                           bound[sl])
-        ops += float(((tn <= tf) & live[sl][None]).sum()) * a.cluster_size * 40
+        hit = (tn <= tf) & live[sl][None]
+        ops += float(hit.sum()) * a.cluster_size * 40
+        _mark(torch, opened, "clusters", a.num_clusters,
+              torch.nonzero(real).flatten()[hit.any(1)])
     if blocked is not None:
         ops += 20.0 * int((blocked & (tmax > tmin)).sum())
     return ops
@@ -891,34 +907,70 @@ def _brute_trace_ops(torch, scene, o, d, tmin, tmax, t_end, blocked=None):
             + 30.0 * int((live & blocked).sum()))
 
 
-def _walk_ops(torch, scene, plain):
+def _walk_ops(torch, scene, plain, touched=None):
     """(plain(), operations): runs the plain version of a fused kernel and
     counts, from the plain tracers' own results, the operations of every
     walk the kernel's tracer makes on the scene: each live lane's closest
     hit to its final t and each shadow or NEE ray that shade_core traces
-    (intersect_v / occluded_v)."""
+    (intersect_v / occluded_v).  A mesh scene's `touched`, a dict, gets
+    boolean masks of the table rows those walks and the texture sampler
+    open: "clusters" (over the tri_pack clusters), "supers" (stream) and
+    "texels" (over the texture table's rows)."""
+    from spt_tpu_torch.integrators import transport
     from spt_tpu_torch.ops import cuda_bounce
     from spt_tpu_torch.ops import intersect as isect
 
     trace_ops = {None: _brute_trace_ops, "resident": _cluster_trace_ops,
                  "instanced": _inst_trace_ops,
                  "stream": _stream_trace_ops}[cuda_bounce._accel_mode(scene)]
+    extra = {} if touched is None else {"opened": touched}
+    targets = [(isect, "intersect_v"), (isect, "occluded_v")]
+    if touched is not None:
+        targets.append((transport, "sample_texture_v"))
 
-    with capture_calls([(isect, "intersect_v"), (isect, "occluded_v")],
-                       results=True) as calls:
+    with capture_calls(targets, results=True) as calls:
         out = plain()
     ops = 0.0
     for name, args, kw, res in calls:
+        if name == "sample_texture_v":
+            _mark_texels(torch, touched, *args)
+            continue
         _, o, d = args
         tmin, tmax = kw["tmin"], kw["tmax"]
         if name == "intersect_v":
-            ops += trace_ops(torch, scene, o, d, tmin, tmax, res.t)
+            ops += trace_ops(torch, scene, o, d, tmin, tmax, res.t, **extra)
         else:
             t_end = torch.as_tensor(tmax, device=o.x.device,
                                     dtype=torch.float32)
             ops += trace_ops(torch, scene, o, d, tmin, tmax, t_end,
-                             blocked=res)
+                             blocked=res, **extra)
     return out, ops
+
+
+def _mark(torch, touched, key, size, ids):
+    """Set `ids` in touched[key], a (size,) boolean mask made on first use;
+    nothing when `touched` is None."""
+    if touched is None:
+        return
+    if key not in touched:
+        touched[key] = torch.zeros(size, dtype=torch.bool, device=ids.device)
+    touched[key][ids] = True
+
+
+def _mark_texels(torch, touched, textures, tex_id, uvx, uvy):
+    """Mark in touched["texels"] the texture table rows the four taps of
+    sample_texture_v read on the lanes that sample (tex_id >= 0)."""
+    from spt_tpu_torch.integrators import transport
+    from spt_tpu_torch.materials import tex_res_of
+
+    res = tex_res_of(textures)
+    has = tex_id >= 0
+    (x0, x1, y0, y1), _ = transport._bilinear_setup(uvx[has], uvy[has], res)
+    base = tex_id[has].to(torch.int64) * (res * res)
+    for xi in (x0, x1):
+        for yi in (y0, y1):
+            _mark(torch, touched, "texels", textures.shape[0] * res * res,
+                  base + (yi * res + xi).to(torch.int64))
 
 
 @contextlib.contextmanager
@@ -1089,6 +1141,187 @@ def _same_bits(torch, a, b) -> bool:
             a.element_size()])
         b = b.view(a.dtype)
     return torch.equal(a, b)
+
+
+# Lanes a mesh fused_frame has to get right beside its main path's calls,
+# each from bounce 3 of a full-width primary state: every lane dead; 2 % of
+# the lanes alive at random positions (unsorted); the same lanes less 77, a
+# count that is no multiple of 32 or 128; and as many lanes alive at random
+# positions as make each warp of the launched grid take 3, then 20, lanes
+# at once (csrc/fused_frame.cu: uneven groups of twins; fewer twins than
+# paths, so some paths walk without one).
+FRAME_EDGES = ("all_dead", "scattered", "ragged", "take3", "take20")
+
+# Warps a block of a mesh fused_frame (csrc/fused_frame.cu kBlock / 32).
+FRAME_BLOCK_WARPS = 4
+
+# Bytes of fused_frame's path state: a lane that runs a bounce reads 12
+# float planes, the int64 RNG word and two byte flags and writes 9 float
+# planes and the missed byte; a lane that does not reads its direction,
+# throughput and radiance planes and its alive byte and writes them and
+# missed.
+FRAME_LANE_BYTES = 58 + 37
+FRAME_DEAD_LANE_BYTES = 37 + 37
+
+
+def frame_grid(torch, cfg, scene, lights, ps) -> int:
+    """Blocks a mesh fused_frame launches on the lanes of `ps`, as the
+    kernel reports them on a call where every lane is dead."""
+    from spt_tpu_torch.ops import cuda_bounce
+
+    dead = ps._replace(alive=torch.zeros_like(ps.alive))
+    return frame_counters(torch, cuda_bounce.fused_frame(
+        cfg, scene, lights, dead, cfg.max_depth - 1)[4])[1]
+
+
+def frame_edge(torch, np, case, ps, grid=None):
+    """(PathState, start_bounce) of one of FRAME_EDGES from the primary
+    state `ps`; the take cases need the `grid` the kernel launches on these
+    lanes (frame_grid)."""
+    if case == "all_dead":
+        return ps._replace(alive=torch.zeros_like(ps.alive)), 3
+    n = ps.num_paths
+    g = np.random.default_rng(19)
+    if case.startswith("take"):
+        warps = grid * FRAME_BLOCK_WARPS
+        live = warps * (int(case[4:]) - 1) + warps // 2
+        if live > n:
+            raise ValueError(f"{case}: {live} live lanes > {n}")
+        keep = np.zeros(n, dtype=bool)
+        keep[g.permutation(n)[:live]] = True
+    else:
+        keep = g.random(n) < 0.02
+    ps = ps._replace(alive=torch.from_numpy(keep).to(ps.alive.device))
+    if case == "scattered" or case.startswith("take"):
+        return ps, 3
+    if case != "ragged":
+        raise ValueError(f"unknown fused_frame case {case!r}")
+    m = n - 77
+    return type(ps)(*(type(f)(*(c[:m].contiguous() for c in f))
+                      if isinstance(f, tuple) else f[:m].contiguous()
+                      for f in ps)), 3
+
+
+def frame_bytes(torch, cfg, scene, lights, ps, start, touched) -> dict:
+    """The bytes a mesh fused_frame call must move, by part: the path
+    state (FRAME_LANE_BYTES a lane that runs a bounce, FRAME_DEAD_LANE_BYTES
+    one that does not), the shared tables once, and the table rows the
+    plain walks and sampler opened (`touched`, from _walk_ops): each opened
+    cluster's tri_pack rows, each opened super's cluster boxes and one
+    octant's visit order (stream), each texture row read."""
+    from spt_tpu_torch.ops import cuda_bounce, cuda_trace
+
+    mode = cuda_bounce._accel_mode(scene)
+    runs = int(ps.alive.sum()) if start < cfg.max_depth else 0
+    src = scene.inst if mode == "instanced" else scene.accel
+    nee_on = cfg.nee and scene.emitters is not None
+    out = {"lanes": runs * FRAME_LANE_BYTES
+           + (ps.num_paths - runs) * FRAME_DEAD_LANE_BYTES,
+           "tables": 4 * cuda_bounce._pack_tables(scene, lights, nee_on,
+                                                  mode).numel()}
+    def opened(key):
+        return int(touched[key].sum()) if key in touched else 0
+
+    out["clusters"] = opened("clusters") * src.tri_pack[0].numel() * 4
+    if mode == "stream":
+        cbox, corder = cuda_trace.stream_globals(scene.accel)
+        out["supers"] = opened("supers") * 16 * (cbox[0].numel() * 4
+                                                 + corder.element_size())
+    if scene.textures is not None:
+        out["texels"] = opened("texels") * scene.textures[0, 0].numel() * 4
+    return out
+
+
+def frame_bits_equal(torch, k, p) -> dict:
+    """{plane: equal bit for bit} of two fused_frame results; missed must
+    be bool and the rays per bounce int64 on both sides."""
+    names = ("radiance", "direction", "throughput")
+    out = {name: all(_same_bits(torch, x, y) for x, y in zip(a, b))
+           for name, a, b in zip(names, k[:3], p[:3])}
+    out["missed"] = (k[3].dtype == p[3].dtype == torch.bool
+                     and torch.equal(k[3], p[3]))
+    out["rays"] = (k[4].dtype == p[4].dtype == torch.int64
+                   and torch.equal(k[4], p[4]))
+    return out
+
+
+def frame_counters(torch, rays):
+    """(lanes queued, blocks launched) of the fused_frame launch whose rays
+    per bounce are `rays`: the counters the kernel keeps after them in the
+    same buffer (csrc/fused_frame.cu FrameIO.counts; 0 in the small form)."""
+    full = rays.as_strided((rays.untyped_storage().nbytes() // 8,), (1,), 0)
+    return int(full[-2]), int(full[-1])
+
+
+def frame_take(torch, rays) -> int:
+    """Lanes each warp took from the queue at once in the mesh fused_frame
+    launch whose rays per bounce are `rays`: the kernel's rule on its
+    counters, live / (warps in the grid) rounded up, at most 32."""
+    queued, blocks = frame_counters(torch, rays)
+    return min(32, -(-queued // (blocks * FRAME_BLOCK_WARPS))) if blocks else 0
+
+
+def check_frame(torch, phase, what, args, kw, with_bound=False,
+                expect_take=None):
+    """A fused_frame call against its plain version on the card: every
+    plane bit for bit, missed as bool and the rays per bounce exact, and
+    the kernel's queue holding every live lane.  Logs the live lanes, the
+    blocks the kernel launched and the lanes each warp took at once, which
+    must be `expect_take` where that is given.  Returns (max |d|, the
+    call's bound when `with_bound` else None: the operations of its walks
+    and the bytes of frame_bytes, the plain version's ms)."""
+    from spt_tpu_torch.ops import cuda_bounce
+
+    ps = args[3]
+    start = kw.get("start_bounce", args[4] if len(args) > 4 else 0)
+    fk = cuda_bounce.fused_frame(*args, **kw)
+    queued, blocks = frame_counters(torch, fk[4])
+    plain = lambda: _timed(  # noqa: E731
+        torch, lambda: cuda_bounce.fused_frame_reference(*args, **kw))
+    b = None
+    if with_bound:
+        touched = {}
+        (fp, plain_ms), n_ops = _walk_ops(torch, args[1], plain, touched)
+        parts = frame_bytes(torch, *args[:4], start, touched)
+        b = bound(sum(parts.values()), n_ops)
+        log(f"phase {phase} {what} from bounce {start}: bound {b[0]:.4f} ms "
+            f"({b[1]}; bytes {sum(parts.values())}: " + ", ".join(
+                f"{k} {v}" for k, v in parts.items()) + f"; {ops_note(n_ops)})")
+    else:
+        fp, plain_ms = plain()
+    rk, rp = fk[4].tolist(), fp[4].tolist()
+    alive = int(ps.alive.sum()) if start < args[0].max_depth else 0
+    take = frame_take(torch, fk[4])
+    worst = check_planes(
+        torch, f"{what} from bounce {start} ({ps.num_paths} lanes, "
+        f"{int(ps.alive.sum())} alive; the kernel queued {queued} lanes on "
+        f"{blocks} blocks, {take} a warp at once); rays_per_bounce kernel "
+        f"{rk} plain {rp}",
+        {"radiance": (_v(torch, fk[0]), _v(torch, fp[0])),
+         "direction": (_v(torch, fk[1]), _v(torch, fp[1])),
+         "throughput": (_v(torch, fk[2]), _v(torch, fp[2])),
+         "missed": (fk[3], fp[3])}, phase=phase,
+        exact=("radiance", "direction", "throughput", "missed"))
+    if (rk != rp or fk[4].dtype != torch.int64 or fk[3].dtype != torch.bool
+            or queued != alive):
+        raise AssertionError(
+            f"{what}: rays_per_bounce {rk} ({fk[4].dtype}) against plain "
+            f"{rp}, missed {fk[3].dtype}, {queued} lanes queued of {alive} "
+            "alive")
+    if expect_take is not None and take != expect_take:
+        raise AssertionError(f"{what}: the warps took {take} lanes at once, "
+                             f"not {expect_take}")
+    return worst, b, plain_ms
+
+
+def check_frame_edges(torch, np, phase, what, cfg, scene, lights, ps):
+    """check_frame on each of FRAME_EDGES from the primary state `ps`."""
+    grid = frame_grid(torch, cfg, scene, lights, ps)
+    for case in FRAME_EDGES:
+        eps, start = frame_edge(torch, np, case, ps, grid)
+        check_frame(torch, phase, f"{what} {case}", (cfg, scene, lights, eps),
+                    {"start_bounce": start}, expect_take=(
+                        int(case[4:]) if case.startswith("take") else None))
 
 
 def check_sort(torch, phase, what, key, ops, chunk) -> float:
@@ -1285,57 +1518,33 @@ def phase_mesh_kernels(torch, np, dev, smi):
         f"ms, bound {b[0]:.4f} ms ({b[1]}; {ops_note(flops / len(mine))}) "
         f"[{smi}]")
 
-    def check_frame(what, args, kw):
-        """fused_frame against its plain version: every plane per lane, and
-        rays_per_bounce within 0.1 %.  Returns (max |d|, the operations of
-        its walks)."""
-        fk = cuda_bounce.fused_frame(*args, **kw)
-        fp, ops = _walk_ops(torch, args[1],
-                            lambda: cuda_bounce.fused_frame_reference(*args, **kw))
-        rk, rp = fk[4].cpu().numpy(), fp[4].cpu().numpy()
-        ray_diff = float((abs(rk - rp) / rp.clip(min=1)).max())
-        worst_f = check_planes(
-            torch, f"{what}; rays_per_bounce kernel {rk.tolist()} plain "
-            f"{rp.tolist()}, max rel diff {ray_diff * 100:.4f} % (limit "
-            f"0.1 %)",
-            {"radiance": (_v(torch, fk[0]), _v(torch, fp[0])),
-             "direction": (_v(torch, fk[1]), _v(torch, fp[1])),
-             "throughput": (_v(torch, fk[2]), _v(torch, fp[2])),
-             "missed": (fk[3], fp[3])})
-        if ray_diff > 1e-3:
-            raise AssertionError(f"{what}: rays_per_bounce differ from the "
-                                 "plain version's")
-        return worst_f, ops
-
     mine = by_name["fused_frame"]
     if len(mine) != 1:
         raise AssertionError(f"the sorted frame called fused_frame "
                              f"{len(mine)} times")
     (args, kw), = mine
-    fps = args[3]
-    start = kw.get("start_bounce", args[4] if len(args) > 4 else 0)
-    worst_f, ops = check_frame(
-        f"fused_frame resident from bounce {start} ({fps.num_paths} lanes, "
-        f"{int(fps.alive.sum())} alive)", args, kw)
+    worst_f, b, _ = check_frame(torch, 5, "fused_frame resident", args, kw,
+                                with_bound=True)
     ms, plain_ms = _over_calls(torch, cuda_bounce.fused_frame, mine,
                                "fused_frame_kernel<1>",
                                cuda_bounce.fused_frame_reference, plain_iters=3)
-    b = bound(fps.num_paths * 26 * 4 + a.tri_pack.numel() * 4, ops)
     out["fused_frame_resident"] = dict(max_abs_err=worst_f, ms=ms,
                                        plain_ms=plain_ms, bound=b,
                                        library_ms=None)
     log(f"phase 5 fused_frame resident at the sorted frame's call: kernel "
         f"{ms:.4f} ms (device time), plain {plain_ms:.4f} ms, bound "
-        f"{b[0]:.4f} ms ({b[1]}; {ops_note(ops)}) [{smi}]")
+        f"{b[0]:.4f} ms ({b[1]}) [{smi}]")
 
     # the resident fused_frame over every bounce of all lanes: the route of
     # ray_sort=False and of lane counts the sort cannot take
-    check_frame(f"fused_frame resident from bounce 0 ({n} lanes)",
-                (cfg, scene, lights, ps0), {})
+    check_frame(torch, 5, "fused_frame resident", (cfg, scene, lights, ps0),
+                {})
     ms0 = kernel_device_ms(torch, lambda: cuda_bounce.fused_frame(
         cfg, scene, lights, ps0), "fused_frame_kernel<1>")
     log(f"phase 5 fused_frame resident from bounce 0 at {MW}x{MH} "
         f"d{cfg.max_depth}: kernel {ms0:.4f} ms (device time) [{smi}]")
+    check_frame_edges(torch, np, 5, "fused_frame resident", cfg, scene,
+                      lights, ps0)
 
     log_occupancy(5, smi, {
         "closest_hit": _trace_shared_bytes("closest_hit", a, scene),
@@ -1543,14 +1752,17 @@ def _check_inst_scene(scene):
                              "expected 'instanced' and textured")
 
 
-def _inst_trace_ops(torch, scene, o, d, tmin, tmax, t_end, blocked=None):
+def _inst_trace_ops(torch, scene, o, d, tmin, tmax, t_end, blocked=None,
+                    opened=None):
     """The operations the instanced tracer needs on these rays, counted from
     the plain version's result: every lane with a non-empty interval
     slab-tests every instance box (~24 flops) and every sphere (~20); for
     each instance it crosses within min(tmax, its final t) it slab-tests the
     mesh's real cluster boxes in object space (~24 flops each) and runs the
     64 Moller-Trumbore tests (~40 flops each) of every cluster box that
-    final bound still reaches.  A blocked any-hit lane counts one test."""
+    final bound still reaches.  A blocked any-hit lane counts one test.
+    With `opened` (see ``_walk_ops``), marks the BLAS clusters those tests
+    open."""
     from spt_tpu_torch.ops import cuda_trace as ct
     from spt_tpu_torch.ops.vec3 import Vec3
 
@@ -1577,13 +1789,16 @@ def _inst_trace_ops(torch, scene, o, d, tmin, tmax, t_end, blocked=None):
                            Vec3(*(c[lanes] for c in o)),
                            Vec3(*(c[lanes] for c in d)))
         iinv = Vec3(*(ct._inv_dir(c) for c in dd))
-        opened = 0
+        n_open = 0
         for c0 in range(0, real.numel(), 16):
             cl = real[c0:c0 + 16]
             cn, cf = ct._slab(ia.blas_lo[mesh, cl], ia.blas_hi[mesh, cl], oo,
                               iinv, tmin, bound[lanes])
-            opened += int((cn <= cf).sum())
-        ops += lanes.numel() * real.numel() * 24.0 + opened * k * 40.0
+            hit = cn <= cf
+            n_open += int(hit.sum())
+            _mark(torch, opened, "clusters", ia.num_meshes * ia.cmax,
+                  mesh * ia.cmax + cl[hit.any(1)])
+        ops += lanes.numel() * real.numel() * 24.0 + n_open * k * 40.0
     if blocked is not None:
         ops += 20.0 * int((blocked & (tmax > tmin)).sum())
     return ops
@@ -1705,43 +1920,23 @@ def phase_inst_kernels(torch, np, dev, smi):
         f"{plain_ms:.4f} ms, bound {b[0]:.4f} ms ({b[1]}; "
         f"{ops_note(flops / len(mine))}) [{smi}]")
 
-    def check_frame(what, args, kw):
-        """fused_frame against its plain version on every plane; returns
-        (max |d|, the operations of its walks)."""
-        fk = cuda_bounce.fused_frame(*args, **kw)
-        fp, ops = _walk_ops(torch, args[1],
-                            lambda: cuda_bounce.fused_frame_reference(*args, **kw))
-        rk, rp = fk[4].cpu().numpy(), fp[4].cpu().numpy()
-        if not np.array_equal(rk, rp):
-            raise AssertionError(f"{what}: rays_per_bounce kernel "
-                                 f"{rk.tolist()} plain {rp.tolist()}")
-        return check_planes(
-            torch, f"{what}; rays_per_bounce {rk.tolist()} (= plain)",
-            {"radiance": (_v(torch, fk[0]), _v(torch, fp[0])),
-             "direction": (_v(torch, fk[1]), _v(torch, fp[1])),
-             "throughput": (_v(torch, fk[2]), _v(torch, fp[2])),
-             "missed": (fk[3], fp[3])}, phase=10, exact=("radiance",)), ops
-
     mine = by_name["fused_frame"]
     if len(mine) != 1:
         raise AssertionError(f"the instanced sorted frame called fused_frame "
                              f"{len(mine)} times")
     (args, kw), = mine
-    fps = args[3]
-    worst, ops = check_frame(
-        f"fused_frame instanced from bounce {kw.get('start_bounce')} "
-        f"({fps.num_paths} lanes, {int(fps.alive.sum())} alive)", args, kw)
+    worst, b, _ = check_frame(torch, 10, "fused_frame instanced", args, kw,
+                              with_bound=True)
     ms, plain_ms = _over_calls(torch, cuda_bounce.fused_frame, mine,
                                "fused_frame_kernel<2>",
                                cuda_bounce.fused_frame_reference,
                                plain_iters=1)
-    b = bound(fps.num_paths * 26 * 4 + pack_bytes + tex_bytes, ops)
     out["fused_frame_instanced"] = dict(max_abs_err=worst, ms=ms,
                                         plain_ms=plain_ms, bound=b,
                                         library_ms=None)
     log(f"phase 10 fused_frame instanced at the sorted frame's call: kernel "
         f"{ms:.4f} ms (device time), plain {plain_ms:.4f} ms, bound "
-        f"{b[0]:.4f} ms ({b[1]}; {ops_note(ops)}) [{smi}]")
+        f"{b[0]:.4f} ms ({b[1]}) [{smi}]")
     log_occupancy(10, smi, {
         "closest_hit_inst": _trace_shared_bytes("inst_closest_hit", ia, scene),
         "any_hit_inst": _trace_shared_bytes("inst_any_hit", ia, scene),
@@ -1749,8 +1944,8 @@ def phase_inst_kernels(torch, np, dev, smi):
         "fused_frame_instanced": cuda_bounce.shared_bytes(*args[:3])})
     # the sampler's share of that launch: the same call without the table
     bare = (args[0], args[1]._replace(textures=None)) + tuple(args[2:])
-    check_frame("fused_frame instanced on the same call without the "
-                "texture table", bare, kw)
+    check_frame(torch, 10, "fused_frame instanced on the same call without "
+                "the texture table", bare, kw)
     bare_ms = kernel_device_ms(torch, lambda: cuda_bounce.fused_frame(
         *bare, **kw), "fused_frame_kernel<2>")
     out["texture_sampler"] = dict(out["fused_frame_instanced"],
@@ -1762,9 +1957,14 @@ def phase_inst_kernels(torch, np, dev, smi):
     # the instanced fused_frame over every bounce of all lanes (ray_sort off)
     cfg, lights = r.cfg, default_lights(dev)
     ps0 = transport.gen_primary(cfg, r.camera.rays(dev), 0)
-    check_frame(f"fused_frame instanced from bounce 0 "
-                f"({cfg.width * cfg.height} lanes)",
-                (cfg, scene, lights, ps0), {})
+    check_frame(torch, 10, "fused_frame instanced", (cfg, scene, lights, ps0),
+                {})
+    ms0 = kernel_device_ms(torch, lambda: cuda_bounce.fused_frame(
+        cfg, scene, lights, ps0), "fused_frame_kernel<2>")
+    log(f"phase 10 fused_frame instanced from bounce 0 at {MW}x{MH} "
+        f"d{cfg.max_depth}: kernel {ms0:.4f} ms (device time) [{smi}]")
+    check_frame_edges(torch, np, 10, "fused_frame instanced", cfg, scene,
+                      lights, ps0)
 
     # --- K6 in the resident and small forms: the textured mesh scene ---
     desc, mcfg, mcam = port_mesh_scene()
@@ -1779,8 +1979,7 @@ def phase_inst_kernels(torch, np, dev, smi):
             or mscene.textures is None):
         raise AssertionError("textured mesh scene not resident and textured")
     mps = transport.gen_primary(mcfg, mcam.rays(dev), 0)
-    check_frame(f"fused_frame resident textured from bounce 0 "
-                f"({mcfg.width * mcfg.height} lanes)",
+    check_frame(torch, 10, "fused_frame resident textured",
                 (mcfg, mscene, lights, mps), {})
     ks, km = cuda_bounce.fused_bounce(mcfg, mscene, lights, mps, 0, False)
     ps_, pm = cuda_bounce.fused_bounce_reference(mcfg, mscene, lights, mps, 0,
@@ -1919,14 +2118,17 @@ def _check_stream_scene(scene):
                              "'stream', not instanced, textured")
 
 
-def _stream_trace_ops(torch, scene, o, d, tmin, tmax, t_end, blocked=None):
+def _stream_trace_ops(torch, scene, o, d, tmin, tmax, t_end, blocked=None,
+                      opened=None):
     """The operations the stream tracer needs on these rays, counted from
     the plain version's result: every lane with a non-empty interval
     slab-tests every real supercluster box (~24 flops) and every sphere
     (~20); for each super its final bound min(tmax, t_end) still reaches it
     slab-tests that super's real cluster boxes (~24 flops each), and for
     each cluster box that bound reaches it runs the 64 Moller-Trumbore
-    tests (~40 flops each).  A blocked any-hit lane counts one test."""
+    tests (~40 flops each).  A blocked any-hit lane counts one test.  With
+    `opened` (see ``_walk_ops``), marks the supers and the clusters those
+    tests open."""
     from spt_tpu_torch.ops import cuda_trace as ct
     from spt_tpu_torch.ops.vec3 import Vec3
 
@@ -1944,19 +2146,24 @@ def _stream_trace_ops(torch, scene, o, d, tmin, tmax, t_end, blocked=None):
     per_super = real_c[real_s].sum(1).to(torch.float32)
     ops = float(live.sum()) * (int(real_s.sum()) * 24 + scene.num_spheres * 20)
     clo, chi = a.cluster_lo.reshape(-1, 16, 3), a.cluster_hi.reshape(-1, 16, 3)
+    sup_ids = torch.nonzero(real_s).flatten()
+    fan = torch.arange(16, device=sup_ids.device)
     for s0 in range(0, n, 16384):
         sl = slice(s0, min(n, s0 + 16384))
         oo = Vec3(*(c[sl] for c in o))
         inv = Vec3(*(ct._inv_dir(c[sl]) for c in d))
         b = bound[sl]
         tn, tf = ct._slab(slo, shi, oo, inv, tmin, b)
-        opened = (tn <= tf) & live[sl][None]                      # (G', L)
-        ops += float((opened.to(torch.float32) * per_super[:, None]).sum()) * 24
+        opened_s = (tn <= tf) & live[sl][None]                    # (G', L)
+        ops += float((opened_s.to(torch.float32) * per_super[:, None]).sum()) * 24
         cn, cf = ct._slab(clo[real_s].reshape(-1, 3), chi[real_s].reshape(-1, 3),
                           oo, inv, tmin, b)
         hit_c = ((cn <= cf).reshape(-1, 16, cn.shape[-1])
-                 & real_c[real_s][..., None] & opened[:, None, :])
+                 & real_c[real_s][..., None] & opened_s[:, None, :])
         ops += float(hit_c.sum()) * a.cluster_size * 40
+        _mark(torch, opened, "supers", real_s.shape[0], sup_ids[opened_s.any(1)])
+        _mark(torch, opened, "clusters", a.num_clusters,
+              (sup_ids[:, None] * 16 + fan)[hit_c.any(-1)])
     if blocked is not None:
         ops += 20.0 * int((blocked & (tmax > tmin)).sum())
     return ops
@@ -1982,6 +2189,7 @@ def phase_stream_kernels(torch, np, dev, smi):
     returned plane per lane, where their times and bounds are taken (the
     plain time is that of the checking call).  Returns the kernel-line
     numbers."""
+    from spt_tpu_torch.integrators import transport
     from spt_tpu_torch.ops import cuda_bounce, cuda_sort, cuda_trace
 
     out = {}
@@ -2095,36 +2303,31 @@ def phase_stream_kernels(torch, np, dev, smi):
         raise AssertionError(f"the stream sorted frame called fused_frame "
                              f"{len(mine)} times")
     (args, kw), = mine
-    fps = args[3]
-    fk = cuda_bounce.fused_frame(*args, **kw)
-    (fp, plain_ms), ops = _walk_ops(torch, scene, lambda: _timed(
-        torch, lambda: cuda_bounce.fused_frame_reference(*args, **kw)))
-    rk, rp = fk[4].cpu().numpy(), fp[4].cpu().numpy()
-    if not np.array_equal(rk, rp):
-        raise AssertionError(f"fused_frame stream: rays_per_bounce kernel "
-                             f"{rk.tolist()} plain {rp.tolist()}")
-    worst = check_planes(
-        torch, f"fused_frame stream from bounce {kw.get('start_bounce')} "
-        f"({fps.num_paths} lanes, {int(fps.alive.sum())} alive); "
-        f"rays_per_bounce {rk.tolist()} (= plain)",
-        {"radiance": (_v(torch, fk[0]), _v(torch, fp[0])),
-         "direction": (_v(torch, fk[1]), _v(torch, fp[1])),
-         "throughput": (_v(torch, fk[2]), _v(torch, fp[2])),
-         "missed": (fk[3], fp[3])}, phase=14, exact=("radiance",))
+    worst, b, plain_ms = check_frame(torch, 14, "fused_frame stream", args,
+                                     kw, with_bound=True)
     ms = kernel_device_ms(torch, lambda: cuda_bounce.fused_frame(*args, **kw),
                           "fused_frame_kernel<3>")
-    b = bound(fps.num_paths * 26 * 4 + pack_bytes + tex_bytes, ops)
     out["fused_frame_stream"] = dict(max_abs_err=worst, ms=ms,
                                      plain_ms=plain_ms, bound=b,
                                      library_ms=None)
     log(f"phase 14 fused_frame stream at the sorted frame's call: kernel "
         f"{ms:.4f} ms (device time), plain {plain_ms:.4f} ms, bound "
-        f"{b[0]:.4f} ms ({b[1]}; {ops_note(ops)}) [{smi}]")
+        f"{b[0]:.4f} ms ({b[1]}) [{smi}]")
     log_occupancy(14, smi, {
         "closest_hit_stream": _trace_shared_bytes("stream_closest_hit", a, scene),
         "any_hit_stream": _trace_shared_bytes("stream_any_hit", a, scene),
         "fused_bounce_stream": cuda_bounce.shared_bytes(*args[:3]),
         "fused_frame_stream": cuda_bounce.shared_bytes(*args[:3])})
+    # the stream fused_frame over every bounce of all lanes (ray_sort off)
+    cfg, lights = r.cfg, args[2]
+    ps0 = transport.gen_primary(cfg, r.camera.rays(dev), 0)
+    check_frame(torch, 14, "fused_frame stream", (cfg, scene, lights, ps0), {})
+    ms0 = kernel_device_ms(torch, lambda: cuda_bounce.fused_frame(
+        cfg, scene, lights, ps0), "fused_frame_kernel<3>")
+    log(f"phase 14 fused_frame stream from bounce 0 at {MW}x{MH} "
+        f"d{cfg.max_depth}: kernel {ms0:.4f} ms (device time) [{smi}]")
+    check_frame_edges(torch, np, 14, "fused_frame stream", cfg, scene, lights,
+                      ps0)
     out["sort_chunks"] = sort_at_calls(torch, 14, "the stream sorted frame's",
                                        by_name["sort_chunks"], smi)
     return out

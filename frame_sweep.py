@@ -1,39 +1,56 @@
 #!/usr/bin/env python3
-"""Time the small-scene fused_frame (K1 small) and the equirect sampler (K2)
-on one CUDA card, beside variants of K1 small and another checkout's
-kernels.
+"""Time fused_frame (K1, its small and mesh forms) and the equirect sampler
+(K2) on one CUDA card, beside variants of the kernels' constants and
+another checkout's kernels.
 
-    python3 frame_sweep.py [--variants NAME:kConst=V[+kConst=V]/...]
-                           [--other DIR] [--frames 16]
+    python3 frame_sweep.py [--part all|small|mesh]
+                           [--variants NAME:kConst=V[+kConst=V]/...]
+                           [--other DIR] [--frames 16] [--pairs 1]
 
 Builds the port's kernels as committed and, for each variant, with the
 named ``constexpr int`` constants of ``spt_tpu_torch/csrc`` (each defined
 once in one source) set to the values given
-(``--variants b256:kSmallBlock=256/r8:kRefillMin=8``).
+(``--variants b256:kSmallBlock=256/m3:kFrameMinBlocks=3``).
 With ``--other``, it also loads ``DIR``'s kernels through ``DIR``'s own
 wrappers (``DIR/spt_tpu_torch/ops/cuda_lib.py``, ``cuda_bounce.py`` and
 ``cuda_env.py``; another commit's checkout, e.g. ``git archive`` of the
 parent unpacked in an ignored directory), so a kernel whose C interface
-changed is timed beside its predecessor.  On the three small-scene configs
-at 1920x1080 (``chip_smoke.workload``: default depth 6, cornell depth 8, hdr
-depth 6, from bounce 0 of sample 0's primary rays) and at the hdr frame's
-``env_sample`` call it holds every build's outputs to the committed
-build's, bit for bit, and times every build in turns, forward then backward:
-fused_frame's kernel by torch.profiler device time per launch and its
-wrapper by CUDA events around whole calls, env_sample by CUDA events behind
-a spin kernel.  Last, each build's wrappers render default 1920x1080 depth
-6 through ``Renderer.render_frames``: ms/frame (CUDA events) and device
-launches per frame (torch.profiler).  Needs ``nvcc`` and one card; prints
-the card's name and power limit with every time.  ``--depth1`` adds
-default at depth 1 (bounce 0 alone) to the fused_frame timings;
-``--notrig`` adds a build of the sampler with its atan2f and acosf replaced
-by a subtraction, timed only, for what the exact trigonometry costs.  The
-builds are made by ``sweep_builds.py``.
+changed is timed beside its predecessor.  Every build's outputs are held
+to the committed build's, bit for bit, and every build is timed in turns,
+forward then backward.
+
+The small part (``--part small``): K1 small on the three small-scene
+configs at 1920x1080 (``chip_smoke.workload``: default depth 6, cornell
+depth 8, hdr depth 6, from bounce 0 of sample 0's primary rays) by
+torch.profiler device time per launch and its wrapper by CUDA events
+around whole calls; env_sample at the hdr frame's call by CUDA events
+behind a spin kernel; last, default 1920x1080 depth 6 through each build's
+wrappers and ``Renderer.render_frames``: ms/frame (CUDA events) and device
+launches per frame (torch.profiler).  ``--depth1`` adds default at depth 1
+(bounce 0 alone); ``--notrig`` adds a build of the sampler with its atan2f
+and acosf replaced by a subtraction, timed only, for what the exact
+trigonometry costs.
+
+The mesh part (``--part mesh``): K1's resident, instanced and stream forms
+on the three mesh scenes of ``chip_smoke.py`` at 512x384 depth 4
+(``port_mesh_scene``, ``port_inst_scene``, ``port_stream_scene``), at the
+inputs of the sorted frame's fused_frame call (recorded from one frame)
+and at sample 0's bounce-0 state (the unsorted route), by torch.profiler
+device time per launch, with the live lanes of each call and each build's
+registers, spill and blocks per SM; then each scene's frame, sorted and
+unsorted, through the committed build's and ``--other``'s fused_frame:
+the image against the committed build's bit for bit, ms/frame (CUDA
+events; ``--pairs`` rounds of the builds in turns, with each build's
+median and range), device busy and launches per frame (torch.profiler).
+
+Needs ``nvcc`` and one card; prints the card's name and power limit with
+every time.  The builds are made by ``sweep_builds.py``.
 """
 
 from __future__ import annotations
 
 import argparse
+import statistics
 import sys
 from pathlib import Path
 
@@ -53,6 +70,12 @@ def main() -> int:
     ap.add_argument("--other", default=None,
                     help="a checkout whose kernels and wrappers to time beside")
     ap.add_argument("--frames", type=int, default=16)
+    ap.add_argument("--part", choices=("all", "small", "mesh"), default="all",
+                    help="the small forms (K1 small, K2), K1's mesh forms, "
+                         "or both")
+    ap.add_argument("--pairs", type=int, default=1,
+                    help="rounds of the mesh frames through each build, in "
+                         "turns forward then backward")
     ap.add_argument("--notrig", action="store_true",
                     help="also time the sampler without its trigonometry "
                          "(wrong results, timed only)")
@@ -78,7 +101,9 @@ def main() -> int:
     made = sweep_builds.Builds(cuda_lib, "frame_sweep", cs.log)
 
     def note(cl):
-        return f"K1 small {cl.kernel_info()['fused_frame']}"
+        info = cl.kernel_info()
+        return "; ".join(f"{k} {info[k]}" for k in info if k.startswith(
+            "fused_frame"))
 
     made.load("committed", note=note)
     for name, subs in sweep_builds.parse_consts(args.variants):
@@ -86,15 +111,16 @@ def main() -> int:
     if args.notrig:
         made.variant("notrig", [sweep_builds.literal(*p) for p in NOTRIG])
     # name -> (cuda_bounce module, cuda_env module, K1 small's kernel name in
-    # a trace); the builds of this checkout share its wrappers
-    builds = {name: (cuda_bounce, cuda_env, cuda_bounce.SMALL_KERNEL)
+    # a trace, cuda_lib module); the builds of this checkout share its
+    # wrappers
+    builds = {name: (cuda_bounce, cuda_env, cuda_bounce.SMALL_KERNEL, cuda_lib)
               for name in made.libs}
     if args.other:
         o = made.load_other(Path(args.other).resolve(),
                             ("cuda_lib", "cuda_bounce", "cuda_env"), note=note)
         builds["other"] = (o["cuda_bounce"], o["cuda_env"],
                            getattr(o["cuda_bounce"], "SMALL_KERNEL",
-                                   "fused_frame_kernel<0>"))
+                                   "fused_frame_kernel<0>"), o["cuda_lib"])
     names = list(builds)
 
     def use(name):
@@ -108,6 +134,13 @@ def main() -> int:
         return len(a) == len(b) and all(
             x.dtype == y.dtype and cs._same_bits(torch, x, y) for x, y in zip(a, b))
 
+    if args.part in ("all", "mesh"):
+        if mesh_part(args, torch, cs, names, use, same, smi):
+            return 1
+    if args.part == "mesh":
+        cs.log("frame_sweep done")
+        return 0
+
     # K1 small from bounce 0 at each config's primary rays
     use("committed")
     hdr_env_call = None
@@ -120,7 +153,7 @@ def main() -> int:
         ps = transport.gen_primary(cfg, cam.rays(dev), 0)
         outs = {}
         for v in names:
-            b, _, _ = use(v)
+            b = use(v)[0]
             outs[v] = b.fused_frame(cfg, scene, lights, ps)
         torch.cuda.synchronize()
         off = [v for v in names if not same(outs[v], outs["committed"])]
@@ -131,7 +164,7 @@ def main() -> int:
             return 1
         kern, wrap = {v: [] for v in names}, {v: [] for v in names}
         for v in names + names[::-1]:
-            b, _, kname = use(v)
+            b, _, kname, _ = use(v)
             call = lambda: b.fused_frame(cfg, scene, lights, ps)
             kern[v].append(cs.kernel_device_ms(torch, call, kname, iters=10))
             wrap[v].append(cs.time_call(torch, call, warmup=3, iters=20))
@@ -158,13 +191,13 @@ def main() -> int:
              else flat_call for v in names}
     outs = {}
     for v in names:
-        _, e, _ = use(v)
+        e = use(v)[1]
         outs[v] = tuple(e.env_sample(*calls[v]))
     torch.cuda.synchronize()
     ok = all(same(outs[v], outs["committed"]) for v in names if v != "notrig")
     ms = {v: [] for v in names}
     for v in names + names[::-1]:
-        _, e, _ = use(v)
+        e = use(v)[1]
         ms[v].append(cs.queued_device_ms(torch, lambda: e.env_sample(*calls[v])))
     need = hdr_env_call[2]
     cs.log(f"hdr env_sample ({need.shape[0]} lanes, {int(need.sum())} need the "
@@ -179,7 +212,7 @@ def main() -> int:
     saved = cuda_bounce.fused_frame
     try:
         for v in names + names[::-1]:
-            b, _, _ = use(v)
+            b = use(v)[0]
             cuda_bounce.fused_frame = saved if b is cuda_bounce else b.fused_frame
             r = cs.renderer("default", cs.W, cs.H, dev)
             r.render_frames(2)
@@ -194,6 +227,117 @@ def main() -> int:
         cuda_bounce.fused_frame = saved
     cs.log("frame_sweep done")
     return 0
+
+
+# The mesh scenes: (label, chip_smoke renderer, accel mode, K1's kernel name)
+MESH = (("mesh", "mesh_renderer", "resident", "fused_frame_kernel<1>"),
+        ("instanced grid", "inst_renderer", "instanced", "fused_frame_kernel<2>"),
+        ("baked grid", "stream_renderer", "stream", "fused_frame_kernel<3>"))
+
+
+def mesh_part(args, torch, cs, names, use, same, smi) -> bool:
+    """K1's mesh forms at the sorted frame's call and from bounce 0, then
+    the frames, sorted and unsorted, through each build (see the module
+    docstring).  Returns whether a build's outputs differed."""
+    from spt_tpu_torch.integrators import transport
+    from spt_tpu_torch.ops import cuda_bounce
+
+    dev = torch.device("cuda", 0)
+    for label, make, mode, kname in MESH:
+        use("committed")
+        r = getattr(cs, make)(dev)
+        if cuda_bounce._accel_mode(r.scene) != mode:
+            raise RuntimeError(f"{label} in accel mode "
+                               f"{cuda_bounce._accel_mode(r.scene)}, not {mode}")
+        with cs.capture_calls([(cuda_bounce, "fused_frame")]) as calls:
+            r.render_frames(1)
+            torch.cuda.synchronize()
+        (_, sorted_args, sorted_kw), = calls
+        cfg, scene, lights = sorted_args[:3]
+        ps0 = transport.gen_primary(cfg, r.camera.rays(dev), 0)
+        inputs = {"sorted frame's call": (sorted_args, sorted_kw),
+                  "bounce 0": ((cfg, scene, lights, ps0), {})}
+        for what, (a, kw) in inputs.items():
+            outs = {}
+            for v in names:
+                outs[v] = use(v)[0].fused_frame(*a, **kw)
+            torch.cuda.synchronize()
+            off = [v for v in names if not same(outs[v], outs["committed"])]
+            ps = a[3]
+            cs.log(f"{label} K1 {mode} at the {what} (from bounce "
+                   f"{kw.get('start_bounce', 0)}, {ps.num_paths} lanes, "
+                   f"{int(ps.alive.sum())} alive): rays_per_bounce "
+                   f"{outs['committed'][4].tolist()}; builds not bit-equal to "
+                   f"the committed one: {off or 'none'}")
+            if off:
+                return True
+            ms = {v: [] for v in names}
+            for v in names + names[::-1]:
+                b = use(v)[0]
+                ms[v].append(cs.kernel_device_ms(
+                    torch, lambda: b.fused_frame(*a, **kw), kname, iters=10))
+            cs.log(f"{label} K1 {mode} at the {what}, kernel ms per launch "
+                   "forward/backward: " + ", ".join(
+                       f"{v} {t[0]:.4f}/{t[1]:.4f}" for v, t in ms.items())
+                   + f" [{smi}]")
+        occ = []
+        for v in names:
+            b, _, _, cl = use(v)
+            smem = b.shared_bytes(cfg, scene, lights)
+            info = cl.kernel_info({f"fused_frame_{mode}": smem})
+            occ.append(f"{v} {info[f'fused_frame_{mode}']}")
+        cs.log(f"{label} K1 {mode} occupancy: " + "; ".join(occ) + f" [{smi}]")
+        frame_builds = [v for v in names if v in ("committed", "other")]
+        if frames_with_each_build(args, torch, cs, frame_builds, use, smi,
+                                  label, make):
+            return True
+    return False
+
+
+def frames_with_each_build(args, torch, cs, names, use, smi, label,
+                           make) -> bool:
+    """The scene's frame, sorted and unsorted, through each build's
+    fused_frame: images against the committed build's, ms/frame, busy and
+    launches.  Returns whether an image differed."""
+    from spt_tpu_torch.ops import cuda_bounce
+
+    dev = torch.device("cuda", 0)
+    saved = cuda_bounce.fused_frame
+    try:
+        for route, kw in (("sorted", {}), ("unsorted", {"ray_sort": False})):
+            images, times = {}, {v: [] for v in names}
+            for v in (names + names[::-1]) * args.pairs:
+                b = use(v)[0]
+                cuda_bounce.fused_frame = (saved if b is cuda_bounce
+                                           else b.fused_frame)
+                r = getattr(cs, make)(dev, **kw)
+                r.render_frames(4)
+                img = r.hdr_image()
+                images.setdefault(v, img)
+                ms_f = cs.time_call(torch, lambda: r.render_frames(1),
+                                    warmup=1, iters=args.frames)
+                times[v].append(ms_f)
+                busy, launches = cs.device_busy_ms(torch,
+                                                   lambda: r.render_frames(1))
+                cs.log(f"{label} 512x384 d4 {route} frame with the {v} build: "
+                       f"{ms_f:.4f} ms/frame over {args.frames} frames, device "
+                       f"busy {busy:.4f} ms/frame over {launches:.1f} launches "
+                       f"(profiled) [{smi}]")
+            cs.log(f"{label} 512x384 d4 {route} ms/frame over "
+                   f"{2 * args.pairs} runs a build, median (min-max): "
+                   + ", ".join(f"{v} {statistics.median(t):.4f} "
+                               f"({min(t):.4f}-{max(t):.4f})"
+                               for v, t in times.items()) + f" [{smi}]")
+            ref = images["committed"]
+            off = [v for v in names
+                   if images[v].tobytes() != ref.tobytes()]
+            cs.log(f"{label} {route}: 4-frame images not bit-equal to the "
+                   f"committed build's: {off or 'none'}")
+            if off:
+                return True
+    finally:
+        cuda_bounce.fused_frame = saved
+    return False
 
 
 if __name__ == "__main__":

@@ -79,6 +79,12 @@
 // 128-padded triangle block HBM -> VMEM by DMA, double-buffered; the
 // staging copy is its counterpart here, one cluster at a time and not
 // overlapped.
+// When live rays are few (the sorted frame's last bounce), the fused_frame
+// kernel gives each ray several threads of a warp (twins): they walk it as
+// a group, testing a window of boxes at once and spreading the 64 tests of
+// each cluster it opens, and re-test each candidate box in visit order
+// against the current bound so that the group opens exactly the clusters
+// the lone walk opens.
 // Padding clusters (inverted boxes, degenerate triangles only) are skipped
 // without a test; the TPU's slab test flags them and opens triangles that
 // cannot hit.
@@ -496,6 +502,46 @@ __device__ inline void spread_cluster(unsigned m, unsigned voters,
   }
 }
 
+// The walk of one ray carried by a group of twins g (every twin holding the
+// walker's ray, bound and blocked flag): the group steps through the visit
+// order (ids base + ord[j], boxes at box + id * kBoxWords) |g| entries at a
+// time, each twin testing one entry's box against the bound at the window's
+// start, a superset of the boxes the lone walk opens since the bound only
+// falls; the candidates are then re-tested in order against the current
+// bound, exactly as the lone walk tests them, and visit(id) takes each that
+// passes (and keeps the bound and flag equal on every twin).  Any-hit stops
+// once `hit` is set.
+template <bool kAny, class Visit>
+__device__ inline void group_walk(unsigned g, const float* box, const uint16_t* ord, int n,
+                                  int base, V3 o, V3 inv, float tmin, float tmax,
+                                  const float& best, const bool& hit, Visit visit) {
+  const int rank = __popc(g & (lane_bit() - 1u));
+  const int size = __popc(g);
+  for (int j0 = 0; j0 < n; j0 += size) {
+    if (kAny && hit) return;
+    const int j = j0 + rank;
+    float b[kBoxWords] = {};
+    int id = 0;
+    bool cand = false;
+    if (j < n) {
+      id = base + ord[j];
+      for (int i = 0; i < kBoxWords; ++i) b[i] = box[id * kBoxWords + i];
+      cand = !(b[0] > b[3]) && box_hit(b, o, inv, tmin, kAny ? tmax : fminf(tmax, best));
+    }
+    unsigned cands = __ballot_sync(g, cand);
+    while (cands != 0u) {
+      const int src = __ffs(cands) - 1;
+      cands &= cands - 1u;
+      float bb[kBoxWords];
+      for (int i = 0; i < kBoxWords; ++i) bb[i] = __shfl_sync(g, b[i], src);
+      const int c = __shfl_sync(g, id, src);
+      if (!box_hit(bb, o, inv, tmin, kAny ? tmax : fminf(tmax, best))) continue;
+      visit(c);
+      if (kAny && hit) return;
+    }
+  }
+}
+
 // The cluster walk, warp-cooperative: the lanes m step through n clusters
 // together, each lane through its own visit order (ids ord[0..n), offset by
 // base), with its own ray.  A lane with `open` false votes no at every
@@ -508,12 +554,44 @@ __device__ inline void spread_cluster(unsigned m, unsigned voters,
 // kStageMin of them copy it into the staging buffer `rows` (when the walk
 // holds it) and each scans its rows there, a broadcast; fewer spread their
 // tests over the warp.
-template <bool kAny>
-__device__ inline void walk_clusters(unsigned m, bool open, float* rows, const float* box,
-                                     const uint16_t* ord, int n, int base,
+//
+// With kTwins, when every thread of m has a twin (walks below), each group
+// of twins walks its ray on its own instead (group_walk): the group tests a
+// window of boxes at once and spreads the tests of each cluster it opens.
+template <bool kAny, bool kTwins = false>
+__device__ inline void walk_clusters(unsigned m, unsigned twins, bool open, float* rows,
+                                     const float* box, const uint16_t* ord, int n, int base,
                                      const float* __restrict__ pack, int pack_w, int k, V3 o,
                                      V3 d, V3 inv, float tmin, float tmax, float& best,
                                      Winner& win, bool& hit) {
+  if constexpr (kTwins) {
+    if (__all_sync(m, __popc(twins) > 1)) {
+      const unsigned g = twins;
+      const int lead = __ffs(g) - 1;
+      if (__shfl_sync(g, static_cast<int>(open), lead) == 0) return;
+      // the walker's ray, visit order and bound on every twin (a twin of
+      // the instanced walk holds the world ray)
+      o = v3(__shfl_sync(g, o.x, lead), __shfl_sync(g, o.y, lead), __shfl_sync(g, o.z, lead));
+      d = v3(__shfl_sync(g, d.x, lead), __shfl_sync(g, d.y, lead), __shfl_sync(g, d.z, lead));
+      inv = v3(__shfl_sync(g, inv.x, lead), __shfl_sync(g, inv.y, lead),
+               __shfl_sync(g, inv.z, lead));
+      ord = reinterpret_cast<const uint16_t*>(
+          __shfl_sync(g, reinterpret_cast<unsigned long long>(ord), lead));
+      base = __shfl_sync(g, base, lead);
+      best = __shfl_sync(g, best, lead);
+      if constexpr (kAny) hit = __shfl_sync(g, static_cast<int>(hit), lead) != 0;
+      group_walk<kAny>(g, box, ord, n, base, o, inv, tmin, tmax, best, hit, [&](int c) {
+        spread_cluster<kAny>(g, 1u << lead, pack + static_cast<size_t>(c) * k * pack_w, pack_w,
+                             k, o, d, tmin, tmax, best, win, hit);
+        if constexpr (kAny) {
+          hit = __shfl_sync(g, static_cast<int>(hit), lead) != 0;
+        } else {
+          best = __shfl_sync(g, best, lead);
+        }
+      });
+      return;
+    }
+  }
   const bool can_stage = rows != nullptr && k <= kStageRows;
   for (int j = 0; j < n; ++j) {
     if constexpr (kAny) {
@@ -608,6 +686,51 @@ __device__ __forceinline__ int epilogue(int kind, V3 o, V3 d, float best, float 
   return kind;
 }
 
+// Twins (kTwins): threads of a warp that carry the same ray, named by
+// `ray`, walk it once: the lowest of them in m is its walker, and the
+// others help and then take its result (from_walker).  When every ray of
+// the warp has twins, each group walks on its own (group_walk: a window of
+// box tests at once, each opened cluster's tests spread over the group);
+// otherwise the twins take part in the warp's lockstep walk without voting.
+// The fused_frame kernel puts a few rays on each warp this way when live
+// lanes are few.  Without kTwins every thread walks its own ray.
+template <bool kTwins>
+__device__ __forceinline__ bool walks(unsigned m, int ray, unsigned& twins) {
+  if constexpr (!kTwins) {
+    twins = lane_bit();
+    return true;
+  } else {
+    twins = __match_any_sync(m, ray);
+    return (threadIdx.x & 31) == static_cast<unsigned>(__ffs(twins) - 1);
+  }
+}
+
+template <bool kTwins, class T>
+__device__ __forceinline__ T from_walker(unsigned m, unsigned twins, T x) {
+  if constexpr (!kTwins) {
+    return x;
+  } else {
+    return __shfl_sync(m, x, __ffs(twins) - 1);
+  }
+}
+
+// closest()'s results from the walker of each group of twins.
+template <bool kTwins>
+__device__ __forceinline__ int closest_from_walker(unsigned m, unsigned twins, int kind,
+                                                   float& t_out, int& mat, V3& normal,
+                                                   float& hu, float& hv) {
+  if constexpr (kTwins) {
+    t_out = from_walker<true>(m, twins, t_out);
+    mat = from_walker<true>(m, twins, mat);
+    normal = v3(from_walker<true>(m, twins, normal.x), from_walker<true>(m, twins, normal.y),
+                from_walker<true>(m, twins, normal.z));
+    hu = from_walker<true>(m, twins, hu);
+    hv = from_walker<true>(m, twins, hv);
+  }
+  return from_walker<kTwins>(m, twins, kind);
+}
+
+template <bool kTwins = false>
 struct ClusterTracer {
   const float* sph;                // shared: kSphWords rows
   int n_sphs;
@@ -618,10 +741,13 @@ struct ClusterTracer {
   int pack_w, k;
   float* stage;                    // shared: this warp's staging buffer, or null
   int* lock;
+  int ray;                         // kTwins: the ray this thread carries
 
   __device__ int closest(V3 o, V3 d, float tmin, float tmax, float& t_out, int& mat,
                          V3& normal, float& hu, float& hv) const {
     const unsigned m = __activemask();
+    unsigned twins;
+    const bool walker = walks<kTwins>(m, ray, twins);
     float best = kBig;
     int kind = 0;
     mat = 0;
@@ -633,8 +759,9 @@ struct ClusterTracer {
     Winner w;
     bool won = false;
     float* rows = take_stage(m, stage, lock);
-    walk_clusters<false>(m, true, rows, box, order + octant(d) * n_clusters, n_clusters, 0, pack,
-                         pack_w, k, o, d, inv_dir3(d), tmin, tmax, best, w, won);
+    walk_clusters<false, kTwins>(m, twins, walker, rows, box, order + octant(d) * n_clusters,
+                                 n_clusters, 0, pack, pack_w, k, o, d, inv_dir3(d), tmin, tmax,
+                                 best, w, won);
     drop_stage(m, rows, lock);
     if (won) {
       V3 n;
@@ -645,27 +772,33 @@ struct ClusterTracer {
       az = n.z;
       kind = 1;
     }
-    return epilogue(kind, o, d, best, ax, ay, az, rinv, t_out, normal);
+    kind = epilogue(kind, o, d, best, ax, ay, az, rinv, t_out, normal);
+    return closest_from_walker<kTwins>(m, twins, kind, t_out, mat, normal, hu, hv);
   }
 
   __device__ bool occluded(V3 o, V3 d, float tmin, float tmax) const {
     const unsigned m = __activemask();
+    unsigned twins;
+    const bool walker = walks<kTwins>(m, ray, twins);
     // empty intervals count as blocked (any_hit_tile :631-637)
     bool blocked = tmax <= tmin || sphere_any(sph, n_sphs, o, d, tmin, tmax);
     float best = kBig;
     Winner w;
     float* rows = take_stage(m, stage, lock);
-    walk_clusters<true>(m, true, rows, box, order + octant(d) * n_clusters, n_clusters, 0, pack,
-                        pack_w, k, o, d, inv_dir3(d), tmin, tmax, best, w, blocked);
+    walk_clusters<true, kTwins>(m, twins, walker, rows, box, order + octant(d) * n_clusters,
+                                n_clusters, 0, pack, pack_w, k, o, d, inv_dir3(d), tmin, tmax,
+                                best, w, blocked);
     drop_stage(m, rows, lock);
-    return blocked;
+    return from_walker<kTwins>(m, twins, static_cast<int>(blocked)) != 0;
   }
 };
 
-__device__ inline ClusterTracer cluster_tracer(const Tables& tb, const SceneArgs& s) {
-  return ClusterTracer{tb.sph,   tb.n_sphs,    tb.box,         tb.order,
-                       s.n_clusters, s.pack,   s.pack_w,       s.cluster_size,
-                       warp_stage(tb), warp_lock(tb)};
+template <bool kTwins = false>
+__device__ inline ClusterTracer<kTwins> cluster_tracer(const Tables& tb, const SceneArgs& s,
+                                                       int ray = 0) {
+  return ClusterTracer<kTwins>{tb.sph,       tb.n_sphs,    tb.box,         tb.order,
+                               s.n_clusters, s.pack,       s.pack_w,       s.cluster_size,
+                               warp_stage(tb), warp_lock(tb), ray};
 }
 
 // One instance row of the kernels' table: world box lo | hi at 0..5, then
@@ -686,6 +819,7 @@ __device__ __forceinline__ void xform(const float* r, V3 o, V3 d, V3& oo, V3& dd
 // each round a lane takes its next crossed instance and walks that mesh's
 // BLAS in its own object-space octant's order, in step with the others.
 // The rounds go on while any lane of the warp has an instance left.
+template <bool kTwins = false>
 struct InstTracer {
   const float* sph;                // shared: kSphWords rows
   int n_sphs;
@@ -697,10 +831,13 @@ struct InstTracer {
   int pack_w, k;
   float* stage;                    // shared: this warp's staging buffer, or null
   int* lock;
+  int ray;                         // kTwins: the ray this thread carries
 
   __device__ int closest(V3 o, V3 d, float tmin, float tmax, float& t_out, int& mat,
                          V3& normal, float& hu, float& hv) const {
     const unsigned m = __activemask();
+    unsigned twins;
+    const bool walker = walks<kTwins>(m, ray, twins);
     float best = kBig;
     int kind = 0;
     mat = 0;
@@ -711,15 +848,23 @@ struct InstTracer {
     const V3 inv = inv_dir3(d);
     float last_tn = -kBig;
     int last_id = -1;
-    bool pending = true;
+    // a group of twins follows its walker's rounds together (walk_clusters
+    // then walks each instance's BLAS as a group)
+    bool grouped = false;
+    if constexpr (kTwins) grouped = __all_sync(m, __popc(twins) > 1);
+    bool pending = walker || grouped;
+    const int rank = __popc(twins & (lane_bit() - 1u));
+    const int size = grouped ? __popc(twins) : 1;
     float* rows = take_stage(m, stage, lock);
     while (__ballot_sync(m, pending) != 0u) {
-      // _next_inst: the nearest crossed instance strictly after the cursor
+      // _next_inst: the nearest crossed instance strictly after the cursor;
+      // a group scans a slice of the instances a twin and takes the nearest
+      // (tnear, id) of the slices' nearest
       float cur_tn = kBig;
       int cur_id = 0x7FFFFFFF;
       if (pending) {
         const float bound = fminf(tmax, best);
-        for (int i = 0; i < n_inst; ++i) {
+        for (int i = grouped ? rank : 0; i < n_inst; i += size) {
           float tnear, tfar;
           box_interval(inst + i * kInstWords, o, inv, tmin, bound, tnear, tfar);
           const bool ok =
@@ -728,6 +873,17 @@ struct InstTracer {
             cur_tn = tnear;
             cur_id = i;
           }
+        }
+        if (grouped) {
+          const unsigned key = t_key(cur_tn);
+          const unsigned kmin = __reduce_min_sync(twins, key);
+          const unsigned idmin =
+              __reduce_min_sync(twins, key == kmin ? static_cast<unsigned>(cur_id) : ~0u);
+          const int src =
+              __ffs(__ballot_sync(twins, key == kmin && static_cast<unsigned>(cur_id) == idmin)) -
+              1;
+          cur_tn = __shfl_sync(twins, cur_tn, src);
+          cur_id = __shfl_sync(twins, cur_id, src);
         }
         pending = cur_tn < kBig;
       }
@@ -740,9 +896,10 @@ struct InstTracer {
       }
       Winner w;
       bool won = false;
-      walk_clusters<false>(m, pending, rows, box, order + (octant(dd) * n_meshes + mesh) * cmax,
-                           cmax, mesh * cmax, pack, pack_w, k, oo, dd, inv_dir3(dd), tmin, tmax,
-                           best, w, won);
+      walk_clusters<false, kTwins>(m, twins, pending, rows, box,
+                                   order + (octant(dd) * n_meshes + mesh) * cmax, cmax,
+                                   mesh * cmax, pack, pack_w, k, oo, dd, inv_dir3(dd), tmin, tmax,
+                                   best, w, won);
       if (won) {
         V3 n;
         bool geom;
@@ -762,11 +919,14 @@ struct InstTracer {
       }
     }
     drop_stage(m, rows, lock);
-    return epilogue(kind, o, d, best, ax, ay, az, rinv, t_out, normal);
+    kind = epilogue(kind, o, d, best, ax, ay, az, rinv, t_out, normal);
+    return closest_from_walker<kTwins>(m, twins, kind, t_out, mat, normal, hu, hv);
   }
 
   __device__ bool occluded(V3 o, V3 d, float tmin, float tmax) const {
     const unsigned m = __activemask();
+    unsigned twins;
+    const bool walker = walks<kTwins>(m, ray, twins);
     // empty intervals count as blocked (pallas_inst any_hit :915-925)
     bool blocked = tmax <= tmin || sphere_any(sph, n_sphs, o, d, tmin, tmax);
     const V3 inv = inv_dir3(d);
@@ -774,30 +934,34 @@ struct InstTracer {
     Winner w;
     float* rows = take_stage(m, stage, lock);
     for (int i = 0; i < n_inst; ++i) {
-      if (__ballot_sync(m, !blocked) == 0u) break;
+      if (__ballot_sync(m, walker && !blocked) == 0u) break;
       const float* b = inst + i * kInstWords;
-      const bool cross = !blocked && box_hit(b, o, inv, tmin, tmax);
+      const bool cross = walker && !blocked && box_hit(b, o, inv, tmin, tmax);
       if (__ballot_sync(m, cross) == 0u) continue;
       const float* r = b + kInstRow;
       V3 oo = o, dd = d;
       if (cross) xform(r, o, d, oo, dd);
       const int mesh = static_cast<int>(r[12]);
-      walk_clusters<true>(m, cross, rows, box, order + (octant(dd) * n_meshes + mesh) * cmax,
-                          cmax, mesh * cmax, pack, pack_w, k, oo, dd, inv_dir3(dd), tmin, tmax,
-                          best, w, blocked);
+      walk_clusters<true, kTwins>(m, twins, cross, rows, box,
+                                  order + (octant(dd) * n_meshes + mesh) * cmax, cmax,
+                                  mesh * cmax, pack, pack_w, k, oo, dd, inv_dir3(dd), tmin, tmax,
+                                  best, w, blocked);
     }
     drop_stage(m, rows, lock);
-    return blocked;
+    return from_walker<kTwins>(m, twins, static_cast<int>(blocked)) != 0;
   }
 };
 
-__device__ inline InstTracer inst_tracer(const Tables& tb, const SceneArgs& s) {
-  return InstTracer{tb.sph,         tb.n_sphs,      tb.box,   tb.order,
-                    tb.inst,        s.n_inst,       s.n_meshes, s.n_clusters / s.n_meshes,
-                    s.pack,         s.pack_w,       s.cluster_size, warp_stage(tb),
-                    warp_lock(tb)};
+template <bool kTwins = false>
+__device__ inline InstTracer<kTwins> inst_tracer(const Tables& tb, const SceneArgs& s,
+                                                 int ray = 0) {
+  return InstTracer<kTwins>{tb.sph,   tb.n_sphs,  tb.box,     tb.order,
+                            tb.inst,  s.n_inst,   s.n_meshes, s.n_clusters / s.n_meshes,
+                            s.pack,   s.pack_w,   s.cluster_size, warp_stage(tb),
+                            warp_lock(tb), ray};
 }
 
+template <bool kTwins = false>
 struct StreamTracer {
   const float* sph;                      // shared: kSphWords rows
   int n_sphs;
@@ -810,10 +974,13 @@ struct StreamTracer {
   int pack_w, k;
   float* stage;                          // shared: this warp's staging buffer, or null
   int* lock;
+  int ray;                               // kTwins: the ray this thread carries
 
   __device__ int closest(V3 o, V3 d, float tmin, float tmax, float& t_out, int& mat,
                          V3& normal, float& hu, float& hv) const {
     const unsigned m = __activemask();
+    unsigned twins;
+    const bool walker = walks<kTwins>(m, ray, twins);
     float best = kBig;
     int kind = 0;
     mat = 0;
@@ -827,18 +994,29 @@ struct StreamTracer {
     const uint16_t* co = corder + static_cast<size_t>(oct) * n_supers * kSuperFan;
     Winner w;
     bool won = false;
-    float* rows = take_stage(m, stage, lock);
-    for (int j = 0; j < n_supers; ++j) {
-      const int s = so[j];
-      const float* b = sbox + s * kBoxWords;
-      // all-padding supers are inverted; a super is opened only while the
-      // bound tightened by the supers before it still reaches its box
-      const bool open = !(b[0] > b[3]) && box_hit(b, o, inv, tmin, fminf(tmax, best));
-      if (__ballot_sync(m, open) == 0u) continue;
-      walk_clusters<false>(m, open, rows, cbox, co + s * kSuperFan, kSuperFan, s * kSuperFan,
-                           pack, pack_w, k, o, d, inv, tmin, tmax, best, w, won);
+    if (kTwins && __all_sync(m, __popc(twins) > 1)) {
+      // each group of twins tests the supers a window at a time too
+      group_walk<false>(twins, sbox, so, n_supers, 0, o, inv, tmin, tmax, best, won, [&](int s) {
+        walk_clusters<false, kTwins>(twins, twins, true, nullptr, cbox, co + s * kSuperFan,
+                                     kSuperFan, s * kSuperFan, pack, pack_w, k, o, d, inv, tmin,
+                                     tmax, best, w, won);
+      });
+    } else {
+      float* rows = take_stage(m, stage, lock);
+      for (int j = 0; j < n_supers; ++j) {
+        const int s = so[j];
+        const float* b = sbox + s * kBoxWords;
+        // all-padding supers are inverted; a super is opened only while the
+        // bound tightened by the supers before it still reaches its box
+        const bool open =
+            walker && !(b[0] > b[3]) && box_hit(b, o, inv, tmin, fminf(tmax, best));
+        if (__ballot_sync(m, open) == 0u) continue;
+        walk_clusters<false, kTwins>(m, twins, open, rows, cbox, co + s * kSuperFan, kSuperFan,
+                                     s * kSuperFan, pack, pack_w, k, o, d, inv, tmin, tmax, best,
+                                     w, won);
+      }
+      drop_stage(m, rows, lock);
     }
-    drop_stage(m, rows, lock);
     if (won) {
       V3 n;
       bool geom;
@@ -848,11 +1026,14 @@ struct StreamTracer {
       az = n.z;
       kind = 1;
     }
-    return epilogue(kind, o, d, best, ax, ay, az, rinv, t_out, normal);
+    kind = epilogue(kind, o, d, best, ax, ay, az, rinv, t_out, normal);
+    return closest_from_walker<kTwins>(m, twins, kind, t_out, mat, normal, hu, hv);
   }
 
   __device__ bool occluded(V3 o, V3 d, float tmin, float tmax) const {
     const unsigned m = __activemask();
+    unsigned twins;
+    const bool walker = walks<kTwins>(m, ray, twins);
     // empty intervals count as blocked (stream_any_tile :262-265)
     bool blocked = tmax <= tmin || sphere_any(sph, n_sphs, o, d, tmin, tmax);
     const V3 inv = inv_dir3(d);
@@ -861,25 +1042,38 @@ struct StreamTracer {
     const uint16_t* co = corder + static_cast<size_t>(oct) * n_supers * kSuperFan;
     float best = kBig;
     Winner w;
-    float* rows = take_stage(m, stage, lock);
-    for (int j = 0; j < n_supers; ++j) {
-      if (__ballot_sync(m, !blocked) == 0u) break;
-      const int s = so[j];
-      const float* b = sbox + s * kBoxWords;
-      const bool open = !blocked && !(b[0] > b[3]) && box_hit(b, o, inv, tmin, tmax);
-      if (__ballot_sync(m, open) == 0u) continue;
-      walk_clusters<true>(m, open, rows, cbox, co + s * kSuperFan, kSuperFan, s * kSuperFan,
-                          pack, pack_w, k, o, d, inv, tmin, tmax, best, w, blocked);
+    if (kTwins && __all_sync(m, __popc(twins) > 1)) {
+      group_walk<true>(twins, sbox, so, n_supers, 0, o, inv, tmin, tmax, best, blocked,
+                       [&](int s) {
+                         walk_clusters<true, kTwins>(twins, twins, true, nullptr, cbox,
+                                                     co + s * kSuperFan, kSuperFan,
+                                                     s * kSuperFan, pack, pack_w, k, o, d, inv,
+                                                     tmin, tmax, best, w, blocked);
+                       });
+    } else {
+      float* rows = take_stage(m, stage, lock);
+      for (int j = 0; j < n_supers; ++j) {
+        if (__ballot_sync(m, walker && !blocked) == 0u) break;
+        const int s = so[j];
+        const float* b = sbox + s * kBoxWords;
+        const bool open = walker && !blocked && !(b[0] > b[3]) && box_hit(b, o, inv, tmin, tmax);
+        if (__ballot_sync(m, open) == 0u) continue;
+        walk_clusters<true, kTwins>(m, twins, open, rows, cbox, co + s * kSuperFan, kSuperFan,
+                                    s * kSuperFan, pack, pack_w, k, o, d, inv, tmin, tmax, best,
+                                    w, blocked);
+      }
+      drop_stage(m, rows, lock);
     }
-    drop_stage(m, rows, lock);
-    return blocked;
+    return from_walker<kTwins>(m, twins, static_cast<int>(blocked)) != 0;
   }
 };
 
-__device__ inline StreamTracer stream_tracer(const Tables& tb, const SceneArgs& s) {
-  return StreamTracer{tb.sph,   tb.n_sphs, tb.box,   tb.order,       s.n_clusters,
-                      s.cbox,   s.corder,  s.pack,   s.pack_w,       s.cluster_size,
-                      warp_stage(tb), warp_lock(tb)};
+template <bool kTwins = false>
+__device__ inline StreamTracer<kTwins> stream_tracer(const Tables& tb, const SceneArgs& s,
+                                                     int ray = 0) {
+  return StreamTracer<kTwins>{tb.sph,  tb.n_sphs, tb.box,  tb.order,       s.n_clusters,
+                              s.cbox,  s.corder,  s.pack,  s.pack_w,       s.cluster_size,
+                              warp_stage(tb), warp_lock(tb), ray};
 }
 
 }  // namespace spt

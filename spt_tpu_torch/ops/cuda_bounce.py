@@ -26,10 +26,10 @@ missed mask.
   ``transport.sample_texture_v``).  Nothing on the CUDA path calls them;
   tests and ``chip_smoke.py`` hold the kernels against them.
 
-The small form of fused_frame (``csrc/fused_frame.cu``
-``small_frame_kernel``) reads the path state in the dtypes the port keeps
-it in and counts the rays per bounce itself; the mesh forms and
-fused_bounce take the RNG words and flags as int32.
+Every form of fused_frame (``csrc/fused_frame.cu``: ``small_frame_kernel``,
+``fused_frame_kernel<1..3>``) reads the path state in the dtypes the port
+keeps it in and counts the rays per bounce itself; fused_bounce takes the
+RNG words and flags as int32.
 
 ``LAUNCHES`` counts fused_frame launches and ``BOUNCE_LAUNCHES``
 fused_bounce launches, so a run can show that its main path went through
@@ -137,14 +137,14 @@ def shared_bytes(cfg: RenderConfig, scene: DeviceScene,
                  lights: DeviceLights) -> int:
     """Dynamic shared memory of a fused_frame block on this workload (a
     fused_bounce block takes no more): the tables, the visit orders and, in
-    a mesh form, the warps' staging buffers (cuda_lib.shared_bytes); in the
-    small form the histogram of bounces run from bounce 0."""
+    a mesh form, the warps' staging buffers (cuda_lib.shared_bytes), then
+    the histogram of bounces run from bounce 0."""
     mode = _accel_mode(scene)
     nee_on = cfg.nee and scene.emitters is not None
-    hist = 4 * (cfg.max_depth + 1) if mode is None else 0
     return cuda_lib.shared_bytes(
         4 * _table_words(scene, lights, nee_on, mode)
-        + 2 * 8 * _clusters(scene, mode) + hist, mode is not None)
+        + 2 * 8 * _clusters(scene, mode), mode is not None) + 4 * (
+            cfg.max_depth + 1)
 
 
 def explain_decline(cfg: RenderConfig, scene: DeviceScene,
@@ -368,41 +368,31 @@ def fused_frame(cfg: RenderConfig, scene: DeviceScene, lights: DeviceLights,
     if not 0 <= start_bounce <= cfg.max_depth:
         raise ValueError(f"start_bounce {start_bounce} outside "
                          f"[0, {cfg.max_depth}]")
-    small = _accel_mode(scene) is None
     ins, scene_args, keep = _kernel_inputs(cfg, scene, lights, ps,
-                                           "fused_frame", raw_state=small)
+                                           "fused_frame", raw_state=True)
     n = ps.num_paths
     outs_f = [torch.empty(n, dtype=torch.float32, device=device)
               for _ in range(9)]
-    if small:
-        missed = torch.empty(n, dtype=torch.bool, device=device)
-        # the rays per bounce, then the kernel's counter of lanes handed out
-        counts = torch.zeros(cfg.max_depth + 1, dtype=torch.int64,
-                             device=device)
-        launch, outs_i = "spt_small_frame", (missed, counts)
-    else:
-        missed = torch.empty(n, dtype=torch.int32, device=device)
-        bounces = torch.empty(n, dtype=torch.int32, device=device)
-        launch, outs_i = "spt_fused_frame", (missed, bounces)
+    missed = torch.empty(n, dtype=torch.bool, device=device)
+    # the rays per bounce, then the kernel's counters (csrc/fused_frame.cu
+    # FrameIO); a mesh form queues the live lanes' ids
+    counts = torch.zeros(cfg.max_depth + 3, dtype=torch.int64, device=device)
+    queue = (None if _accel_mode(scene) is None
+             else torch.empty(n, dtype=torch.int32, device=device))
 
     lib = cuda_lib.build()
     with torch.cuda.device(device):
-        err = getattr(lib, launch)(
-            *ins, *(t.data_ptr() for t in outs_f),
-            *(t.data_ptr() for t in outs_i), *scene_args, n, start_bounce,
-            cfg.max_depth, min(cfg.rr_after, 2 ** 31 - 1), cfg.hit_eps,
-            cfg.ray_offset_dir, cfg.firefly_clamp, cuda_lib.stream_of(device))
+        err = lib.spt_fused_frame(
+            *ins, *(t.data_ptr() for t in outs_f), missed.data_ptr(),
+            counts.data_ptr(), None if queue is None else queue.data_ptr(),
+            *scene_args, n, start_bounce, cfg.max_depth,
+            min(cfg.rr_after, 2 ** 31 - 1), cfg.hit_eps, cfg.ray_offset_dir,
+            cfg.firefly_clamp, cuda_lib.stream_of(device))
     cuda_lib.check(err, "fused_frame")
-    del keep
+    del keep, queue
     LAUNCHES += 1
-
-    direction = Vec3(*outs_f[0:3])
-    throughput = Vec3(*outs_f[3:6])
-    radiance = Vec3(*outs_f[6:9])
-    if small:
-        return radiance, direction, throughput, missed, counts[:cfg.max_depth]
-    rays = rays_from_counts(bounces, cfg.max_depth, start_bounce)
-    return radiance, direction, throughput, missed != 0, rays
+    return (Vec3(*outs_f[6:9]), Vec3(*outs_f[0:3]), Vec3(*outs_f[3:6]),
+            missed, counts[:cfg.max_depth])
 
 
 def fused_bounce(cfg: RenderConfig, scene: DeviceScene, lights: DeviceLights,

@@ -25,7 +25,10 @@ as tests/test_inst.py:86-106 lowers it.  Gates, each with its reason:
   < 1 %.
 
 On a CUDA card (marker ``cuda``; skipped without one) the instanced kernels
-against their plain versions (the textured radiance bit for bit), and, bit
+against their plain versions (the textured radiance bit for bit; every
+fused_frame plane bit for bit, also on all-dead, 2 %-scattered and ragged
+lanes and on live counts that give each warp 3 or 20 lanes at once,
+chip_smoke.FRAME_EDGES, the rays per bounce exact), and, bit
 for bit on the untextured grid, fused_bounce's instanced form and the
 instanced tracer on the cases the warp-cooperative cluster walk has to get
 right (chip_smoke.WALK_CASES: warps of mixed object-space octants, every
@@ -520,26 +523,32 @@ def test_inst_tracer_matches_plain_on_card(cuda_device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("start", [0, 2])
-def test_instanced_fused_kernels_match_plain_on_card(cuda_device, start):
+@pytest.mark.parametrize("start,case", [
+    (0, None), (2, None), *((None, case) for case in chip_smoke.FRAME_EDGES)])
+def test_instanced_fused_kernels_match_plain_on_card(cuda_device, start, case):
+    # the edge cases (chip_smoke.FRAME_EDGES) start at bounce 3 and check
+    # fused_frame alone
     cfg, scene, lights, ps = _grid(cuda_device, 256, 192)
     assert cuda_bounce._accel_mode(scene) == "instanced"
+    fps = ps
+    if case is not None:
+        grid = chip_smoke.frame_grid(torch, cfg, scene, lights, ps)
+        fps, start = chip_smoke.frame_edge(torch, np, case, ps, grid)
     before = cuda_bounce.LAUNCHES
-    k = cuda_bounce.fused_frame(cfg, scene, lights, ps, start_bounce=start)
+    k = cuda_bounce.fused_frame(cfg, scene, lights, fps, start_bounce=start)
     assert cuda_bounce.LAUNCHES == before + 1
-    p = cuda_bounce.fused_frame_reference(cfg, scene, lights, ps,
+    p = cuda_bounce.fused_frame_reference(cfg, scene, lights, fps,
                                           start_bounce=start)
     torch.cuda.synchronize()
-    for a, b in zip(k[:3], p[:3]):
-        for x, y in zip(a, b):
-            assert _planes_agree(x, y)
-    assert _planes_agree(k[3], p[3])
-    # the textured radiance too is bit for bit since the plain BRDF divides
-    # by pi on the card as the kernels do
-    assert all(_bits_equal({"radiance": (chip_smoke._v(torch, k[0]),
-                                         chip_smoke._v(torch, p[0]))}).values())
-    rk, rp = k[4].cpu().numpy(), p[4].cpu().numpy()
-    assert (np.abs(rk - rp) <= 1e-3 * rp.clip(min=1)).all()
+    # every plane bit for bit, the textured radiance too since the plain
+    # BRDF divides by pi on the card as the kernels do
+    same = chip_smoke.frame_bits_equal(torch, k, p)
+    assert all(same.values()), same
+    assert chip_smoke.frame_counters(torch, k[4])[0] == int(fps.alive.sum())
+    if case is not None and case.startswith("take"):
+        assert chip_smoke.frame_take(torch, k[4]) == int(case[4:])
+    if case is not None:
+        return
     kb, km = cuda_bounce.fused_bounce(cfg, scene, lights, ps, 0, False)
     pbs, pm = cuda_bounce.fused_bounce_reference(cfg, scene, lights, ps, 0,
                                                  False)

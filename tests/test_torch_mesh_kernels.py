@@ -2,16 +2,22 @@
 
 - On the CPU: each wrapper (closest_hit, any_hit, fused_bounce, the
   resident fused_frame, sort_chunks) runs its plain version and launches
-  nothing; the resident tables have the layout the kernels read; a scene
-  past the stream tier's cluster limit raises, naming why.
+  nothing; fused_frame hands back missed as bool and the rays per bounce
+  as (max_depth,) int64 in every accel mode, equal to the plain version's
+  per-lane bounce totals; the resident tables have the layout the kernels
+  read; a scene past the stream tier's cluster limit raises, naming why.
 - On a CUDA card (marker ``cuda``; skipped without one): each kernel against
   its plain version on the same tensors, on the procedural mesh scene of
   chip_smoke.py.  Gates: closest_hit kind and t (1e-4) and any_hit flags on
   >= 99.9 % of lanes (the kernel walks clusters in its own octant's order,
-  so only exact ties may resolve otherwise); fused_bounce and fused_frame
-  radiance within 1e-3 on >= 99.9 % of lanes, rays_per_bounce within 0.1 %
-  (both are built with --fmad=false and evaluate in the plain version's
-  order); sort_chunks keys, lane ids and every plane bit for bit equal to
+  so only exact ties may resolve otherwise); fused_bounce radiance within
+  1e-3 on >= 99.9 % of lanes; fused_frame every plane bit for bit and the
+  rays per bounce exact, also on all-dead, 2 %-scattered and ragged lanes
+  and on live counts that give each warp 3 or 20 lanes at once
+  (chip_smoke.FRAME_EDGES), with every live lane queued (both are built
+  with --fmad=false and evaluate in the plain version's order, and a path's
+  result does not depend on the thread that runs it); sort_chunks keys,
+  lane ids and every plane bit for bit equal to
   its plain version's (a stable torch.sort), at chunks 2 to 32 768 on
   random, all-dead, all-equal, sorted and reversed keys with 0 or 16
   planes, one launch a call.  Run there with
@@ -26,6 +32,7 @@ torch.set_num_threads(2)
 
 import chip_smoke  # noqa: E402
 from spt_tpu_torch import scene as tscene  # noqa: E402
+from spt_tpu_torch.camera import default_camera  # noqa: E402
 from spt_tpu_torch.integrators import transport as ttr  # noqa: E402
 from spt_tpu_torch.integrators import wavefront as twf  # noqa: E402
 from spt_tpu_torch.lights import default_lights  # noqa: E402
@@ -74,6 +81,59 @@ def test_wrappers_on_cpu_run_the_plain_versions():
     assert counts == (cuda_bounce.LAUNCHES, cuda_bounce.BOUNCE_LAUNCHES,
                       cuda_trace.CLOSEST_LAUNCHES, cuda_trace.ANY_LAUNCHES,
                       cuda_sort.LAUNCHES)
+
+
+def _frame_scene(monkeypatch, mode):
+    """(cfg, scene, lights, primary PathState) at 16x12 depth 4 in an accel
+    mode: the default scene (None), or the reduced mesh scene, instanced
+    grid or baked grid with the resident tier's limits lowered under their
+    triangle counts (the instanced and stream gates)."""
+    if mode is None:
+        cfg = chip_smoke.port_mesh_scene()[1].replace(width=16, height=12)
+        cam = default_camera(16, 12)
+        scene = tscene.flatten_scene(tscene.build_default_scene(), CPU)
+        return cfg, scene, default_lights(CPU), ttr.gen_primary(
+            cfg, cam.rays(CPU), 1)
+    build = {"resident": chip_smoke.port_mesh_scene,
+             "instanced": chip_smoke.port_inst_scene,
+             "stream": chip_smoke.port_stream_scene}[mode]
+    desc, cfg, cam = build(stacks=8, slices=12)
+    if mode != "resident":
+        n = sum(m.triangle_count for m in desc.meshes)
+        if mode == "instanced":
+            n = tscene.flatten_scene(desc, CPU).num_triangles
+        monkeypatch.setattr(tbvh, "MAX_RESIDENT_TRIS", n - 1)
+        if mode == "stream":
+            monkeypatch.setattr(cuda_bounce, "MAX_ACCEL_TRIS", n - 1)
+    cfg = cfg.replace(width=16, height=12)
+    cam.set_aspect_ratio(16 / 12)
+    scene = tscene.flatten_scene(desc, CPU)
+    return cfg, scene, default_lights(CPU), ttr.gen_primary(cfg, cam.rays(CPU), 1)
+
+
+@pytest.mark.parametrize("start", [0, 3])
+@pytest.mark.parametrize("mode", [None, "resident", "instanced", "stream"])
+def test_fused_frame_on_cpu_returns_the_kernels_dtypes(monkeypatch, mode,
+                                                       start):
+    # every form hands back missed as bool and the rays per bounce as
+    # (max_depth,) int64, as the kernels do; the counts are those of the
+    # plain version's per-lane bounce totals
+    cfg, scene, lights, ps = _frame_scene(monkeypatch, mode)
+    assert cuda_bounce._accel_mode(scene) == mode
+    before = cuda_bounce.LAUNCHES
+    out = cuda_bounce.fused_frame(cfg, scene, lights, ps, start_bounce=start)
+    assert cuda_bounce.LAUNCHES == before
+    n = ps.num_paths
+    assert out[3].dtype == torch.bool and out[3].shape == (n,)
+    assert out[4].dtype == torch.int64 and out[4].shape == (cfg.max_depth,)
+    counts = torch.zeros(n, dtype=torch.int32)
+    for b in range(start, cfg.max_depth):
+        counts += ps.alive.to(torch.int32)
+        ps, _ = cuda_bounce.fused_bounce_reference(cfg, scene, lights, ps, b,
+                                                   b == cfg.max_depth - 1)
+    assert torch.equal(out[4], cuda_bounce.rays_from_counts(
+        counts, cfg.max_depth, start))
+    assert int(out[4][start]) == n and not out[4][:start].any()
 
 
 def test_resident_tables_layout():
@@ -225,23 +285,29 @@ def test_fused_bounce_matches_plain_on_card(cuda_device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("start,cluster_size", [(0, 64), (3, 64), (0, 8)])
+@pytest.mark.parametrize("start,cluster_size,case", [
+    (0, 64, None), (3, 64, None), (0, 8, None),
+    *((None, 64, case) for case in chip_smoke.FRAME_EDGES)])
 def test_resident_fused_frame_matches_plain_on_card(cuda_device, start,
-                                                    cluster_size):
+                                                    cluster_size, case):
     # cluster_size 8: 784 clusters, whose tables need the shared-memory
-    # opt-in above 48 KiB, and one 8-row sub-block per cluster
+    # opt-in above 48 KiB, and one 8-row sub-block per cluster; the edge
+    # cases (chip_smoke.FRAME_EDGES) start at bounce 3
     cfg, scene, lights, ps = _mesh(cuda_device, 256, 192, cluster_size)
+    if case is not None:
+        grid = chip_smoke.frame_grid(torch, cfg, scene, lights, ps)
+        ps, start = chip_smoke.frame_edge(torch, np, case, ps, grid)
     before = cuda_bounce.LAUNCHES
     k = cuda_bounce.fused_frame(cfg, scene, lights, ps, start_bounce=start)
     assert cuda_bounce.LAUNCHES == before + 1
     p = cuda_bounce.fused_frame_reference(cfg, scene, lights, ps,
                                           start_bounce=start)
     torch.cuda.synchronize()
-    for a, b in zip(k[:3], p[:3]):
-        err = (torch.stack(list(a), -1) - torch.stack(list(b), -1)).abs()
-        assert float((err.amax(-1) > 1e-3).float().mean()) <= 1e-3
-    rk, rp = k[4].cpu().numpy(), p[4].cpu().numpy()
-    assert (np.abs(rk - rp) <= 1e-3 * rp.clip(min=1)).all()
+    same = chip_smoke.frame_bits_equal(torch, k, p)
+    assert all(same.values()), same
+    assert chip_smoke.frame_counters(torch, k[4])[0] == int(ps.alive.sum())
+    if case is not None and case.startswith("take"):
+        assert chip_smoke.frame_take(torch, k[4]) == int(case[4:])
 
 
 def _sort_keys(chunk, pattern, g):
