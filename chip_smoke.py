@@ -30,13 +30,15 @@ this file; exits non-zero (printing no result) without them.  Phases:
    196 608 random rays, the resident fused_frame from bounce 0 on all
    lanes and on the edge lanes of ``FRAME_EDGES`` (all dead, 2 % alive at
    random, a ragged count, and live counts that give each warp 3 and 20
-   lanes at once, from bounce 3), sort_chunks at chunks 8192 and
-   32768 with 15 random planes, and the sort's launch shape (cluster size,
+   lanes, run one at a time, from bounce 3), the resident fused_bounce on
+   the same edge lanes at bounce 3, sort_chunks at chunks 8192 and 32768
+   with 15 random planes, and the sort's launch shape (cluster size,
    registers, shared bytes, active clusters) at each chunk; sort_chunks is
    held to its plain version (a stable torch.sort) bit for bit in keys,
-   lane ids and every plane; every fused_frame call is held bit for bit on
-   every plane with the rays per bounce exact, and logs the live lanes the
-   kernel queued and the blocks it launched;
+   lane ids and every plane; every fused_frame and fused_bounce call is
+   held bit for bit on every plane (fused_frame's rays per bounce exact),
+   and the queue kernels' calls log the live lanes queued and the blocks
+   launched; fused_bounce's time and bound are taken per call;
 6. the mesh main path: ``Renderer.render_frames(8)`` at 512x384 depth 4 in
    accel mode "resident" through the sorted frame, launch counts reset
    before and read after;
@@ -52,8 +54,8 @@ this file; exits non-zero (printing no result) without them.  Phases:
     textured instanced grid (``inst_grid_scene``, 104 448 world triangles)
     at 512x384, every returned plane per lane, at the inputs recorded from
     one regen frame (closest_hit_inst / any_hit_inst) and one sorted frame
-    (fused_bounce and fused_frame instanced, textured, their radiance bit
-    for bit; sort_chunks at the full-width calls), where their times and
+    (fused_bounce and fused_frame instanced, textured, every plane bit for
+    bit; sort_chunks at the full-width calls), where their times and
     bounds are taken; the textured fused_frame's time without its
     texture table (the sampler's share); the instanced fused_frame from
     bounce 0 on all lanes, timed, and on ``FRAME_EDGES``; the textured
@@ -72,7 +74,7 @@ this file; exits non-zero (printing no result) without them.  Phases:
     accel mode "stream") at 512x384, every returned plane per lane, at the
     inputs recorded from one regen frame (closest_hit_stream /
     any_hit_stream) and one sorted frame (fused_bounce and fused_frame
-    stream, textured, every fused_frame plane bit for bit; sort_chunks at
+    stream, textured, every plane bit for bit; sort_chunks at
     the full-width calls), where their times and bounds are taken; the
     stream fused_frame from bounce 0 on all lanes, timed, and on
     ``FRAME_EDGES``;
@@ -96,9 +98,9 @@ this file; exits non-zero (printing no result) without them.  Phases:
     seam, bit for bit;
 20. integrator "compact" on default d6, cornell d8 and hdr d6 at 1920x1080
     and on the mesh scene at 512x384 d4: K3 at the path's bounce-0 call
-    against its plain version (every plane bit for bit on the small scenes,
-    where it runs its small form), with its device time, bound and plain
-    time; K2 at each of the hdr frame's calls (one a bounce), bit for bit;
+    against its plain version (every plane bit for bit; its small form on
+    the small scenes, its resident form on the mesh), with its device
+    time, bound and plain time; K2 at each of the hdr frame's calls (one a bounce), bit for bit;
     ``Renderer.render_frames(8)`` with the counts reset before and read
     after, its image against the masked path's (< 1 % relative RMSE) and
     its rays per bounce equal; ms/frame and device busy beside the masked
@@ -121,7 +123,8 @@ this file; exits non-zero (printing no result) without them.  Phases:
     on the card through the per-shard body, on default and hdr 1920x1080 d6
     and the mesh scene 512x384 d4 (sorted frame), put together and held to
     the unsharded frame bit for bit with the rays summed exactly; per band
-    its launches, device busy and K1's time a band launch; then a real NCCL
+    its launches, device busy and K1's time a band launch, and on the mesh
+    scene K3 at each call of a band-frame, bit for bit; then a real NCCL
     world of ``device_count()`` ranks (at most 4, one card each) running
     ``Renderer(multi_device=True).render_frames(8)`` on default 1080p d6,
     its image bit for bit and its stats equal to a single-device Renderer's,
@@ -131,9 +134,10 @@ A mesh kernel's bound counts the operations of its walks from the plain
 version's own results: each traced ray's box tests and the 64 triangle
 tests of every cluster its final bound reaches (``_walk_ops``: the closest
 hit and every shadow and NEE ray of the fused kernels).  A mesh
-fused_frame's bytes are those the call needs (``frame_bytes``): the whole
-path state of a lane that runs a bounce, the planes a dead lane copies
-through, and the table rows its plain walks open.  Phases 5, 10, 14
+fused_frame's and every fused_bounce's bytes are those the call needs
+(``frame_bytes``): the whole path state of a lane that runs a bounce, the
+planes a dead lane copies through, the tables once, and the table rows its
+plain walks open.  Phases 5, 10, 14
 and 18 print each mesh form's registers, spill bytes, shared memory per
 block and blocks per SM at their tables.
 
@@ -1143,17 +1147,20 @@ def _same_bits(torch, a, b) -> bool:
     return torch.equal(a, b)
 
 
-# Lanes a mesh fused_frame has to get right beside its main path's calls,
-# each from bounce 3 of a full-width primary state: every lane dead; 2 % of
-# the lanes alive at random positions (unsorted); the same lanes less 77, a
-# count that is no multiple of 32 or 128; and as many lanes alive at random
-# positions as make each warp of the launched grid take 3, then 20, lanes
-# at once (csrc/fused_frame.cu: uneven groups of twins; fewer twins than
-# paths, so some paths walk without one).
+# Lanes a queue kernel (a mesh fused_frame, the resident fused_bounce) has
+# to get right beside its main path's calls, each from bounce 3 of a
+# full-width primary state: every lane dead; 2 % of the lanes alive at
+# random positions (unsorted); the same lanes less 77, a count that is no
+# multiple of 32 or 128; and as many lanes alive at random positions as
+# give each warp of the launched grid 3, then 20, lanes (csrc/spt_queue.cuh:
+# each warp runs them FRAME_TAKE_MAX (one) at a time, all its threads twins
+# of the path, taking more from the queue as its paths end; edge_take).
 FRAME_EDGES = ("all_dead", "scattered", "ragged", "take3", "take20")
 
-# Warps a block of a mesh fused_frame (csrc/fused_frame.cu kBlock / 32).
+# Warps a block of a queue kernel (csrc/spt_queue.cuh kBlock / 32), and the
+# most lanes a warp takes at once below 32 (kTakeMax there).
 FRAME_BLOCK_WARPS = 4
+FRAME_TAKE_MAX = 1
 
 # Bytes of fused_frame's path state: a lane that runs a bounce reads 12
 # float planes, the int64 RNG word and two byte flags and writes 9 float
@@ -1177,7 +1184,7 @@ def frame_grid(torch, cfg, scene, lights, ps) -> int:
 def frame_edge(torch, np, case, ps, grid=None):
     """(PathState, start_bounce) of one of FRAME_EDGES from the primary
     state `ps`; the take cases need the `grid` the kernel launches on these
-    lanes (frame_grid)."""
+    lanes (frame_grid, bounce_grid)."""
     if case == "all_dead":
         return ps._replace(alive=torch.zeros_like(ps.alive)), 3
     n = ps.num_paths
@@ -1202,23 +1209,29 @@ def frame_edge(torch, np, case, ps, grid=None):
                       for f in ps)), 3
 
 
-def frame_bytes(torch, cfg, scene, lights, ps, start, touched) -> dict:
-    """The bytes a mesh fused_frame call must move, by part: the path
-    state (FRAME_LANE_BYTES a lane that runs a bounce, FRAME_DEAD_LANE_BYTES
-    one that does not), the shared tables once, and the table rows the
-    plain walks and sampler opened (`touched`, from _walk_ops): each opened
-    cluster's tri_pack rows, each opened super's cluster boxes and one
-    octant's visit order (stream), each texture row read."""
+def frame_bytes(torch, cfg, scene, lights, ps, start, touched,
+                lane_bytes=(FRAME_LANE_BYTES, FRAME_DEAD_LANE_BYTES)) -> dict:
+    """The bytes a fused_frame call from bounce `start` (or, with
+    `lane_bytes` BOUNCE_LANE_BYTES twice, a fused_bounce call at bounce
+    `start`) must move, by part: the path state (lane_bytes: a lane that
+    runs a bounce, one that does not), the shared tables once, and in a
+    mesh form the table rows the plain walks and sampler opened (`touched`,
+    from _walk_ops): each opened cluster's tri_pack rows, each opened
+    super's cluster boxes and one octant's visit order (stream), each
+    texture row read."""
     from spt_tpu_torch.ops import cuda_bounce, cuda_trace
 
     mode = cuda_bounce._accel_mode(scene)
     runs = int(ps.alive.sum()) if start < cfg.max_depth else 0
-    src = scene.inst if mode == "instanced" else scene.accel
     nee_on = cfg.nee and scene.emitters is not None
-    out = {"lanes": runs * FRAME_LANE_BYTES
-           + (ps.num_paths - runs) * FRAME_DEAD_LANE_BYTES,
+    out = {"lanes": runs * lane_bytes[0]
+           + (ps.num_paths - runs) * lane_bytes[1],
            "tables": 4 * cuda_bounce._pack_tables(scene, lights, nee_on,
                                                   mode).numel()}
+    if mode is None:
+        return out
+    src = scene.inst if mode == "instanced" else scene.accel
+
     def opened(key):
         return int(touched[key].sum()) if key in touched else 0
 
@@ -1245,20 +1258,34 @@ def frame_bits_equal(torch, k, p) -> dict:
     return out
 
 
-def frame_counters(torch, rays):
-    """(lanes queued, blocks launched) of the fused_frame launch whose rays
-    per bounce are `rays`: the counters the kernel keeps after them in the
-    same buffer (csrc/fused_frame.cu FrameIO.counts; 0 in the small form)."""
-    full = rays.as_strided((rays.untyped_storage().nbytes() // 8,), (1,), 0)
+def frame_counters(torch, out):
+    """(lanes queued, blocks launched) of the queue kernel launch that wrote
+    `out`, fused_frame's rays per bounce or the resident fused_bounce's new
+    RNG words: the counters the kernel keeps after them in the same int64
+    buffer (csrc/fused_frame.cu FrameIO.counts, csrc/fused_bounce.cu
+    BounceIO.counters; 0 in fused_frame's small form)."""
+    full = out.as_strided((out.untyped_storage().nbytes() // 8,), (1,), 0)
     return int(full[-2]), int(full[-1])
 
 
-def frame_take(torch, rays) -> int:
-    """Lanes each warp took from the queue at once in the mesh fused_frame
-    launch whose rays per bounce are `rays`: the kernel's rule on its
-    counters, live / (warps in the grid) rounded up, at most 32."""
-    queued, blocks = frame_counters(torch, rays)
-    return min(32, -(-queued // (blocks * FRAME_BLOCK_WARPS))) if blocks else 0
+def frame_take(torch, out) -> int:
+    """Lanes each warp took from the queue at once in the queue kernel
+    launch that wrote `out` (frame_counters): the kernels' rule on their
+    counters, live / (warps in the grid) rounded up, 32 when that reaches
+    32, else at most FRAME_TAKE_MAX."""
+    queued, blocks = frame_counters(torch, out)
+    if not blocks:
+        return 0
+    take = min(32, -(-queued // (blocks * FRAME_BLOCK_WARPS)))
+    return take if take == 32 else min(take, FRAME_TAKE_MAX)
+
+
+def edge_take(case):
+    """The lanes each warp takes at once on the edge case `case` of
+    FRAME_EDGES (frame_take), or None where the case does not set it."""
+    if not case.startswith("take"):
+        return None
+    return min(int(case[4:]), FRAME_TAKE_MAX)
 
 
 def check_frame(torch, phase, what, args, kw, with_bound=False,
@@ -1320,8 +1347,118 @@ def check_frame_edges(torch, np, phase, what, cfg, scene, lights, ps):
     for case in FRAME_EDGES:
         eps, start = frame_edge(torch, np, case, ps, grid)
         check_frame(torch, phase, f"{what} {case}", (cfg, scene, lights, eps),
-                    {"start_bounce": start}, expect_take=(
-                        int(case[4:]) if case.startswith("take") else None))
+                    {"start_bounce": start}, expect_take=edge_take(case))
+
+
+# Bytes of fused_bounce's path state a lane: 12 float planes, the int64 RNG
+# word and two byte flags in (58 B), the same and the missed byte out
+# (59 B).  A dead lane is carried through, so it moves as many.
+BOUNCE_LANE_BYTES = 58 + 59
+
+
+def bounce_grid(torch, cfg, scene, lights, ps) -> int:
+    """Blocks the resident fused_bounce launches on the lanes of `ps`, as
+    the kernel reports them on a call where every lane is dead."""
+    from spt_tpu_torch.ops import cuda_bounce
+
+    dead = ps._replace(alive=torch.zeros_like(ps.alive))
+    return frame_counters(torch, cuda_bounce.fused_bounce(
+        cfg, scene, lights, dead, 1, False)[0].rng)[1]
+
+
+def check_bounce(torch, phase, what, args, kw=None, with_bound=False,
+                 expect_take=None, smi=None):
+    """A fused_bounce call against its plain version on the card: every
+    plane bit for bit (rng int64, the flags and missed bool), and in the
+    resident form the kernel's queue holding every live lane, with the live
+    lanes, the blocks it launched and the lanes each warp took at once
+    logged (the take must be `expect_take` where that is given).  With
+    `with_bound`, also the call's bound (the operations of its walks and the
+    bytes of frame_bytes at BOUNCE_LANE_BYTES a lane) and its device time,
+    logged with `smi`.  Returns dict(max_abs_err, plain_ms, bound, ms,
+    nbytes, ops), the last four None without `with_bound`."""
+    from spt_tpu_torch.ops import cuda_bounce
+
+    kw = kw or {}
+    cfg, scene, lights, ps, bounce = args[:5]
+    mode = cuda_bounce._accel_mode(scene)
+    ks, km = cuda_bounce.fused_bounce(*args, **kw)
+    plain = lambda: _timed(  # noqa: E731
+        torch, lambda: cuda_bounce.fused_bounce_reference(*args, **kw))
+    out = dict(bound=None, ms=None, nbytes=None, ops=None)
+    if with_bound:
+        touched = None if mode is None else {}
+        ((ps_, pm), plain_ms), out["ops"] = _walk_ops(torch, scene, plain,
+                                                      touched)
+        parts = frame_bytes(torch, cfg, scene, lights, ps, bounce,
+                            touched or {}, (BOUNCE_LANE_BYTES,) * 2)
+        out["nbytes"] = sum(parts.values())
+        out["bound"] = bound(out["nbytes"], out["ops"])
+    else:
+        (ps_, pm), plain_ms = plain()
+    alive = int(ps.alive.sum())
+    note = ""
+    if mode == "resident":
+        queued, blocks = frame_counters(torch, ks.rng)
+        take = frame_take(torch, ks.rng)
+        note = (f"; the kernel queued {queued} lanes on {blocks} blocks, "
+                f"{take} a warp at once")
+    planes = _state_planes(torch, ks, km, ps_, pm)
+    worst = check_planes(
+        torch, f"{what} bounce {bounce} ({ps.num_paths} lanes, {alive} "
+        f"alive{note})", planes, phase=phase, exact=tuple(planes))
+    if ks.rng.dtype != torch.int64 or any(
+            t.dtype != torch.bool for t in (ks.alive, ks.emission_ok, km)):
+        raise AssertionError(f"{what}: rng {ks.rng.dtype}, flags "
+                             f"{ks.alive.dtype} {ks.emission_ok.dtype} "
+                             f"{km.dtype}")
+    if mode == "resident" and queued != alive:
+        raise AssertionError(f"{what}: {queued} lanes queued of {alive} alive")
+    if expect_take is not None and take != expect_take:
+        raise AssertionError(f"{what}: the warps took {take} lanes at once, "
+                             f"not {expect_take}")
+    if with_bound:
+        name = cuda_bounce.BOUNCE_KERNELS[mode]
+        out["ms"] = kernel_device_ms(torch, lambda: cuda_bounce.fused_bounce(
+            *args, **kw), name)
+        b = out["bound"]
+        log(f"phase {phase} {name} at {what} bounce {bounce} "
+            f"({ps.num_paths} lanes, {alive} alive): kernel {out['ms']:.4f} "
+            f"ms (device time), plain {plain_ms:.4f} ms, bound {b[0]:.4f} ms "
+            f"({b[1]}; bytes {out['nbytes']}: " + ", ".join(
+                f"{k} {v}" for k, v in parts.items())
+            + f"; {ops_note(out['ops'])}) [{smi}]")
+    return dict(out, max_abs_err=worst, plain_ms=plain_ms)
+
+
+def bounce_at_calls(torch, phase, what, calls, smi) -> dict:
+    """check_bounce with its bound and time at each recorded fused_bounce
+    call; returns the kernel-line numbers, each the mean over the calls."""
+    rows = [check_bounce(torch, phase, what, args, kw, with_bound=True,
+                         smi=smi) for args, kw in calls]
+    k = len(rows)
+    b = bound(sum(r["nbytes"] for r in rows) / k,
+              sum(r["ops"] for r in rows) / k)
+    out = dict(max_abs_err=max(r["max_abs_err"] for r in rows),
+               ms=sum(r["ms"] for r in rows) / k,
+               plain_ms=sum(r["plain_ms"] for r in rows) / k, bound=b,
+               library_ms=None)
+    log(f"phase {phase} {what} over its {k} calls: kernel {out['ms']:.4f} ms "
+        f"per launch (device time), plain {out['plain_ms']:.4f} ms, bound "
+        f"{b[0]:.4f} ms ({b[1]}), means over the calls [{smi}]")
+    return out
+
+
+def check_bounce_edges(torch, np, phase, what, cfg, scene, lights, ps):
+    """check_bounce on each of FRAME_EDGES from the primary state `ps`, at
+    the edge's start bounce (is_last there)."""
+    grid = bounce_grid(torch, cfg, scene, lights, ps)
+    for case in FRAME_EDGES:
+        eps, start = frame_edge(torch, np, case, ps, grid)
+        check_bounce(torch, phase, f"{what} {case}",
+                     (cfg, scene, lights, eps, start,
+                      start == cfg.max_depth - 1),
+                     expect_take=edge_take(case))
 
 
 def check_sort(torch, phase, what, key, ops, chunk) -> float:
@@ -1490,33 +1627,9 @@ def phase_mesh_kernels(torch, np, dev, smi):
     log(f"phase 5 the sorted frame's calls: "
         f"{ {k: len(v) for k, v in by_name.items()} }")
 
-    mine = by_name["fused_bounce"]
-    nbytes = flops = 0.0
-    worst_b = 0.0
-    for args, kw in mine:
-        bcfg, bscene, blights, bps, bounce, is_last = args
-        ks, km = cuda_bounce.fused_bounce(*args, **kw)
-        (ps_, pm), ops = _walk_ops(
-            torch, scene,
-            lambda: cuda_bounce.fused_bounce_reference(*args, **kw))
-        lanes = bps.num_paths
-        worst_b = max(worst_b, check_planes(
-            torch, f"fused_bounce bounce {bounce} ({lanes} lanes, "
-            f"{int(bps.alive.sum())} alive)",
-            _state_planes(torch, ks, km, ps_, pm)))
-        # 15 planes in, 16 out (12 float, int64 rng, three byte flags)
-        nbytes += lanes * (15 * 4 + 12 * 4 + 8 + 3) + a.tri_pack.numel() * 4
-        flops += ops
-    ms, plain_ms = _over_calls(torch, cuda_bounce.fused_bounce, mine,
-                               "fused_bounce_kernel<1>",
-                               cuda_bounce.fused_bounce_reference)
-    b = bound(nbytes / len(mine), flops / len(mine))
-    out["fused_bounce"] = dict(max_abs_err=worst_b, ms=ms, plain_ms=plain_ms,
-                               bound=b, library_ms=None)
-    log(f"phase 5 fused_bounce at the sorted frame's {len(mine)} calls: "
-        f"kernel {ms:.4f} ms per launch (device time), plain {plain_ms:.4f} "
-        f"ms, bound {b[0]:.4f} ms ({b[1]}; {ops_note(flops / len(mine))}) "
-        f"[{smi}]")
+    out["fused_bounce"] = bounce_at_calls(
+        torch, 5, "the sorted frame's fused_bounce", by_name["fused_bounce"],
+        smi)
 
     mine = by_name["fused_frame"]
     if len(mine) != 1:
@@ -1545,6 +1658,8 @@ def phase_mesh_kernels(torch, np, dev, smi):
         f"d{cfg.max_depth}: kernel {ms0:.4f} ms (device time) [{smi}]")
     check_frame_edges(torch, np, 5, "fused_frame resident", cfg, scene,
                       lights, ps0)
+    check_bounce_edges(torch, np, 5, "fused_bounce resident", cfg, scene,
+                       lights, ps0)
 
     log_occupancy(5, smi, {
         "closest_hit": _trace_shared_bytes("closest_hit", a, scene),
@@ -1690,6 +1805,7 @@ def phase_mesh_times(torch, dev, smi):
     Renderer runs it, and unsorted), its device busy time, and per-kernel
     device time and launches per frame."""
     from spt_tpu_torch.bench import count_rays, shadow_rays_per_surface_lane
+    from spt_tpu_torch.ops import cuda_bounce
 
     frames = 16
     for label, kw in (("sorted", {}), ("unsorted", {"ray_sort": False})):
@@ -1714,7 +1830,7 @@ def phase_mesh_times(torch, dev, smi):
             ms = ms_l
     r = mesh_renderer(dev)
     r.render_frames(1)
-    names = {"fused_bounce": "fused_bounce_kernel<1>",
+    names = {"fused_bounce": cuda_bounce.BOUNCE_KERNELS["resident"],
              "fused_frame": "fused_frame_kernel<1>",
              "sort_chunks": "sort_chunks_kernel"}
     iters = 8
@@ -1887,38 +2003,12 @@ def phase_inst_kernels(torch, np, dev, smi):
                for name in ("fused_bounce", "fused_frame", "sort_chunks")}
     log(f"phase 10 the instanced sorted frame's calls: "
         f"{ {k: len(v) for k, v in by_name.items()} }")
-    tex_bytes = scene.textures.numel() * 4
     out["sort_chunks"] = sort_at_calls(torch, 10, "the instanced sorted "
                                        "frame's", by_name["sort_chunks"], smi)
 
-    mine = by_name["fused_bounce"]
-    nbytes = flops = worst = 0.0
-    for args, kw in mine:
-        bps, bounce = args[3], args[4]
-        ks, km = cuda_bounce.fused_bounce(*args, **kw)
-        (ps_, pm), ops = _walk_ops(
-            torch, scene,
-            lambda: cuda_bounce.fused_bounce_reference(*args, **kw))
-        worst = max(worst, check_planes(
-            torch, f"fused_bounce instanced bounce {bounce} "
-            f"({bps.num_paths} lanes, {int(bps.alive.sum())} alive)",
-            _state_planes(torch, ks, km, ps_, pm), phase=10,
-            exact=("radiance",)))
-        nbytes += (bps.num_paths * (15 * 4 + 12 * 4 + 8 + 3) + pack_bytes
-                   + tex_bytes)
-        flops += ops
-    ms, plain_ms = _over_calls(torch, cuda_bounce.fused_bounce, mine,
-                               "fused_bounce_kernel<2>",
-                               cuda_bounce.fused_bounce_reference,
-                               plain_iters=1)
-    b = bound(nbytes / len(mine), flops / len(mine))
-    out["fused_bounce_instanced"] = dict(max_abs_err=worst, ms=ms,
-                                         plain_ms=plain_ms, bound=b,
-                                         library_ms=None)
-    log(f"phase 10 fused_bounce instanced at the sorted frame's {len(mine)} "
-        f"calls: kernel {ms:.4f} ms per launch (device time), plain "
-        f"{plain_ms:.4f} ms, bound {b[0]:.4f} ms ({b[1]}; "
-        f"{ops_note(flops / len(mine))}) [{smi}]")
+    out["fused_bounce_instanced"] = bounce_at_calls(
+        torch, 10, "the instanced sorted frame's fused_bounce",
+        by_name["fused_bounce"], smi)
 
     mine = by_name["fused_frame"]
     if len(mine) != 1:
@@ -1981,12 +2071,8 @@ def phase_inst_kernels(torch, np, dev, smi):
     mps = transport.gen_primary(mcfg, mcam.rays(dev), 0)
     check_frame(torch, 10, "fused_frame resident textured",
                 (mcfg, mscene, lights, mps), {})
-    ks, km = cuda_bounce.fused_bounce(mcfg, mscene, lights, mps, 0, False)
-    ps_, pm = cuda_bounce.fused_bounce_reference(mcfg, mscene, lights, mps, 0,
-                                                 False)
-    check_planes(torch, "fused_bounce resident textured bounce 0",
-                 _state_planes(torch, ks, km, ps_, pm), phase=10,
-                 exact=("radiance",))
+    check_bounce(torch, 10, "fused_bounce resident textured",
+                 (mcfg, mscene, lights, mps, 0, False))
     return out
 
 
@@ -1994,6 +2080,7 @@ def phase_inst_main_path(torch, np, dev, out_dir, smi):
     """Phase 11: the instanced grid's Renderer on the card; returns the
     launch counts."""
     from spt_tpu_torch.bench import count_rays, shadow_rays_per_surface_lane
+    from spt_tpu_torch.ops import cuda_bounce
     from spt_tpu_torch.integrators import wavefront
 
     frames = 8
@@ -2027,7 +2114,7 @@ def phase_inst_main_path(torch, np, dev, out_dir, smi):
         f"frames), {mrays:.2f} Mrays/s; device busy {busy:.4f} ms/frame over "
         f"{n_kernels:.1f} kernel launches (profiled), idle share "
         f"{max(0.0, 1 - busy / ms) * 100:.1f} % [{smi}]")
-    names = {"fused_bounce": "fused_bounce_kernel<2>",
+    names = {"fused_bounce": cuda_bounce.BOUNCE_KERNELS["instanced"],
              "fused_frame": "fused_frame_kernel<2>",
              "sort_chunks": "sort_chunks_kernel"}
     prof = profile_kernels(torch, lambda: r.render_frames(1),
@@ -2268,35 +2355,9 @@ def phase_stream_kernels(torch, np, dev, smi):
                for name in ("fused_bounce", "fused_frame", "sort_chunks")}
     log(f"phase 14 the stream sorted frame's calls: "
         f"{ {k: len(v) for k, v in by_name.items()} }")
-    tex_bytes = scene.textures.numel() * 4
-    mine = by_name["fused_bounce"]
-    nbytes = flops = worst = plain_total = 0.0
-    for args, kw in mine:
-        bps, bounce = args[3], args[4]
-        ks, km = cuda_bounce.fused_bounce(*args, **kw)
-        ((ps_, pm), pms), ops = _walk_ops(torch, scene, lambda: _timed(
-            torch, lambda: cuda_bounce.fused_bounce_reference(*args, **kw)))
-        plain_total += pms
-        worst = max(worst, check_planes(
-            torch, f"fused_bounce stream bounce {bounce} ({bps.num_paths} "
-            f"lanes, {int(bps.alive.sum())} alive)",
-            _state_planes(torch, ks, km, ps_, pm), phase=14,
-            exact=("radiance",)))
-        nbytes += (bps.num_paths * (15 * 4 + 12 * 4 + 8 + 3) + pack_bytes
-                   + tex_bytes)
-        flops += ops
-    ms = kernel_device_ms(torch, lambda: [cuda_bounce.fused_bounce(*a_, **k_)
-                                          for a_, k_ in mine],
-                          "fused_bounce_kernel<3>", iters=10,
-                          launches_per_call=len(mine))
-    b = bound(nbytes / len(mine), flops / len(mine))
-    out["fused_bounce_stream"] = dict(max_abs_err=worst, ms=ms,
-                                      plain_ms=plain_total / len(mine),
-                                      bound=b, library_ms=None)
-    log(f"phase 14 fused_bounce stream at the sorted frame's {len(mine)} "
-        f"calls: kernel {ms:.4f} ms per launch (device time), plain "
-        f"{plain_total / len(mine):.4f} ms, bound {b[0]:.4f} ms ({b[1]}; "
-        f"{ops_note(flops / len(mine))}) [{smi}]")
+    out["fused_bounce_stream"] = bounce_at_calls(
+        torch, 14, "the stream sorted frame's fused_bounce",
+        by_name["fused_bounce"], smi)
 
     mine = by_name["fused_frame"]
     if len(mine) != 1:
@@ -2337,6 +2398,7 @@ def phase_stream_main_path(torch, np, dev, out_dir, smi):
     """Phase 15: the baked grid's Renderer on the card, sorted (the main
     path) and unsorted; returns the sorted run's launch counts."""
     from spt_tpu_torch.bench import count_rays, shadow_rays_per_surface_lane
+    from spt_tpu_torch.ops import cuda_bounce
     from spt_tpu_torch.integrators import wavefront
 
     frames = 8
@@ -2370,7 +2432,7 @@ def phase_stream_main_path(torch, np, dev, out_dir, smi):
         f"frames), {mrays:.2f} Mrays/s; device busy {busy:.4f} ms/frame over "
         f"{n_kernels:.1f} kernel launches (profiled), idle share "
         f"{max(0.0, 1 - busy / ms) * 100:.1f} % [{smi}]")
-    names = {"fused_bounce": "fused_bounce_kernel<3>",
+    names = {"fused_bounce": cuda_bounce.BOUNCE_KERNELS["stream"],
              "fused_frame": "fused_frame_kernel<3>",
              "sort_chunks": "sort_chunks_kernel"}
     prof = profile_kernels(torch, lambda: r.render_frames(1),
@@ -2636,33 +2698,8 @@ def _compact_bounce0(torch, smi, name, r):
         raise AssertionError(f"the compact frame made {len(bounce0)} "
                              "fused_bounce calls, expected one at bounce 0")
     (args, kw), = bounce0
-    bcfg, scene, lights, ps, _, _ = args
-    n = ps.num_paths
-    small = cuda_bounce._accel_mode(scene) is None
-    ks, km = cuda_bounce.fused_bounce(*args, **kw)
-    (ps_, pm), ops = _walk_ops(
-        torch, scene, lambda: cuda_bounce.fused_bounce_reference(*args, **kw))
-    planes = _state_planes(torch, ks, km, ps_, pm)
-    worst = check_planes(torch, f"fused_bounce at the compact {name} frame's "
-                         f"bounce-0 call ({n} lanes)", planes, phase=20,
-                         exact=tuple(planes) if small else ())
-    form = "fused_bounce_kernel<0>" if small else "fused_bounce_kernel<1>"
-    call = lambda: cuda_bounce.fused_bounce(*args, **kw)
-    ms = kernel_device_ms(torch, call, form)
-    plain_ms = time_call(torch, lambda: cuda_bounce.fused_bounce_reference(
-        *args, **kw), warmup=1, iters=3)
-    # bytes a lane: 12 float planes and the RNG word and two flags as int32
-    # in (60 B), 12 float planes, the int64 RNG word and three byte flags out
-    # (59 B); then the packed tables and a mesh form's tri_pack once
-    tables = cuda_bounce._pack_tables(scene, lights, bcfg.nee and
-                                      scene.emitters is not None,
-                                      cuda_bounce._accel_mode(scene))
-    pack = 0 if small else scene.accel.tri_pack.numel() * 4
-    b = bound(n * (60 + 59) + tables.numel() * 4 + pack, ops)
-    log(f"phase 20 {form} at the compact {name} frame's bounce-0 call "
-        f"({n} lanes, d{bcfg.max_depth}): kernel {ms:.4f} ms (device time), "
-        f"plain {plain_ms:.4f} ms, bound {b[0]:.4f} ms ({b[1]}; "
-        f"{ops_note(ops)}) [{smi}]")
+    k3 = check_bounce(torch, 20, f"the compact {name} frame's fused_bounce",
+                      args, kw, with_bound=True, smi=smi)
     for i, (eargs, ekw) in enumerate(envs):
         env, direction, need = eargs
         k = cuda_env.env_sample(*eargs, **ekw)
@@ -2674,7 +2711,8 @@ def _compact_bounce0(torch, smi, name, r):
                      phase=20, exact=("rgb",))
         if not bool((_v(torch, k)[~need] == 0).all()):
             raise AssertionError("env_sample wrote a term outside need")
-    return dict(max_abs_err=worst, ms=ms, plain_ms=plain_ms, bound=b,
+    return dict(max_abs_err=k3["max_abs_err"], ms=k3["ms"],
+                plain_ms=k3["plain_ms"], bound=k3["bound"],
                 library_ms=None), len(envs)
 
 
@@ -2683,7 +2721,7 @@ def phase_compact(torch, np, dev, out_dir, smi):
     then compacted chunks through trace_bounce + shade with the environment
     each bounce) on default d6, cornell d8 and hdr d6 at 1920x1080 and on
     the mesh scene at 512x384 d4: K3 at the bounce-0 call against its plain
-    version (bit for bit on the small scenes), K2 at the hdr frame's calls,
+    version (every plane bit for bit), K2 at the hdr frame's calls,
     the image against the masked path's (< 1 % relative RMSE over 8 frames,
     rays_per_bounce equal), launches counted over the 8 frames, ms/frame
     and device busy.  Returns (the default config's K3 numbers, its
@@ -3118,6 +3156,14 @@ def phase_sharding(torch, np, dev, smi):
                     cfg, *args, st0, 1, rank, world)
                 busy, per = device_busy_ms(torch, band_frame, iters=2)
                 k1_ms = kernel_device_ms(torch, band_frame, k1_name, iters=4)
+                if name == "mesh":
+                    # K3 at each of a band-frame's calls, bit for bit
+                    with capture_calls([(cuda_bounce, "fused_bounce")]) as k3s:
+                        band_frame()
+                        torch.cuda.synchronize()
+                    for _, a_, k_ in k3s:
+                        check_bounce(torch, 24, f"fused_bounce in mesh band "
+                                     f"{rank} of {world}", a_, k_)
                 row0, rows = sharding.band(cfg, rank, world)
                 log(f"phase 24 {name} {size}, band {rank} of {world} (rows "
                     f"{row0}-{row0 + rows - 1}, {st0.num_pixels} lanes): "

@@ -1,9 +1,9 @@
 #!/usr/bin/env python3
-"""Time fused_frame (K1, its small and mesh forms) and the equirect sampler
-(K2) on one CUDA card, beside variants of the kernels' constants and
-another checkout's kernels.
+"""Time fused_frame (K1, its small and mesh forms), fused_bounce (K3) and the
+equirect sampler (K2) on one CUDA card, beside variants of the kernels'
+constants and another checkout's kernels.
 
-    python3 frame_sweep.py [--part all|small|mesh]
+    python3 frame_sweep.py [--part all|small|mesh|bounce]
                            [--variants NAME:kConst=V[+kConst=V]/...]
                            [--other DIR] [--frames 16] [--pairs 1]
 
@@ -30,6 +30,20 @@ launches per frame (torch.profiler).  ``--depth1`` adds default at depth 1
 (bounce 0 alone); ``--notrig`` adds a build of the sampler with its atan2f
 and acosf replaced by a subtraction, timed only, for what the exact
 trigonometry costs.
+
+The bounce part (``--part bounce``): K3 (fused_bounce) per call, at each of
+the sorted frame's three calls on the three mesh scenes, at the compact
+path's bounce-0 call on the mesh scene and at each call of band 0 of a
+2-band mesh frame (``sharding.shard_frames``): the lanes and live lanes of
+the call, every build's result against the committed build's bit for bit,
+torch.profiler device time per launch, and each build's K3 registers,
+spill and blocks per SM; then each mesh scene's sorted frame through the
+committed build's and ``--other``'s fused_bounce (images bit for bit,
+ms/frame, busy and launches per frame) and the launches of the compact
+path's default 1920x1080 d6 frame through each.  The kernel's constants
+take variants as above (``--variants c2:kTakeMax=2``); ``--queue-grids``
+adds a build that runs the instanced and stream forms as queue kernels
+too, timed only (the package runs them one thread a lane).
 
 The mesh part (``--part mesh``): K1's resident, instanced and stream forms
 on the three mesh scenes of ``chip_smoke.py`` at 512x384 depth 4
@@ -63,6 +77,60 @@ NOTRIG = (("atan2f(d.z, d.x)", "(d.z - d.x)"),
           ("acosf(fminf(fmaxf(d.y, -1.0f), 1.0f))", "(1.0f - d.y)"))
 
 
+# The q23 build (--queue-grids, timed only): fused_bounce's instanced and
+# stream forms launched as the queue kernel the resident form is, which the
+# package does not do; queue_grid_wrappers hands them its counters.
+QUEUE_GRIDS = tuple(
+    (f"err = launch_lanes<{k}>(io, sc, sa, smem, st);",
+     f"err = launch_queue(fused_bounce_queue_kernel<{k}>, io, sc, sa, smem, st);")
+    for k in (2, 3)) + tuple(
+    (f"kernel_info(fused_bounce_kernel<{k}>, smem",
+     f"kernel_info(fused_bounce_queue_kernel<{k}>, smem") for k in (2, 3))
+
+
+def queue_grid_wrappers(torch, cb):
+    """The q23 build's wrappers: cuda_bounce `cb` with a fused_bounce that,
+    on the instanced and stream forms, allocates the queue kernel's zeroed
+    counters after the RNG words and its queue, as cb.fused_bounce does on
+    the resident form."""
+    from types import SimpleNamespace
+
+    from spt_tpu_torch.integrators import transport
+    from spt_tpu_torch.ops.vec3 import Vec3
+
+    def fused_bounce(cfg, scene, lights, ps, bounce, is_last):
+        if cb._accel_mode(scene) not in ("instanced", "stream"):
+            return cb.fused_bounce(cfg, scene, lights, ps, bounce, is_last)
+        dev, n = ps.rng.device, ps.num_paths
+        ins, scene_args, keep = cb._kernel_inputs(cfg, scene, lights, ps,
+                                                  "fused_bounce")
+        outs = [torch.empty(n, dtype=torch.float32, device=dev)
+                for _ in range(12)]
+        flags = [torch.empty(n, dtype=torch.bool, device=dev)
+                 for _ in range(3)]
+        rng = torch.empty(n + 3, dtype=torch.int64, device=dev)
+        rng[n:].zero_()
+        queue = torch.empty(n, dtype=torch.int32, device=dev)
+        err = cb.cuda_lib.build().spt_fused_bounce(
+            *ins, *(t.data_ptr() for t in outs), rng.data_ptr(),
+            *(t.data_ptr() for t in flags), rng[n:].data_ptr(),
+            queue.data_ptr(), *scene_args, n, bounce, int(bool(is_last)),
+            min(cfg.rr_after, 2 ** 31 - 1), cfg.hit_eps, cfg.ray_offset_dir,
+            cfg.firefly_clamp, cb.cuda_lib.stream_of(dev))
+        cb.cuda_lib.check(err, "fused_bounce")
+        del keep, queue
+        return transport.PathState(
+            origin=Vec3(*outs[0:3]), direction=Vec3(*outs[3:6]),
+            throughput=Vec3(*outs[6:9]), radiance=Vec3(*outs[9:12]),
+            rng=rng[:n], alive=flags[0], emission_ok=flags[1]), flags[2]
+
+    names = dict(cb.BOUNCE_KERNELS, instanced="fused_bounce_queue_kernel<2>",
+                 stream="fused_bounce_queue_kernel<3>")
+    return SimpleNamespace(fused_bounce=fused_bounce, BOUNCE_KERNELS=names,
+                           fused_frame=cb.fused_frame,
+                           shared_bytes=cb.shared_bytes)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--variants", default="",
@@ -70,15 +138,20 @@ def main() -> int:
     ap.add_argument("--other", default=None,
                     help="a checkout whose kernels and wrappers to time beside")
     ap.add_argument("--frames", type=int, default=16)
-    ap.add_argument("--part", choices=("all", "small", "mesh"), default="all",
+    ap.add_argument("--part", choices=("all", "small", "mesh", "bounce"),
+                    default="all",
                     help="the small forms (K1 small, K2), K1's mesh forms, "
-                         "or both")
+                         "K3 at its calls, or the first two")
     ap.add_argument("--pairs", type=int, default=1,
                     help="rounds of the mesh frames through each build, in "
                          "turns forward then backward")
     ap.add_argument("--notrig", action="store_true",
                     help="also time the sampler without its trigonometry "
                          "(wrong results, timed only)")
+    ap.add_argument("--queue-grids", action="store_true",
+                    help="also time, with --part bounce, a build that runs "
+                         "fused_bounce's instanced and stream forms as "
+                         "queue kernels")
     ap.add_argument("--depth1", action="store_true",
                     help="also time fused_frame on default at depth 1 (bounce 0 "
                          "alone)")
@@ -103,18 +176,24 @@ def main() -> int:
     def note(cl):
         info = cl.kernel_info()
         return "; ".join(f"{k} {info[k]}" for k in info if k.startswith(
-            "fused_frame"))
+            "fused_bounce" if args.part == "bounce" else "fused_frame"))
 
     made.load("committed", note=note)
     for name, subs in sweep_builds.parse_consts(args.variants):
         made.variant(name, subs, note=note)
     if args.notrig:
         made.variant("notrig", [sweep_builds.literal(*p) for p in NOTRIG])
+    if args.queue_grids:
+        made.variant("q23", [sweep_builds.literal(*p) for p in QUEUE_GRIDS],
+                     note=note)
     # name -> (cuda_bounce module, cuda_env module, K1 small's kernel name in
     # a trace, cuda_lib module); the builds of this checkout share its
     # wrappers
     builds = {name: (cuda_bounce, cuda_env, cuda_bounce.SMALL_KERNEL, cuda_lib)
               for name in made.libs}
+    if args.queue_grids:
+        builds["q23"] = (queue_grid_wrappers(torch, cuda_bounce),) + builds[
+            "q23"][1:]
     if args.other:
         o = made.load_other(Path(args.other).resolve(),
                             ("cuda_lib", "cuda_bounce", "cuda_env"), note=note)
@@ -129,11 +208,14 @@ def main() -> int:
         return builds[name]
 
     def same(a, b):
-        a = [t for x in a for t in (x if isinstance(x, tuple) else (x,))]
-        b = [t for x in b for t in (x if isinstance(x, tuple) else (x,))]
+        a, b = _flat(a), _flat(b)
         return len(a) == len(b) and all(
             x.dtype == y.dtype and cs._same_bits(torch, x, y) for x, y in zip(a, b))
 
+    if args.part == "bounce":
+        failed = bounce_part(args, torch, cs, names, use, same, smi)
+        cs.log("frame_sweep done")
+        return int(failed)
     if args.part in ("all", "mesh"):
         if mesh_part(args, torch, cs, names, use, same, smi):
             return 1
@@ -295,21 +377,23 @@ def mesh_part(args, torch, cs, names, use, same, smi) -> bool:
 
 
 def frames_with_each_build(args, torch, cs, names, use, smi, label,
-                           make) -> bool:
-    """The scene's frame, sorted and unsorted, through each build's
-    fused_frame: images against the committed build's, ms/frame, busy and
-    launches.  Returns whether an image differed."""
+                           make, fn="fused_frame",
+                           routes=(("sorted", {}),
+                                   ("unsorted", {"ray_sort": False}))) -> bool:
+    """The scene's frame on each route through each build's wrapper `fn`
+    (fused_frame or fused_bounce): images against the committed build's,
+    ms/frame, busy and launches.  Returns whether an image differed."""
     from spt_tpu_torch.ops import cuda_bounce
 
     dev = torch.device("cuda", 0)
-    saved = cuda_bounce.fused_frame
+    saved = getattr(cuda_bounce, fn)
     try:
-        for route, kw in (("sorted", {}), ("unsorted", {"ray_sort": False})):
+        for route, kw in routes:
             images, times = {}, {v: [] for v in names}
             for v in (names + names[::-1]) * args.pairs:
                 b = use(v)[0]
-                cuda_bounce.fused_frame = (saved if b is cuda_bounce
-                                           else b.fused_frame)
+                setattr(cuda_bounce, fn,
+                        saved if b is cuda_bounce else getattr(b, fn))
                 r = getattr(cs, make)(dev, **kw)
                 r.render_frames(4)
                 img = r.hdr_image()
@@ -319,7 +403,8 @@ def frames_with_each_build(args, torch, cs, names, use, smi, label,
                 times[v].append(ms_f)
                 busy, launches = cs.device_busy_ms(torch,
                                                    lambda: r.render_frames(1))
-                cs.log(f"{label} 512x384 d4 {route} frame with the {v} build: "
+                cs.log(f"{label} 512x384 d4 {route} frame with the {v} "
+                       f"build's {fn}: "
                        f"{ms_f:.4f} ms/frame over {args.frames} frames, device "
                        f"busy {busy:.4f} ms/frame over {launches:.1f} launches "
                        f"(profiled) [{smi}]")
@@ -336,7 +421,119 @@ def frames_with_each_build(args, torch, cs, names, use, smi, label,
             if off:
                 return True
     finally:
-        cuda_bounce.fused_frame = saved
+        setattr(cuda_bounce, fn, saved)
+    return False
+
+
+# fused_bounce's kernels by accel mode in a checkout from before their
+# names were kept in cuda_bounce.BOUNCE_KERNELS.
+BOUNCE_FORMS = {None: 0, "resident": 1, "instanced": 2, "stream": 3}
+
+
+def bounce_kernel(b, mode) -> str:
+    """The profiler name of fused_bounce's form `mode` in the build whose
+    wrapper module is `b`."""
+    names = getattr(b, "BOUNCE_KERNELS", None)
+    return (names[mode] if names else
+            f"fused_bounce_kernel<{BOUNCE_FORMS[mode]}>")
+
+
+def _flat(x):
+    """The tensors of a (nested) tuple of them, in order."""
+    if isinstance(x, tuple):
+        return [t for y in x for t in _flat(y)]
+    return [x]
+
+
+def bounce_part(args, torch, cs, names, use, same, smi) -> bool:
+    """K3 (fused_bounce) through each build, per call: at each of the
+    sorted frame's calls on the three mesh scenes, at the compact path's
+    bounce-0 call on the mesh scene and at each call of band 0 of a 2-band
+    mesh frame; the lanes and live lanes of each call, the builds' results
+    bit for bit, device ms per launch (torch.profiler) in turns, and each
+    build's K3 registers, spill and blocks per SM; then each mesh scene's
+    sorted frame through each build's fused_bounce (images bit for bit,
+    ms/frame, busy, launches) and the launches of the compact path's
+    default 1920x1080 d6 frame.  Returns whether a build's results
+    differed."""
+    from spt_tpu_torch.engine import state as state_mod
+    from spt_tpu_torch.env import make_procedural_environment
+    from spt_tpu_torch.lights import default_lights
+    from spt_tpu_torch.ops import cuda_bounce
+    from spt_tpu_torch.parallel import sharding
+    from spt_tpu_torch.scene import flatten_scene
+
+    dev = torch.device("cuda", 0)
+
+    def calls_of(fn):
+        use("committed")
+        with cs.capture_calls([(cuda_bounce, "fused_bounce")]) as calls:
+            fn()
+            torch.cuda.synchronize()
+        return [(a, k) for _, a, k in calls]
+
+    sets = []
+    for label, make, mode, _ in MESH:
+        sets.append((f"{label} sorted frame", mode,
+                     calls_of(lambda: getattr(cs, make)(dev).render_frames(1))))
+    sets.append(("mesh compact frame", "resident", calls_of(
+        lambda: cs.mesh_renderer(dev, integrator="compact").render_frames(1))))
+    desc, cfg, cam = cs.port_mesh_scene()
+    band = (cfg, flatten_scene(desc, dev), make_procedural_environment(dev),
+            default_lights(dev), cam.rays(dev))
+    sets.append(("mesh band 0 of 2", "resident", calls_of(
+        lambda: sharding.shard_frames(
+            *band, state_mod.init_state(cfg.num_pixels // 2, dev), 1, 0, 2))))
+
+    for what, mode, calls in sets:
+        for a, kw in calls:
+            ps, bounce = a[3], a[4]
+            outs = {v: use(v)[0].fused_bounce(*a, **kw) for v in names}
+            torch.cuda.synchronize()
+            off = [v for v in names if not same(outs[v], outs["committed"])]
+            ms = {v: [] for v in names}
+            for v in names + names[::-1]:
+                b = use(v)[0]
+                ms[v].append(cs.kernel_device_ms(
+                    torch, lambda: b.fused_bounce(*a, **kw),
+                    bounce_kernel(b, mode), iters=10))
+            cs.log(f"{what} K3 {mode} bounce {bounce} ({ps.num_paths} lanes, "
+                   f"{int(ps.alive.sum())} alive): builds not bit-equal to the "
+                   f"committed one: {off or 'none'}; kernel ms per launch "
+                   "forward/backward: " + ", ".join(
+                       f"{v} {t[0]:.4f}/{t[1]:.4f}" for v, t in ms.items())
+                   + f" [{smi}]")
+            if off:
+                return True
+        a = calls[0][0]
+        occ = []
+        for v in names:
+            b, _, _, cl = use(v)
+            info = cl.kernel_info({f"fused_bounce_{mode}": b.shared_bytes(
+                *a[:3])})
+            occ.append(f"{v} {info[f'fused_bounce_{mode}']}")
+        cs.log(f"{what} K3 {mode} occupancy: " + "; ".join(occ) + f" [{smi}]")
+
+    frame_builds = [v for v in names if v in ("committed", "other")]
+    for label, make, _, _ in MESH:
+        if frames_with_each_build(args, torch, cs, frame_builds, use, smi,
+                                  label, make, fn="fused_bounce",
+                                  routes=(("sorted", {}),)):
+            return True
+    saved = cuda_bounce.fused_bounce
+    try:
+        for v in frame_builds:
+            b = use(v)[0]
+            cuda_bounce.fused_bounce = (saved if b is cuda_bounce
+                                        else b.fused_bounce)
+            r = cs.renderer("default", cs.W, cs.H, dev, integrator="compact")
+            busy, launches = cs.device_busy_ms(torch, lambda: r.render_frames(1),
+                                               iters=1)
+            cs.log(f"default {cs.W}x{cs.H} d6 compact frame with the {v} "
+                   f"build's fused_bounce: device busy {busy:.4f} ms over "
+                   f"{launches:.1f} launches (profiled) [{smi}]")
+    finally:
+        cuda_bounce.fused_bounce = saved
     return False
 
 

@@ -1,48 +1,94 @@
-// fused_bounce: one wavefront bounce (trace + shade), one thread per path.
+// fused_bounce: one wavefront bounce (trace + shade) of every live lane.
 //
 // Replaces the Pallas TPU kernel spt_tpu/ops/pallas_bounce.py:752-855
 // (`_kernel`, launched by `fused_bounce` :965): transport.trace_bounce +
 // transport.shade_core for every lane, on the 15 path-state planes, with
 // the bounce index and is_last as arguments.  It writes the 15 state planes
 // back and the `missed` mask (the caller owes throughput * env(direction)
-// to those lanes).  Dead lanes are copied through.  It is the per-thread
-// body of fused_frame for one bounce, in the same four forms (small:
-// RolledTracer, resident: ClusterTracer, instanced: InstTracer, stream:
-// StreamTracer), textured or not; the sorted mesh frame (integrators/wavefront.py) runs it for the
-// bounces between its sorts.
+// to those lanes).  Dead lanes are copied through.  It is one bounce of
+// fused_frame's body, in the same four forms (small: RolledTracer,
+// resident: ClusterTracer, instanced: InstTracer, stream: StreamTracer),
+// textured or not, and reads the path state in the dtypes the port keeps it
+// in (the RNG word as int64, the flags as bytes), so the wrapper converts
+// nothing.  The sorted mesh frame (integrators/wavefront.py) runs it for
+// the bounces between its sorts: bounce 0 on every lane in pixel order,
+// then bounces 1 and 2 after a coherence sort, whose live lanes sit at the
+// head of each sort chunk (condensed to 65 536 lanes on the mesh scene);
+// the compact path runs it at bounce 0.
 //
-// What bounds it on an H100: not bytes (the state is read and written once
-// per bounce, 15 planes in and 16 out — the RNG word goes out as int64, the
-// flags as bytes: 60 + 63 B per lane) but, in the mesh forms, the tracer's
-// walks (the closest hit and every shadow ray): the Moller-Trumbore tests of
-// each opened 64-triangle cluster, which a lane walking alone runs while
-// the lanes of its warp that did not open the cluster idle.  The walks are
-// warp-cooperative (spt_tracers.cuh): the lanes step through their clusters
-// together, the tests of a cluster few of them open are spread over the
-// whole warp, and a cluster many open is staged once in the warp's
-// shared-memory buffer and scanned there by each; the sorted frame's
-// octant-major ray order puts many lanes on one cluster.
+// What bounds it on an H100: not bytes (a lane reads 58 B of state and
+// writes 59 B: 12 float planes, the int64 RNG word, its flags as bytes)
+// but, in the mesh forms, the tracer's walks (the closest hit and every
+// shadow ray): the Moller-Trumbore tests of each opened 64-triangle
+// cluster and the wait for its rows.  The walks are warp-cooperative
+// (spt_tracers.cuh): the lanes step through their clusters together, the
+// tests of a cluster few of them open are spread over the whole warp, and
+// a cluster many open is staged once in the warp's shared-memory buffer.
+//
+// The resident form (fused_bounce_queue_kernel<1>) is a queue kernel
+// (spt_queue.cuh, shared with fused_frame's mesh forms): a persistent
+// cooperative grid sweeps every lane, copying the dead ones through and
+// queueing the live ones, passes a grid barrier, and runs the queued
+// paths: one a warp at a time, its 32 threads twins that walk its ray as a
+// group, or, when the live lanes fill every thread (bounce 0), one a
+// thread with the lockstep walk.  A sorted call's thousands of live lanes,
+// which a grid of one thread per lane left on the few blocks of a few SMs
+// while every other block loaded the tables only to copy dead lanes,
+// spread over every warp of every SM.  Each path runs the call's one bounce with the call's
+// is_last and writes the whole new state at its own lane; K3 counts no
+// rays.  The small, instanced and stream forms (fused_bounce_kernel<0, 2,
+// 3>) run one thread a lane.
 
-#include "spt_tracers.cuh"
+#include "spt_queue.cuh"
 
 namespace {
 
 using namespace spt;
 
-constexpr int kBlock = 128;
-static_assert(kBlock == 32 * kWarps, "the staging buffers are laid out per warp");
-
 struct BounceIO {
-  const float *ox, *oy, *oz, *dx, *dy, *dz, *tx, *ty, *tz, *rx, *ry, *rz;
-  const int *rng, *alive, *emok;
+  PathIn in;
   float *o_ox, *o_oy, *o_oz, *o_dx, *o_dy, *o_dz, *o_tx, *o_ty, *o_tz, *o_rx, *o_ry, *o_rz;
   long long* o_rng;
   uint8_t *o_alive, *o_emok, *o_missed;
+  // the resident form: (3) zeroed by the caller, the counters of lanes
+  // handed out, of lanes queued and of the blocks at the grid barrier; and
+  // (n) the live lanes' ids.  Null in the other forms.
+  unsigned long long* counters;
+  int* queue;
   int n, bounce, is_last;
+
+  // run_paths: the one bounce `bounce`, is_last from the caller; no rays
+  // counted
+  static constexpr bool kCountsRays = false;
+  __device__ unsigned long long* handed() const { return counters; }
+  __device__ int first() const { return bounce; }
+  __device__ int stop() const { return bounce + 1; }
+  __device__ bool last(int) const { return is_last != 0; }
+  __device__ void store(int i, const Path& p) const {
+    o_ox[i] = p.o.x;
+    o_oy[i] = p.o.y;
+    o_oz[i] = p.o.z;
+    o_dx[i] = p.d.x;
+    o_dy[i] = p.d.y;
+    o_dz[i] = p.d.z;
+    o_tx[i] = p.thr.x;
+    o_ty[i] = p.thr.y;
+    o_tz[i] = p.thr.z;
+    o_rx[i] = p.rad.x;
+    o_ry[i] = p.rad.y;
+    o_rz[i] = p.rad.z;
+    o_rng[i] = static_cast<long long>(p.rng);
+    o_alive[i] = p.alive;
+    o_emok[i] = p.emok;
+    o_missed[i] = p.missed;
+  }
 };
 
-// kMode: 0 small (RolledTracer), 1 resident (ClusterTracer), 2 instanced
-// (InstTracer), 3 stream (StreamTracer).
+// The resident form's launch bound, as fused_frame's mesh forms'.
+constexpr int kBounceMinBlocks = 4;  // __launch_bounds__ blocks per SM
+
+// kMode: 0 small (RolledTracer), 2 instanced (InstTracer), 3 stream
+// (StreamTracer); one thread a lane.
 template <int kMode>
 __global__ void __launch_bounds__(kBlock)
     fused_bounce_kernel(BounceIO io, SceneArgs sc, ShadeArgs sa) {
@@ -56,46 +102,65 @@ __global__ void __launch_bounds__(kBlock)
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= io.n) return;
 
-  V3 o = v3(io.ox[i], io.oy[i], io.oz[i]);
-  V3 d = v3(io.dx[i], io.dy[i], io.dz[i]);
-  V3 thr = v3(io.tx[i], io.ty[i], io.tz[i]);
-  V3 rad = v3(io.rx[i], io.ry[i], io.rz[i]);
-  uint32_t rng = static_cast<uint32_t>(io.rng[i]);
-  bool alive = io.alive[i] != 0;
-  bool emok = io.emok[i] != 0;
-  bool missed = false;
-  if (alive) {
+  Path p = load_path(io.in, i, io.bounce);
+  if (p.alive) {
+    const bool is_last = io.is_last != 0;
     if constexpr (kMode == 3) {
-      alive = shade_bounce(tb, stream_tracer(tb, sc), sa, io.bounce, io.is_last != 0, o, d, thr,
-                           rad, rng, emok, missed);
+      p.alive = shade_bounce(tb, stream_tracer(tb, sc), sa, p.bounce, is_last, p.o, p.d, p.thr,
+                             p.rad, p.rng, p.emok, p.missed);
     } else if constexpr (kMode == 2) {
-      alive = shade_bounce(tb, inst_tracer(tb, sc), sa, io.bounce, io.is_last != 0, o, d, thr,
-                           rad, rng, emok, missed);
-    } else if constexpr (kMode == 1) {
-      alive = shade_bounce(tb, cluster_tracer(tb, sc), sa, io.bounce, io.is_last != 0, o, d,
-                           thr, rad, rng, emok, missed);
+      p.alive = shade_bounce(tb, inst_tracer(tb, sc), sa, p.bounce, is_last, p.o, p.d, p.thr,
+                             p.rad, p.rng, p.emok, p.missed);
     } else {
-      alive = shade_bounce(tb, RolledTracer{&tb}, sa, io.bounce, io.is_last != 0, o, d, thr,
-                           rad, rng, emok, missed);
+      p.alive = shade_bounce(tb, RolledTracer{&tb}, sa, p.bounce, is_last, p.o, p.d, p.thr,
+                             p.rad, p.rng, p.emok, p.missed);
     }
   }
+  io.store(i, p);
+}
 
-  io.o_ox[i] = o.x;
-  io.o_oy[i] = o.y;
-  io.o_oz[i] = o.z;
-  io.o_dx[i] = d.x;
-  io.o_dy[i] = d.y;
-  io.o_dz[i] = d.z;
-  io.o_tx[i] = thr.x;
-  io.o_ty[i] = thr.y;
-  io.o_tz[i] = thr.z;
-  io.o_rx[i] = rad.x;
-  io.o_ry[i] = rad.y;
-  io.o_rz[i] = rad.z;
-  io.o_rng[i] = static_cast<long long>(rng);
-  io.o_alive[i] = alive;
-  io.o_emok[i] = emok;
-  io.o_missed[i] = missed;
+// The queue kernel (spt_queue.cuh); kMode 1 resident (ClusterTracer).
+template <int kMode>
+__global__ void __launch_bounds__(kBlock, kBounceMinBlocks)
+    fused_bounce_queue_kernel(BounceIO io, SceneArgs sc, ShadeArgs sa) {
+  extern __shared__ __align__(16) float smem[];
+  unsigned long long* queued = io.counters + 1;
+  // dead lanes' outputs are their inputs, missed 0
+  sweep_queue(io.in.alive, io.n, true, queued, io.queue, [&](int i) {
+    io.o_ox[i] = io.in.ox[i];
+    io.o_oy[i] = io.in.oy[i];
+    io.o_oz[i] = io.in.oz[i];
+    io.o_dx[i] = io.in.dx[i];
+    io.o_dy[i] = io.in.dy[i];
+    io.o_dz[i] = io.in.dz[i];
+    io.o_tx[i] = io.in.tx[i];
+    io.o_ty[i] = io.in.ty[i];
+    io.o_tz[i] = io.in.tz[i];
+    io.o_rx[i] = io.in.rx[i];
+    io.o_ry[i] = io.in.ry[i];
+    io.o_rz[i] = io.in.rz[i];
+    io.o_rng[i] = io.in.rng[i];
+    io.o_alive[i] = 0;
+    io.o_emok[i] = io.in.emok[i] != 0;
+    io.o_missed[i] = 0;
+  });
+  grid_barrier(queued + 1);
+  int live;
+  const int take = queue_take(queued, live);
+  if (take == 0) return;
+  const Tables tb = load_tables(smem, sc);
+  run_queue<kMode>(io, tb, sc, sa, nullptr, live, take);
+}
+
+// One launch of a one-thread-a-lane form.
+template <int kMode>
+inline cudaError_t launch_lanes(BounceIO& io, SceneArgs& sc, ShadeArgs& sa, size_t smem,
+                                cudaStream_t st) {
+  cudaError_t err = reserve_smem(fused_bounce_kernel<kMode>, smem);
+  if (err != cudaSuccess) return err;
+  const int grid = (io.n + kBlock - 1) / kBlock;
+  fused_bounce_kernel<kMode><<<grid, kBlock, smem, st>>>(io, sc, sa);
+  return cudaSuccess;
 }
 
 }  // namespace
@@ -103,52 +168,52 @@ __global__ void __launch_bounds__(kBlock)
 extern "C" {
 
 // Replaces spt_tpu/ops/pallas_bounce.py:965 (fused_bounce, pallas_call
-// :1063).  Launches the kernel on `stream` and returns the CUDA error of
-// the launch (0: accepted).  `pack` null selects the small form, n_inst > 0
-// the instanced one, `cbox` (with `corder`) the stream one.  Allocates
-// nothing and does not synchronise.
+// :1063): one bounce of lanes whose RNG words are int64 and flags bytes,
+// writing the new state (the RNG words as int64, the flags as bytes) and
+// `missed`.  `pack` null selects the small form, n_inst > 0 the instanced
+// one, `cbox` (with `corder`) the stream one, else the resident one, which
+// needs `counters`, (3) int64 zeroed, and `queue`, (n) int32 scratch, and
+// makes one cooperative launch.  Launches on `stream` and returns the CUDA
+// error of the launch (0: accepted).  Allocates nothing and does not
+// synchronise.
 int spt_fused_bounce(const float* ox, const float* oy, const float* oz, const float* dx,
                      const float* dy, const float* dz, const float* tx, const float* ty,
                      const float* tz, const float* rx, const float* ry, const float* rz,
-                     const int* rng, const int* alive, const int* emok, float* o_ox,
-                     float* o_oy, float* o_oz, float* o_dx, float* o_dy, float* o_dz,
-                     float* o_tx, float* o_ty, float* o_tz, float* o_rx, float* o_ry,
-                     float* o_rz, long long* o_rng, uint8_t* o_alive, uint8_t* o_emok,
-                     uint8_t* o_missed, const float* tables, int n_tris, int n_sphs, int n_mats,
+                     const long long* rng, const uint8_t* alive, const uint8_t* emok,
+                     float* o_ox, float* o_oy, float* o_oz, float* o_dx, float* o_dy,
+                     float* o_dz, float* o_tx, float* o_ty, float* o_tz, float* o_rx,
+                     float* o_ry, float* o_rz, long long* o_rng, uint8_t* o_alive,
+                     uint8_t* o_emok, uint8_t* o_missed, unsigned long long* counters,
+                     int* queue, const float* tables, int n_tris, int n_sphs, int n_mats,
                      int n_lights, int n_emit, int flags, const float* pack, int pack_w,
                      int n_clusters, int cluster_size, int n_inst, int n_meshes,
                      const int* tex, int tex_res, const float* cbox, const uint16_t* corder,
-                     int n, int bounce,
-                     int is_last, int rr_after, float hit_eps, float ray_offset_dir,
-                     float firefly_clamp, void* stream) {
-  BounceIO io{ox,   oy,   oz,   dx,   dy,   dz,    tx,      ty,      tz,       rx,
-              ry,   rz,   rng,  alive, emok, o_ox, o_oy,    o_oz,    o_dx,     o_dy,
-              o_dz, o_tx, o_ty, o_tz, o_rx, o_ry,  o_rz,    o_rng,   o_alive,  o_emok,
-              o_missed, n, bounce, is_last};
+                     int n, int bounce, int is_last, int rr_after, float hit_eps,
+                     float ray_offset_dir, float firefly_clamp, void* stream) {
+  BounceIO io{{ox, oy, oz, dx, dy, dz, tx, ty, tz, rx, ry, rz, rng, alive, emok},
+              o_ox, o_oy, o_oz, o_dx, o_dy, o_dz, o_tx, o_ty, o_tz, o_rx, o_ry, o_rz,
+              o_rng, o_alive, o_emok, o_missed, counters, queue, n, bounce, is_last};
   SceneArgs sc{tables, n_tris, n_sphs, n_mats, n_lights, n_emit, flags, pack,
                pack_w, n_clusters, cluster_size, n_inst, n_meshes, tex, tex_res,
                cbox, corder};
   ShadeArgs sa{rr_after, flags, hit_eps, ray_offset_dir, firefly_clamp};
+  const bool resident = pack != nullptr && n_inst <= 0 && cbox == nullptr;
   const size_t smem =
       pack == nullptr ? sizeof(float) * static_cast<size_t>(small_table_words(sc)) : smem_bytes(sc);
-  if (n_mats < 1 || smem > 227 * 1024) return static_cast<int>(cudaErrorInvalidValue);
+  if (n_mats < 1 || smem > 227 * 1024 || (cbox != nullptr && corder == nullptr) ||
+      (resident && (counters == nullptr || queue == nullptr)))
+    return static_cast<int>(cudaErrorInvalidValue);
   if (n <= 0) return static_cast<int>(cudaGetLastError());
-  const int grid = (n + kBlock - 1) / kBlock;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (pack == nullptr) {
-    err = reserve_smem(fused_bounce_kernel<0>, smem);
-    if (err == cudaSuccess) fused_bounce_kernel<0><<<grid, kBlock, smem, st>>>(io, sc, sa);
+    err = launch_lanes<0>(io, sc, sa, smem, st);
   } else if (n_inst > 0) {
-    err = reserve_smem(fused_bounce_kernel<2>, smem);
-    if (err == cudaSuccess) fused_bounce_kernel<2><<<grid, kBlock, smem, st>>>(io, sc, sa);
+    err = launch_lanes<2>(io, sc, sa, smem, st);
   } else if (cbox != nullptr) {
-    if (corder == nullptr) return static_cast<int>(cudaErrorInvalidValue);
-    err = reserve_smem(fused_bounce_kernel<3>, smem);
-    if (err == cudaSuccess) fused_bounce_kernel<3><<<grid, kBlock, smem, st>>>(io, sc, sa);
+    err = launch_lanes<3>(io, sc, sa, smem, st);
   } else {
-    err = reserve_smem(fused_bounce_kernel<1>, smem);
-    if (err == cudaSuccess) fused_bounce_kernel<1><<<grid, kBlock, smem, st>>>(io, sc, sa);
+    err = launch_queue(fused_bounce_queue_kernel<1>, io, sc, sa, smem, st);
   }
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
@@ -161,8 +226,9 @@ int spt_fused_bounce_kernel_info(int mode, int smem, int* num_regs, int* local_b
                                  int* blocks) {
   return mode == 3   ? kernel_info(fused_bounce_kernel<3>, smem, num_regs, local_bytes, blocks)
          : mode == 2 ? kernel_info(fused_bounce_kernel<2>, smem, num_regs, local_bytes, blocks)
-         : mode == 1 ? kernel_info(fused_bounce_kernel<1>, smem, num_regs, local_bytes, blocks)
-                     : kernel_info(fused_bounce_kernel<0>, smem, num_regs, local_bytes, blocks);
+         : mode == 1
+             ? kernel_info(fused_bounce_queue_kernel<1>, smem, num_regs, local_bytes, blocks)
+             : kernel_info(fused_bounce_kernel<0>, smem, num_regs, local_bytes, blocks);
 }
 
 }  // extern "C"

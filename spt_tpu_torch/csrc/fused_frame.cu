@@ -38,7 +38,7 @@
 // Both kinds of kernel are persistent: a grid of as many blocks as the SMs
 // hold at once loads the tables into shared memory once per block, and
 // each warp takes lanes from a counter in global memory and refills the
-// threads whose paths ended (run_paths):
+// threads whose paths ended (spt_queue.cuh run_paths):
 // - lane refill: at the top of its bounce loop a warp hands the next lanes
 //   of its chunk to its threads whose paths ended once enough of them are
 //   free, so a warp whose paths die early keeps working on new ones instead
@@ -69,23 +69,17 @@
 // frame hands them: the last bounce of a few thousand live lanes among
 // 65 536-196 608, packed at the head of each sort chunk, where a grid of
 // one thread per lane left most SMs idle and had every block load the
-// tables only to copy dead lanes through.  A kernel runs in two steps:
-// - a coalesced sweep over every lane writes each dead lane's outputs (its
-//   inputs, missed 0) and appends the live lanes to a queue in global
-//   memory, one atomic a warp (ballot, then each lane's rank below it);
-// - after a grid-wide barrier (the launch is cooperative, so every block
-//   is resident) the warps take queued lanes `take` at a time, where take
-//   follows the live count read on the device: live / (warps in the grid),
-//   rounded up, at most 32.  Below 32 a warp runs each of its `take` paths
-//   on 32 / take threads in step (twins, run_paths), and each group of
-//   twins walks its ray as one (spt_tracers.cuh group_walk: a window of
-//   box tests at once, the 64 tests of each opened cluster spread over the
-//   group, the instanced tracer's instance scan split over it), so a sparse
-//   tail spreads over every warp of every SM and a lone ray's walk is not
-//   one thread's chain of dependent loads.  At 32 (a dense call: every lane
-//   of bounce 0, the unsorted route) each thread runs a path with the
-//   warp's lockstep walk, as before.  Blocks past those the live lanes need
-//   leave after the barrier without loading the tables.
+// tables only to copy dead lanes through.  They are queue kernels
+// (spt_queue.cuh, shared with fused_bounce's resident form): a coalesced
+// sweep copies the dead lanes through and queues the live ones, a grid
+// barrier, then warps take queued lanes `take` at a time and run each path
+// on 32 / take threads in step (twins walking each ray as a group:
+// spt_tracers.cuh group_walk, a window of box tests at once, the 64 tests
+// of each opened cluster spread over the group, the instanced tracer's
+// instance scan split over it), or at take 32 (a dense call: every lane of
+// bounce 0, the unsorted route) one path a thread with the warp's lockstep
+// walk.  The queue's counters follow the rays per bounce in the caller's
+// buffer.
 // The constants were chosen on the card with frame_sweep.py (PERF.md): a
 // warp refills only once all its paths have ended, since refilling at 8
 // free threads mixes a primary ray into a warp of later bounces and took
@@ -94,16 +88,14 @@
 // grids' sorted calls; a floor of 2 lanes a warp took 1.3x on the mesh
 // scene's 1207 live lanes.
 
-#include "spt_tracers.cuh"
+#include "spt_queue.cuh"
 
 namespace {
 
 using namespace spt;
 
 struct FrameIO {
-  const float *ox, *oy, *oz, *dx, *dy, *dz, *tx, *ty, *tz, *rx, *ry, *rz;
-  const long long* rng;  // uint32 words held in int64
-  const uint8_t *alive, *emok;
+  PathIn in;
   float *o_dx, *o_dy, *o_dz, *o_tx, *o_ty, *o_tz, *o_rx, *o_ry, *o_rz;
   uint8_t* o_missed;
   // (max_depth + 3), zeroed by the caller: the rays per bounce, then the
@@ -112,6 +104,25 @@ struct FrameIO {
   unsigned long long* counts;
   int* queue;  // mesh forms: (n) the live lanes' ids; small form: null
   int n, start_bounce, max_depth;
+
+  // run_paths: bounces [start_bounce, max_depth), the rays counted
+  static constexpr bool kCountsRays = true;
+  __device__ unsigned long long* handed() const { return counts + max_depth; }
+  __device__ int first() const { return start_bounce; }
+  __device__ int stop() const { return max_depth; }
+  __device__ bool last(int bounce) const { return bounce == max_depth - 1; }
+  __device__ void store(int i, const Path& p) const {
+    o_dx[i] = p.d.x;
+    o_dy[i] = p.d.y;
+    o_dz[i] = p.d.z;
+    o_tx[i] = p.thr.x;
+    o_ty[i] = p.thr.y;
+    o_tz[i] = p.thr.z;
+    o_rx[i] = p.rad.x;
+    o_ry[i] = p.rad.y;
+    o_rz[i] = p.rad.z;
+    o_missed[i] = p.missed;
+  }
 };
 
 // The small form's launch shape and refill, chosen on the card with
@@ -123,8 +134,6 @@ constexpr int kChunk = 32;           // lanes a warp takes from the counter at o
 static_assert(kSmallBlock % 32 == 0, "the refill works on whole warps");
 
 // The mesh forms', chosen on the card with frame_sweep.py (PERF.md).
-constexpr int kBlock = 128;
-static_assert(kBlock == 32 * kWarps, "the staging buffers are laid out per warp");
 constexpr int kFrameMinBlocks = 4;   // __launch_bounds__ blocks per SM
 
 // Dynamic shared memory of a fused_frame block: the tables (and, in a mesh
@@ -135,106 +144,6 @@ __host__ __device__ inline size_t frame_smem(const SceneArgs& sc, int span) {
                             ? sizeof(float) * static_cast<size_t>(small_table_words(sc))
                             : smem_bytes(sc);
   return tables + sizeof(int) * static_cast<size_t>(span + 1);
-}
-
-// The refill loop of both kinds of kernel.  Each warp takes positions
-// [0, lanes) from the counter counts[max_depth], `chunk` at a time, and
-// runs their paths on its first `width` threads; the lane of position p is
-// p itself or, with kQueued, queue[p].  With width below 32, thread t past
-// the first `width` runs a copy of thread t % width's path (its twin,
-// spt_tracers.cuh): it computes the same values in step with it and helps
-// its walks, and writes nothing.  At the top of its bounce loop the warp
-// finishes the paths that ended (outputs at their lane, bounces run into
-// `hist`) and hands the next positions of its chunk to its free threads
-// once min(refill_min, width) of them are free: by default once all are.
-template <bool kQueued, class Tracer>
-__device__ inline void run_paths(const FrameIO& io, const Tables& tb, const Tracer& tracer,
-                                 const ShadeArgs& sa, int* hist, int lanes, int chunk,
-                                 int width, int refill_min = 32) {
-  const unsigned lane = threadIdx.x & 31;
-  const unsigned below = (1u << lane) - 1u;
-  const bool mine = lane < static_cast<unsigned>(width);
-  const int refill_at = min(refill_min, width);
-  unsigned long long* handed = io.counts + io.max_depth;
-
-  int idx = -1;  // the lane this thread's path belongs to; -1: none
-  int bounce = 0, nb = 0;
-  V3 o, d, thr, rad;
-  uint32_t rng = 0;
-  bool alive = false, emok = false, missed_ever = false;
-  int next = 0, end = 0;  // the warp's chunk of positions (warp-uniform)
-  bool more = true;       // the counter has positions left (warp-uniform)
-
-  while (true) {
-    // the warp has converged here: finish the paths that ended ...
-    const bool done = idx >= 0 && !(alive && bounce < io.max_depth);
-    const unsigned done_mask = __ballot_sync(0xffffffffu, done && mine);
-    if (done && mine) {
-      io.o_dx[idx] = d.x;
-      io.o_dy[idx] = d.y;
-      io.o_dz[idx] = d.z;
-      io.o_tx[idx] = thr.x;
-      io.o_ty[idx] = thr.y;
-      io.o_tz[idx] = thr.z;
-      io.o_rx[idx] = rad.x;
-      io.o_ry[idx] = rad.y;
-      io.o_rz[idx] = rad.z;
-      io.o_missed[idx] = missed_ever;
-      const unsigned same = __match_any_sync(done_mask, nb);
-      if (nb > 0 && lane == static_cast<unsigned>(__ffs(same) - 1))
-        atomicAdd(hist + nb, __popc(same));
-    }
-    if (done) idx = -1;
-    // ... then hand the free threads the next positions of the warp's chunk
-    const unsigned free_mask = __ballot_sync(0xffffffffu, mine && idx < 0);
-    const int n_free = __popc(free_mask);
-    if (more && n_free >= refill_at) {
-      const bool fresh = mine && idx < 0;
-      const int rank = __popc(free_mask & below);
-      int pos = -1, taken = 0;
-      while (taken < n_free) {
-        if (next >= end) {
-          unsigned long long c = 0;
-          if (lane == 0) c = atomicAdd(handed, static_cast<unsigned long long>(chunk));
-          c = __shfl_sync(0xffffffffu, c, 0);
-          if (c >= static_cast<unsigned long long>(lanes)) {
-            more = false;
-            break;
-          }
-          next = static_cast<int>(c);
-          end = min(lanes, next + chunk);
-        }
-        const int k = min(n_free - taken, end - next);
-        if (fresh && rank >= taken && rank < taken + k) pos = next + rank - taken;
-        next += k;
-        taken += k;
-      }
-      if (width < 32) pos = __shfl_sync(0xffffffffu, pos, lane % width);
-      if (pos >= 0) {
-        // the queue was written by other blocks before the grid barrier
-        idx = kQueued ? __ldcg(io.queue + pos) : pos;
-        o = v3(io.ox[idx], io.oy[idx], io.oz[idx]);
-        d = v3(io.dx[idx], io.dy[idx], io.dz[idx]);
-        thr = v3(io.tx[idx], io.ty[idx], io.tz[idx]);
-        rad = v3(io.rx[idx], io.ry[idx], io.rz[idx]);
-        rng = static_cast<uint32_t>(io.rng[idx]);
-        alive = io.alive[idx] != 0;
-        emok = io.emok[idx] != 0;
-        missed_ever = false;
-        bounce = io.start_bounce;
-        nb = 0;
-      }
-    }
-    if (!more && __ballot_sync(0xffffffffu, idx >= 0) == 0) break;
-    if (idx >= 0 && alive && bounce < io.max_depth) {
-      ++nb;
-      bool missed;
-      alive = shade_bounce(tb, tracer, sa, bounce, bounce == io.max_depth - 1, o, d, thr, rad,
-                           rng, emok, missed);
-      if (missed) missed_ever = true;
-      ++bounce;
-    }
-  }
 }
 
 // Adds the block's histogram of bounces run to the rays per bounce: a path
@@ -260,116 +169,37 @@ __global__ void __launch_bounds__(kSmallBlock, kSmallMinBlocks)
   add_rays(io, hist);
 }
 
-// run_paths on a mesh form's tracer; kMode: 1 resident (ClusterTracer), 2
-// instanced (InstTracer), 3 stream (StreamTracer).
-template <int kMode, bool kTwins>
-__device__ inline void run_mesh(const FrameIO& io, const Tables& tb, const SceneArgs& sc,
-                                const ShadeArgs& sa, int* hist, int live, int take) {
-  const int ray = static_cast<int>(threadIdx.x & 31) % take;
-  if constexpr (kMode == 3) {
-    run_paths<true>(io, tb, stream_tracer<kTwins>(tb, sc, ray), sa, hist, live, take, take);
-  } else if constexpr (kMode == 2) {
-    run_paths<true>(io, tb, inst_tracer<kTwins>(tb, sc, ray), sa, hist, live, take, take);
-  } else {
-    run_paths<true>(io, tb, cluster_tracer<kTwins>(tb, sc, ray), sa, hist, live, take, take);
-  }
-}
-
+// kMode: 1 resident (ClusterTracer), 2 instanced (InstTracer), 3 stream
+// (StreamTracer).
 template <int kMode>
 __global__ void __launch_bounds__(kBlock, kFrameMinBlocks)
     fused_frame_kernel(FrameIO io, SceneArgs sc, ShadeArgs sa) {
   extern __shared__ __align__(16) float smem[];
   unsigned long long* queued = io.counts + io.max_depth + 1;
-  unsigned long long* arrived = queued + 1;
-  const unsigned lane = threadIdx.x & 31;
-  const bool run = io.start_bounce < io.max_depth;
-
-  // the sweep, one warp-wide step at a time: dead lanes' outputs are their
-  // inputs; live lanes join the queue, one atomic a warp
-  for (int base = blockIdx.x * blockDim.x + (threadIdx.x & ~31); base < io.n;
-       base += gridDim.x * blockDim.x) {
-    const int i = base + static_cast<int>(lane);
-    const bool in = i < io.n;
-    const bool live = in && run && io.alive[i] != 0;
-    if (in && !live) {
-      io.o_dx[i] = io.dx[i];
-      io.o_dy[i] = io.dy[i];
-      io.o_dz[i] = io.dz[i];
-      io.o_tx[i] = io.tx[i];
-      io.o_ty[i] = io.ty[i];
-      io.o_tz[i] = io.tz[i];
-      io.o_rx[i] = io.rx[i];
-      io.o_ry[i] = io.ry[i];
-      io.o_rz[i] = io.rz[i];
-      io.o_missed[i] = 0;
-    }
-    const unsigned m = __ballot_sync(0xffffffffu, live);
-    if (m != 0u) {
-      unsigned long long at = 0;
-      if (lane == 0) at = atomicAdd(queued, static_cast<unsigned long long>(__popc(m)));
-      at = __shfl_sync(0xffffffffu, at, 0);
-      if (live) io.queue[at + __popc(m & ((1u << lane) - 1u))] = i;
-    }
-  }
-
-  // the grid barrier, once per launch (the counter starts at 0)
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    __threadfence();
-    atomicAdd(arrived, 1ull);
-    while (*reinterpret_cast<volatile unsigned long long*>(arrived) < gridDim.x) {
-    }
-    __threadfence();
-  }
-  __syncthreads();
-
-  const int live = static_cast<int>(*reinterpret_cast<volatile unsigned long long*>(queued));
-  const int warps = static_cast<int>(gridDim.x) * kWarps;
-  const int take = min(32, (live + warps - 1) / warps);
-  // the blocks the live lanes need; the others have nothing left to do
-  if (live == 0 || static_cast<int>(blockIdx.x) * kWarps * take >= live) return;
+  // dead lanes' outputs are their inputs, missed 0
+  sweep_queue(io.in.alive, io.n, io.start_bounce < io.max_depth, queued, io.queue, [&](int i) {
+    io.o_dx[i] = io.in.dx[i];
+    io.o_dy[i] = io.in.dy[i];
+    io.o_dz[i] = io.in.dz[i];
+    io.o_tx[i] = io.in.tx[i];
+    io.o_ty[i] = io.in.ty[i];
+    io.o_tz[i] = io.in.tz[i];
+    io.o_rx[i] = io.in.rx[i];
+    io.o_ry[i] = io.in.ry[i];
+    io.o_rz[i] = io.in.rz[i];
+    io.o_missed[i] = 0;
+  });
+  grid_barrier(queued + 1);
+  int live;
+  const int take = queue_take(queued, live);
+  if (take == 0) return;
 
   const int span = io.max_depth - io.start_bounce;
   int* hist = reinterpret_cast<int*>(reinterpret_cast<char*>(smem) + smem_bytes(sc));
   for (int k = threadIdx.x; k <= span; k += blockDim.x) hist[k] = 0;
   const Tables tb = load_tables(smem, sc);  // its barrier covers hist
-  // a path a thread (the lockstep walk alone) when the lanes fill every
-  // thread, else twins past the first `take` threads
-  if (take < 32) {
-    run_mesh<kMode, true>(io, tb, sc, sa, hist, live, take);
-  } else {
-    run_mesh<kMode, false>(io, tb, sc, sa, hist, live, take);
-  }
+  run_queue<kMode>(io, tb, sc, sa, hist, live, take);
   add_rays(io, hist);
-}
-
-// The blocks of `kernel` an SM holds at once with `smem` bytes of dynamic
-// shared memory each, times the SMs: the persistent grid.
-template <class K>
-inline cudaError_t resident_blocks(K kernel, int threads, size_t smem, int* blocks) {
-  int dev = 0, sms = 0, per_sm = 0;
-  cudaError_t err = reserve_smem(kernel, smem);
-  if (err == cudaSuccess) err = cudaGetDevice(&dev);
-  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, smem);
-  *blocks = sms * per_sm;
-  return err;
-}
-
-// One cooperative launch of a mesh form on as many blocks as the SMs hold
-// at once, and no more than one a kBlock lanes.
-template <int kMode>
-inline cudaError_t launch_mesh(FrameIO& io, SceneArgs& sc, ShadeArgs& sa, size_t smem,
-                               cudaStream_t st) {
-  int blocks = 0;
-  cudaError_t err = resident_blocks(fused_frame_kernel<kMode>, kBlock, smem, &blocks);
-  if (err != cudaSuccess) return err;
-  if (blocks < 1) return cudaErrorInvalidConfiguration;
-  const int grid = min(blocks, (io.n + kBlock - 1) / kBlock);
-  void* args[] = {&io, &sc, &sa};
-  return cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(fused_frame_kernel<kMode>),
-                                     dim3(grid), dim3(kBlock), args, smem, st);
 }
 
 }  // namespace
@@ -399,9 +229,9 @@ int spt_fused_frame(const float* ox, const float* oy, const float* oz, const flo
                     const uint16_t* corder, int n, int start_bounce, int max_depth,
                     int rr_after, float hit_eps, float ray_offset_dir, float firefly_clamp,
                     void* stream) {
-  FrameIO io{ox,   oy,   oz,   dx,   dy,   dz,   tx,   ty,       tz,     rx,    ry,
-             rz,   rng,  alive, emok, o_dx, o_dy, o_dz, o_tx,     o_ty,   o_tz,  o_rx,
-             o_ry, o_rz, o_missed, counts, queue, n, start_bounce, max_depth};
+  FrameIO io{{ox, oy, oz, dx, dy, dz, tx, ty, tz, rx, ry, rz, rng, alive, emok},
+             o_dx, o_dy, o_dz, o_tx, o_ty, o_tz, o_rx, o_ry, o_rz, o_missed, counts, queue,
+             n, start_bounce, max_depth};
   SceneArgs sc{tables, n_tris, n_sphs, n_mats, n_lights, n_emit, flags, pack,
                pack_w, n_clusters, cluster_size, n_inst, n_meshes, tex, tex_res,
                cbox, corder};
@@ -424,11 +254,11 @@ int spt_fused_frame(const float* ox, const float* oy, const float* oz, const flo
     const int grid = max(1, min(blocks, (n + lanes_a_block - 1) / lanes_a_block));
     small_frame_kernel<<<grid, kSmallBlock, smem, st>>>(io, sc, sa);
   } else if (n_inst > 0) {
-    err = launch_mesh<2>(io, sc, sa, smem, st);
+    err = launch_queue(fused_frame_kernel<2>, io, sc, sa, smem, st);
   } else if (cbox != nullptr) {
-    err = launch_mesh<3>(io, sc, sa, smem, st);
+    err = launch_queue(fused_frame_kernel<3>, io, sc, sa, smem, st);
   } else {
-    err = launch_mesh<1>(io, sc, sa, smem, st);
+    err = launch_queue(fused_frame_kernel<1>, io, sc, sa, smem, st);
   }
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());

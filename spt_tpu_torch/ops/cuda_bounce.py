@@ -26,10 +26,15 @@ missed mask.
   ``transport.sample_texture_v``).  Nothing on the CUDA path calls them;
   tests and ``chip_smoke.py`` hold the kernels against them.
 
-Every form of fused_frame (``csrc/fused_frame.cu``: ``small_frame_kernel``,
-``fused_frame_kernel<1..3>``) reads the path state in the dtypes the port
-keeps it in and counts the rays per bounce itself; fused_bounce takes the
-RNG words and flags as int32.
+Every form of both reads the path state in the dtypes the port keeps it in
+(the RNG words as int64, the flags as bool), so the wrapper converts
+nothing; fused_frame counts the rays per bounce itself.  The mesh forms of
+fused_frame (``fused_frame_kernel<1..3>``) and the resident form of
+fused_bounce (``fused_bounce_queue_kernel<1>``) are persistent cooperative
+queue kernels (``csrc/spt_queue.cuh``): they queue the live lanes on the
+device and run a few paths a warp when the live lanes are few.  Their
+counters (lanes handed out, lanes queued, blocks launched) follow the rays
+per bounce, and in fused_bounce the new RNG words, in the same buffer.
 
 ``LAUNCHES`` counts fused_frame launches and ``BOUNCE_LAUNCHES``
 fused_bounce launches, so a run can show that its main path went through
@@ -52,8 +57,13 @@ from spt_tpu_torch.scene.flatten import MAX_ACCEL_SPHERES, DeviceScene
 LAUNCHES = 0
 BOUNCE_LAUNCHES = 0
 
-# The small form of fused_frame as a profiler trace names it.
+# The small form of fused_frame as a profiler trace names it, and each form
+# of fused_bounce by accel mode.
 SMALL_KERNEL = "small_frame_kernel"
+BOUNCE_KERNELS = {None: "fused_bounce_kernel<0>",
+                  "resident": "fused_bounce_queue_kernel<1>",
+                  "instanced": "fused_bounce_kernel<2>",
+                  "stream": "fused_bounce_kernel<3>"}
 
 # Caps, as pallas_bounce's (MAX_PALLAS_PRIMS, MAX_PALLAS_MATERIALS,
 # MAX_PALLAS_EMITTERS, MAX_ACCEL_TRIS).  The small form's tables must fit
@@ -282,16 +292,11 @@ def _flags(cfg: RenderConfig, scene: DeviceScene, nee_on: bool,
             | (_TEXTURED if scene.textures is not None else 0))
 
 
-def _rng_bits(rng: torch.Tensor) -> torch.Tensor:
-    """int64-held uint32 words -> their int32 bit pattern."""
-    return torch.where(rng >= 2 ** 31, rng - 2 ** 32, rng).to(torch.int32)
-
-
 def _kernel_inputs(cfg: RenderConfig, scene: DeviceScene,
-                   lights: DeviceLights, ps, what: str, raw_state=False):
+                   lights: DeviceLights, ps, what: str):
     """Checks the lanes and the scene, and returns (state pointers, scene
     arguments, keep-alive tensors) for a launch: the RNG words and flags as
-    the port holds them (int64, bool) with `raw_state`, else as int32."""
+    the port holds them (int64, bool), handed over as they are."""
     device = ps.rng.device
     reason = explain_decline(cfg, scene, lights)
     if reason:
@@ -309,17 +314,14 @@ def _kernel_inputs(cfg: RenderConfig, scene: DeviceScene,
     for name, t, dt in (("rng", ps.rng, torch.int64),
                         ("alive", ps.alive, torch.bool),
                         ("emission_ok", ps.emission_ok, torch.bool)):
-        if t.device != device or t.dtype != dt or t.shape != (n,):
-            raise ValueError(f"{name} must be a ({n},) {dt} tensor on {device}")
+        if (t.device != device or t.dtype != dt or t.shape != (n,)
+                or not t.is_contiguous()):
+            raise ValueError(f"{name} must be a contiguous ({n},) {dt} tensor "
+                             f"on {device}")
     mode = _accel_mode(scene)
     nee_on = cfg.nee and scene.emitters is not None
     tables = _pack_tables(scene, lights, nee_on, mode)
-    if raw_state:
-        ints = [ps.rng.contiguous(), ps.alive.contiguous(),
-                ps.emission_ok.contiguous()]
-    else:
-        ints = [_rng_bits(ps.rng), ps.alive.to(torch.int32),
-                ps.emission_ok.to(torch.int32)]
+    ints = [ps.rng, ps.alive, ps.emission_ok]
     keep = planes + ints + [tables]
     if mode is None:
         accel = (None, 0, 0, 0, 0, 1)
@@ -369,7 +371,7 @@ def fused_frame(cfg: RenderConfig, scene: DeviceScene, lights: DeviceLights,
         raise ValueError(f"start_bounce {start_bounce} outside "
                          f"[0, {cfg.max_depth}]")
     ins, scene_args, keep = _kernel_inputs(cfg, scene, lights, ps,
-                                           "fused_frame", raw_state=True)
+                                           "fused_frame")
     n = ps.num_paths
     outs_f = [torch.empty(n, dtype=torch.float32, device=device)
               for _ in range(9)]
@@ -400,7 +402,9 @@ def fused_bounce(cfg: RenderConfig, scene: DeviceScene, lights: DeviceLights,
     """One bounce of every lane (trace_bounce + shade_core).  Returns
     (new PathState, missed (N,) bool); the caller owes
     `throughput * env(direction)` to the missed lanes, which keep their
-    direction and throughput."""
+    direction and throughput.  The new state is in fresh tensors; in the
+    resident form the kernel's counters follow the new RNG words in their
+    buffer."""
     global BOUNCE_LAUNCHES
     device = ps.rng.device
     if device.type == "cpu":
@@ -412,20 +416,31 @@ def fused_bounce(cfg: RenderConfig, scene: DeviceScene, lights: DeviceLights,
     n = ps.num_paths
     outs_f = [torch.empty(n, dtype=torch.float32, device=device)
               for _ in range(12)]
-    rng = torch.empty(n, dtype=torch.int64, device=device)
     flags = [torch.empty(n, dtype=torch.bool, device=device) for _ in range(3)]
+    # the resident form's counters (csrc/fused_bounce.cu BounceIO) after
+    # the RNG words, zeroed, and its queue of the live lanes' ids
+    queued = _accel_mode(scene) == "resident"
+    rng = torch.empty(n + 3 * queued, dtype=torch.int64, device=device)
+    counters = queue = None
+    if queued:
+        counters = rng[n:]
+        counters.zero_()
+        queue = torch.empty(n, dtype=torch.int32, device=device)
 
     lib = cuda_lib.build()
     with torch.cuda.device(device):
         err = lib.spt_fused_bounce(
             *ins, *(t.data_ptr() for t in outs_f), rng.data_ptr(),
-            *(t.data_ptr() for t in flags), *scene_args, n, bounce,
-            int(bool(is_last)), min(cfg.rr_after, 2 ** 31 - 1), cfg.hit_eps,
-            cfg.ray_offset_dir, cfg.firefly_clamp, cuda_lib.stream_of(device))
+            *(t.data_ptr() for t in flags),
+            None if counters is None else counters.data_ptr(),
+            None if queue is None else queue.data_ptr(), *scene_args, n,
+            bounce, int(bool(is_last)), min(cfg.rr_after, 2 ** 31 - 1),
+            cfg.hit_eps, cfg.ray_offset_dir, cfg.firefly_clamp,
+            cuda_lib.stream_of(device))
     cuda_lib.check(err, "fused_bounce")
-    del keep
+    del keep, queue
     BOUNCE_LAUNCHES += 1
     return transport.PathState(
         origin=Vec3(*outs_f[0:3]), direction=Vec3(*outs_f[3:6]),
         throughput=Vec3(*outs_f[6:9]), radiance=Vec3(*outs_f[9:12]),
-        rng=rng, alive=flags[0], emission_ok=flags[1]), flags[2]
+        rng=rng[:n], alive=flags[0], emission_ok=flags[1]), flags[2]

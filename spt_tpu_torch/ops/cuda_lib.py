@@ -22,7 +22,8 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = ("fused_frame.cu", "fused_bounce.cu", "cluster_trace.cu",
            "inst_trace.cu", "stream_trace.cu", "sort_chunks.cu",
            "env_sample.cu")
-HEADERS = ("spt_common.cuh", "spt_tracers.cuh", "spt_trace_io.cuh")
+HEADERS = ("spt_common.cuh", "spt_tracers.cuh", "spt_trace_io.cuh",
+           "spt_queue.cuh")
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "spt_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
               "-Xcompiler", "-fPIC", "--fmad=false", "-Xptxas", "-v")
@@ -106,7 +107,7 @@ def build() -> ctypes.CDLL:
     # cbox, corder
     scene = [p, i, i, i, i, i, i, p, i, i, i, i, i, p, i, p, p]
     lib.spt_fused_frame.argtypes = [p] * 27 + scene + [i] * 4 + [f] * 3 + [p]
-    lib.spt_fused_bounce.argtypes = [p] * 31 + scene + [i] * 4 + [f] * 3 + [p]
+    lib.spt_fused_bounce.argtypes = [p] * 33 + scene + [i] * 4 + [f] * 3 + [p]
     # tables, n_sphs, pack, pack_w, n_clusters, cluster_size, n_inst,
     # n_meshes, n, tmin, stream
     trace = [i, p] + [i] * 6 + [f, p]

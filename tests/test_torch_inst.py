@@ -25,9 +25,9 @@ as tests/test_inst.py:86-106 lowers it.  Gates, each with its reason:
   < 1 %.
 
 On a CUDA card (marker ``cuda``; skipped without one) the instanced kernels
-against their plain versions (the textured radiance bit for bit; every
-fused_frame plane bit for bit, also on all-dead, 2 %-scattered and ragged
-lanes and on live counts that give each warp 3 or 20 lanes at once,
+against their plain versions (every fused_bounce plane bit for bit, the
+textured radiance too; every fused_frame plane bit for bit, also on all-dead, 2 %-scattered and ragged
+lanes and on live counts that give each warp 3 or 20 lanes (run one at a time),
 chip_smoke.FRAME_EDGES, the rays per bounce exact), and, bit
 for bit on the untextured grid, fused_bounce's instanced form and the
 instanced tracer on the cases the warp-cooperative cluster walk has to get
@@ -546,22 +546,16 @@ def test_instanced_fused_kernels_match_plain_on_card(cuda_device, start, case):
     assert all(same.values()), same
     assert chip_smoke.frame_counters(torch, k[4])[0] == int(fps.alive.sum())
     if case is not None and case.startswith("take"):
-        assert chip_smoke.frame_take(torch, k[4]) == int(case[4:])
+        assert chip_smoke.frame_take(torch, k[4]) == chip_smoke.edge_take(case)
     if case is not None:
         return
     kb, km = cuda_bounce.fused_bounce(cfg, scene, lights, ps, 0, False)
     pbs, pm = cuda_bounce.fused_bounce_reference(cfg, scene, lights, ps, 0,
                                                  False)
     torch.cuda.synchronize()
-    for name in ("origin", "direction", "throughput", "radiance"):
-        for x, y in zip(getattr(kb, name), getattr(pbs, name)):
-            assert _planes_agree(x, y)
-    for x, y in ((kb.rng, pbs.rng), (kb.alive, pbs.alive),
-                 (kb.emission_ok, pbs.emission_ok), (km, pm)):
-        assert _planes_agree(x, y)
-    assert all(_bits_equal({"radiance": (chip_smoke._v(torch, kb.radiance),
-                                         chip_smoke._v(torch, pbs.radiance))}
-                           ).values())
+    # fused_bounce: every plane bit for bit, the textured radiance too
+    same = _bits_equal(chip_smoke._state_planes(torch, kb, km, pbs, pm))
+    assert all(same.values()), same
 
 
 def _bits_equal(planes):

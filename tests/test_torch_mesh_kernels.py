@@ -4,16 +4,20 @@
   resident fused_frame, sort_chunks) runs its plain version and launches
   nothing; fused_frame hands back missed as bool and the rays per bounce
   as (max_depth,) int64 in every accel mode, equal to the plain version's
-  per-lane bounce totals; the resident tables have the layout the kernels
-  read; a scene past the stream tier's cluster limit raises, naming why.
+  per-lane bounce totals; fused_bounce hands back the RNG words as int64
+  and the flags and missed as bool in every accel mode, and the kernels
+  are handed the path state's own RNG and flag tensors, unconverted; the
+  resident tables have the layout the kernels read; a scene past the
+  stream tier's cluster limit raises, naming why.
 - On a CUDA card (marker ``cuda``; skipped without one): each kernel against
   its plain version on the same tensors, on the procedural mesh scene of
   chip_smoke.py.  Gates: closest_hit kind and t (1e-4) and any_hit flags on
   >= 99.9 % of lanes (the kernel walks clusters in its own octant's order,
-  so only exact ties may resolve otherwise); fused_bounce radiance within
-  1e-3 on >= 99.9 % of lanes; fused_frame every plane bit for bit and the
-  rays per bounce exact, also on all-dead, 2 %-scattered and ragged lanes
-  and on live counts that give each warp 3 or 20 lanes at once
+  so only exact ties may resolve otherwise); fused_bounce every plane bit
+  for bit (three bounces of the camera rays, and the edge lanes below at
+  bounce 3) and fused_frame every plane bit for bit with the rays per
+  bounce exact, both also on all-dead, 2 %-scattered and ragged lanes and
+  on live counts that give each warp 3 or 20 lanes (run one at a time)
   (chip_smoke.FRAME_EDGES), with every live lane queued (both are built
   with --fmad=false and evaluate in the plain version's order, and a path's
   result does not depend on the thread that runs it); sort_chunks keys,
@@ -134,6 +138,52 @@ def test_fused_frame_on_cpu_returns_the_kernels_dtypes(monkeypatch, mode,
     assert torch.equal(out[4], cuda_bounce.rays_from_counts(
         counts, cfg.max_depth, start))
     assert int(out[4][start]) == n and not out[4][:start].any()
+
+
+@pytest.mark.parametrize("bounce", [0, 2])
+@pytest.mark.parametrize("mode", [None, "resident", "instanced", "stream"])
+def test_fused_bounce_on_cpu_returns_the_kernels_dtypes(monkeypatch, mode,
+                                                        bounce):
+    # every form hands back the RNG words as int64 and alive, emission_ok
+    # and missed as bool, as the kernels write them, equal to the plain
+    # version's
+    cfg, scene, lights, ps = _frame_scene(monkeypatch, mode)
+    assert cuda_bounce._accel_mode(scene) == mode
+    for b in range(bounce):
+        ps, _ = cuda_bounce.fused_bounce_reference(cfg, scene, lights, ps, b,
+                                                   False)
+    before = cuda_bounce.BOUNCE_LAUNCHES
+    got, missed = cuda_bounce.fused_bounce(cfg, scene, lights, ps, bounce,
+                                           False)
+    assert cuda_bounce.BOUNCE_LAUNCHES == before
+    want, wmissed = cuda_bounce.fused_bounce_reference(cfg, scene, lights, ps,
+                                                       bounce, False)
+    n = ps.num_paths
+    assert got.rng.dtype == torch.int64 and got.rng.shape == (n,)
+    for t in (got.alive, got.emission_ok, missed):
+        assert t.dtype == torch.bool and t.shape == (n,)
+    assert torch.equal(missed, wmissed)
+    for x, y in zip(got, want):
+        for a, b in zip(*((x, y) if isinstance(x, tuple) else ((x,), (y,)))):
+            assert a.dtype == b.dtype and torch.equal(a, b)
+    assert 0 < int(got.alive.sum()) < n
+
+
+@pytest.mark.parametrize("mode", [None, "resident"])
+def test_kernel_inputs_hand_over_the_path_state_as_it_is(monkeypatch, mode):
+    # the RNG words and flags reach the kernels as the port holds them
+    # (int64, bool): the pointers handed over are the tensors' own, so the
+    # wrapper launches no conversion; a strided flag plane is refused
+    cfg, scene, lights, ps = _frame_scene(monkeypatch, mode)
+    ptrs, _, keep = cuda_bounce._kernel_inputs(cfg, scene, lights, ps,
+                                               "fused_bounce")
+    state = (ps.rng, ps.alive, ps.emission_ok)
+    assert ptrs[12:15] == [t.data_ptr() for t in state]
+    assert all(any(k is t for k in keep) for t in state)
+    strided = torch.zeros(2 * ps.num_paths, dtype=torch.bool)[::2]
+    with pytest.raises(ValueError, match="alive must be a contiguous"):
+        cuda_bounce._kernel_inputs(cfg, scene, lights,
+                                   ps._replace(alive=strided), "fused_bounce")
 
 
 def test_resident_tables_layout():
@@ -265,22 +315,35 @@ def test_cluster_tracer_matches_plain_on_card(cuda_device):
 
 
 @pytest.mark.cuda
-def test_fused_bounce_matches_plain_on_card(cuda_device):
+@pytest.mark.parametrize("case", [None, *chip_smoke.FRAME_EDGES])
+def test_fused_bounce_matches_plain_on_card(cuda_device, case):
+    # every plane bit for bit: three bounces of the camera rays, and the
+    # edge lanes (chip_smoke.FRAME_EDGES) at bounce 3, the last of depth 4,
+    # with every live lane queued and the warps' take as the case says
     cfg, scene, lights, ps = _mesh(cuda_device, 256, 192)
-    for bounce in range(3):
+    if case is None:
+        calls = [(bounce, False) for bounce in range(3)]
+    else:
+        grid = chip_smoke.bounce_grid(torch, cfg, scene, lights, ps)
+        ps, start = chip_smoke.frame_edge(torch, np, case, ps, grid)
+        calls = [(start, start == cfg.max_depth - 1)]
+    for bounce, is_last in calls:
         before = cuda_bounce.BOUNCE_LAUNCHES
-        k, km = cuda_bounce.fused_bounce(cfg, scene, lights, ps, bounce, False)
+        k, km = cuda_bounce.fused_bounce(cfg, scene, lights, ps, bounce,
+                                         is_last)
         assert cuda_bounce.BOUNCE_LAUNCHES == before + 1
         p, pm = cuda_bounce.fused_bounce_reference(cfg, scene, lights, ps,
-                                                   bounce, False)
+                                                   bounce, is_last)
         torch.cuda.synchronize()
-        for a, b in ((k.radiance, p.radiance), (k.direction, p.direction),
-                     (k.throughput, p.throughput)):
-            err = (torch.stack(list(a), -1) - torch.stack(list(b), -1)).abs()
-            assert float((err.amax(-1) > 1e-3).float().mean()) <= 1e-3
-        assert float((km != pm).float().mean()) <= 1e-3
-        assert float((k.alive != p.alive).float().mean()) <= 1e-3
-        assert float((k.rng != p.rng).float().mean()) <= 1e-3
+        for name, (a, b) in chip_smoke._state_planes(torch, k, km, p,
+                                                     pm).items():
+            assert a.dtype == b.dtype and chip_smoke._same_bits(
+                torch, a, b), name
+        assert chip_smoke.frame_counters(torch, k.rng)[0] == int(
+            ps.alive.sum())
+        if case is not None and case.startswith("take"):
+            assert chip_smoke.frame_take(torch, k.rng) == chip_smoke.edge_take(
+                case)
         ps = p
 
 
@@ -307,7 +370,7 @@ def test_resident_fused_frame_matches_plain_on_card(cuda_device, start,
     assert all(same.values()), same
     assert chip_smoke.frame_counters(torch, k[4])[0] == int(ps.alive.sum())
     if case is not None and case.startswith("take"):
-        assert chip_smoke.frame_take(torch, k[4]) == int(case[4:])
+        assert chip_smoke.frame_take(torch, k[4]) == chip_smoke.edge_take(case)
 
 
 def _sort_keys(chunk, pattern, g):

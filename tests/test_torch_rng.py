@@ -23,7 +23,6 @@ from spt_tpu.ops import rng as jrng  # noqa: E402
 from spt_tpu_torch import interop  # noqa: E402
 from spt_tpu_torch.config import GPU_PARITY, RenderConfig  # noqa: E402
 from spt_tpu_torch.integrators import transport as ttr  # noqa: E402
-from spt_tpu_torch.ops import cuda_bounce  # noqa: E402
 from spt_tpu_torch.ops import rng as trng  # noqa: E402
 
 N = 1 << 20
@@ -79,10 +78,17 @@ def test_next_float_chain_bit_exact(words):
 
 
 def test_kernel_bit_pattern_round_trips(words):
-    # the CUDA kernel takes the int32 bit pattern of each word
-    bits = cuda_bounce._rng_bits(_t(words))
-    assert bits.dtype == torch.int32
-    np.testing.assert_array_equal(bits.numpy().view(np.uint32), words)
+    # the CUDA kernels take the words as the port holds them, int64, and
+    # read each as its low 32 bits (csrc/spt_queue.cuh load_path), writing
+    # them back zero-extended: every word the port's chains make lies in
+    # [0, 2**32), where that round trip gives the word itself
+    for held in (_t(words), trng.wang_hash(_t(words)),
+                 trng.next_float(_t(words))[0]):
+        assert held.dtype == torch.int64
+        assert int(held.min()) >= 0 and int(held.max()) < 2 ** 32
+        low = held.numpy().astype(np.uint32)
+        np.testing.assert_array_equal(low.astype(np.int64), held.numpy())
+    np.testing.assert_array_equal(_t(words).numpy().astype(np.uint32), words)
 
 
 @pytest.mark.parametrize("preset,sample", [

@@ -27,7 +27,8 @@ divisor, which the kernels and the JAX package do not).
 
 On a CUDA card (marker ``cuda``; skipped without one) the textured small
 and resident forms of fused_frame and fused_bounce against their plain
-versions, and evaluate_brdf_v against its CPU result bit for bit.  Run
+versions (every plane of fused_bounce and fused_frame's radiance bit for
+bit), and evaluate_brdf_v against its CPU result bit for bit.  Run
 there with
 ``python -m pytest --noconftest tests/test_torch_textures.py -m cuda``.
 """
@@ -315,12 +316,10 @@ def test_textured_fused_kernels_match_plain_on_card(cuda_device, form):
     pb, pm = cuda_bounce.fused_bounce_reference(cfg, scene, lights, ps, 0,
                                                 False)
     torch.cuda.synchronize()
-    for name in ("origin", "direction", "throughput", "radiance"):
-        for x, y in zip(getattr(kb, name), getattr(pb, name)):
-            assert _agree(x, y)
-    for x, y in ((kb.rng, pb.rng), (kb.alive, pb.alive),
-                 (kb.emission_ok, pb.emission_ok), (km, pm)):
-        assert _agree(x, y)
+    # fused_bounce: every plane bit for bit
+    for name, (x, y) in chip_smoke._state_planes(torch, kb, km, pb,
+                                                 pm).items():
+        assert x.dtype == y.dtype and chip_smoke._same_bits(torch, x, y), name
 
 
 @pytest.mark.cuda
