@@ -100,7 +100,10 @@ this file; exits non-zero (printing no result) without them.  Phases:
     and on the mesh scene at 512x384 d4: K3 at the path's bounce-0 call
     against its plain version (every plane bit for bit; its small form on
     the small scenes, its resident form on the mesh), with its device
-    time, bound and plain time; K2 at each of the hdr frame's calls (one a bounce), bit for bit;
+    time, bound and plain time; the small form's registers, spill and
+    blocks per SM at each small scene's tables, and on default its edge
+    lanes (``SMALL_BOUNCE_EDGES``: all dead, a third dead, ragged, 1 and 33
+    lanes, is_last), bit for bit; K2 at each of the hdr frame's calls (one a bounce), bit for bit;
     ``Renderer.render_frames(8)`` with the counts reset before and read
     after, its image against the masked path's (< 1 % relative RMSE) and
     its rays per bounce equal; ms/frame and device busy beside the masked
@@ -1203,10 +1206,14 @@ def frame_edge(torch, np, case, ps, grid=None):
         return ps, 3
     if case != "ragged":
         raise ValueError(f"unknown fused_frame case {case!r}")
-    m = n - 77
+    return first_lanes(ps, n - 77), 3
+
+
+def first_lanes(ps, m):
+    """The path state of the first `m` lanes of `ps`, each plane contiguous."""
     return type(ps)(*(type(f)(*(c[:m].contiguous() for c in f))
                       if isinstance(f, tuple) else f[:m].contiguous()
-                      for f in ps)), 3
+                      for f in ps))
 
 
 def frame_bytes(torch, cfg, scene, lights, ps, start, touched,
@@ -1459,6 +1466,58 @@ def check_bounce_edges(torch, np, phase, what, cfg, scene, lights, ps):
                      (cfg, scene, lights, eps, start,
                       start == cfg.max_depth - 1),
                      expect_take=edge_take(case))
+
+
+# Lanes the small fused_bounce (a grid-stride loop over a persistent grid,
+# csrc/fused_bounce.cu small_bounce_kernel) has to get right beside the
+# compact path's bounce-0 call, each from the primary state: every lane
+# dead; a third of the lanes dead at random; the lanes less 77, a count that
+# is no multiple of a warp or a block; one lane; 33 lanes (a warp and one);
+# and bounce 3 as the last bounce (Russian roulette on).  The main path's
+# call, at 1920x1080, takes several rounds of the grid.
+SMALL_BOUNCE_EDGES = ("all_dead", "scattered", "ragged", "one", "n33",
+                      "is_last")
+
+# The small fused_bounce before its persistent grid (one thread a lane,
+# 16 200 blocks of 128 at 1920x1080), as frame_sweep.py --part bounce
+# --other read it on an H100 at the small scenes' tables.
+SMALL_BOUNCE_PARENT = ("one thread a lane: 90 registers, 32 B local, "
+                       "5 blocks/SM of 128 threads")
+
+
+def small_bounce_edge(torch, np, case, ps):
+    """(PathState, bounce, is_last) of one of SMALL_BOUNCE_EDGES from the
+    primary state `ps`."""
+    n = ps.num_paths
+    if case == "all_dead":
+        return ps._replace(alive=torch.zeros_like(ps.alive)), 0, False
+    if case == "scattered":
+        keep = np.random.default_rng(23).random(n) >= 1 / 3
+        return ps._replace(alive=ps.alive & torch.from_numpy(keep).to(
+            ps.alive.device)), 0, False
+    if case == "is_last":
+        return ps, 3, True
+    m = {"ragged": n - 77, "one": 1, "n33": 33}.get(case)
+    if m is None:
+        raise ValueError(f"unknown small fused_bounce case {case!r}")
+    return first_lanes(ps, m), 0, False
+
+
+def grid_rounds(torch, n) -> float:
+    """The fewest rounds a persistent grid takes over `n` lanes: n over the
+    most threads the SMs hold at once, 2048 an SM whatever the kernel's
+    launch shape."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return n / (sms * 2048)
+
+
+def check_small_bounce_edges(torch, np, phase, what, cfg, scene, lights, ps):
+    """check_bounce on each of SMALL_BOUNCE_EDGES from the primary state
+    `ps` (the small form: every plane bit for bit)."""
+    for case in SMALL_BOUNCE_EDGES:
+        eps, bounce, is_last = small_bounce_edge(torch, np, case, ps)
+        check_bounce(torch, phase, f"{what} {case}",
+                     (cfg, scene, lights, eps, bounce, is_last))
 
 
 def check_sort(torch, phase, what, key, ops, chunk) -> float:
@@ -2681,7 +2740,7 @@ def frame_ms(torch, r, frames: int) -> float:
     return t0.elapsed_time(t1) / frames
 
 
-def _compact_bounce0(torch, smi, name, r):
+def _compact_bounce0(torch, np, smi, name, r):
     """K3 at the compact path's bounce-0 call of one frame of `r`, held
     against its plain version plane by plane; and, where the frame samples
     an HDR map, K2 at each of the frame's calls.  Returns the kernel-line
@@ -2700,6 +2759,22 @@ def _compact_bounce0(torch, smi, name, r):
     (args, kw), = bounce0
     k3 = check_bounce(torch, 20, f"the compact {name} frame's fused_bounce",
                       args, kw, with_bound=True, smi=smi)
+    if cuda_bounce._accel_mode(args[1]) is None:
+        from spt_tpu_torch.ops import cuda_lib
+
+        cfg, scene, lights, ps = args[:4]
+        smem = cuda_bounce.shared_bytes(cfg, scene, lights)
+        info = cuda_lib.kernel_info({"fused_bounce": smem})["fused_bounce"]
+        log(f"phase 20 {cuda_bounce.BOUNCE_KERNELS[None]} at the compact "
+            f"{name} frame's tables: {info['registers']} registers, "
+            f"{info['local_bytes']} B local, {info['blocks_per_sm']} blocks/SM "
+            f"at {smem} B shared a block; {ps.num_paths} lanes, at least "
+            f"{grid_rounds(torch, ps.num_paths):.2f} rounds of the grid "
+            f"(before: {SMALL_BOUNCE_PARENT}) [{smi}]")
+        if name == "default":
+            check_small_bounce_edges(torch, np, 20, f"the compact {name} "
+                                     "frame's fused_bounce", cfg, scene,
+                                     lights, ps)
     for i, (eargs, ekw) in enumerate(envs):
         env, direction, need = eargs
         k = cuda_env.env_sample(*eargs, **ekw)
@@ -2740,7 +2815,7 @@ def phase_compact(torch, np, dev, out_dir, smi):
             m = renderer(name, W, H, dev)
             size = f"{W}x{H}"
         # frame 0 of each path warms it; both then go on from frame 1
-        k3, env_calls = _compact_bounce0(torch, smi, name, r)
+        k3, env_calls = _compact_bounce0(torch, np, smi, name, r)
         m.render_frames(1)
         r.state, m.state = state_mod.reset(r.state), state_mod.reset(m.state)
         torch.cuda.synchronize()

@@ -6,6 +6,8 @@ constants and another checkout's kernels.
     python3 frame_sweep.py [--part all|small|mesh|bounce]
                            [--variants NAME:kConst=V[+kConst=V]/...]
                            [--other DIR] [--frames 16] [--pairs 1]
+                           [--small-only] [--edits NAME,...] [--sass DIR]
+                           [--queue-grids]
 
 Builds the port's kernels as committed and, for each variant, with the
 named ``constexpr int`` constants of ``spt_tpu_torch/csrc`` (each defined
@@ -31,19 +33,27 @@ launches per frame (torch.profiler).  ``--depth1`` adds default at depth 1
 and acosf replaced by a subtraction, timed only, for what the exact
 trigonometry costs.
 
-The bounce part (``--part bounce``): K3 (fused_bounce) per call, at each of
-the sorted frame's three calls on the three mesh scenes, at the compact
-path's bounce-0 call on the mesh scene and at each call of band 0 of a
-2-band mesh frame (``sharding.shard_frames``): the lanes and live lanes of
-the call, every build's result against the committed build's bit for bit,
-torch.profiler device time per launch, and each build's K3 registers,
-spill and blocks per SM; then each mesh scene's sorted frame through the
-committed build's and ``--other``'s fused_bounce (images bit for bit,
-ms/frame, busy and launches per frame) and the launches of the compact
-path's default 1920x1080 d6 frame through each.  The kernel's constants
-take variants as above (``--variants c2:kTakeMax=2``); ``--queue-grids``
-adds a build that runs the instanced and stream forms as queue kernels
-too, timed only (the package runs them one thread a lane).
+The bounce part (``--part bounce``): K3 (fused_bounce) per call, at the
+compact path's bounce-0 call on default, cornell and hdr at 1920x1080 (the
+small form), at each of the sorted frame's three calls on the three mesh
+scenes, at the compact path's bounce-0 call on the mesh scene and at each
+call of band 0 of a 2-band mesh frame (``sharding.shard_frames``): the
+lanes and live lanes of the call, every build's result against the
+committed build's bit for bit, torch.profiler device time per launch, and
+each build's K3 registers, spill and blocks per SM; then each mesh scene's
+sorted frame through the committed build's and ``--other``'s fused_bounce
+(images bit for bit, ms/frame, busy and launches per frame) and the
+compact path's default 1920x1080 d6 frame through every build (device
+busy and launches).  ``--small-only`` keeps the small form's calls and the
+compact default frame.  The kernel's constants take variants as above
+(``--variants c2:kTakeMax=2``, ``m5:kSmallBounceMinBlocks=5``);
+``--queue-grids`` adds a build that runs the instanced and stream forms as
+queue kernels too, timed only (the package runs them one thread a lane);
+``--edits`` builds of the small form with lines of it rewritten (``EDITS``:
+fed by a counter, functions not inlined, loops not unrolled, and, timed
+only, with no lane shaded or the closest hit alone); ``--sass DIR``
+writes each build's SASS of the small form there and logs its
+instruction counts.
 
 The mesh part (``--part mesh``): K1's resident, instanced and stream forms
 on the three mesh scenes of ``chip_smoke.py`` at 512x384 depth 4
@@ -64,7 +74,10 @@ every time.  The builds are made by ``sweep_builds.py``.
 from __future__ import annotations
 
 import argparse
+import difflib
+import re
 import statistics
+import subprocess
 import sys
 from pathlib import Path
 
@@ -79,7 +92,7 @@ NOTRIG = (("atan2f(d.z, d.x)", "(d.z - d.x)"),
 
 # The q23 build (--queue-grids, timed only): fused_bounce's instanced and
 # stream forms launched as the queue kernel the resident form is, which the
-# package does not do; queue_grid_wrappers hands them its counters.
+# package does not do; counter_wrappers hands them its counters.
 QUEUE_GRIDS = tuple(
     (f"err = launch_lanes<{k}>(io, sc, sa, smem, st);",
      f"err = launch_queue(fused_bounce_queue_kernel<{k}>, io, sc, sa, smem, st);")
@@ -87,19 +100,106 @@ QUEUE_GRIDS = tuple(
     (f"kernel_info(fused_bounce_kernel<{k}>, smem",
      f"kernel_info(fused_bounce_queue_kernel<{k}>, smem") for k in (2, 3))
 
+# Edits of the small fused_bounce (--edits NAME,...), each a build of the
+# committed sources with these (text, replacement) pairs, timed beside the
+# others.  Bit-equal to the committed build, each a design tried once:
+# - cnt: the lanes taken from a counter in chunks of 32 a warp (spt_queue.cuh
+#   run_paths, K1 small's loop, one bounce a path) in place of the
+#   grid-stride loop; its wrapper (counter_wrappers) zeroes the counter, one
+#   fill launch a call more;
+# - nocc: the small tracer's shadow test not inlined;
+# - u1: the small tracer's triangle loops not unrolled.
+# Timed only, not bit-equal (TIMED_ONLY), for where the time goes:
+# - floor: no lane shaded (the loop's loads and stores alone);
+# - trace: the closest hit alone (no shading, no shadow ray).
+SHADE = ("p.alive = shade_bounce<Tracer, kSmallBounceBrdfCall != 0>(\n          tb, "
+         "tracer, sa, p.bounce, is_last, p.o, p.d, p.thr, p.rad, p.rng, p.emok, "
+         "p.missed);")
+OCCLUDED = ("  __device__ bool occluded(V3 o, V3 d, float tmin, float tmax) "
+            "const {\n    float t, u, v;\n"
+            "    for (int i = 0; i < tb->n_tris; ++i)\n")
+EDITS = {
+    "cnt": (("stride_paths(io, tb, tracer, sa);",
+             "run_paths<false>(io, tb, tracer, sa, nullptr, io.n, 32, 32);"),),
+    "nocc": ((OCCLUDED, OCCLUDED.replace("__device__ bool",
+                                         "__device__ __noinline__ bool")),),
+    "u1": (("    for (int i = 0; i < tb->n_tris; ++i) {\n      float t, u, v;",
+            "    _Pragma(\"unroll 1\") for (int i = 0; i < tb->n_tris; ++i) {\n"
+            "      float t, u, v;"),
+           (OCCLUDED, OCCLUDED.replace("    for (int", "    _Pragma(\"unroll 1\") for (int"))),
+    "floor": ((SHADE, "p.missed = true;"),),
+    "trace": ((SHADE, "p.alive = [&] { float t, hu, hv; int mat; V3 n; "
+               "p.missed = tracer.closest(p.o, p.d, 0.0f, F32(1e30), t, mat, "
+               "n, hu, hv) == 0; p.rad.x += t + n.x + n.y + n.z + hu + hv + "
+               "mat; return !p.missed; }();"),),
+}
+TIMED_ONLY = ("notrig", "floor", "trace")
 
-def queue_grid_wrappers(torch, cb):
-    """The q23 build's wrappers: cuda_bounce `cb` with a fused_bounce that,
-    on the instanced and stream forms, allocates the queue kernel's zeroed
-    counters after the RNG words and its queue, as cb.fused_bounce does on
-    the resident form."""
+# The kernels whose SASS --sass writes and counts, by a part of their
+# mangled names: the small fused_bounce (this checkout's and the
+# one-thread-a-lane kernel before it); every other kernel's SASS is held to
+# --other's.
+SASS_KERNELS = ("small_bounce_kernel", "fused_bounce_kernelILi0E")
+
+
+def sass_of(lib_path) -> dict:
+    """{kernel: its SASS instructions} of every kernel in the library at
+    `lib_path` (cuobjdump, beside nvcc), without the per-build hash of each
+    source's anonymous namespace and the numbers of its internal
+    subroutines in the names and the calls."""
+    from spt_tpu_torch.ops import cuda_lib
+
+    exe = Path(cuda_lib.nvcc()).with_name("cuobjdump")
+    text = subprocess.run([str(exe), "-sass", str(lib_path)], check=True,
+                          capture_output=True, text=True).stdout
+    text = re.sub(r"_GLOBAL__N__[0-9a-f]+_", "", text)
+    out = {}
+    for part in re.sub(r"\$__internal_\d+_\$", "$__internal_$", text).split(
+            "Function : ")[1:]:
+        name, body = part.split("\n", 1)
+        # the instructions alone, not the listing's headers after them
+        out[name.strip()] = "".join(
+            re.findall(r"^\s+/\*[0-9a-f]{4,}\*/.*\n", body, re.M))
+    return out
+
+
+def _short(name: str) -> str:
+    """A kernel's mangled name as `name<template argument>`, or as it is."""
+    m = re.search(r"\d+([A-Za-z_]+_kernel)(?:IL[ib](\d)E)?", name)
+    if not m:
+        return name
+    return m.group(1) + (f"<{m.group(2)}>" if m.group(2) else "")
+
+
+def sass_counts(sass: dict) -> dict:
+    """Per kernel of SASS_KERNELS in `sass` (sass_of): its instruction count
+    and its local loads and stores, branches, special-function (MUFU),
+    shared and global instructions."""
+    out = {}
+    for name, body in sass.items():
+        if not any(k in name for k in SASS_KERNELS):
+            continue
+        ops = re.findall(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)",
+                         body)
+        base = [o.split(".")[0] for o in ops]
+        out[name] = {"instructions": len(ops),
+                     **{k: base.count(k) for k in ("LDL", "STL", "BRA", "MUFU",
+                                                   "LDS", "LDG", "STG")}}
+    return out
+
+
+def counter_wrappers(torch, cb, modes, names):
+    """The q23 and cnt builds' wrappers: cuda_bounce `cb` with a
+    fused_bounce that, on the accel modes `modes`, allocates the kernel's
+    zeroed counters after the RNG words and a queue, as cb.fused_bounce
+    does on the resident form; `names` overrides cb.BOUNCE_KERNELS."""
     from types import SimpleNamespace
 
     from spt_tpu_torch.integrators import transport
     from spt_tpu_torch.ops.vec3 import Vec3
 
     def fused_bounce(cfg, scene, lights, ps, bounce, is_last):
-        if cb._accel_mode(scene) not in ("instanced", "stream"):
+        if cb._accel_mode(scene) not in modes:
             return cb.fused_bounce(cfg, scene, lights, ps, bounce, is_last)
         dev, n = ps.rng.device, ps.num_paths
         ins, scene_args, keep = cb._kernel_inputs(cfg, scene, lights, ps,
@@ -124,8 +224,7 @@ def queue_grid_wrappers(torch, cb):
             throughput=Vec3(*outs[6:9]), radiance=Vec3(*outs[9:12]),
             rng=rng[:n], alive=flags[0], emission_ok=flags[1]), flags[2]
 
-    names = dict(cb.BOUNCE_KERNELS, instanced="fused_bounce_queue_kernel<2>",
-                 stream="fused_bounce_queue_kernel<3>")
+    names = dict(cb.BOUNCE_KERNELS, **names)
     return SimpleNamespace(fused_bounce=fused_bounce, BOUNCE_KERNELS=names,
                            fused_frame=cb.fused_frame,
                            shared_bytes=cb.shared_bytes)
@@ -143,7 +242,8 @@ def main() -> int:
                     help="the small forms (K1 small, K2), K1's mesh forms, "
                          "K3 at its calls, or the first two")
     ap.add_argument("--pairs", type=int, default=1,
-                    help="rounds of the mesh frames through each build, in "
+                    help="rounds of the mesh frames (and, with --part "
+                         "bounce, of K3's calls) through each build, in "
                          "turns forward then backward")
     ap.add_argument("--notrig", action="store_true",
                     help="also time the sampler without its trigonometry "
@@ -152,6 +252,15 @@ def main() -> int:
                     help="also time, with --part bounce, a build that runs "
                          "fused_bounce's instanced and stream forms as "
                          "queue kernels")
+    ap.add_argument("--edits", default="",
+                    help="with --part bounce, also time these edits of the "
+                         "small form, comma-separated: " + ", ".join(EDITS))
+    ap.add_argument("--sass", default=None,
+                    help="a directory to write each build's SASS of the small "
+                         "fused_bounce to, with its instruction counts logged")
+    ap.add_argument("--small-only", action="store_true",
+                    help="with --part bounce, only the small form's calls "
+                         "and the compact default frame")
     ap.add_argument("--depth1", action="store_true",
                     help="also time fused_frame on default at depth 1 (bounce 0 "
                          "alone)")
@@ -186,14 +295,22 @@ def main() -> int:
     if args.queue_grids:
         made.variant("q23", [sweep_builds.literal(*p) for p in QUEUE_GRIDS],
                      note=note)
+    for name in filter(None, args.edits.split(",")):
+        made.variant(name, [sweep_builds.literal(*p) for p in EDITS[name]],
+                     note=note)
     # name -> (cuda_bounce module, cuda_env module, K1 small's kernel name in
     # a trace, cuda_lib module); the builds of this checkout share its
     # wrappers
     builds = {name: (cuda_bounce, cuda_env, cuda_bounce.SMALL_KERNEL, cuda_lib)
               for name in made.libs}
     if args.queue_grids:
-        builds["q23"] = (queue_grid_wrappers(torch, cuda_bounce),) + builds[
-            "q23"][1:]
+        builds["q23"] = (counter_wrappers(
+            torch, cuda_bounce, ("instanced", "stream"),
+            {"instanced": "fused_bounce_queue_kernel<2>",
+             "stream": "fused_bounce_queue_kernel<3>"}),) + builds["q23"][1:]
+    if "cnt" in builds:
+        builds["cnt"] = (counter_wrappers(torch, cuda_bounce, (None,), {}),
+                         ) + builds["cnt"][1:]
     if args.other:
         o = made.load_other(Path(args.other).resolve(),
                             ("cuda_lib", "cuda_bounce", "cuda_env"), note=note)
@@ -201,6 +318,31 @@ def main() -> int:
                            getattr(o["cuda_bounce"], "SMALL_KERNEL",
                                    "fused_frame_kernel<0>"), o["cuda_lib"])
     names = list(builds)
+    if args.sass:
+        Path(args.sass).mkdir(parents=True, exist_ok=True)
+        sass = {}
+        for v in names:
+            lib = (builds[v][3]._LIB if v == "other" else made.libs[v])._name
+            sass[v] = sass_of(lib)
+            Path(args.sass, f"{v}.sass").write_text("".join(
+                f"Function : {k}\n{t}" for k, t in sass[v].items()
+                if any(n in k for n in SASS_KERNELS)))
+            for k, c in sass_counts(sass[v]).items():
+                cs.log(f"SASS of {v} {_short(k)}: {c}")
+        if "other" in sass:
+            a, b = sass["committed"], sass["other"]
+            for k in (k for k in a if k in b and b[k] != a[k]):
+                Path(args.sass, f"{_short(k)}.diff").write_text("".join(
+                    difflib.unified_diff(b[k].splitlines(True),
+                                         a[k].splitlines(True), "other",
+                                         "committed", n=2)))
+            cs.log("SASS of the committed build against other's, kernel by "
+                   "kernel: identical "
+                   f"{sorted(_short(k) for k in a if b.get(k) == a[k])}; "
+                   "different "
+                   f"{sorted(_short(k) for k in a if k in b and b[k] != a[k])}"
+                   f"; only in committed {sorted(map(_short, set(a) - set(b)))}"
+                   f"; only in other {sorted(map(_short, set(b) - set(a)))}")
 
     def use(name):
         if name in made.libs:
@@ -276,7 +418,8 @@ def main() -> int:
         e = use(v)[1]
         outs[v] = tuple(e.env_sample(*calls[v]))
     torch.cuda.synchronize()
-    ok = all(same(outs[v], outs["committed"]) for v in names if v != "notrig")
+    ok = all(same(outs[v], outs["committed"]) for v in names
+             if v not in TIMED_ONLY)
     ms = {v: [] for v in names}
     for v in names + names[::-1]:
         e = use(v)[1]
@@ -446,16 +589,18 @@ def _flat(x):
 
 
 def bounce_part(args, torch, cs, names, use, same, smi) -> bool:
-    """K3 (fused_bounce) through each build, per call: at each of the
-    sorted frame's calls on the three mesh scenes, at the compact path's
-    bounce-0 call on the mesh scene and at each call of band 0 of a 2-band
-    mesh frame; the lanes and live lanes of each call, the builds' results
-    bit for bit, device ms per launch (torch.profiler) in turns, and each
+    """K3 (fused_bounce) through each build, per call: at the compact
+    path's bounce-0 call on the three small configs at 1920x1080, then,
+    unless --small-only, at each of the sorted frame's calls on the three
+    mesh scenes, at the compact path's bounce-0 call on the mesh scene and
+    at each call of band 0 of a 2-band mesh frame; the lanes and live lanes
+    of each call, the builds' results bit for bit, device ms per launch
+    (torch.profiler) over --pairs rounds of the builds in turns, and each
     build's K3 registers, spill and blocks per SM; then each mesh scene's
     sorted frame through each build's fused_bounce (images bit for bit,
-    ms/frame, busy, launches) and the launches of the compact path's
-    default 1920x1080 d6 frame.  Returns whether a build's results
-    differed."""
+    ms/frame, busy, launches) and the device busy time and launches of the
+    compact path's default 1920x1080 d6 frame through every build.
+    Returns whether a build's results differed."""
     from spt_tpu_torch.engine import state as state_mod
     from spt_tpu_torch.env import make_procedural_environment
     from spt_tpu_torch.lights import default_lights
@@ -473,56 +618,65 @@ def bounce_part(args, torch, cs, names, use, same, smi) -> bool:
         return [(a, k) for _, a, k in calls]
 
     sets = []
-    for label, make, mode, _ in MESH:
+    for name in CONFIGS:
+        sets.append((f"{name} {cs.W}x{cs.H} compact frame", None, calls_of(
+            lambda: cs.renderer(name, cs.W, cs.H, dev,
+                                integrator="compact").render_frames(1))))
+    for label, make, mode, _ in () if args.small_only else MESH:
         sets.append((f"{label} sorted frame", mode,
                      calls_of(lambda: getattr(cs, make)(dev).render_frames(1))))
-    sets.append(("mesh compact frame", "resident", calls_of(
-        lambda: cs.mesh_renderer(dev, integrator="compact").render_frames(1))))
-    desc, cfg, cam = cs.port_mesh_scene()
-    band = (cfg, flatten_scene(desc, dev), make_procedural_environment(dev),
-            default_lights(dev), cam.rays(dev))
-    sets.append(("mesh band 0 of 2", "resident", calls_of(
-        lambda: sharding.shard_frames(
-            *band, state_mod.init_state(cfg.num_pixels // 2, dev), 1, 0, 2))))
+    if not args.small_only:
+        sets.append(("mesh compact frame", "resident", calls_of(
+            lambda: cs.mesh_renderer(dev,
+                                     integrator="compact").render_frames(1))))
+        desc, cfg, cam = cs.port_mesh_scene()
+        band = (cfg, flatten_scene(desc, dev), make_procedural_environment(dev),
+                default_lights(dev), cam.rays(dev))
+        sets.append(("mesh band 0 of 2", "resident", calls_of(
+            lambda: sharding.shard_frames(
+                *band, state_mod.init_state(cfg.num_pixels // 2, dev), 1, 0,
+                2))))
 
     for what, mode, calls in sets:
         for a, kw in calls:
             ps, bounce = a[3], a[4]
             outs = {v: use(v)[0].fused_bounce(*a, **kw) for v in names}
             torch.cuda.synchronize()
-            off = [v for v in names if not same(outs[v], outs["committed"])]
+            off = [v for v in names if v not in TIMED_ONLY
+                   and not same(outs[v], outs["committed"])]
             ms = {v: [] for v in names}
-            for v in names + names[::-1]:
+            for v in (names + names[::-1]) * args.pairs:
                 b = use(v)[0]
                 ms[v].append(cs.kernel_device_ms(
                     torch, lambda: b.fused_bounce(*a, **kw),
                     bounce_kernel(b, mode), iters=10))
             cs.log(f"{what} K3 {mode} bounce {bounce} ({ps.num_paths} lanes, "
                    f"{int(ps.alive.sum())} alive): builds not bit-equal to the "
-                   f"committed one: {off or 'none'}; kernel ms per launch "
-                   "forward/backward: " + ", ".join(
-                       f"{v} {t[0]:.4f}/{t[1]:.4f}" for v, t in ms.items())
-                   + f" [{smi}]")
+                   f"committed one: {off or 'none'}; kernel ms per launch over "
+                   f"{2 * args.pairs} runs a build in turns, median (min-max): "
+                   + ", ".join(f"{v} {statistics.median(t):.4f} "
+                               f"({min(t):.4f}-{max(t):.4f})"
+                               for v, t in ms.items()) + f" [{smi}]")
             if off:
                 return True
         a = calls[0][0]
+        key = "fused_bounce" if mode is None else f"fused_bounce_{mode}"
         occ = []
         for v in names:
             b, _, _, cl = use(v)
-            info = cl.kernel_info({f"fused_bounce_{mode}": b.shared_bytes(
-                *a[:3])})
-            occ.append(f"{v} {info[f'fused_bounce_{mode}']}")
+            info = cl.kernel_info({key: b.shared_bytes(*a[:3])})
+            occ.append(f"{v} {info[key]}")
         cs.log(f"{what} K3 {mode} occupancy: " + "; ".join(occ) + f" [{smi}]")
 
     frame_builds = [v for v in names if v in ("committed", "other")]
-    for label, make, _, _ in MESH:
+    for label, make, _, _ in () if args.small_only else MESH:
         if frames_with_each_build(args, torch, cs, frame_builds, use, smi,
                                   label, make, fn="fused_bounce",
                                   routes=(("sorted", {}),)):
             return True
     saved = cuda_bounce.fused_bounce
     try:
-        for v in frame_builds:
+        for v in (v for v in names if v not in TIMED_ONLY):
             b = use(v)[0]
             cuda_bounce.fused_bounce = (saved if b is cuda_bounce
                                         else b.fused_bounce)

@@ -36,8 +36,32 @@
 // while every other block loaded the tables only to copy dead lanes,
 // spread over every warp of every SM.  Each path runs the call's one bounce with the call's
 // is_last and writes the whole new state at its own lane; K3 counts no
-// rays.  The small, instanced and stream forms (fused_bounce_kernel<0, 2,
-// 3>) run one thread a lane.
+// rays.  The instanced and stream forms (fused_bounce_kernel<2, 3>) run
+// one thread a lane.
+//
+// The small form (small_bounce_kernel) is the compact path's bounce 0: two
+// million lanes, every one alive, each a brute-force trace over at most
+// 192 primitives in shared memory, then the shading with a shadow ray a
+// light and one a NEE sample.  At 117 B a lane it needs 0.072 ms of the
+// H100's 3.35 TB/s, and a quarter of that in float32 operations.  What
+// bounds it, timed at 1920x1080 on an NVIDIA H100 80GB HBM3 at its 700 W
+// limit (frame_sweep.py --edits floor,trace; PERF.md): moving the state
+// alone takes 0.082 ms, the closest
+// hit adds 0.003-0.034 ms, and the shading the rest (0.09 ms on cornell):
+// chains of dependent float operations, whose registers (80 and spill at 24
+// warps an SM) leave too few warps to hide them.  The one-thread-a-lane
+// grid's 16 200 blocks, each copying the tables and waiting on a barrier,
+// cost little: a persistent grid alone gained 0-4 %.  So the design:
+// - a persistent grid, as many blocks of 256 threads as the SMs hold at
+//   once (3 at 80 registers), each loading the tables once, its threads
+//   walking the lanes in a grid-stride loop, a warp's 32 neighbouring lanes
+//   a step, coalesced, with no counter to zero (no fill launch; K1 small's
+//   counter-fed loop took 12 % more on hdr);
+// - the trace's tests return at their first failed condition
+//   (SmallTracer<true>, the same result): a warp's primary rays are
+//   neighbours in the image and fail together (-8 % on default);
+// - the BRDF a call (shade_bounce with kBrdfCall), so its registers are not
+//   live beside the shading's own: less spill, -1 % on cornell and hdr.
 
 #include "spt_queue.cuh"
 
@@ -87,18 +111,45 @@ struct BounceIO {
 // The resident form's launch bound, as fused_frame's mesh forms'.
 constexpr int kBounceMinBlocks = 4;  // __launch_bounds__ blocks per SM
 
-// kMode: 0 small (RolledTracer), 2 instanced (InstTracer), 3 stream
-// (StreamTracer); one thread a lane.
+// The small form's launch shape, chosen on the card with frame_sweep.py
+// (PERF.md).
+constexpr int kSmallBounceBlock = 256;     // threads a block
+constexpr int kSmallBounceMinBlocks = 3;   // __launch_bounds__ blocks per SM
+constexpr int kSmallBounceEarly = 1;       // 1: tests that return at their first failed condition
+constexpr int kSmallBounceBrdfCall = 1;    // 1: the BRDF a call, not inlined
+static_assert(kSmallBounceBlock % 32 == 0, "a step of the loop is whole warps");
+
+// Lanes [0, io.n) of a grid-stride loop: thread t of the grid runs lanes t,
+// t + step, ...  Each lane runs exactly the arithmetic of the
+// one-thread-a-lane kernel and writes its own outputs.
+template <class Tracer>
+__device__ inline void stride_paths(const BounceIO& io, const Tables& tb, const Tracer& tracer,
+                                    const ShadeArgs& sa) {
+  const bool is_last = io.is_last != 0;
+  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < io.n; i += gridDim.x * blockDim.x) {
+    Path p = load_path(io.in, i, io.bounce);
+    if (p.alive)
+      p.alive = shade_bounce<Tracer, kSmallBounceBrdfCall != 0>(
+          tb, tracer, sa, p.bounce, is_last, p.o, p.d, p.thr, p.rad, p.rng, p.emok, p.missed);
+    io.store(i, p);
+  }
+}
+
+__global__ void __launch_bounds__(kSmallBounceBlock, kSmallBounceMinBlocks)
+    small_bounce_kernel(BounceIO io, SceneArgs sc, ShadeArgs sa) {
+  extern __shared__ __align__(16) float smem[];
+  const Tables tb = load_small_tables(smem, sc);
+  const SmallTracer<kSmallBounceEarly != 0> tracer{&tb};
+  stride_paths(io, tb, tracer, sa);
+}
+
+// kMode: 2 instanced (InstTracer), 3 stream (StreamTracer); one thread a
+// lane.
 template <int kMode>
 __global__ void __launch_bounds__(kBlock)
     fused_bounce_kernel(BounceIO io, SceneArgs sc, ShadeArgs sa) {
   extern __shared__ __align__(16) float smem[];
-  Tables tb;
-  if constexpr (kMode == 0) {
-    tb = load_small_tables(smem, sc);
-  } else {
-    tb = load_tables(smem, sc);
-  }
+  const Tables tb = load_tables(smem, sc);
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= io.n) return;
 
@@ -108,11 +159,8 @@ __global__ void __launch_bounds__(kBlock)
     if constexpr (kMode == 3) {
       p.alive = shade_bounce(tb, stream_tracer(tb, sc), sa, p.bounce, is_last, p.o, p.d, p.thr,
                              p.rad, p.rng, p.emok, p.missed);
-    } else if constexpr (kMode == 2) {
-      p.alive = shade_bounce(tb, inst_tracer(tb, sc), sa, p.bounce, is_last, p.o, p.d, p.thr,
-                             p.rad, p.rng, p.emok, p.missed);
     } else {
-      p.alive = shade_bounce(tb, RolledTracer{&tb}, sa, p.bounce, is_last, p.o, p.d, p.thr,
+      p.alive = shade_bounce(tb, inst_tracer(tb, sc), sa, p.bounce, is_last, p.o, p.d, p.thr,
                              p.rad, p.rng, p.emok, p.missed);
     }
   }
@@ -163,6 +211,19 @@ inline cudaError_t launch_lanes(BounceIO& io, SceneArgs& sc, ShadeArgs& sa, size
   return cudaSuccess;
 }
 
+// One launch of the small form on as many blocks as the SMs hold at once
+// and no more than one a kSmallBounceBlock lanes.
+inline cudaError_t launch_small(BounceIO& io, SceneArgs& sc, ShadeArgs& sa, size_t smem,
+                                cudaStream_t st) {
+  int blocks = 0;
+  cudaError_t err = resident_blocks(small_bounce_kernel, kSmallBounceBlock, smem, &blocks);
+  if (err != cudaSuccess) return err;
+  if (blocks < 1) return cudaErrorInvalidConfiguration;
+  const int grid = min(blocks, (io.n + kSmallBounceBlock - 1) / kSmallBounceBlock);
+  small_bounce_kernel<<<grid, kSmallBounceBlock, smem, st>>>(io, sc, sa);
+  return cudaSuccess;
+}
+
 }  // namespace
 
 extern "C" {
@@ -207,7 +268,7 @@ int spt_fused_bounce(const float* ox, const float* oy, const float* oz, const fl
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (pack == nullptr) {
-    err = launch_lanes<0>(io, sc, sa, smem, st);
+    err = launch_small(io, sc, sa, smem, st);
   } else if (n_inst > 0) {
     err = launch_lanes<2>(io, sc, sa, smem, st);
   } else if (cbox != nullptr) {
@@ -228,7 +289,8 @@ int spt_fused_bounce_kernel_info(int mode, int smem, int* num_regs, int* local_b
          : mode == 2 ? kernel_info(fused_bounce_kernel<2>, smem, num_regs, local_bytes, blocks)
          : mode == 1
              ? kernel_info(fused_bounce_queue_kernel<1>, smem, num_regs, local_bytes, blocks)
-             : kernel_info(fused_bounce_kernel<0>, smem, num_regs, local_bytes, blocks);
+             : kernel_info(small_bounce_kernel, smem, num_regs, local_bytes, blocks,
+                           kSmallBounceBlock);
 }
 
 }  // extern "C"

@@ -356,6 +356,13 @@ __device__ inline V3 evaluate_brdf(V3 n, V3 v, V3 l, V3 base, float metallic, fl
   return scale(add(mul(kd, diffuse), specular), cos_nl);
 }
 
+// evaluate_brdf as a call, not inlined: its registers are then not live
+// beside the shading's own (shade_bounce with kBrdfCall).
+__device__ inline __noinline__ V3 evaluate_brdf_call(V3 n, V3 v, V3 l, V3 base, float metallic,
+                                                     float roughness, float ior) {
+  return evaluate_brdf(n, v, l, base, metallic, roughness, ior);
+}
+
 __device__ inline V3 cosine_sample(V3 n, float u1, float u2) {
   float r = safe_sqrt(u1);
   float phi = F32(2.0 * kPi) * u2;
@@ -453,8 +460,9 @@ __device__ inline void sample_texture(const int* __restrict__ tex, int res, int 
 // One bounce of a live lane.  Updates the lane's state in place, sets
 // `missed` when the ray left the scene (the lane then keeps its direction
 // and throughput for the deferred environment term) and returns whether
-// the lane is alive afterwards.
-template <class Tracer>
+// the lane is alive afterwards.  With kBrdfCall the BRDF is a call
+// (evaluate_brdf_call), the same arithmetic.
+template <class Tracer, bool kBrdfCall = false>
 __device__ inline bool shade_bounce(const Tables& tb, const Tracer& tr, const ShadeArgs& sa,
                                     int bounce, bool is_last, V3& o, V3& d, V3& thr, V3& rad,
                                     uint32_t& rng, bool& emok, bool& missed) {
@@ -533,7 +541,8 @@ __device__ inline bool shade_bounce(const Tables& tb, const Tracer& tr, const Sh
     if (contrib && shadow_rays)
       contrib = !tr.occluded(safe_origin(p, n), ldir, sa.hit_eps, ldist - sa.hit_eps);
     if (contrib) {
-      V3 brdf = evaluate_brdf(n, view, ldir, base, metallic, roughness, ior);
+      V3 brdf = kBrdfCall ? evaluate_brdf_call(n, view, ldir, base, metallic, roughness, ior)
+                          : evaluate_brdf(n, view, ldir, base, metallic, roughness, ior);
       rad = add(rad, mul(mul(thr, brdf), li_rad));
     }
   }
@@ -563,7 +572,8 @@ __device__ inline bool shade_bounce(const Tables& tb, const Tracer& tr, const Sh
     if (nee_mask && shadow_rays)
       nee_mask = !tr.occluded(safe_origin(p, n), wi, sa.hit_eps, dist * F32(1.0 - 1e-3));
     if (nee_mask) {
-      V3 brdf = evaluate_brdf(n, view, wi, base, metallic, roughness, ior);
+      V3 brdf = kBrdfCall ? evaluate_brdf_call(n, view, wi, base, metallic, roughness, ior)
+                          : evaluate_brdf(n, view, wi, base, metallic, roughness, ior);
       const float weight = (cos_e / (dist * dist)) * (earea * static_cast<float>(e_count));
       rad = add(rad, scale(mul(mul(thr, brdf), ele), weight));
     }

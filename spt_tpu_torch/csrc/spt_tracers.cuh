@@ -100,7 +100,11 @@ namespace spt {
 // barycentrics (u, v).  Every condition is evaluated, in the plain
 // version's order: a test that returns on its first failed condition
 // measured slower on the card (frame_sweep.py, PERF.md), since the lanes of
-// a warp seldom fail together past the primary rays.
+// a warp seldom fail together past the primary rays.  With kEarly it does
+// return there (once !big, then once u, then once v or u + v fails), on
+// the same values in the same order, so its result is the same and so are
+// t, u, v where it passes: for coherent rays, whose warps fail together.
+template <bool kEarly = false>
 __device__ __forceinline__ bool tri_test(const float4* r, V3 o, V3 d, float tmin, float tmax,
                                          float best, float& t, float& u, float& v) {
   const float4 r0 = r[0], r1 = r[1], r2 = r[2];
@@ -112,19 +116,31 @@ __device__ __forceinline__ bool tri_test(const float4* r, V3 o, V3 d, float tmin
   const float hz = d.x * e2y - d.y * e2x;
   const float a = e1x * hx + e1y * hy + e1z * hz;
   const bool big = fabsf(a) > F32(1e-9);
+  if constexpr (kEarly) {
+    if (!big) return false;
+  }
   const float inv = 1.0f / (big ? a : 1.0f);
   const float sx = o.x - v0x, sy = o.y - v0y, sz = o.z - v0z;
   u = inv * (sx * hx + sy * hy + sz * hz);
+  if constexpr (kEarly) {
+    if (!(u >= 0.0f)) return false;
+  }
   const float qx = sy * e1z - sz * e1y;
   const float qy = sz * e1x - sx * e1z;
   const float qz = sx * e1y - sy * e1x;
   v = inv * (d.x * qx + d.y * qy + d.z * qz);
+  if constexpr (kEarly) {
+    if (!((v >= 0.0f) && (u + v <= 1.0f))) return false;
+  }
   t = inv * (e2x * qx + e2y * qy + e2z * qz);
   return big && (u >= 0.0f) && (v >= 0.0f) && (u + v <= 1.0f) && (t > tmin) && (t < tmax) &&
          (t < best);
 }
 
-// The ray against the small layout's sphere row r (one float4 load).
+// The ray against the small layout's sphere row r (one float4 load); with
+// kEarly it returns before the square root once the discriminant or the
+// radius fails (the same result).
+template <bool kEarly = false>
 __device__ __forceinline__ bool sph_test(const float4* r, V3 o, V3 d, float tmin, float tmax,
                                          float best, float& t) {
   const float4 c = r[0];
@@ -133,6 +149,9 @@ __device__ __forceinline__ bool sph_test(const float4* r, V3 o, V3 d, float tmin
   const float b = ocx * d.x + ocy * d.y + ocz * d.z;
   const float cc = ocx * ocx + ocy * ocy + ocz * ocz - rad * rad;
   const float disc = b * b - cc;
+  if constexpr (kEarly) {
+    if (!((disc > 0.0f) && (rad > 0.0f))) return false;
+  }
   const float sq = safe_sqrt(disc);
   const float t0 = -b - sq;
   const float t1 = -b + sq;
@@ -140,7 +159,10 @@ __device__ __forceinline__ bool sph_test(const float4* r, V3 o, V3 d, float tmin
   return (disc > 0.0f) && (rad > 0.0f) && (t > tmin) && (t < tmax) && (t < best);
 }
 
-struct RolledTracer {
+// The small forms' brute-force tracer over the tables in shared memory;
+// kEarly selects the tests that return at their first failed condition.
+template <bool kEarly>
+struct SmallTracer {
   const Tables* tb;
 
   __device__ const float4* tri_row(int i) const {
@@ -160,7 +182,7 @@ struct RolledTracer {
     float ax = 0.0f, ay = 0.0f, az = 0.0f, rinv = 0.0f;
     for (int i = 0; i < tb->n_tris; ++i) {
       float t, u, v;
-      if (!tri_test(tri_row(i), o, d, tmin, tmax, best, t, u, v)) continue;
+      if (!tri_test<kEarly>(tri_row(i), o, d, tmin, tmax, best, t, u, v)) continue;
       const float* r = tb->tri + i * kSmallTriWords;
       float e1x = r[3], e1y = r[4], e1z = r[5];
       float e2x = r[6], e2y = r[7], e2z = r[8];
@@ -194,7 +216,7 @@ struct RolledTracer {
     }
     for (int i = 0; i < tb->n_sphs; ++i) {
       float t;
-      if (!sph_test(sph_row(i), o, d, tmin, tmax, best, t)) continue;
+      if (!sph_test<kEarly>(sph_row(i), o, d, tmin, tmax, best, t)) continue;
       const float* r = tb->sph + i * kSmallSphWords;
       best = t;
       kind = 2;
@@ -218,12 +240,15 @@ struct RolledTracer {
   __device__ bool occluded(V3 o, V3 d, float tmin, float tmax) const {
     float t, u, v;
     for (int i = 0; i < tb->n_tris; ++i)
-      if (tri_test(tri_row(i), o, d, tmin, tmax, INFINITY, t, u, v)) return true;
+      if (tri_test<kEarly>(tri_row(i), o, d, tmin, tmax, INFINITY, t, u, v)) return true;
     for (int i = 0; i < tb->n_sphs; ++i)
-      if (sph_test(sph_row(i), o, d, tmin, tmax, INFINITY, t)) return true;
+      if (sph_test<kEarly>(sph_row(i), o, d, tmin, tmax, INFINITY, t)) return true;
     return false;
   }
 };
+
+// K1 small's tracer: every condition of every test evaluated.
+using RolledTracer = SmallTracer<false>;
 
 constexpr float kBig = 1e30f;       // pallas_trace._BIG
 constexpr int kPackCross = 9;       // tri_pack column of cross(e1, e2)

@@ -35,6 +35,10 @@ queue kernels (``csrc/spt_queue.cuh``): they queue the live lanes on the
 device and run a few paths a warp when the live lanes are few.  Their
 counters (lanes handed out, lanes queued, blocks launched) follow the rays
 per bounce, and in fused_bounce the new RNG words, in the same buffer.
+The small forms are persistent too: fused_frame's (``small_frame_kernel``)
+refills its warps from a counter in that buffer, fused_bounce's
+(``small_bounce_kernel``) walks the lanes in a grid-stride loop and needs
+no counter.
 
 ``LAUNCHES`` counts fused_frame launches and ``BOUNCE_LAUNCHES``
 fused_bounce launches, so a run can show that its main path went through
@@ -60,7 +64,7 @@ BOUNCE_LAUNCHES = 0
 # The small form of fused_frame as a profiler trace names it, and each form
 # of fused_bounce by accel mode.
 SMALL_KERNEL = "small_frame_kernel"
-BOUNCE_KERNELS = {None: "fused_bounce_kernel<0>",
+BOUNCE_KERNELS = {None: "small_bounce_kernel",
                   "resident": "fused_bounce_queue_kernel<1>",
                   "instanced": "fused_bounce_kernel<2>",
                   "stream": "fused_bounce_kernel<3>"}

@@ -11,7 +11,15 @@
   against its plain version on the same tensors, every plane bit for bit
   and the rays per bounce exact, on every RenderConfig toggle the kernel
   reads and on the lanes the small form's refill has to get right (a
-  ragged count, all dead, a start at max_depth, a handful of long paths).
+  ragged count, all dead, a start at max_depth, a handful of long paths);
+  fused_bounce's small form likewise, every returned plane bit for bit, on
+  three scenes over three bounces and on the lanes its persistent
+  grid-stride loop has to get right (``chip_smoke.SMALL_BOUNCE_EDGES`` and
+  more lanes than one round of the grid).
+- On the CPU, fused_bounce's small form: ``fused_bounce_reference`` against
+  ``spt_tpu.ops.pallas_bounce.fused_bounce`` in interpret mode, at bounce 0
+  and at bounce 1 as the last with every third lane dead; the RNG words,
+  alive and missed bit-exact, the float planes at the tolerance above.
   Run there with
   ``python -m pytest --noconftest tests/test_torch_fused_frame.py -m cuda``
   (JAX is imported only by the CPU tests, and tests/conftest.py imports
@@ -24,6 +32,7 @@ import pytest
 torch = pytest.importorskip("torch")
 torch.set_num_threads(2)
 
+import chip_smoke  # noqa: E402
 from spt_tpu_torch import config as tconfig  # noqa: E402
 from spt_tpu_torch import scene as tscene  # noqa: E402
 from spt_tpu_torch.camera import Camera, default_camera  # noqa: E402
@@ -97,6 +106,52 @@ def test_reference_matches_pallas_fused_frame(interpret_pallas, name):
     np.testing.assert_array_equal(got[4].numpy(), np.asarray(want[4]))
     assert (got[3].numpy() == np.asarray(want[3])).mean() >= 0.995
     assert int(got[4][0]) == 32 * 32
+
+
+@pytest.mark.parametrize("name", ["default", "cornell"])
+@pytest.mark.parametrize("bounce", [0, 1])
+def test_small_bounce_reference_matches_pallas_fused_bounce(interpret_pallas,
+                                                            name, bounce):
+    # fused_bounce's small form (the compact path's bounce 0) against the
+    # Pallas kernel itself: at bounce 0 with every lane alive, and at bounce
+    # 1 as the last bounce with every third lane dead.  The RNG words and
+    # the flags bit-exact; the float planes at fused_frame's tolerance
+    from spt_tpu.integrators import transport as jtr
+
+    from spt_tpu_torch import interop
+
+    jcfg, js, jl, cam = _jax_workload(name, 32, 32, 4)
+    ps = jtr.gen_primary(jcfg, cam, 1)
+    is_last = bounce == 1
+    if is_last:
+        ps = ps._replace(alive=ps.alive & (np.arange(32 * 32) % 3 != 0))
+    assert interpret_pallas._accel_mode(js) is None
+    want, wmissed = interpret_pallas.fused_bounce(jcfg, js, jl, ps, bounce,
+                                                  is_last)
+
+    tcfg = tconfig.RenderConfig(width=32, height=32, spp=1, max_depth=4)
+    ts = interop.scene(js, CPU)
+    assert cuda_bounce._accel_mode(ts) is None
+    before = cuda_bounce.BOUNCE_LAUNCHES
+    got, gmissed = cuda_bounce.fused_bounce_reference(
+        tcfg, ts, interop.lights(jl, CPU), interop.path_state(ps, CPU),
+        bounce, is_last)
+    assert cuda_bounce.BOUNCE_LAUNCHES == before
+    for g, w in zip((got.origin, got.direction, got.throughput, got.radiance),
+                    (want.origin, want.direction, want.throughput,
+                     want.radiance)):
+        g = torch.stack(list(g), -1).numpy()
+        w = _stack(w)
+        ok = (np.abs(g - w) <= 1e-5 + 1e-4 * np.abs(w)).all(-1)
+        assert ok.mean() >= 0.995, f"{(~ok).sum()} lanes off"
+    assert got.rng.dtype == torch.int64
+    np.testing.assert_array_equal(
+        got.rng.numpy(), np.asarray(want.rng, np.uint32).astype(np.int64))
+    np.testing.assert_array_equal(got.alive.numpy(), np.asarray(want.alive))
+    np.testing.assert_array_equal(gmissed.numpy(), np.asarray(wmissed))
+    dead = ~np.asarray(ps.alive)
+    assert dead.sum() == (342 if is_last else 0)
+    assert not gmissed.numpy()[dead].any() and not got.alive.numpy()[dead].any()
 
 
 def test_wrapper_on_cpu_runs_the_plain_version():
@@ -303,6 +358,20 @@ def test_kernel_edge_lanes_match_plain_on_card(cuda_device, case):
     assert int(k[4].max()) == live
 
 
+def _assert_state_bits(k, p):
+    """Two fused_bounce results (PathState, missed) bit for bit: every float
+    plane, the int64 RNG words, the flags and missed."""
+    (ks, km), (ps_, pm) = k, p
+    for a, b in zip(ks, ps_):
+        for x, y in zip(*((a, b) if isinstance(a, tuple) else ((a,), (b,)))):
+            assert x.dtype == y.dtype and x.shape == y.shape
+            if x.dtype == torch.float32:
+                x, y = x.view(torch.int32), y.view(torch.int32)
+            assert torch.equal(x, y)
+    assert km.dtype == pm.dtype == torch.bool
+    assert torch.equal(km, pm)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("name", ["default", "cornell", "smooth_point"])
 def test_small_fused_bounce_matches_plain_on_card(cuda_device, name):
@@ -318,10 +387,35 @@ def test_small_fused_bounce_matches_plain_on_card(cuda_device, name):
         p, pm = cuda_bounce.fused_bounce_reference(cfg, scene, lights, ps,
                                                    bounce, False)
         torch.cuda.synchronize()
-        for a, b in zip(k, p):
-            for x, y in zip(*((a, b) if isinstance(a, tuple) else ((a,), (b,)))):
-                if x.dtype == torch.float32:
-                    x, y = x.view(torch.int32), y.view(torch.int32)
-                assert torch.equal(x, y)
-        assert torch.equal(km, pm)
+        _assert_state_bits((k, km), (p, pm))
         ps = p
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", chip_smoke.SMALL_BOUNCE_EDGES + ("rounds",))
+def test_small_fused_bounce_edges_match_plain_on_card(cuda_device, case):
+    # the lanes the small form's persistent grid-stride loop has to get
+    # right (chip_smoke.SMALL_BOUNCE_EDGES from 128x128: all dead, a third
+    # dead at random, 128 * 128 - 77 lanes, 1, 33, is_last at bounce 3),
+    # and 1024x1024 lanes, more than one round of any grid the SMs hold at
+    # once; every returned plane bit for bit
+    w = h = 1024 if case == "rounds" else 128
+    cfg, desc, lights, cam = _card_workload("cornell", {}, cuda_device, w, h)
+    scene = tscene.flatten_scene(desc, cuda_device)
+    ps = ttr.gen_primary(cfg, cam.rays(cuda_device), 4)
+    if case == "rounds":
+        bounce, is_last = 0, False
+        assert chip_smoke.grid_rounds(torch, ps.num_paths) > 1
+    else:
+        ps, bounce, is_last = chip_smoke.small_bounce_edge(torch, np, case, ps)
+    n = {"ragged": 128 * 128 - 77, "one": 1, "n33": 33}.get(case)
+    assert n is None or ps.num_paths == n
+    before = cuda_bounce.BOUNCE_LAUNCHES
+    k = cuda_bounce.fused_bounce(cfg, scene, lights, ps, bounce, is_last)
+    assert cuda_bounce.BOUNCE_LAUNCHES == before + 1
+    p = cuda_bounce.fused_bounce_reference(cfg, scene, lights, ps, bounce,
+                                           is_last)
+    torch.cuda.synchronize()
+    _assert_state_bits(k, p)
+    if case == "all_dead":
+        assert not k[1].any() and not k[0].alive.any()
