@@ -17,10 +17,14 @@ this file; exits non-zero (printing no result) without them.  Phases:
    from the plain version's per-lane bounce counts;
 2. the small-scene main path: ``Renderer.render_frames(8)`` on default
    1920x1080 depth 6, Cornell (NEE) and HDR glass with a 1024x2048
-   synthetic map, launch counts reset before and read after;
+   synthetic map, launch counts reset before and read after (on the card
+   the masked Renderer runs its first frame eagerly, captures the frame
+   and replays it for the rest, phase 25; a replay adds to the counts
+   what its capture counted);
 3. the small-scene kernel image against the plain path's image, 320x240;
-4. small-scene times: ms/frame and Mrays/s, kernel path and plain path;
-   the kernel path's device busy time and launches per frame (profiler);
+4. small-scene times: ms/frame and Mrays/s, kernel path (captured) and
+   plain path (eager); the kernel path's device busy time and launches per
+   frame (profiler);
 5. the mesh kernels vs their plain versions on the card, on the procedural
    mesh scene (``mesh_scene``) at 512x384, every returned plane per lane:
    each at the inputs its main path gives it, recorded from one frame of
@@ -62,8 +66,8 @@ this file; exits non-zero (printing no result) without them.  Phases:
     resident forms on the mesh scene;
 11. the instanced main path: ``Renderer.render_frames(8)`` on the grid at
     512x384 depth 4 in accel mode "instanced", textured, through the sorted
-    frame, launch counts reset before and read after; ms/frame, Mrays/s
-    and device busy;
+    frame, launch counts reset before and read after; ms/frame (a second
+    chain, of replays), Mrays/s and device busy;
 12. the instanced tracer's standalone path: ``Renderer.render_frames(2)``
     with ``integrator="regen"`` on the grid (closest_hit_inst /
     any_hit_inst);
@@ -80,8 +84,8 @@ this file; exits non-zero (printing no result) without them.  Phases:
     ``FRAME_EDGES``;
 15. the stream main path: ``Renderer.render_frames(8)`` on the baked grid
     at 512x384 depth 4 through the sorted frame, launch counts reset before
-    and read after; ms/frame, Mrays/s, device busy and idle share, sorted
-    and unsorted;
+    and read after; ms/frame (a second chain, of replays), Mrays/s, device
+    busy and idle share, sorted and unsorted;
 16. the stream tracer's standalone path: ``Renderer.render_frames(2)`` with
     ``integrator="regen"`` on the baked grid;
 17. baked-grid images: the sorted kernel path against the unsorted one (8
@@ -131,7 +135,19 @@ this file; exits non-zero (printing no result) without them.  Phases:
     world of ``device_count()`` ranks (at most 4, one card each) running
     ``Renderer(multi_device=True).render_frames(8)`` on default 1080p d6,
     its image bit for bit and its stats equal to a single-device Renderer's,
-    with the group's set-up, the frame times and the all_reduces timed.
+    with the group's set-up, the frame times and the all_reduces timed, and
+    the eager sharded step (``shard_frames`` and the two all_reduces)
+    against the captured one in turns;
+25. the captured step (``engine/renderer._captured_step_dyn``: a frame
+    captured as a CUDA graph and replayed a frame; the sorted mesh frame as
+    three graphs around one host read of its condense decision a sample)
+    against the eager ``frame_chain`` bit for bit on every masked config:
+    default, cornell, hdr 1920x1080, the mesh scene, the instanced and the
+    baked grid at 512x384 sorted and unsorted, anim (a moved camera and a
+    reset a frame) and two row bands of default and of the mesh scene; the
+    branch counts equal, both seen; graph launches a frame and the graphs'
+    pool bytes; eager and captured in turns: wall ms/frame, device busy and
+    idle share.
 
 A mesh kernel's bound counts the operations of its walks from the plain
 version's own results: each traced ray's box tests and the 64 triangle
@@ -530,13 +546,16 @@ def mesh_renderer(dev, **cfg_kw):
 @contextlib.contextmanager
 def plain_path():
     """Route the wavefront's kernels to their plain PyTorch versions (which
-    trace through the plain tracers themselves)."""
+    trace through the plain tracers themselves), run eagerly: a Renderer
+    made or used inside takes ``frame_chain``, not a captured graph."""
+    from spt_tpu_torch.engine import renderer as renderer_mod
     from spt_tpu_torch.ops import cuda_bounce, cuda_env, cuda_sort
 
     swaps = [(cuda_bounce, "fused_frame", cuda_bounce.fused_frame_reference),
              (cuda_bounce, "fused_bounce", cuda_bounce.fused_bounce_reference),
              (cuda_sort, "sort_chunks", cuda_sort.sort_chunks_reference),
-             (cuda_env, "env_sample", cuda_env.env_sample_reference)]
+             (cuda_env, "env_sample", cuda_env.env_sample_reference),
+             (renderer_mod, "captures", lambda cfg, device: False)]
     saved = [(m, name, getattr(m, name)) for m, name, _ in swaps]
     try:
         for m, name, ref in swaps:
@@ -561,6 +580,8 @@ def reset_counts():
 
 
 def read_counts() -> dict:
+    """The wrappers' launch counts (a captured frame's replays add what
+    its capture counted, wavefront.SegmentedGraph)."""
     from spt_tpu_torch.ops import cuda_bounce, cuda_env, cuda_sort, cuda_trace
 
     return {"fused_frame": cuda_bounce.LAUNCHES,
@@ -984,8 +1005,14 @@ def _mark_texels(torch, touched, textures, tex_id, uvx, uvy):
 def capture_calls(targets, results=False):
     """Record (name, args, kwargs) of every call of the (module, function
     name) targets made while the context is open, with the call's result
-    appended when `results`; the calls still run."""
+    appended when `results`; the calls still run.  A Renderer used inside
+    runs its frames eagerly (frame_chain), so each recorded call is a
+    launch on the inputs its path gives it, not one recorded into a
+    graph."""
+    from spt_tpu_torch.engine import renderer as renderer_mod
+
     calls = []
+    targets = list(targets) + [(renderer_mod, "captures")]
     saved = [(m, name, getattr(m, name)) for m, name in targets]
 
     def recording(name, fn):
@@ -1000,7 +1027,8 @@ def capture_calls(targets, results=False):
 
     try:
         for m, name, fn in saved:
-            setattr(m, name, recording(name, fn))
+            setattr(m, name, (lambda cfg, device: False)
+                    if m is renderer_mod else recording(name, fn))
         yield calls
     finally:
         for m, name, fn in saved:
@@ -2148,14 +2176,17 @@ def phase_inst_main_path(torch, np, dev, out_dir, smi):
     n_shadow = shadow_rays_per_surface_lane(r)
     torch.cuda.synchronize()
     reset_counts()
+    r.render_frames(frames)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    branches = dict(wavefront.SORTED_SAMPLES)
+    # the run above captured the frame; time a chain of its replays
     t0 = torch.cuda.Event(enable_timing=True)
     t1 = torch.cuda.Event(enable_timing=True)
     t0.record()
     r.render_frames(frames)
     t1.record()
     torch.cuda.synchronize()
-    counts = read_counts()
-    branches = dict(wavefront.SORTED_SAMPLES)
     ms = t0.elapsed_time(t1) / frames
     rays, path = check_image(np, r, "inst_grid", out_dir, frames)
     mrays = count_rays(r.last_stats, n_shadow) / frames / (ms * 1e-3) / 1e6
@@ -2466,14 +2497,17 @@ def phase_stream_main_path(torch, np, dev, out_dir, smi):
     n_shadow = shadow_rays_per_surface_lane(r)
     torch.cuda.synchronize()
     reset_counts()
+    r.render_frames(frames)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    branches = dict(wavefront.SORTED_SAMPLES)
+    # the run above captured the frame; time a chain of its replays
     t0 = torch.cuda.Event(enable_timing=True)
     t1 = torch.cuda.Event(enable_timing=True)
     t0.record()
     r.render_frames(frames)
     t1.record()
     torch.cuda.synchronize()
-    counts = read_counts()
-    branches = dict(wavefront.SORTED_SAMPLES)
     ms = t0.elapsed_time(t1) / frames
     rays, path = check_image(np, r, "stream_grid", out_dir, frames)
     mrays = count_rays(r.last_stats, n_shadow) / frames / (ms * 1e-3) / 1e6
@@ -3166,6 +3200,24 @@ def sharded_rank(rank, world, frames):
                first_s=first_s, setup_s=setup_s,
                image=img if rank == 0 else None)
     out["ms"] = frame_ms(torch, r, frames)
+    # the eager sharded step (the band's frame_chain, then the two
+    # all_reduces) against the captured one, in turns
+    from spt_tpu_torch.engine import state as state_mod
+    from spt_tpu_torch.parallel import sharding
+
+    cam_rays = r.camera.rays(dev)
+    st = [state_mod.RenderState(*(t.clone() for t in r.state))]
+
+    def eager():
+        st[0], stats = sharding.shard_frames(cfg, r.scene, r.env, r.lights,
+                                             cam_rays, st[0], frames, rank,
+                                             world)
+        dist.all_reduce(stats.rays_per_bounce, op=dist.ReduceOp.SUM)
+        dist.all_reduce(stats.bounces_run.reshape(1), op=dist.ReduceOp.MAX)
+
+    out["pairs"] = timed_pairs(torch, {"eager": eager, "captured": lambda:
+                                       r.render_frames(frames)},
+                               CAPTURE_PAIRS, frames)
     rays = torch.zeros(cfg.max_depth, dtype=torch.int64, device=dev)
     bounces = torch.zeros(1, dtype=torch.int64, device=dev)
     out["collectives_ms"] = time_call(torch, lambda: (
@@ -3309,7 +3361,9 @@ def phase_sharded_world(torch, np, dev, smi):
             f"{o['setup_s']:.3f} s; render_frames({frames}) launches "
             f"{ {k: c for k, c in o['counts'].items() if c} }, "
             f"{o['ms']:.4f} ms/frame (CUDA events over a chain after a warm-up "
-            f"frame); the "
+            f"frame); {CAPTURE_PAIRS} pairs of {frames}-frame calls in turns, "
+            f"ms/frame median (range): eager {_med(o['pairs']['eager'])}, "
+            f"captured {_med(o['pairs']['captured'])}; the "
             f"step's two all_reduces {o['collectives_ms']:.4f} ms a "
             f"render_frames call (CUDA events, 20 pairs) [{smi}]")
         if o["counts"]["fused_frame"] != frames:
@@ -3328,6 +3382,257 @@ def phase_sharded_world(torch, np, dev, smi):
                       f"({same_stats})")
     if failed:
         raise AssertionError("\n".join(failed))
+
+
+# --- the captured step (phase 25) --------------------------------------------
+
+# Frames a call in phase 25's check (the first call captures, the second
+# replays), its timed calls and its pairs of timed calls.
+CAPTURE_CHECK = (1, 8)
+CAPTURE_FRAMES = 8
+CAPTURE_PAIRS = 5
+
+
+def graph_pool_bytes(torch, graph) -> int:
+    """Bytes of the segments of the private memory pool of `graph`, a
+    captured step's SegmentedGraph (the caching allocator's snapshot)."""
+    pool = tuple(graph.pool)
+    return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
+               if tuple(seg.get("segment_pool_id", ())) == pool)
+
+
+def same_run(torch, got, want) -> list:
+    """The planes of two (RenderState, WavefrontStats) that are not bit for
+    bit equal."""
+    (gs, gstats), (ws, wstats) = got, want
+    pairs = dict(zip(("accum", "sample_count", "frame_index"), zip(gs, ws)))
+    pairs["rays_per_bounce"] = (gstats.rays_per_bounce,
+                                wstats.rays_per_bounce)
+    pairs["bounces_run"] = (gstats.bounces_run, wstats.bounces_run)
+    return [k for k, (a, b) in pairs.items()
+            if a.shape != b.shape or not _same_bits(torch, a, b)]
+
+
+def timed_pairs(torch, fns: dict, pairs: int, frames: int) -> dict:
+    """{label: [ms/frame, ...]}: each of the two calls of `fns` timed with
+    CUDA events around it (one sync after), in turns, the order flipping
+    each pair (a b, b a, ...)."""
+    labels = list(fns)
+    out = {k: [] for k in labels}
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    for i in range(pairs):
+        for label in (labels if i % 2 == 0 else labels[::-1]):
+            torch.cuda.synchronize()
+            t0.record()
+            fns[label]()
+            t1.record()
+            torch.cuda.synchronize()
+            out[label].append(t0.elapsed_time(t1) / frames)
+    return out
+
+
+def _med(xs) -> str:
+    xs = sorted(xs)
+    return f"{xs[len(xs) // 2]:.4f} ({xs[0]:.4f}-{xs[-1]:.4f})"
+
+
+def _captured_config(torch, name, r, smi, failed, branches_seen):
+    """Phase 25 on one Renderer `r`: the captured step against frame_chain
+    bit for bit, the branch counts, the graph's launches a frame and its
+    pool; then eager against captured in turns (wall ms/frame) and one
+    profile each (busy, idle share, kernel launches)."""
+    from spt_tpu_torch.engine import state as state_mod
+    from spt_tpu_torch.engine.renderer import frame_chain
+    from spt_tpu_torch.integrators import wavefront
+
+    args = (r.cfg, r.scene, r.env, r.lights, r.camera.rays(r.device))
+    wavefront.SORTED_SAMPLES.clear()
+    st, wants = r.state, []
+    for k in CAPTURE_CHECK:
+        st, stats = frame_chain(*args, st, k)
+        wants.append((st, stats))
+    eager = dict(wavefront.SORTED_SAMPLES)
+    wavefront.SORTED_SAMPLES.clear()
+    bad, launches = [], []
+    for k, want in zip(CAPTURE_CHECK, wants):
+        r.render_frames(k)
+        graph = r.captured_step().graph
+        launches.append(graph.launches)
+        bad += [f"{p} after k={k}" for p in same_run(
+            torch, (r.state, r.last_stats), want)]
+    captured = dict(wavefront.SORTED_SAMPLES)
+    branches_seen.update(captured)
+    # graphs a frame: one, or, where the sorted frame decides to condense
+    # (once a sample), the frame up to it, the branch and the rest
+    per_frame = (launches[-1] - launches[0]) / CAPTURE_CHECK[-1]
+    decisions = sum(len(seg) == 3 for seg in graph.segments)
+    pool = graph_pool_bytes(torch, graph)
+    if bad:
+        failed.append(f"{name}: captured against frame_chain differs in {bad}")
+    if captured != eager:
+        failed.append(f"{name}: branches eager {eager}, captured {captured}")
+    if (launches[0] != 0 or per_frame != 1 + 2 * decisions
+            or decisions != (r.cfg.spp if eager else 0)):
+        failed.append(f"{name}: graph launches {launches} over the calls "
+                      f"{CAPTURE_CHECK}, {decisions} decisions a frame")
+    state = [state_mod.RenderState(*(t.clone() for t in r.state))]
+
+    def eager_chain():
+        state[0], _ = frame_chain(*args, state[0], CAPTURE_FRAMES)
+
+    ms = timed_pairs(torch, {"eager": eager_chain,
+                             "captured": lambda: r.render_frames(
+                                 CAPTURE_FRAMES)},
+                     CAPTURE_PAIRS, CAPTURE_FRAMES)
+    busy = {"eager": device_busy_ms(torch, lambda: frame_chain(
+                *args, state[0], 1), iters=4),
+            "captured": device_busy_ms(torch, lambda: r.render_frames(1),
+                                       iters=4)}
+    med = {k: sorted(v)[len(v) // 2] for k, v in ms.items()}
+    log(f"phase 25 {name} {r.cfg.width}x{r.cfg.height} d{r.cfg.max_depth}: "
+        f"captured step against frame_chain after k={CAPTURE_CHECK}: "
+        f"{'bit for bit' if not bad else bad}; sorted-frame branches eager "
+        f"{eager}, captured {captured}; graph launches {per_frame:.0f} a "
+        f"frame ({decisions} host reads of the condense decision); pool "
+        f"{pool} B; wall ms/frame over {CAPTURE_PAIRS} pairs of "
+        f"{CAPTURE_FRAMES}-frame calls, median (range): eager "
+        f"{_med(ms['eager'])}, captured {_med(ms['captured'])}; device busy "
+        f"ms/frame (profiler) eager {busy['eager'][0]:.4f} over "
+        f"{busy['eager'][1]:.1f} launches, idle share "
+        f"{max(0.0, 1 - busy['eager'][0] / med['eager']) * 100:.1f} %; "
+        f"captured {busy['captured'][0]:.4f} over {busy['captured'][1]:.1f}, "
+        f"idle share "
+        f"{max(0.0, 1 - busy['captured'][0] / med['captured']) * 100:.1f} % "
+        f"[{smi}]")
+    return dict(name=name, ms=med, busy={k: v[0] for k, v in busy.items()},
+                pool=pool)
+
+
+def _captured_anim(torch, r, smi, failed):
+    """Phase 25 on the bench's anim config: each frame moves the camera 2
+    degrees (bench.py's orbit) and resets accumulation; the captured
+    Renderer (render_frame(check_camera=True): a reset copied into the
+    step's buffers, one replay) against frame_chain from the reset state,
+    bit for bit each frame; then both timed in turns."""
+    from spt_tpu_torch.engine import state as state_mod
+    from spt_tpu_torch.engine.renderer import frame_chain
+
+    def orbit():
+        r.camera.process_mouse(2.0 / r.camera.mouse_sensitivity, 0.0)
+
+    bad = []
+    st = r.state
+    r.camera.reset_movement_tracking()
+    for i in range(CAPTURE_FRAMES):
+        orbit()
+        want = frame_chain(r.cfg, r.scene, r.env, r.lights,
+                           r.camera.rays(r.device), state_mod.reset(st), 1)
+        r.render_frame(check_camera=True)
+        bad += [f"{p} at frame {i}" for p in same_run(
+            torch, (r.state, r.last_stats), want)]
+        st = want[0]
+    state = [st]
+
+    def eager():
+        for _ in range(CAPTURE_FRAMES):
+            orbit()
+            state[0], _ = frame_chain(
+                r.cfg, r.scene, r.env, r.lights, r.camera.rays(r.device),
+                state_mod.reset(state[0]), 1)
+            r.camera.has_moved_since_last_check()
+
+    def captured():
+        for _ in range(CAPTURE_FRAMES):
+            orbit()
+            r.render_frame(check_camera=True)
+
+    ms = timed_pairs(torch, {"eager": eager, "captured": captured},
+                     CAPTURE_PAIRS, CAPTURE_FRAMES)
+    if bad:
+        failed.append(f"anim: captured against frame_chain differs in {bad}")
+    log(f"phase 25 anim {r.cfg.width}x{r.cfg.height} spp {r.cfg.spp} "
+        f"d{r.cfg.max_depth} (2 degrees of orbit and a reset a frame): "
+        f"captured against frame_chain each of {CAPTURE_FRAMES} frames: "
+        f"{'bit for bit' if not bad else bad}; wall ms/frame over "
+        f"{CAPTURE_PAIRS} pairs of {CAPTURE_FRAMES} frames, median (range): "
+        f"eager {_med(ms['eager'])}, captured {_med(ms['captured'])} [{smi}]")
+
+
+def phase_captured_step(torch, np, dev, smi):
+    """Phase 25: the captured step, ``Renderer.render_frames`` on the masked
+    integrator as one CUDA graph replayed a frame
+    (``engine/renderer._captured_step_dyn``; the sorted mesh frame as
+    three graphs around one host read of its condense decision a sample,
+    ``wavefront.SegmentedGraph``), against the eager ``frame_chain`` from
+    the same states on every config the bench and this script run the
+    masked path on: default, cornell and hdr at 1920x1080, the mesh scene,
+    the instanced grid and the baked grid at 512x384 d4 sorted and
+    unsorted (every plane of the state, the rays per bounce and
+    bounces_run bit for bit after a call of 1 frame, the capture, and one
+    of 8, replays; the sorted frame's branch counts equal, both branches
+    seen; graph launches a frame; the graphs' pool bytes), the anim
+    config (a moved camera and a reset a frame, each frame bit for bit)
+    and two row bands of default and of the mesh scene
+    (the sharded step's band step against ``sharding.shard_frames``); wall
+    ms/frame of eager and captured calls in turns, device busy and idle
+    share a frame of each."""
+    from spt_tpu_torch.camera import default_camera
+    from spt_tpu_torch.config import RenderConfig
+    from spt_tpu_torch.engine import state as state_mod
+    from spt_tpu_torch.engine.renderer import Renderer, _captured_step_dyn
+    from spt_tpu_torch.parallel import sharding
+    from spt_tpu_torch.scene import build_default_scene
+
+    failed, seen, rows = [], set(), []
+    makers = [("default", lambda: renderer("default", W, H, dev)),
+              ("cornell", lambda: renderer("cornell", W, H, dev)),
+              ("hdr", lambda: renderer("hdr", W, H, dev)),
+              ("mesh", lambda: mesh_renderer(dev)),
+              ("mesh unsorted", lambda: mesh_renderer(dev, ray_sort=False)),
+              ("instanced grid", lambda: inst_renderer(dev)),
+              ("instanced grid unsorted",
+               lambda: inst_renderer(dev, ray_sort=False)),
+              ("baked grid", lambda: stream_renderer(dev)),
+              ("baked grid unsorted",
+               lambda: stream_renderer(dev, ray_sort=False))]
+    for name, make in makers:
+        r = make()
+        rows.append(_captured_config(torch, name, r, smi, failed, seen))
+        del r
+        torch.cuda.empty_cache()
+    if set(seen) != {"condensed", "full_width"}:
+        failed.append(f"the sorted frames took the branches {seen}, not both")
+    cfg = RenderConfig(width=W, height=H, spp=4, max_depth=6)
+    _captured_anim(torch, Renderer(build_default_scene(), cfg,
+                                   camera=default_camera(W, H), device=dev),
+                   smi, failed)
+    for name, r in (("default", renderer("default", W, H, dev)),
+                    ("mesh", mesh_renderer(dev))):
+        rays = r.camera.rays(dev)
+        for rank in range(2):
+            row0, n_rows = sharding.band(r.cfg, rank, 2)
+            step = _captured_step_dyn(r.cfg, r.scene, r.env, r.lights, dev,
+                                      row0, n_rows)
+            st = state_mod.init_state(r.cfg.num_pixels // 2, dev)
+            bad = []
+            for k in CAPTURE_CHECK:
+                want = sharding.shard_frames(r.cfg, r.scene, r.env, r.lights,
+                                             rays, st, k, rank, 2)
+                st, stats = step(rays, st, k)
+                bad += [f"{p} after k={k}" for p in same_run(
+                    torch, (st, stats), want)]
+            log(f"phase 25 {name} band {rank} of 2 (rows {row0}-"
+                f"{row0 + n_rows - 1}): the captured band step against "
+                f"shard_frames after k={CAPTURE_CHECK}: "
+                f"{'bit for bit' if not bad else bad}; graph launches "
+                f"{step.graph.launches}; pool "
+                f"{graph_pool_bytes(torch, step.graph)} B")
+            if bad:
+                failed.append(f"{name} band {rank} of 2: {bad}")
+    if failed:
+        raise AssertionError("\n".join(failed))
+    return rows
 
 
 def main() -> int:
@@ -3403,6 +3708,7 @@ def main() -> int:
     phase_entry_points(np, out_dir, smi)
     phase_sharding(torch, np, dev, smi)
     phase_sharded_world(torch, np, dev, smi)
+    phase_captured_step(torch, np, dev, smi)
 
     def entry(name, source, replaces, launches, k):
         for key in ("max_abs_err", "ms", "plain_ms"):

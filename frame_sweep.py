@@ -8,6 +8,7 @@ constants and another checkout's kernels.
                            [--other DIR] [--frames 16] [--pairs 1]
                            [--small-only] [--edits NAME,...] [--sass DIR]
                            [--queue-grids]
+    python3 frame_sweep.py --part sass --sass DIR --other DIR
 
 Builds the port's kernels as committed and, for each variant, with the
 named ``constexpr int`` constants of ``spt_tpu_torch/csrc`` (each defined
@@ -53,7 +54,9 @@ queue kernels too, timed only (the package runs them one thread a lane);
 fed by a counter, functions not inlined, loops not unrolled, and, timed
 only, with no lane shaded or the closest hit alone); ``--sass DIR``
 writes each build's SASS of the small form there and logs its
-instruction counts.
+instruction counts.  ``--part sass --sass DIR --other DIR`` makes the
+builds, holds every kernel's SASS to ``--other``'s and stops (exit 1 if
+one differs; a change to the launch code alone leaves every kernel's).
 
 The mesh part (``--part mesh``): K1's resident, instanced and stream forms
 on the three mesh scenes of ``chip_smoke.py`` at 512x384 depth 4
@@ -237,10 +240,14 @@ def main() -> int:
     ap.add_argument("--other", default=None,
                     help="a checkout whose kernels and wrappers to time beside")
     ap.add_argument("--frames", type=int, default=16)
-    ap.add_argument("--part", choices=("all", "small", "mesh", "bounce"),
+    ap.add_argument("--part", choices=("all", "small", "mesh", "bounce",
+                                       "sass"),
                     default="all",
                     help="the small forms (K1 small, K2), K1's mesh forms, "
-                         "K3 at its calls, or the first two")
+                         "K3 at its calls, or the first two; sass: only the "
+                         "builds and, with --sass and --other, every "
+                         "kernel's SASS against --other's (exit 1 if any "
+                         "differs)")
     ap.add_argument("--pairs", type=int, default=1,
                     help="rounds of the mesh frames (and, with --part "
                          "bounce, of K3's calls) through each build, in "
@@ -343,6 +350,11 @@ def main() -> int:
                    f"{sorted(_short(k) for k in a if k in b and b[k] != a[k])}"
                    f"; only in committed {sorted(map(_short, set(a) - set(b)))}"
                    f"; only in other {sorted(map(_short, set(b) - set(a)))}")
+            if args.part == "sass":
+                return int(set(a) != set(b) or any(b[k] != a[k] for k in a))
+    if args.part == "sass":
+        cs.log("frame_sweep: --part sass needs --sass and --other")
+        return 2
 
     def use(name):
         if name in made.libs:

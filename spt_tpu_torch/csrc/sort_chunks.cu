@@ -45,6 +45,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "spt_launch.cuh"
+
 namespace cg = cooperative_groups;
 
 namespace {
@@ -271,16 +273,11 @@ __global__ void __launch_bounds__(kMaxThreads) sort_chunks_kernel(SortIO io) {
   asm volatile("barrier.cluster.wait;\n" ::: "memory");
 }
 
-// The opt-ins a shape needs: dynamic shared memory past 48 KiB, clusters
-// past the portable 8 blocks.
+// The opt-ins a shape needs, each made once (spt_launch.cuh): dynamic
+// shared memory past 48 KiB, clusters past the portable 8 blocks.
 cudaError_t configure(const Shape& s) {
-  cudaError_t err = cudaSuccess;
-  if (s.smem > 48 * 1024)
-    err = cudaFuncSetAttribute(sort_chunks_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(s.smem));
-  if (err == cudaSuccess && s.cluster > 8)
-    err = cudaFuncSetAttribute(sort_chunks_kernel,
-                               cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  cudaError_t err = spt::reserve_smem(sort_chunks_kernel, s.smem);
+  if (err == cudaSuccess && s.cluster > 8) err = spt::allow_large_clusters(sort_chunks_kernel);
   return err;
 }
 

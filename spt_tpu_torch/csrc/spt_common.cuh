@@ -18,6 +18,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "spt_launch.cuh"
+
 namespace spt {
 
 // Constants as the plain version rounds them: a Python double cast to float.
@@ -669,15 +671,6 @@ __device__ inline bool shade_bounce(const Tables& tb, const Tracer& tr, const Sh
   }
   rng = new_rng;
   return scatter_alive;
-}
-
-// Dynamic shared memory above the default 48 KiB needs an opt-in per
-// kernel; returns the launch error to report, or cudaSuccess.
-template <class K>
-inline cudaError_t reserve_smem(K kernel, size_t bytes) {
-  if (bytes <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              static_cast<int>(bytes));
 }
 
 // Registers per thread and local (spill) bytes of a kernel, and the blocks

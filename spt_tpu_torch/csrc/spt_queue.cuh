@@ -243,20 +243,6 @@ __device__ inline void run_queue(const IO& io, const Tables& tb, const SceneArgs
   }
 }
 
-// The blocks of `kernel` an SM holds at once with `smem` bytes of dynamic
-// shared memory each, times the SMs: the persistent grid.
-template <class K>
-inline cudaError_t resident_blocks(K kernel, int threads, size_t smem, int* blocks) {
-  int dev = 0, sms = 0, per_sm = 0;
-  cudaError_t err = reserve_smem(kernel, smem);
-  if (err == cudaSuccess) err = cudaGetDevice(&dev);
-  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, smem);
-  *blocks = sms * per_sm;
-  return err;
-}
-
 // One cooperative launch of a queue kernel, kernel(io, sc, sa), on as many
 // blocks as the SMs hold at once and no more than one a kBlock lanes.
 template <class K, class IO>
@@ -267,9 +253,7 @@ inline cudaError_t launch_queue(K kernel, IO& io, SceneArgs& sc, ShadeArgs& sa, 
   if (err != cudaSuccess) return err;
   if (blocks < 1) return cudaErrorInvalidConfiguration;
   const int grid = min(blocks, (io.n + kBlock - 1) / kBlock);
-  void* args[] = {&io, &sc, &sa};
-  return cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(kernel), dim3(grid),
-                                     dim3(kBlock), args, smem, st);
+  return launch_cooperative(kernel, grid, kBlock, smem, st, io, sc, sa);
 }
 
 }  // namespace spt

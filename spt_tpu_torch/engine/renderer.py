@@ -10,9 +10,16 @@ Reinhard -> gamma, device_programs.cu:854-899).
 Every table and state tensor lives on the device given to the Renderer:
 the card unless the caller asks for the CPU (``device="cpu"``, which runs
 the kernels' plain PyTorch versions).
-``render_frames(k)`` queues k frames; the masked path syncs with the host
-only where the sorted mesh frame decides its condense, the compact and
-regen paths once a bounce.
+
+``render_frames(k)`` on the card with the masked integrator replays a
+captured frame k times (``_captured_step_dyn``, the counterpart of the JAX
+package's ``_jitted_step_dyn``): one CUDA graph a frame, and nothing in the
+loop waits for the device, except in the sorted mesh frame, which reads its
+condense decision to the host once a sample and replays the graph of the
+branch it names.  Everywhere else it runs ``frame_chain``, the eager loop
+(the reference the graph is held against): on the CPU, and for the
+compact and regen integrators, which read the host once a bounce, and the
+megakernel.
 
 Under an initialized process group of several ranks (``torchrun``), the
 Renderer shards the image into row bands, one a rank
@@ -32,11 +39,12 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from spt_tpu_torch.camera import Camera
+from spt_tpu_torch.camera import Camera, CameraRays
 from spt_tpu_torch.config import RenderConfig
 from spt_tpu_torch.engine import state as state_mod
 from spt_tpu_torch.engine.image import write_png
 from spt_tpu_torch.env import Environment, make_procedural_environment
+from spt_tpu_torch.integrators import wavefront
 from spt_tpu_torch.integrators.megakernel import render_megakernel
 from spt_tpu_torch.integrators.wavefront import WavefrontStats, render_wavefront
 from spt_tpu_torch.lights import DeviceLights, default_lights
@@ -45,26 +53,32 @@ from spt_tpu_torch.scene.desc import SceneDesc
 from spt_tpu_torch.scene.flatten import flatten_scene
 
 
-def _frame_step(cfg, scene, env, lights, camera, rstate, row0=0, rows=None):
-    """One progressive frame of the band of `rows` rows from `row0` (the
-    whole image by default): cfg.spp samples folded into the accumulation.
-    The megakernel (the reference's CPU-backend role) renders whole frames
-    only and reports primaries only: per-bounce telemetry is a wavefront
-    notion (spt_tpu/engine/renderer.py:46-58)."""
+def _frame_image(cfg, scene, env, lights, camera, frame_index, row0=0,
+                 rows=None):
+    """One progressive frame's mean radiance of the band of `rows` rows from
+    `row0` (the whole image by default) and its stats.  The megakernel (the
+    reference's CPU-backend role) renders whole frames only and reports
+    primaries only: per-bounce telemetry is a wavefront notion
+    (spt_tpu/engine/renderer.py:46-58)."""
     if cfg.integrator == "megakernel":
         img = render_megakernel(cfg, scene, env, lights, camera,
-                                frame_index=rstate.frame_index)
+                                frame_index=frame_index)
         device = img.device
         rays = torch.zeros(cfg.max_depth, dtype=torch.int64, device=device)
         rays[0] = cfg.num_pixels
-        stats = WavefrontStats(
+        return img, WavefrontStats(
             rays_per_bounce=rays,
             bounces_run=torch.tensor(cfg.max_depth, dtype=torch.int64,
                                      device=device))
-    else:
-        img, stats = render_wavefront(cfg, scene, env, lights, camera,
-                                      frame_index=rstate.frame_index,
-                                      row0=row0, rows=rows)
+    return render_wavefront(cfg, scene, env, lights, camera,
+                            frame_index=frame_index, row0=row0, rows=rows)
+
+
+def _frame_step(cfg, scene, env, lights, camera, rstate, row0=0, rows=None):
+    """One progressive frame of the band: cfg.spp samples folded into the
+    accumulation."""
+    img, stats = _frame_image(cfg, scene, env, lights, camera,
+                              rstate.frame_index, row0, rows)
     new_state = state_mod.accumulate(rstate, img.reshape(-1, 3), float(cfg.spp))
     return new_state, stats
 
@@ -72,8 +86,10 @@ def _frame_step(cfg, scene, env, lights, camera, rstate, row0=0, rows=None):
 def frame_chain(cfg, scene, env, lights, camera, rstate, k: int, row0=0,
                 rows=None):
     """`k` progressive frames (at least one) of the band of `rows` rows from
-    `row0` -> (state, stats summed over the frames).  Nothing in the loop
-    waits for the device or talks to another process."""
+    `row0` -> (state, stats summed over the frames), eagerly: the CPU path,
+    the path of the integrators the card does not capture, and the
+    reference the captured step is held against.  Nothing in the loop talks
+    to another process."""
     device = rstate.accum.device
     total = torch.zeros(cfg.max_depth, dtype=torch.int64, device=device)
     bounces = torch.zeros((), dtype=torch.int64, device=device)
@@ -83,6 +99,130 @@ def frame_chain(cfg, scene, env, lights, camera, rstate, k: int, row0=0,
         total = total + stats.rays_per_bounce
         bounces = torch.maximum(bounces, stats.bounces_run)
     return rstate, WavefrontStats(rays_per_bounce=total, bounces_run=bounces)
+
+
+def captures(cfg: RenderConfig, device) -> bool:
+    """Whether frames of `cfg` on `device` run as a captured graph: the
+    masked integrator on the card."""
+    return torch.device(device).type == "cuda" and cfg.integrator == "masked"
+
+
+class StaticStep:
+    """One progressive frame of the band of `rows` rows from `row0` on fixed
+    buffers: the camera rays, the band's RenderState and the stats summed
+    over a call.  ``frame()`` is the body ``_captured_step_dyn`` captures;
+    it also runs eagerly, which is how the CPU tests hold it against
+    ``frame_chain``.
+
+    The state is updated in place (``state.accumulate_``) so that every
+    replay of the graph reads and writes the same tensors: the JAX
+    package's arrays are immutable and ``_jitted_step_dyn`` does not donate
+    them.  A state handed to ``load`` that is not this step's own (after a
+    reset, a checkpoint load, or set from outside) is copied in."""
+
+    def __init__(self, cfg: RenderConfig, scene, env, lights, device,
+                 row0: int = 0, rows: Optional[int] = None):
+        rows = cfg.height if rows is None else rows
+        self.cfg, self.scene, self.env, self.lights = cfg, scene, env, lights
+        self.row0, self.rows = row0, rows
+        # position, forward, right, up, half_width, half_height
+        cam = torch.zeros(14, dtype=torch.float32, device=device)
+        self.camera = CameraRays(cam[0:3], cam[3:6], cam[6:9], cam[9:12],
+                                 cam[12], cam[13])
+        self.state = state_mod.init_state(cfg.width * rows, device)
+        self.rays = torch.zeros(cfg.max_depth, dtype=torch.int64,
+                                device=device)
+        self.bounces = torch.zeros((), dtype=torch.int64, device=device)
+
+    def load(self, camera: CameraRays, rstate: state_mod.RenderState) -> None:
+        """Copy the camera rays, and `rstate` unless it is the step's own
+        state, into the buffers; zero the stats."""
+        for dst, src in zip(self.camera, camera):
+            dst.copy_(src)
+        if rstate is not self.state:
+            if rstate.accum.shape != self.state.accum.shape:
+                raise ValueError(f"a state of {rstate.num_pixels} pixels for "
+                                 f"a band of {self.state.num_pixels}")
+            for dst, src in zip(self.state, rstate):
+                dst.copy_(src)
+        self.rays.zero_()
+        self.bounces.zero_()
+
+    def frame(self) -> None:
+        img, stats = _frame_image(self.cfg, self.scene, self.env, self.lights,
+                                  self.camera, self.state.frame_index,
+                                  self.row0, self.rows)
+        state_mod.accumulate_(self.state, img.reshape(-1, 3),
+                              float(self.cfg.spp))
+        self.rays.add_(stats.rays_per_bounce)
+        torch.maximum(self.bounces, stats.bounces_run, out=self.bounces)
+
+    def stats(self) -> WavefrontStats:
+        """The stats summed since ``load``, in tensors of their own."""
+        return WavefrontStats(rays_per_bounce=self.rays.clone(),
+                              bounces_run=self.bounces.clone())
+
+
+class CapturedStep:
+    """``StaticStep.frame`` captured once and replayed a frame: the
+    counterpart of the JAX package's traced-k ``_frame_step_k``.  The
+    capture is a ``wavefront.SegmentedGraph``: one CUDA graph, or, where
+    the sorted mesh frame decides whether to condense (``wavefront._cond``),
+    a graph up to the decision, one for each branch and one for the rest of
+    the frame, with one host read of the decision a sample.
+
+    The first call runs its first frame eagerly on a side stream, the
+    warm-up ``torch.cuda.graphs`` asks for (it builds the kernels, makes
+    the first allocation of every buffer and every opt-in of the C
+    entries), then captures a frame in the relaxed mode and throws it away,
+    which warms the branch the eager frame did not take, then captures the
+    frame in the global mode; each later frame is a replay.  A capture
+    that fails raises: nothing runs eagerly in its place.  The wrappers'
+    launch counts tick for the eager frame as it launches and for each
+    replay by what its capture counted."""
+
+    def __init__(self, step: StaticStep):
+        self.step = step
+        self.graph = None
+
+    def _capture(self) -> None:
+        s = self.step
+        device = s.state.accum.device
+        current = torch.cuda.current_stream(device)
+        side = torch.cuda.Stream(device)
+        side.wait_stream(current)
+        with torch.cuda.stream(side):
+            s.frame()
+        current.wait_stream(side)
+        with wavefront.SegmentedGraph(device).capture(mode="relaxed"):
+            s.frame()
+        graph = wavefront.SegmentedGraph(device)
+        with graph.capture():
+            s.frame()
+        self.graph = graph
+
+    def __call__(self, camera: CameraRays, rstate, k: int):
+        """`k` frames (at least one) -> (the step's state, stats)."""
+        self.step.load(camera, rstate)
+        k = max(k, 1)
+        if self.graph is None:
+            self._capture()
+            k -= 1
+        for _ in range(k):
+            self.graph.replay()
+        return self.step.state, self.step.stats()
+
+
+def _captured_step_dyn(cfg: RenderConfig, scene, env, lights, device,
+                       row0: int = 0, rows: Optional[int] = None):
+    """step(camera, rstate, k) -> (rstate, stats): `k` frames of the band of
+    `rows` rows from `row0` as k replays of one captured frame, the
+    counterpart of ``_jitted_step_dyn`` (spt_tpu/engine/renderer.py:
+    135-150).  JAX caches its program per config; this graph holds its
+    own buffers, so its caller keeps it (the Renderer for its cfg, the
+    sharded step for its band)."""
+    return CapturedStep(StaticStep(cfg, scene, env, lights, device, row0,
+                                   rows))
 
 
 def render_device(device) -> torch.device:
@@ -163,6 +303,7 @@ class Renderer:
         self.camera = camera or Camera(aspect_ratio=self.cfg.width / self.cfg.height)
         self.state = state_mod.init_state(self.cfg.num_pixels, self.device)
         self.last_stats = None
+        self._captured = None
         self._wavefront_integrator = (
             "masked" if self.cfg.integrator == "megakernel"
             else self.cfg.integrator)
@@ -188,6 +329,7 @@ class Renderer:
             new = self._wavefront_integrator
         self.cfg = self.cfg.replace(integrator=new)
         self.state = state_mod.reset(self.state)
+        self._captured = None
         return new
 
     def resize(self, width: int, height: int) -> None:
@@ -203,6 +345,7 @@ class Renderer:
         self.camera.set_aspect_ratio(width / height)
         self.state = state_mod.init_state(self.cfg.num_pixels, self.device)
         self.last_stats = None
+        self._captured = None
         if self.mesh is not None:
             from spt_tpu_torch.parallel import sharding
 
@@ -221,19 +364,36 @@ class Renderer:
 
     def render_frames(self, k: int, check_camera: bool = False) -> None:
         """Advance by `k` frames with a static camera; summed stats land in
-        last_stats (the whole frame's on a mesh).  Nothing in the loop waits
-        for the device; on a mesh the call ends with the step's two
-        all_reduces of the stats."""
+        last_stats (the whole frame's on a mesh).  On the card the masked
+        integrator copies the camera rays (and a state that is not the
+        captured step's own) into the step's buffers and replays its graph
+        k times, the first call capturing it (``_captured_step_dyn``); the
+        state is then the step's buffers, updated in place.  Nothing in the
+        loop waits for the device but the sorted mesh frame's condense
+        decision, read once a sample; on a mesh the call ends with the
+        step's two all_reduces of the stats."""
         if check_camera and self.camera.has_moved_since_last_check():
             self.state = state_mod.reset(self.state)
         rays = self.camera.rays(self.device)
         if self.mesh is not None:
             self.state, self.last_stats = self._step(
                 self.scene, self.env, self.lights, rays, self.state, k)
+        elif captures(self.cfg, self.device):
+            self.state, self.last_stats = self.captured_step()(
+                rays, self.state, k)
         else:
             self.state, self.last_stats = frame_chain(
                 self.cfg, self.scene, self.env, self.lights, rays,
                 self.state, k)
+
+    def captured_step(self) -> CapturedStep:
+        """The whole image's captured step for the current cfg (its band is
+        the image: row0 0, rows cfg.height), made on first use; ``resize``
+        and ``toggle_integrator`` drop it with its graphs' memory."""
+        if self._captured is None or self._captured.step.cfg != self.cfg:
+            self._captured = _captured_step_dyn(
+                self.cfg, self.scene, self.env, self.lights, self.device)
+        return self._captured
 
     def render(self, frames: int = 1) -> np.ndarray:
         """Run `frames` progressive frames and return the resolved image."""

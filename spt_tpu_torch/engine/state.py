@@ -53,6 +53,17 @@ def accumulate(state: RenderState, radiance: torch.Tensor, spp: float) -> Render
     )
 
 
+def accumulate_(state: RenderState, radiance: torch.Tensor,
+                spp: float) -> RenderState:
+    """accumulate in place: the same sums written into `state`'s own
+    tensors (the captured frame step, whose graph reads and writes fixed
+    buffers; the JAX package's arrays are immutable).  Returns `state`."""
+    state.accum.add_(radiance * spp)
+    state.sample_count.add_(spp)
+    state.frame_index.add_(1)
+    return state
+
+
 def save_checkpoint(path: str, state: RenderState) -> None:
     # through an open handle: np.savez appends ".npz" to a bare path
     with open(path, "wb") as f:

@@ -14,7 +14,9 @@ bounce.
   padding): ``_fused_mesh_sorted_frame`` — fused_bounce, chunked coherence sorts,
   condense, fused_frame from bounce ``ray_sort_stages``, un-condense,
   unsort.  Sorting only regroups lanes; the image matches the unsorted
-  frame to float tolerance.
+  frame to float tolerance.  Whether to condense is decided by ``_cond``,
+  the port's ``lax.cond``, with one host read a sample: eagerly, and
+  between the graphs of a captured frame (``SegmentedGraph``).
 
 The compact path (``_wavefront_compact``) bounces every lane once through
 ``cuda_bounce.fused_bounce``, then packs the live lanes into a queue
@@ -35,6 +37,7 @@ seeded per pixel, so the image does not depend on lane order), nor its
 from __future__ import annotations
 
 import collections
+import contextlib
 import warnings
 from typing import NamedTuple, Optional, Tuple
 
@@ -45,7 +48,8 @@ from spt_tpu_torch.config import RenderConfig
 from spt_tpu_torch.env import Environment, environment_color_v
 from spt_tpu_torch.integrators import transport
 from spt_tpu_torch.lights import DeviceLights
-from spt_tpu_torch.ops import cuda_bounce, ray_sort
+from spt_tpu_torch.ops import (cuda_bounce, cuda_env, cuda_sort, cuda_trace,
+                               ray_sort)
 from spt_tpu_torch.ops.compaction import (compact_gather, compact_indices,
                                           scatter_back)
 from spt_tpu_torch.ops import vec3 as v3
@@ -55,6 +59,17 @@ from spt_tpu_torch.scene.flatten import DeviceScene
 # Samples the sorted mesh frame finished, by branch ("full_width" or
 # "condensed"), so a run can show which one it took.
 SORTED_SAMPLES = collections.Counter()
+
+# The wrappers' launch counters, which a captured graph's replays add to
+# (SegmentedGraph).
+_LAUNCH_COUNTERS = (
+    (cuda_bounce, "LAUNCHES"), (cuda_bounce, "BOUNCE_LAUNCHES"),
+    (cuda_sort, "LAUNCHES"), (cuda_env, "LAUNCHES"),
+    (cuda_trace, "CLOSEST_LAUNCHES"), (cuda_trace, "ANY_LAUNCHES"),
+    (cuda_trace, "INST_CLOSEST_LAUNCHES"), (cuda_trace, "INST_ANY_LAUNCHES"),
+    (cuda_trace, "STREAM_CLOSEST_LAUNCHES"),
+    (cuda_trace, "STREAM_ANY_LAUNCHES"))
+_BRANCHES = ("condensed", "full_width")
 
 # The condensed sorts' chunk cap (wavefront.py:290's default).
 CONDENSE_CHUNK = 32768
@@ -140,6 +155,164 @@ def _zeros3(like: torch.Tensor) -> Vec3:
     return Vec3(z, z, z)
 
 
+def launch_counts() -> dict:
+    """Every wrapper's launch counter and SORTED_SAMPLES' branches, keyed
+    (module, counter name) and (None, branch)."""
+    counts = {(m, a): getattr(m, a) for m, a in _LAUNCH_COUNTERS}
+    counts.update({(None, b): SORTED_SAMPLES[b] for b in _BRANCHES})
+    return counts
+
+
+def _set_counts(counts: dict) -> None:
+    for (m, a), v in counts.items():
+        if m is not None:
+            setattr(m, a, v)
+        elif v:
+            SORTED_SAMPLES[a] = v
+        else:
+            SORTED_SAMPLES.pop(a, None)
+
+
+def _add_counts(delta: dict) -> None:
+    _set_counts({k: v + delta.get(k, 0) for k, v in launch_counts().items()})
+
+
+def _count_delta(after: dict, before: dict) -> dict:
+    return {k: v - before.get(k, 0) for k, v in after.items()}
+
+
+def _tensors(tree):
+    if isinstance(tree, torch.Tensor):
+        yield tree
+    else:
+        for t in tree:
+            yield from _tensors(t)
+
+
+def _rebuild(tree, leaves):
+    """`tree` with its tensors replaced, in order, by those of `leaves`."""
+    if isinstance(tree, torch.Tensor):
+        return next(leaves)
+    items = [_rebuild(t, leaves) for t in tree]
+    return (type(tree)(*items) if hasattr(tree, "_fields")
+            else type(tree)(items))
+
+
+class SegmentedGraph:
+    """Work captured as CUDA graphs split at each ``_cond``: the captured
+    frame step's graph (engine/renderer.py).
+
+    A graph cannot branch on the device with the PyTorch the port runs on
+    the card (2.11 has no ``CUDAGraph.begin_capture_to_if_node``), so a
+    ``_cond`` met while ``capture`` runs ends the graph being captured after
+    its predicate, captures each branch as a graph of its own (the second
+    copying its outputs into the first's, so what follows reads one set of
+    buffers; an output of the first that is an operand is cloned first, so
+    the copy writes no operand), and starts a new graph for what follows.
+    ``replay`` replays the graphs in order and, at each conditional, reads
+    the predicate to the host (one sync) and replays the branch it names.
+    Every graph shares one private memory pool (``pool``), which holds
+    because they replay in the order they were captured, a branch skipped.
+
+    A wrapper counts its launch where it is recorded, so ``capture`` leaves
+    every launch count as it found it, keeps what each graph's capture
+    counted (SORTED_SAMPLES too), and ``replay`` adds that of each graph it
+    launches; ``launches`` counts the graph launches."""
+
+    def __init__(self, device):
+        self.device = torch.device(device)
+        self.segments: list = []    # (graph, counts) or (pred, true, false)
+        self.pool = None
+        self.launches = 0
+        self._mode = "global"
+        self._graph = self._counts = None
+
+    @contextlib.contextmanager
+    def capture(self, mode: str = "global"):
+        """Capture what runs inside (on a side stream, in the given
+        cudaStreamCaptureMode) into this object's graphs."""
+        global _SEGMENTED
+        if _SEGMENTED is not None:
+            raise RuntimeError("a SegmentedGraph capture is already underway")
+        torch.cuda.synchronize(self.device)
+        self.pool, self._mode = torch.cuda.graph_pool_handle(), mode
+        current = torch.cuda.current_stream(self.device)
+        stream = torch.cuda.Stream(self.device)
+        stream.wait_stream(current)
+        before = launch_counts()
+        _SEGMENTED = self
+        try:
+            with torch.cuda.stream(stream):
+                self._begin()
+                yield self
+                self.segments.append(self._end())
+        finally:
+            _SEGMENTED = None
+            _set_counts(before)
+        current.wait_stream(stream)
+
+    def _begin(self) -> None:
+        self._graph = torch.cuda.CUDAGraph()
+        self._counts = launch_counts()
+        self._graph.capture_begin(pool=self.pool,
+                                  capture_error_mode=self._mode)
+
+    def _end(self):
+        self._graph.capture_end()
+        return self._graph, _count_delta(launch_counts(), self._counts)
+
+    def cond(self, pred, true_fn, false_fn, operands):
+        """``_cond`` while this object captures."""
+        self.segments.append(self._end())
+        inputs = {t.data_ptr() for t in _tensors(operands)}
+        branches, outs, leaves = [], None, None
+        for fn in (true_fn, false_fn):
+            self._begin()
+            out = fn(*operands)
+            if outs is None:
+                outs = out
+                leaves = [t.clone() if t.data_ptr() in inputs else t
+                          for t in _tensors(out)]
+            else:
+                other = list(_tensors(out))
+                if [(t.shape, t.dtype) for t in other] != [
+                        (t.shape, t.dtype) for t in leaves]:
+                    raise ValueError("_cond: the branches return tensors of "
+                                     "different shapes or dtypes")
+                for a, b in zip(leaves, other):
+                    a.copy_(b)
+            branches.append(self._end())
+        self.segments.append((pred, *branches))
+        self._begin()
+        return _rebuild(outs, iter(leaves))
+
+    def replay(self) -> None:
+        for seg in self.segments:
+            if len(seg) == 3:
+                seg = seg[1] if bool(seg[0]) else seg[2]
+            graph, counts = seg
+            graph.replay()
+            _add_counts(counts)
+            self.launches += 1
+
+
+_SEGMENTED: Optional[SegmentedGraph] = None
+
+
+def _cond(pred: torch.Tensor, true_fn, false_fn, *operands):
+    """The port's ``jax.lax.cond``: ``true_fn(*operands)`` where the 0-dim
+    bool `pred` holds, else ``false_fn(*operands)``; both return tensors of
+    the same structure, shapes and dtypes.  Eager (on the CPU, or on the
+    card outside a capture) it reads ``bool(pred)``, one sync, and runs the
+    branch it names; while a ``SegmentedGraph`` captures, it captures both
+    branches, and each replay reads `pred` and replays the one it names.
+    Both branches must have run once outside the capture (or in a capture
+    thrown away, ``capture(mode="relaxed")``) before it."""
+    if _SEGMENTED is not None:
+        return _SEGMENTED.cond(pred, true_fn, false_fn, operands)
+    return true_fn(*operands) if bool(pred) else false_fn(*operands)
+
+
 def _fused_mesh_sorted_frame(cfg: RenderConfig, scene: DeviceScene,
                              env: Environment, lights: DeviceLights, ps):
     """The depth loop with coherence sorts between bounces
@@ -154,8 +327,9 @@ def _fused_mesh_sorted_frame(cfg: RenderConfig, scene: DeviceScene,
     Primary misses are settled in pixel order before the first sort, so
     every lane that is dead from then on owes nothing.  The condensed branch
     runs when every live lane sits within the first wc lanes of its chunk
-    after the first sort; deciding that reads one flag back to the host per
-    sample (the JAX package's lax.cond runs on the device).  Returns
+    after the first sort, as the JAX package's lax.cond decides it on the
+    device: here through ``_cond``, which reads the flag to the host, one
+    sync a sample, eagerly and between a captured frame's graphs.  Returns
     ((N,) radiance Vec3 with the environment term applied, rays
     (max_depth,) int64)."""
     n = ps.num_paths
@@ -238,51 +412,57 @@ def _fused_mesh_sorted_frame(cfg: RenderConfig, scene: DeviceScene,
                                                        cfg.max_depth)])
         return radiance, lane, rays
 
-    plan = _condense_plan(cfg, n, chunk)
-    safe = False
-    if plan is not None:
-        wc, m, mp, sort_chunk = plan
-        pos = torch.arange(n, device=live0.device) % chunk
-        # gather-safety: every live lane within the first wc of its chunk
-        safe = bool(torch.where(ps.alive, pos, -1).max() < wc)
-    if not safe:
+    def full_width(ps, missed_ever, lane):
         SORTED_SAMPLES["full_width"] += 1
-        radiance, orig_lane, rays_rest = rest_of_frame(ps, missed_ever,
-                                                       orig_lane, chunk)
+        return rest_of_frame(ps, missed_ever, lane, chunk)
+
+    plan = _condense_plan(cfg, n, chunk)
+    if plan is None:
+        radiance, orig_lane, rays_rest = full_width(ps, missed_ever, orig_lane)
     else:
-        SORTED_SAMPLES["condensed"] += 1
+        wc, m, mp, sort_chunk = plan
 
         def head(x):
             h = x.reshape(n_chunks, chunk)[:, :wc].reshape(m)
             return torch.nn.functional.pad(h, (0, mp - m)) if mp > m else h
 
-        flags_h = head(_pack_flags(ps, missed_ever))
-        o_h = Vec3(*(head(c) for c in ps.origin))
-        d_h = Vec3(*(head(c) for c in ps.direction))
-        key = ray_sort.sort_key(d_h, o_h, (flags_h & 1) != 0, lo, inv_extent)
-        # cl_lane (the condensed array's own lane ids) rides every condensed
-        # sort; the un-condense restores gather order, so `orig_lane` never
-        # sees the cross-chunk moves
-        cl_lane, out = ray_sort.sort_by_key(key, [
-            *o_h, *d_h, *(head(c) for c in ps.throughput), head(ps.rng),
-            flags_h], sort_chunk)
-        o, d, thr = Vec3(*out[0:3]), Vec3(*out[3:6]), Vec3(*out[6:9])
-        ps_c = transport.PathState(
-            origin=o, direction=d, throughput=thr, radiance=_zeros3(o.x),
-            rng=out[9], alive=(out[10] & 1) != 0,
-            emission_ok=(out[10] & 2) != 0)
-        radiance_c, cl_lane, rays_rest = rest_of_frame(
-            ps_c, (out[10] & 4) != 0, cl_lane, sort_chunk)
-        back = ray_sort.unsort_by_lane(cl_lane, list(radiance_c), sort_chunk)
+        def condensed(ps, missed_ever, lane):
+            SORTED_SAMPLES["condensed"] += 1
+            flags_h = head(_pack_flags(ps, missed_ever))
+            o_h = Vec3(*(head(c) for c in ps.origin))
+            d_h = Vec3(*(head(c) for c in ps.direction))
+            key = ray_sort.sort_key(d_h, o_h, (flags_h & 1) != 0, lo,
+                                    inv_extent)
+            # cl_lane (the condensed array's own lane ids) rides every
+            # condensed sort; the un-condense restores gather order, so
+            # `lane` never sees the cross-chunk moves
+            cl_lane, out = ray_sort.sort_by_key(key, [
+                *o_h, *d_h, *(head(c) for c in ps.throughput), head(ps.rng),
+                flags_h], sort_chunk)
+            o, d, thr = Vec3(*out[0:3]), Vec3(*out[3:6]), Vec3(*out[6:9])
+            ps_c = transport.PathState(
+                origin=o, direction=d, throughput=thr, radiance=_zeros3(o.x),
+                rng=out[9], alive=(out[10] & 1) != 0,
+                emission_ok=(out[10] & 2) != 0)
+            radiance_c, cl_lane, rays_rest = rest_of_frame(
+                ps_c, (out[10] & 4) != 0, cl_lane, sort_chunk)
+            back = ray_sort.unsort_by_lane(cl_lane, list(radiance_c),
+                                           sort_chunk)
 
-        def scatter(vals):
-            # lanes outside the heads are dead with their env term settled
-            full = torch.zeros((n_chunks, chunk), dtype=vals.dtype,
-                               device=vals.device)
-            full[:, :wc] = vals[:m].reshape(n_chunks, wc)
-            return full.reshape(n)
+            def scatter(vals):
+                # lanes outside the heads are dead with their env term settled
+                full = torch.zeros((n_chunks, chunk), dtype=vals.dtype,
+                                   device=vals.device)
+                full[:, :wc] = vals[:m].reshape(n_chunks, wc)
+                return full.reshape(n)
 
-        radiance = Vec3(*(scatter(c) for c in back))
+            return Vec3(*(scatter(c) for c in back)), lane, rays_rest
+
+        pos = torch.arange(n, device=live0.device) % chunk
+        # gather-safety: every live lane within the first wc of its chunk
+        safe = torch.where(ps.alive, pos, -1).max() < wc
+        radiance, orig_lane, rays_rest = _cond(safe, condensed, full_width,
+                                               ps, missed_ever, orig_lane)
 
     out = ray_sort.unsort_by_lane(orig_lane, list(radiance), chunk)
     radiance = rad0 + Vec3(*(uninterleave(c) for c in out))

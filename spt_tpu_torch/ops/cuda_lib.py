@@ -23,7 +23,7 @@ SOURCES = ("fused_frame.cu", "fused_bounce.cu", "cluster_trace.cu",
            "inst_trace.cu", "stream_trace.cu", "sort_chunks.cu",
            "env_sample.cu")
 HEADERS = ("spt_common.cuh", "spt_tracers.cuh", "spt_trace_io.cuh",
-           "spt_queue.cuh")
+           "spt_queue.cuh", "spt_launch.cuh")
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "spt_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
               "-Xcompiler", "-fPIC", "--fmad=false", "-Xptxas", "-v")

@@ -12,7 +12,11 @@ cards, gloo between CPU processes):
 - no collective inside the frame loop: paths never leave their band.  A
   k-frame step ends with one SUM all_reduce of the (max_depth,) ray counts
   and one MAX all_reduce of ``bounces_run``; the image is gathered only
-  when the host asks for it (``gather_pixels``).
+  when the host asks for it (``gather_pixels``);
+- on the card the masked integrator's k frames of a band are k replays of
+  its captured band step (``renderer._captured_step_dyn``), the
+  counterpart of the JAX package's traced-k fori_loop inside shard_map;
+  the two all_reduces follow the replays, outside the graph.
 
 Lanes carry global pixel indices (``transport.gen_primary``'s row0/rows
 band), so every band's RNG streams and rays are those of the unsharded
@@ -30,7 +34,8 @@ import torch.distributed as dist
 
 from spt_tpu_torch.config import RenderConfig
 from spt_tpu_torch.engine import state as state_mod
-from spt_tpu_torch.engine.renderer import frame_chain, tree_tensors
+from spt_tpu_torch.engine.renderer import (_captured_step_dyn, captures,
+                                           frame_chain, tree_tensors)
 from spt_tpu_torch.integrators.wavefront import WavefrontStats
 
 AXIS = "px"
@@ -134,14 +139,29 @@ def sharded_frame_step_dyn(cfg: RenderConfig, mesh):
     """step(scene, env, lights, camera, rstate, k) -> (rstate, stats): k
     frames of this rank's band, then one SUM all_reduce of rays_per_bounce
     and one MAX all_reduce of bounces_run over the mesh, so the stats are
-    the whole frame's."""
+    the whole frame's.  On the card the masked integrator replays the
+    band's captured step k times (made at the first call, and again when
+    it is given another scene, env or lights); the state it returns is
+    that step's buffers, updated in place.  Elsewhere it runs
+    shard_frames."""
     rank, world = _rank_world(mesh)
-    band(cfg, rank, world)
+    row0, rows = band(cfg, rank, world)
     group = mesh.get_group(AXIS)
+    captured = {}
 
     def step(scene, env, lights, camera, rstate, k):
-        st, stats = shard_frames(cfg, scene, env, lights, camera, rstate, k,
-                                 rank, world)
+        if captures(cfg, rstate.accum.device):
+            key = (id(scene), id(env), id(lights))
+            if key not in captured:
+                captured.clear()
+                # the objects ride along, so their ids stay theirs
+                captured[key] = (_captured_step_dyn(
+                    cfg, scene, env, lights, rstate.accum.device, row0,
+                    rows), (scene, env, lights))
+            st, stats = captured[key][0](camera, rstate, k)
+        else:
+            st, stats = shard_frames(cfg, scene, env, lights, camera, rstate,
+                                     k, rank, world)
         # the chain's stats are its own tensors: reduced in place
         dist.all_reduce(stats.rays_per_bounce, op=dist.ReduceOp.SUM,
                         group=group)
