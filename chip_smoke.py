@@ -18,9 +18,9 @@ this file; exits non-zero (printing no result) without them.  Phases:
 2. the small-scene main path: ``Renderer.render_frames(8)`` on default
    1920x1080 depth 6, Cornell (NEE) and HDR glass with a 1024x2048
    synthetic map, launch counts reset before and read after (on the card
-   the masked Renderer runs its first frame eagerly, captures the frame
-   and replays it for the rest, phase 25; a replay adds to the counts
-   what its capture counted);
+   a Renderer runs its first frame eagerly, captures the frame and replays
+   it for the rest, phase 25; a replay adds to the counts what its capture
+   counted, a conditional body's by the runs the device tallied);
 3. the small-scene kernel image against the plain path's image, 320x240;
 4. small-scene times: ms/frame and Mrays/s, kernel path (captured) and
    plain path (eager); the kernel path's device busy time and launches per
@@ -52,8 +52,8 @@ this file; exits non-zero (printing no result) without them.  Phases:
 8. mesh images: the sorted kernel path against the unsorted kernel path
    and against the plain path, 8 frames;
 9. mesh times at 512x384 depth 4: ms/frame and Mrays/s, per-kernel device
-   time and launches per frame (torch.profiler), torch.sort + gather beside
-   sort_chunks;
+   time (torch.profiler, on eager frames: ``eager_frames``) and launches
+   per frame, torch.sort + gather beside sort_chunks;
 10. the instanced kernels vs their plain versions on the card, on the
     textured instanced grid (``inst_grid_scene``, 104 448 world triangles)
     at 512x384, every returned plane per lane, at the inputs recorded from
@@ -139,15 +139,21 @@ this file; exits non-zero (printing no result) without them.  Phases:
     the eager sharded step (``shard_frames`` and the two all_reduces)
     against the captured one in turns;
 25. the captured step (``engine/renderer._captured_step_dyn``: a frame
-    captured as a CUDA graph and replayed a frame; the sorted mesh frame as
-    three graphs around one host read of its condense decision a sample)
-    against the eager ``frame_chain`` bit for bit on every masked config:
-    default, cornell, hdr 1920x1080, the mesh scene, the instanced and the
-    baked grid at 512x384 sorted and unsorted, anim (a moved camera and a
-    reset a frame) and two row bands of default and of the mesh scene; the
-    branch counts equal, both seen; graph launches a frame and the graphs'
-    pool bytes; eager and captured in turns: wall ms/frame, device busy and
-    idle share.
+    captured as one CUDA graph and replayed a frame; the sorted mesh
+    frame's condense decision two IF nodes, the compact chunk loops and the
+    regen loop WHILE nodes, decided on the device) against the eager
+    ``frame_chain`` bit for bit: the masked integrator on default, cornell,
+    hdr 1920x1080, the mesh scene, the instanced and the baked grid at
+    512x384 sorted and unsorted; compact on default, cornell, hdr 1080p
+    and the mesh scene; regen on default 1080p and the three 512x384
+    scenes; the megakernel on default 1080p; anim (a moved camera and a
+    reset a frame); two row bands of default, of the mesh scene and of
+    compact default; two replays of each under
+    ``torch.cuda.set_sync_debug_mode("error")`` (no host read); every
+    launch count equal, the branches and loop bodies' runs among them, both
+    branches seen; one graph launch a frame, the device tallies and the
+    pool bytes; eager and captured in turns: wall ms/frame, device busy
+    and idle share.
 
 A mesh kernel's bound counts the operations of its walks from the plain
 version's own results: each traced ray's box tests and the 64 triangle
@@ -566,10 +572,28 @@ def plain_path():
             setattr(m, name, fn)
 
 
+@contextlib.contextmanager
+def eager_frames():
+    """Run a Renderer's frames through ``frame_chain``, its kernels
+    eagerly: the profiler's trace of a captured frame loses or misnames the
+    kernels inside its conditional nodes' bodies, so the per-kernel device
+    times of a sorted frame are taken from eager frames of the same kernels
+    on the same inputs."""
+    from spt_tpu_torch.engine import renderer as renderer_mod
+
+    saved = renderer_mod.captures
+    renderer_mod.captures = lambda cfg, device: False
+    try:
+        yield
+    finally:
+        renderer_mod.captures = saved
+
+
 def reset_counts():
     from spt_tpu_torch.integrators import wavefront
     from spt_tpu_torch.ops import cuda_bounce, cuda_env, cuda_sort, cuda_trace
 
+    wavefront.launch_counts()   # folds what earlier replays' bodies ran
     cuda_bounce.LAUNCHES = cuda_bounce.BOUNCE_LAUNCHES = 0
     cuda_sort.LAUNCHES = 0
     cuda_env.LAUNCHES = 0
@@ -577,12 +601,17 @@ def reset_counts():
     cuda_trace.INST_CLOSEST_LAUNCHES = cuda_trace.INST_ANY_LAUNCHES = 0
     cuda_trace.STREAM_CLOSEST_LAUNCHES = cuda_trace.STREAM_ANY_LAUNCHES = 0
     wavefront.SORTED_SAMPLES.clear()
+    wavefront.LOOP_RUNS.clear()
 
 
 def read_counts() -> dict:
     """The wrappers' launch counts (a captured frame's replays add what
-    its capture counted, wavefront.SegmentedGraph)."""
+    its capture counted, wavefront.SegmentedGraph: its conditional bodies'
+    launches by the runs the device tallied, read here)."""
+    from spt_tpu_torch.integrators import wavefront
     from spt_tpu_torch.ops import cuda_bounce, cuda_env, cuda_sort, cuda_trace
+
+    wavefront.launch_counts()
 
     return {"fused_frame": cuda_bounce.LAUNCHES,
             "fused_bounce": cuda_bounce.BOUNCE_LAUNCHES,
@@ -1922,8 +1951,9 @@ def phase_mesh_times(torch, dev, smi):
              "sort_chunks": "sort_chunks_kernel"}
     iters = 8
     reset_counts()
-    prof = profile_kernels(torch, lambda: r.render_frames(1),
-                           list(names.values()), iters=iters)
+    with eager_frames():
+        prof = profile_kernels(torch, lambda: r.render_frames(1),
+                               list(names.values()), iters=iters)
     counts = read_counts()
     out = {}
     for label, name in names.items():
@@ -2207,9 +2237,11 @@ def phase_inst_main_path(torch, np, dev, out_dir, smi):
     names = {"fused_bounce": cuda_bounce.BOUNCE_KERNELS["instanced"],
              "fused_frame": "fused_frame_kernel<2>",
              "sort_chunks": "sort_chunks_kernel"}
-    prof = profile_kernels(torch, lambda: r.render_frames(1),
-                           list(names.values()), iters=4)
-    log("phase 11 instanced grid, device ms per launch (profiled): "
+    with eager_frames():
+        prof = profile_kernels(torch, lambda: r.render_frames(1),
+                               list(names.values()), iters=4)
+    log("phase 11 instanced grid, device ms per launch (profiled, eager "
+        "frames): "
         + ", ".join(f"{k} {prof[v][0]:.4f}" for k, v in names.items())
         + f" [{smi}]")
     # the same path without the coherence sorts: one fused_frame a sample
@@ -2528,9 +2560,11 @@ def phase_stream_main_path(torch, np, dev, out_dir, smi):
     names = {"fused_bounce": cuda_bounce.BOUNCE_KERNELS["stream"],
              "fused_frame": "fused_frame_kernel<3>",
              "sort_chunks": "sort_chunks_kernel"}
-    prof = profile_kernels(torch, lambda: r.render_frames(1),
-                           list(names.values()), iters=4)
-    log("phase 15 baked grid, device ms per launch (profiled): "
+    with eager_frames():
+        prof = profile_kernels(torch, lambda: r.render_frames(1),
+                               list(names.values()), iters=4)
+    log("phase 15 baked grid, device ms per launch (profiled, eager "
+        "frames): "
         + ", ".join(f"{k} {prof[v][0]:.4f} ({prof[v][1]} seen)"
                     for k, v in names.items()) + f" [{smi}]")
     if min(c for _, c in prof.values()) < 1:
@@ -3413,6 +3447,50 @@ def same_run(torch, got, want) -> list:
             if a.shape != b.shape or not _same_bits(torch, a, b)]
 
 
+def counts_of(torch, fn) -> dict:
+    """The launch counts `fn` adds, the sorted frame's branches and the
+    loop bodies' runs among them (wavefront.launch_counts after a sync,
+    which reads the device tallies of a captured graph's replays)."""
+    from spt_tpu_torch.integrators import wavefront
+
+    torch.cuda.synchronize()
+    before = wavefront.launch_counts()
+    fn()
+    torch.cuda.synchronize()
+    after = wavefront.launch_counts()
+    return {(getattr(m, "__name__", m), a): v - before.get((m, a), 0)
+            for (m, a), v in after.items() if v != before.get((m, a), 0)}
+
+
+def cond_kinds(items) -> list:
+    """A captured graph's conditionals in slot order: "if", "if not" (a
+    _cond's two IF nodes) and "while"."""
+    from spt_tpu_torch.ops import cuda_graph
+
+    kinds = {}
+
+    def walk(items):
+        for it in items:
+            if isinstance(it, cuda_graph.Segment):
+                continue
+            kinds[it.slot] = ("while" if isinstance(it, cuda_graph.Loop)
+                              else "if not" if it.negate else "if")
+            walk(it.body)
+
+    walk(items)
+    return [kinds[s] for s in sorted(kinds)]
+
+
+def device_tallies(graph) -> str:
+    """The device tally of each conditional body of a captured step's
+    graph: the runs since its capture, by kind."""
+    if graph._tally is None:
+        return "none"
+    runs = graph._tally.taken.tolist()
+    kinds = cond_kinds(graph.items)
+    return ", ".join(f"{k} {n}" for k, n in zip(kinds, runs))
+
+
 def timed_pairs(torch, fns: dict, pairs: int, frames: int) -> dict:
     """{label: [ms/frame, ...]}: each of the two calls of `fns` timed with
     CUDA events around it (one sync after), in turns, the order flipping
@@ -3437,74 +3515,115 @@ def _med(xs) -> str:
     return f"{xs[len(xs) // 2]:.4f} ({xs[0]:.4f}-{xs[-1]:.4f})"
 
 
-def _captured_config(torch, name, r, smi, failed, branches_seen):
+def replay_sync_free(torch, step, rays, rstate, k: int):
+    """`k` replays of a captured step under
+    ``torch.cuda.set_sync_debug_mode("error")``, which raises on any
+    operation that waits for the device; returns what the step returns."""
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        return step(rays, rstate, k)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+
+
+def _captured_config(torch, name, r, smi, failed, branches_seen,
+                     pairs=CAPTURE_PAIRS, frames=CAPTURE_FRAMES,
+                     check=CAPTURE_CHECK):
     """Phase 25 on one Renderer `r`: the captured step against frame_chain
-    bit for bit, the branch counts, the graph's launches a frame and its
-    pool; then eager against captured in turns (wall ms/frame) and one
-    profile each (busy, idle share, kernel launches)."""
+    bit for bit, and every launch count of the two runs equal (the sorted
+    frame's branches and the loop bodies' runs among them, tallied on the
+    device in the captured run); one graph launch a replayed frame; the
+    pool; two more replays under sync-debug "error", bit for bit with
+    frame_chain too; then eager against captured in turns (wall ms/frame)
+    and one profile each (busy, idle share, kernel launches)."""
     from spt_tpu_torch.engine import state as state_mod
     from spt_tpu_torch.engine.renderer import frame_chain
-    from spt_tpu_torch.integrators import wavefront
+    from spt_tpu_torch.ops import cuda_graph
 
     args = (r.cfg, r.scene, r.env, r.lights, r.camera.rays(r.device))
-    wavefront.SORTED_SAMPLES.clear()
-    st, wants = r.state, []
-    for k in CAPTURE_CHECK:
-        st, stats = frame_chain(*args, st, k)
-        wants.append((st, stats))
-    eager = dict(wavefront.SORTED_SAMPLES)
-    wavefront.SORTED_SAMPLES.clear()
-    bad, launches = [], []
-    for k, want in zip(CAPTURE_CHECK, wants):
-        r.render_frames(k)
-        graph = r.captured_step().graph
-        launches.append(graph.launches)
-        bad += [f"{p} after k={k}" for p in same_run(
-            torch, (r.state, r.last_stats), want)]
-    captured = dict(wavefront.SORTED_SAMPLES)
-    branches_seen.update(captured)
-    # graphs a frame: one, or, where the sorted frame decides to condense
-    # (once a sample), the frame up to it, the branch and the rest
-    per_frame = (launches[-1] - launches[0]) / CAPTURE_CHECK[-1]
-    decisions = sum(len(seg) == 3 for seg in graph.segments)
+    wants, launches, bad = [], [], []
+
+    def chain():
+        st = r.state
+        for k in check:
+            st, stats = frame_chain(*args, st, k)
+            wants.append((st, stats))
+
+    def captured():
+        for k, want in zip(check, wants):
+            r.render_frames(k)
+            launches.append(r.captured_step().graph.launches)
+            bad.extend(f"{p} after k={k}" for p in same_run(
+                torch, (r.state, r.last_stats), want))
+
+    eager = counts_of(torch, chain)
+    got = counts_of(torch, captured)
+    step = r.captured_step()
+    graph = step.graph
+    branches_seen.update(k[1] for k in got if k[0] is None)
+    per_frame = (launches[-1] - launches[0]) / check[-1]
+    n_if = sum(isinstance(it, cuda_graph.Branch) for it in graph.items)
+    want = frame_chain(*args, state_mod.RenderState(
+        *(t.clone() for t in r.state)), 2)
+    try:
+        st_stats = replay_sync_free(torch, step, r.camera.rays(r.device),
+                                    r.state, 2)
+        bad += [f"{p} after 2 replays under sync-debug" for p in same_run(
+            torch, st_stats, want)]
+    except RuntimeError as e:
+        failed.append(f"{name}: a replay waited for the device: {e}")
     pool = graph_pool_bytes(torch, graph)
     if bad:
         failed.append(f"{name}: captured against frame_chain differs in {bad}")
-    if captured != eager:
-        failed.append(f"{name}: branches eager {eager}, captured {captured}")
-    if (launches[0] != 0 or per_frame != 1 + 2 * decisions
-            or decisions != (r.cfg.spp if eager else 0)):
+    if got != eager:
+        failed.append(f"{name}: launch counts eager {eager}, captured {got}")
+    sorted_frames = sum(v for k, v in eager.items() if k[0] is None)
+    if (launches[0] != 0 or per_frame != 1
+            or n_if != (2 * r.cfg.spp if sorted_frames else 0)):
         failed.append(f"{name}: graph launches {launches} over the calls "
-                      f"{CAPTURE_CHECK}, {decisions} decisions a frame")
+                      f"{check}, {n_if} IF nodes")
     state = [state_mod.RenderState(*(t.clone() for t in r.state))]
 
     def eager_chain():
-        state[0], _ = frame_chain(*args, state[0], CAPTURE_FRAMES)
+        state[0], _ = frame_chain(*args, state[0], frames)
 
     ms = timed_pairs(torch, {"eager": eager_chain,
-                             "captured": lambda: r.render_frames(
-                                 CAPTURE_FRAMES)},
-                     CAPTURE_PAIRS, CAPTURE_FRAMES)
+                             "captured": lambda: r.render_frames(frames)},
+                     pairs, frames)
     busy = {"eager": device_busy_ms(torch, lambda: frame_chain(
-                *args, state[0], 1), iters=4),
+                *args, state[0], 1), iters=4 if pairs > 3 else 1),
             "captured": device_busy_ms(torch, lambda: r.render_frames(1),
-                                       iters=4)}
+                                       iters=4 if pairs > 3 else 1)}
     med = {k: sorted(v)[len(v) // 2] for k, v in ms.items()}
+    # the profiler's trace of a replay misses kernels of a conditional body,
+    # so a graph with one has no captured busy, nor idle share
+    captured_idle = (
+        f"{(1 - busy['captured'][0] / med['captured']) * 100:.1f} %"
+        if not cond_kinds(graph.items) else
+        "not measured (the trace misses kernels of conditional bodies)")
+    tallies = {f"{k[0] or 'branch'} {k[1]}": v for k, v in got.items()
+               if k[0] in (None, "loop")}
     log(f"phase 25 {name} {r.cfg.width}x{r.cfg.height} d{r.cfg.max_depth}: "
-        f"captured step against frame_chain after k={CAPTURE_CHECK}: "
-        f"{'bit for bit' if not bad else bad}; sorted-frame branches eager "
-        f"{eager}, captured {captured}; graph launches {per_frame:.0f} a "
-        f"frame ({decisions} host reads of the condense decision); pool "
-        f"{pool} B; wall ms/frame over {CAPTURE_PAIRS} pairs of "
-        f"{CAPTURE_FRAMES}-frame calls, median (range): eager "
+        f"captured step against frame_chain after k={check} and 2 "
+        f"replays under sync-debug \"error\": "
+        f"{'bit for bit' if not bad else bad}; launch counts over "
+        f"{sum(check)} frames {'equal' if got == eager else 'differ'}"
+        f": {got}; branch and loop tallies {tallies}; device tallies since "
+        f"the capture ({launches[-1] + 2} replays): {device_tallies(graph)}; "
+        f"graph launches {per_frame:.0f} a frame ({n_if} IF nodes, "
+        f"{cond_kinds(graph.items).count('while')} WHILE nodes); pool "
+        f"{pool} B; wall ms/frame over {pairs} pairs of "
+        f"{frames}-frame calls, median (range): eager "
         f"{_med(ms['eager'])}, captured {_med(ms['captured'])}; device busy "
         f"ms/frame (profiler) eager {busy['eager'][0]:.4f} over "
         f"{busy['eager'][1]:.1f} launches, idle share "
-        f"{max(0.0, 1 - busy['eager'][0] / med['eager']) * 100:.1f} %; "
-        f"captured {busy['captured'][0]:.4f} over {busy['captured'][1]:.1f}, "
-        f"idle share "
-        f"{max(0.0, 1 - busy['captured'][0] / med['captured']) * 100:.1f} % "
-        f"[{smi}]")
+        f"{(1 - busy['eager'][0] / med['eager']) * 100:.1f} %; captured "
+        f"{busy['captured'][0]:.4f} over {busy['captured'][1]:.1f}, idle "
+        f"share {captured_idle}; 1 - eager busy / captured wall "
+        f"{(1 - busy['eager'][0] / med['captured']) * 100:.1f} % (not an "
+        f"idle share: negative where the eager profile's busy exceeds the "
+        f"captured wall) [{smi}]")
     return dict(name=name, ms=med, busy={k: v[0] for k, v in busy.items()},
                 pool=pool)
 
@@ -3560,23 +3679,27 @@ def _captured_anim(torch, r, smi, failed):
 
 
 def phase_captured_step(torch, np, dev, smi):
-    """Phase 25: the captured step, ``Renderer.render_frames`` on the masked
-    integrator as one CUDA graph replayed a frame
-    (``engine/renderer._captured_step_dyn``; the sorted mesh frame as
-    three graphs around one host read of its condense decision a sample,
+    """Phase 25: the captured step, ``Renderer.render_frames`` as one CUDA
+    graph replayed a frame (``engine/renderer._captured_step_dyn``; the
+    sorted mesh frame's condense decision as two IF nodes, the compact
+    path's chunk loops and path regeneration as WHILE nodes,
     ``wavefront.SegmentedGraph``), against the eager ``frame_chain`` from
-    the same states on every config the bench and this script run the
-    masked path on: default, cornell and hdr at 1920x1080, the mesh scene,
-    the instanced grid and the baked grid at 512x384 d4 sorted and
-    unsorted (every plane of the state, the rays per bounce and
-    bounces_run bit for bit after a call of 1 frame, the capture, and one
-    of 8, replays; the sorted frame's branch counts equal, both branches
-    seen; graph launches a frame; the graphs' pool bytes), the anim
-    config (a moved camera and a reset a frame, each frame bit for bit)
-    and two row bands of default and of the mesh scene
-    (the sharded step's band step against ``sharding.shard_frames``); wall
-    ms/frame of eager and captured calls in turns, device busy and idle
-    share a frame of each."""
+    the same states on every config the bench and this script run: the
+    masked integrator on default, cornell and hdr at 1920x1080, the mesh
+    scene, the instanced grid and the baked grid at 512x384 d4 sorted and
+    unsorted; compact on default, cornell and hdr 1080p and the mesh
+    scene; regen on default 1080p and the three 512x384 scenes; the
+    megakernel on default 1080p (every plane of the state, the rays per
+    bounce and bounces_run bit for bit after a call of 1 frame, the
+    capture, one of 8, replays, and two replays under sync-debug "error";
+    every launch count equal, the sorted frame's branches and the loop
+    bodies' runs among them, both branches seen; one graph launch a
+    frame; the device tallies; the pool's bytes), the anim config (a moved
+    camera and a reset a frame, each frame bit for bit) and two row bands
+    of default, of the mesh scene and of compact default (the sharded
+    step's band step against ``sharding.shard_frames``); wall ms/frame of
+    eager and captured calls in turns, device busy and idle share a frame
+    of each."""
     from spt_tpu_torch.camera import default_camera
     from spt_tpu_torch.config import RenderConfig
     from spt_tpu_torch.engine import state as state_mod
@@ -3585,7 +3708,7 @@ def phase_captured_step(torch, np, dev, smi):
     from spt_tpu_torch.scene import build_default_scene
 
     failed, seen, rows = [], set(), []
-    makers = [("default", lambda: renderer("default", W, H, dev)),
+    masked = [("default", lambda: renderer("default", W, H, dev)),
               ("cornell", lambda: renderer("cornell", W, H, dev)),
               ("hdr", lambda: renderer("hdr", W, H, dev)),
               ("mesh", lambda: mesh_renderer(dev)),
@@ -3596,37 +3719,64 @@ def phase_captured_step(torch, np, dev, smi):
               ("baked grid", lambda: stream_renderer(dev)),
               ("baked grid unsorted",
                lambda: stream_renderer(dev, ray_sort=False))]
-    for name, make in makers:
-        r = make()
-        rows.append(_captured_config(torch, name, r, smi, failed, seen))
-        del r
-        torch.cuda.empty_cache()
-    if set(seen) != {"condensed", "full_width"}:
+    # the eager frames of these take 0.1-0.8 s: fewer, shorter pairs
+    others = [(f"{name} compact", lambda name=name: renderer(
+                  name, W, H, dev, integrator="compact"))
+              for name in ("default", "cornell", "hdr")]
+    others += [("mesh compact",
+                lambda: mesh_renderer(dev, integrator="compact")),
+               ("default regen",
+                lambda: renderer("default", W, H, dev, integrator="regen")),
+               ("mesh regen", lambda: mesh_renderer(dev, integrator="regen")),
+               ("instanced grid regen",
+                lambda: inst_renderer(dev, integrator="regen")),
+               ("baked grid regen",
+                lambda: stream_renderer(dev, integrator="regen")),
+               ("default megakernel", lambda: renderer(
+                   "default", W, H, dev, integrator="megakernel"))]
+    for group, pairs, frames, check in (
+            (masked, CAPTURE_PAIRS, CAPTURE_FRAMES, CAPTURE_CHECK),
+            (others, 2, 4, (1, 3))):
+        for name, make in group:
+            t0 = time.perf_counter()
+            r = make()
+            rows.append(_captured_config(torch, name, r, smi, failed, seen,
+                                         pairs, frames, check))
+            del r
+            torch.cuda.empty_cache()
+            log(f"phase 25 {name}: {time.perf_counter() - t0:.1f} s")
+    if not {"condensed", "full_width"} <= set(seen):
         failed.append(f"the sorted frames took the branches {seen}, not both")
     cfg = RenderConfig(width=W, height=H, spp=4, max_depth=6)
     _captured_anim(torch, Renderer(build_default_scene(), cfg,
                                    camera=default_camera(W, H), device=dev),
                    smi, failed)
     for name, r in (("default", renderer("default", W, H, dev)),
-                    ("mesh", mesh_renderer(dev))):
+                    ("mesh", mesh_renderer(dev)),
+                    ("default compact", renderer("default", W, H, dev,
+                                                 integrator="compact"))):
         rays = r.camera.rays(dev)
         for rank in range(2):
             row0, n_rows = sharding.band(r.cfg, rank, 2)
             step = _captured_step_dyn(r.cfg, r.scene, r.env, r.lights, dev,
                                       row0, n_rows)
             st = state_mod.init_state(r.cfg.num_pixels // 2, dev)
-            bad = []
-            for k in CAPTURE_CHECK:
+            bad, calls = [], [(k, step) for k in CAPTURE_CHECK]
+            # and two replays under sync-debug "error"
+            calls.append((2, lambda *a: replay_sync_free(torch, step, *a)))
+            for k, call in calls:
                 want = sharding.shard_frames(r.cfg, r.scene, r.env, r.lights,
                                              rays, st, k, rank, 2)
-                st, stats = step(rays, st, k)
+                st, stats = call(rays, st, k)
                 bad += [f"{p} after k={k}" for p in same_run(
                     torch, (st, stats), want)]
             log(f"phase 25 {name} band {rank} of 2 (rows {row0}-"
                 f"{row0 + n_rows - 1}): the captured band step against "
-                f"shard_frames after k={CAPTURE_CHECK}: "
+                f"shard_frames after k={CAPTURE_CHECK + (2,)} (the last "
+                f"under sync-debug \"error\"): "
                 f"{'bit for bit' if not bad else bad}; graph launches "
-                f"{step.graph.launches}; pool "
+                f"{step.graph.launches}; device tallies "
+                f"{device_tallies(step.graph)}; pool "
                 f"{graph_pool_bytes(torch, step.graph)} B")
             if bad:
                 failed.append(f"{name} band {rank} of 2: {bad}")

@@ -9,6 +9,8 @@ constants and another checkout's kernels.
                            [--small-only] [--edits NAME,...] [--sass DIR]
                            [--queue-grids]
     python3 frame_sweep.py --part sass --sass DIR --other DIR
+    python3 frame_sweep.py --part step --other DIR [--pairs 1] [--frames 8]
+                           [--reps 5] [--configs NAME,...]
 
 Builds the port's kernels as committed and, for each variant, with the
 named ``constexpr int`` constants of ``spt_tpu_torch/csrc`` (each defined
@@ -55,8 +57,9 @@ fed by a counter, functions not inlined, loops not unrolled, and, timed
 only, with no lane shaded or the closest hit alone); ``--sass DIR``
 writes each build's SASS of the small form there and logs its
 instruction counts.  ``--part sass --sass DIR --other DIR`` makes the
-builds, holds every kernel's SASS to ``--other``'s and stops (exit 1 if
-one differs; a change to the launch code alone leaves every kernel's).
+builds, holds every kernel of ``--other``'s build to its SASS there and
+stops (exit 1 if one differs or is missing; a kernel only this build has
+is listed; a change to the launch code alone leaves every kernel's).
 
 The mesh part (``--part mesh``): K1's resident, instanced and stream forms
 on the three mesh scenes of ``chip_smoke.py`` at 512x384 depth 4
@@ -70,6 +73,22 @@ the image against the committed build's bit for bit, ms/frame (CUDA
 events; ``--pairs`` rounds of the builds in turns, with each build's
 median and range), device busy and launches per frame (torch.profiler).
 
+The step part (``--part step``): the captured frame step of this
+checkout against ``--other``'s, in turns.  Each run is a process of its
+own that imports one checkout's package and ``chip_smoke.py`` (so two
+versions of ``spt_tpu_torch`` never meet in one interpreter; each builds
+its kernels into its own ``build/``) and times ``Renderer.render_frames``
+on the card, captured, for every config (``--configs``, default all of
+``STEP_CONFIGS``: default, cornell and hdr at 1920x1080, the mesh scene,
+the instanced grid and the baked grid at 512x384 d4, sorted and
+``*_unsorted``; masked): after a first call of one frame (the capture),
+``--reps`` calls of ``--frames`` frames, each between CUDA events with
+one sync after, then the median and range of ms/frame and the graph
+launches a frame.  The processes run in the order other, this, this,
+other (``--pairs`` times), so a drift of the card or its host falls on
+both alike; the summary gives each checkout's median over its processes,
+config by config.
+
 Needs ``nvcc`` and one card; prints the card's name and power limit with
 every time.  The builds are made by ``sweep_builds.py``.
 """
@@ -78,6 +97,7 @@ from __future__ import annotations
 
 import argparse
 import difflib
+import json
 import re
 import statistics
 import subprocess
@@ -143,6 +163,51 @@ TIMED_ONLY = ("notrig", "floor", "trace")
 # one-thread-a-lane kernel before it); every other kernel's SASS is held to
 # --other's.
 SASS_KERNELS = ("small_bounce_kernel", "fused_bounce_kernelILi0E")
+
+STEP_CONFIGS = ("default", "cornell", "hdr", "mesh", "mesh_unsorted", "inst",
+                "inst_unsorted", "baked", "baked_unsorted")
+
+# The body each process of --part step runs, in its checkout's root; argv:
+# configs, frames, reps.
+STEP_CHILD = r"""
+import json, sys, torch
+sys.path.insert(0, ".")
+import chip_smoke as cs
+names, frames, reps = sys.argv[1].split(","), int(sys.argv[2]), int(sys.argv[3])
+dev = torch.device("cuda", 0)
+W, H = cs.W, cs.H
+makers = {
+    "default": lambda: cs.renderer("default", W, H, dev),
+    "cornell": lambda: cs.renderer("cornell", W, H, dev),
+    "hdr": lambda: cs.renderer("hdr", W, H, dev),
+    "mesh": lambda: cs.mesh_renderer(dev),
+    "mesh_unsorted": lambda: cs.mesh_renderer(dev, ray_sort=False),
+    "inst": lambda: cs.inst_renderer(dev),
+    "inst_unsorted": lambda: cs.inst_renderer(dev, ray_sort=False),
+    "baked": lambda: cs.stream_renderer(dev),
+    "baked_unsorted": lambda: cs.stream_renderer(dev, ray_sort=False),
+}
+out = {}
+t0 = torch.cuda.Event(enable_timing=True)
+t1 = torch.cuda.Event(enable_timing=True)
+for name in names:
+    r = makers[name]()
+    r.render_frames(1)
+    graph = r.captured_step().graph
+    before = graph.launches
+    ms = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0.record()
+        r.render_frames(frames)
+        t1.record()
+        torch.cuda.synchronize()
+        ms.append(t0.elapsed_time(t1) / frames)
+    out[name] = {"ms": ms, "graphs": (graph.launches - before) / (reps * frames)}
+    del r, graph
+    torch.cuda.empty_cache()
+print("STEP " + json.dumps(out), flush=True)
+"""
 
 
 def sass_of(lib_path) -> dict:
@@ -241,13 +306,14 @@ def main() -> int:
                     help="a checkout whose kernels and wrappers to time beside")
     ap.add_argument("--frames", type=int, default=16)
     ap.add_argument("--part", choices=("all", "small", "mesh", "bounce",
-                                       "sass"),
+                                       "sass", "step"),
                     default="all",
                     help="the small forms (K1 small, K2), K1's mesh forms, "
                          "K3 at its calls, or the first two; sass: only the "
                          "builds and, with --sass and --other, every "
                          "kernel's SASS against --other's (exit 1 if any "
-                         "differs)")
+                         "differs); step: the captured frame step against "
+                         "--other's in processes of their own")
     ap.add_argument("--pairs", type=int, default=1,
                     help="rounds of the mesh frames (and, with --part "
                          "bounce, of K3's calls) through each build, in "
@@ -271,7 +337,13 @@ def main() -> int:
     ap.add_argument("--depth1", action="store_true",
                     help="also time fused_frame on default at depth 1 (bounce 0 "
                          "alone)")
+    ap.add_argument("--reps", type=int, default=5,
+                    help="with --part step, the timed calls a config")
+    ap.add_argument("--configs", default=",".join(STEP_CONFIGS),
+                    help="with --part step, the configs, comma-separated")
     args = ap.parse_args()
+    if args.part == "step":
+        return step_part(args)
     sys.path.insert(0, str(HERE))
     import torch
 
@@ -351,7 +423,9 @@ def main() -> int:
                    f"; only in committed {sorted(map(_short, set(a) - set(b)))}"
                    f"; only in other {sorted(map(_short, set(b) - set(a)))}")
             if args.part == "sass":
-                return int(set(a) != set(b) or any(b[k] != a[k] for k in a))
+                # every kernel of other's build is in this one, unchanged; a
+                # kernel only this build has is listed above
+                return int(any(a.get(k) != b[k] for k in b))
     if args.part == "sass":
         cs.log("frame_sweep: --part sass needs --sass and --other")
         return 2
@@ -470,6 +544,61 @@ def main() -> int:
 MESH = (("mesh", "mesh_renderer", "resident", "fused_frame_kernel<1>"),
         ("instanced grid", "inst_renderer", "instanced", "fused_frame_kernel<2>"),
         ("baked grid", "stream_renderer", "stream", "fused_frame_kernel<3>"))
+
+
+def _step_run(root, configs, frames: int, reps: int) -> dict:
+    proc = subprocess.run([sys.executable, "-c", STEP_CHILD, ",".join(configs),
+                           str(frames), str(reps)], cwd=root,
+                          capture_output=True, text=True, timeout=900)
+    line = next((ln for ln in proc.stdout.splitlines()
+                 if ln.startswith("STEP ")), None)
+    if proc.returncode != 0 or line is None:
+        raise RuntimeError(f"the run in {root} failed ({proc.returncode}):\n"
+                           f"{proc.stdout[-3000:]}{proc.stderr[-3000:]}")
+    return json.loads(line[5:])
+
+
+def step_part(args) -> int:
+    """--part step: the captured step of this checkout and --other's in
+    turns, each run a process of its own."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("frame_sweep: no CUDA device", file=sys.stderr)
+        return 2
+    if not args.other:
+        print("frame_sweep: --part step needs --other", file=sys.stderr)
+        return 2
+    configs = args.configs.split(",")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True).stdout.strip()
+    other = str(Path(args.other).resolve())
+    order = [("other", other), ("this", str(HERE)), ("this", str(HERE)),
+             ("other", other)]
+    runs = {"this": [], "other": []}
+    for _ in range(args.pairs):
+        for label, root in order:
+            out = _step_run(root, configs, args.frames, args.reps)
+            runs[label].append(out)
+            print(f"frame_sweep step {label}: " + "; ".join(
+                f"{k} {statistics.median(v['ms']):.4f} ({min(v['ms']):.4f}-"
+                f"{max(v['ms']):.4f}) ms/frame, {v['graphs']:.2f} graphs"
+                for k, v in out.items()) + f" [{smi}]", flush=True)
+    for name in configs:
+        med = {label: [statistics.median(o[name]["ms"]) for o in outs]
+               for label, outs in runs.items()}
+        graphs = {label: outs[0][name]["graphs"]
+                  for label, outs in runs.items()}
+        print(f"frame_sweep step {name}: this "
+              f"{statistics.median(med['this']):.4f} ({min(med['this']):.4f}-"
+              f"{max(med['this']):.4f}), other "
+              f"{statistics.median(med['other']):.4f} "
+              f"({min(med['other']):.4f}-{max(med['other']):.4f}) ms/frame "
+              f"over {len(med['this'])} processes each; graph launches a "
+              f"frame this {graphs['this']:.2f}, other "
+              f"{graphs['other']:.2f} [{smi}]", flush=True)
+    return 0
 
 
 def mesh_part(args, torch, cs, names, use, same, smi) -> bool:

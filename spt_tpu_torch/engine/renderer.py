@@ -11,15 +11,14 @@ Every table and state tensor lives on the device given to the Renderer:
 the card unless the caller asks for the CPU (``device="cpu"``, which runs
 the kernels' plain PyTorch versions).
 
-``render_frames(k)`` on the card with the masked integrator replays a
-captured frame k times (``_captured_step_dyn``, the counterpart of the JAX
-package's ``_jitted_step_dyn``): one CUDA graph a frame, and nothing in the
-loop waits for the device, except in the sorted mesh frame, which reads its
-condense decision to the host once a sample and replays the graph of the
-branch it names.  Everywhere else it runs ``frame_chain``, the eager loop
-(the reference the graph is held against): on the CPU, and for the
-compact and regen integrators, which read the host once a bounce, and the
-megakernel.
+``render_frames(k)`` on the card replays a captured frame k times
+(``_captured_step_dyn``, the counterpart of the JAX package's
+``_jitted_step_dyn``), with every integrator (masked, compact, regen, the
+megakernel): one CUDA graph launch a frame, whose conditionals (the sorted
+mesh frame's condense decision, the compact path's chunk loops, the regen
+loop) the device decides, so nothing in the loop waits for the device.  On
+the CPU it runs ``frame_chain``, the eager loop, which is also the
+reference the graph is held against.
 
 Under an initialized process group of several ranks (``torchrun``), the
 Renderer shards the image into row bands, one a rank
@@ -65,11 +64,11 @@ def _frame_image(cfg, scene, env, lights, camera, frame_index, row0=0,
                                 frame_index=frame_index)
         device = img.device
         rays = torch.zeros(cfg.max_depth, dtype=torch.int64, device=device)
-        rays[0] = cfg.num_pixels
+        rays[0].fill_(cfg.num_pixels)
         return img, WavefrontStats(
             rays_per_bounce=rays,
-            bounces_run=torch.tensor(cfg.max_depth, dtype=torch.int64,
-                                     device=device))
+            bounces_run=torch.full((), cfg.max_depth, dtype=torch.int64,
+                                   device=device))
     return render_wavefront(cfg, scene, env, lights, camera,
                             frame_index=frame_index, row0=row0, rows=rows)
 
@@ -86,10 +85,9 @@ def _frame_step(cfg, scene, env, lights, camera, rstate, row0=0, rows=None):
 def frame_chain(cfg, scene, env, lights, camera, rstate, k: int, row0=0,
                 rows=None):
     """`k` progressive frames (at least one) of the band of `rows` rows from
-    `row0` -> (state, stats summed over the frames), eagerly: the CPU path,
-    the path of the integrators the card does not capture, and the
-    reference the captured step is held against.  Nothing in the loop talks
-    to another process."""
+    `row0` -> (state, stats summed over the frames), eagerly: the CPU path
+    and the reference the captured step is held against.  Nothing in the
+    loop talks to another process."""
     device = rstate.accum.device
     total = torch.zeros(cfg.max_depth, dtype=torch.int64, device=device)
     bounces = torch.zeros((), dtype=torch.int64, device=device)
@@ -102,9 +100,9 @@ def frame_chain(cfg, scene, env, lights, camera, rstate, k: int, row0=0,
 
 
 def captures(cfg: RenderConfig, device) -> bool:
-    """Whether frames of `cfg` on `device` run as a captured graph: the
-    masked integrator on the card."""
-    return torch.device(device).type == "cuda" and cfg.integrator == "masked"
+    """Whether frames of `cfg` on `device` run as a captured graph: every
+    integrator on the card."""
+    return torch.device(device).type == "cuda"
 
 
 class StaticStep:
@@ -118,7 +116,9 @@ class StaticStep:
     replay of the graph reads and writes the same tensors: the JAX
     package's arrays are immutable and ``_jitted_step_dyn`` does not donate
     them.  A state handed to ``load`` that is not this step's own (after a
-    reset, a checkpoint load, or set from outside) is copied in."""
+    reset, a checkpoint load, or set from outside) is copied in.  A frame
+    runs without autograd: the megakernel's gradients are taken through
+    its own functions (``integrators/megakernel``), eagerly."""
 
     def __init__(self, cfg: RenderConfig, scene, env, lights, device,
                  row0: int = 0, rows: Optional[int] = None):
@@ -148,6 +148,7 @@ class StaticStep:
         self.rays.zero_()
         self.bounces.zero_()
 
+    @torch.no_grad()
     def frame(self) -> None:
         img, stats = _frame_image(self.cfg, self.scene, self.env, self.lights,
                                   self.camera, self.state.frame_index,
@@ -166,20 +167,20 @@ class StaticStep:
 class CapturedStep:
     """``StaticStep.frame`` captured once and replayed a frame: the
     counterpart of the JAX package's traced-k ``_frame_step_k``.  The
-    capture is a ``wavefront.SegmentedGraph``: one CUDA graph, or, where
-    the sorted mesh frame decides whether to condense (``wavefront._cond``),
-    a graph up to the decision, one for each branch and one for the rest of
-    the frame, with one host read of the decision a sample.
+    capture is a ``wavefront.SegmentedGraph``: one CUDA graph, whose IF
+    nodes (``wavefront._cond``) and WHILE nodes (``wavefront._while_loop``)
+    the device decides; a frame is one graph launch and no host read.
 
     The first call runs its first frame eagerly on a side stream, the
     warm-up ``torch.cuda.graphs`` asks for (it builds the kernels, makes
     the first allocation of every buffer and every opt-in of the C
     entries), then captures a frame in the relaxed mode and throws it away,
-    which warms the branch the eager frame did not take, then captures the
-    frame in the global mode; each later frame is a replay.  A capture
-    that fails raises: nothing runs eagerly in its place.  The wrappers'
-    launch counts tick for the eager frame as it launches and for each
-    replay by what its capture counted."""
+    which warms the branch the eager frame did not take and every loop
+    body, then captures the frame in the global mode; each later frame is
+    a replay.  A capture that fails raises: nothing runs eagerly in its
+    place.  The wrappers' launch counts tick for the eager frame as it
+    launches and for each replay by what its capture counted, the
+    conditional bodies' share when ``wavefront.launch_counts`` is read."""
 
     def __init__(self, step: StaticStep):
         self.step = step
@@ -364,14 +365,13 @@ class Renderer:
 
     def render_frames(self, k: int, check_camera: bool = False) -> None:
         """Advance by `k` frames with a static camera; summed stats land in
-        last_stats (the whole frame's on a mesh).  On the card the masked
-        integrator copies the camera rays (and a state that is not the
-        captured step's own) into the step's buffers and replays its graph
-        k times, the first call capturing it (``_captured_step_dyn``); the
-        state is then the step's buffers, updated in place.  Nothing in the
-        loop waits for the device but the sorted mesh frame's condense
-        decision, read once a sample; on a mesh the call ends with the
-        step's two all_reduces of the stats."""
+        last_stats (the whole frame's on a mesh).  On the card it copies
+        the camera rays (and a state that is not the captured step's own)
+        into the step's buffers and replays its graph k times, the first
+        call capturing it (``_captured_step_dyn``); the state is then the
+        step's buffers, updated in place.  Nothing in the loop waits for
+        the device; on a mesh the call ends with the step's two all_reduces
+        of the stats."""
         if check_camera and self.camera.has_moved_since_last_check():
             self.state = state_mod.reset(self.state)
         rays = self.camera.rays(self.device)

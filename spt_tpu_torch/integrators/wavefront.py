@@ -15,13 +15,16 @@ bounce.
   condense, fused_frame from bounce ``ray_sort_stages``, un-condense,
   unsort.  Sorting only regroups lanes; the image matches the unsorted
   frame to float tolerance.  Whether to condense is decided by ``_cond``,
-  the port's ``lax.cond``, with one host read a sample: eagerly, and
-  between the graphs of a captured frame (``SegmentedGraph``).
+  the port's ``lax.cond``: eagerly one host read a sample, in a captured
+  frame (``SegmentedGraph``) on the device.
 
 The compact path (``_wavefront_compact``) bounces every lane once through
 ``cuda_bounce.fused_bounce``, then packs the live lanes into a queue
 (``ops/compaction``) and bounces them in fixed-width chunks through
-``transport.trace_bounce`` + ``shade``, the environment applied every bounce.
+``transport.trace_bounce`` + ``shade``, the environment applied every
+bounce; its chunks, and path regeneration's iterations
+(``render_wavefront_regen``), are ``_while_loop``s, the port's
+``lax.while_loop``.
 
 Every entry takes a band of rows (``row0``, ``rows``; the whole image by
 default), whose lanes carry global pixel indices: ``parallel/sharding``
@@ -39,6 +42,7 @@ from __future__ import annotations
 import collections
 import contextlib
 import warnings
+import weakref
 from typing import NamedTuple, Optional, Tuple
 
 import torch
@@ -48,8 +52,8 @@ from spt_tpu_torch.config import RenderConfig
 from spt_tpu_torch.env import Environment, environment_color_v
 from spt_tpu_torch.integrators import transport
 from spt_tpu_torch.lights import DeviceLights
-from spt_tpu_torch.ops import (cuda_bounce, cuda_env, cuda_sort, cuda_trace,
-                               ray_sort)
+from spt_tpu_torch.ops import (cuda_bounce, cuda_env, cuda_graph, cuda_sort,
+                               cuda_trace, ray_sort)
 from spt_tpu_torch.ops.compaction import (compact_gather, compact_indices,
                                           scatter_back)
 from spt_tpu_torch.ops import vec3 as v3
@@ -71,6 +75,10 @@ _LAUNCH_COUNTERS = (
     (cuda_trace, "STREAM_ANY_LAUNCHES"))
 _BRANCHES = ("condensed", "full_width")
 
+# Runs of each _while_loop body, by the body function's name ("chunk": the
+# compact path's chunks, "step": path regeneration's iterations), eager and
+# replayed alike; keyed ("loop", name) among the launch counts.
+LOOP_RUNS = collections.Counter()
 # The condensed sorts' chunk cap (wavefront.py:290's default).
 CONDENSE_CHUNK = 32768
 # Lanes a row-deal moves together (one 128-lane row).
@@ -156,25 +164,42 @@ def _zeros3(like: torch.Tensor) -> Vec3:
 
 
 def launch_counts() -> dict:
-    """Every wrapper's launch counter and SORTED_SAMPLES' branches, keyed
-    (module, counter name) and (None, branch)."""
+    """Every wrapper's launch counter, SORTED_SAMPLES' branches and
+    LOOP_RUNS, keyed (module, counter name), (None, branch) and ("loop",
+    body name).  The launches of a captured
+    graph's conditional bodies are tallied on the device
+    (SegmentedGraph.replay); they are read here, once for all the replays
+    since the last call (one sync), and folded into the counters first."""
+    while _PENDING:
+        _PENDING.pop().fold()
+    return _raw_counts()
+
+
+def _raw_counts() -> dict:
     counts = {(m, a): getattr(m, a) for m, a in _LAUNCH_COUNTERS}
     counts.update({(None, b): SORTED_SAMPLES[b] for b in _BRANCHES})
+    counts.update({("loop", k): v for k, v in LOOP_RUNS.items()})
     return counts
 
 
 def _set_counts(counts: dict) -> None:
+    LOOP_RUNS.clear()
     for (m, a), v in counts.items():
-        if m is not None:
-            setattr(m, a, v)
-        elif v:
-            SORTED_SAMPLES[a] = v
+        if m is None or m == "loop":
+            tally = SORTED_SAMPLES if m is None else LOOP_RUNS
+            if v:
+                tally[a] = v
+            else:
+                tally.pop(a, None)
         else:
-            SORTED_SAMPLES.pop(a, None)
+            setattr(m, a, v)
 
 
 def _add_counts(delta: dict) -> None:
-    _set_counts({k: v + delta.get(k, 0) for k, v in launch_counts().items()})
+    counts = _raw_counts()
+    for k, v in delta.items():
+        counts[k] = counts.get(k, 0) + v
+    _set_counts(counts)
 
 
 def _count_delta(after: dict, before: dict) -> dict:
@@ -198,39 +223,127 @@ def _rebuild(tree, leaves):
             else type(tree)(items))
 
 
-class SegmentedGraph:
-    """Work captured as CUDA graphs split at each ``_cond``: the captured
-    frame step's graph (engine/renderer.py).
+def _own(tree):
+    """`tree` with every tensor cloned: buffers a loop may update in place
+    without touching its caller's tensors, none of them sharing memory."""
+    return _rebuild(tree, (t.clone() for t in _tensors(tree)))
 
-    A graph cannot branch on the device with the PyTorch the port runs on
-    the card (2.11 has no ``CUDAGraph.begin_capture_to_if_node``), so a
-    ``_cond`` met while ``capture`` runs ends the graph being captured after
-    its predicate, captures each branch as a graph of its own (the second
+
+def _assign(carry, new) -> None:
+    """Copy the tensors of `new` into those of `carry`, in order (a loop
+    body's result into the loop's buffers).  A tensor of `new` that shares
+    memory with a buffer other than its own is copied first, so that no
+    copy reads what an earlier one wrote."""
+    dst, src = list(_tensors(carry)), list(_tensors(new))
+    if [(t.shape, t.dtype) for t in dst] != [(t.shape, t.dtype) for t in src]:
+        raise ValueError("_while_loop: the body returns tensors of other "
+                         "shapes or dtypes than its carry")
+    storages = {t.untyped_storage().data_ptr() for t in dst}
+
+    def same(a, b):
+        return (a.data_ptr() == b.data_ptr() and a.stride() == b.stride())
+
+    src = [s.clone() if not same(d, s)
+           and s.untyped_storage().data_ptr() in storages else s
+           for d, s in zip(dst, src)]
+    for d, s in zip(dst, src):
+        if not same(d, s):
+            d.copy_(s)
+
+
+class _Tally:
+    """A captured graph's device tally: `taken[slot]` counts the runs of
+    conditional body `slot`, whose launches are `counts[slot]`; `folded`
+    what the counters already hold."""
+
+    def __init__(self, taken: torch.Tensor, counts: list):
+        self.taken, self.counts = taken, counts
+        self.folded = [0] * len(counts)
+
+    def fold(self) -> None:
+        runs = self.taken.tolist()
+        for slot, n in enumerate(runs):
+            if n != self.folded[slot]:
+                _add_counts({k: v * (n - self.folded[slot])
+                             for k, v in self.counts[slot].items()})
+        self.folded = runs
+
+
+# Tallies replayed since launch_counts last read them.
+_PENDING: list = []
+# What SegmentedGraphs let go of while a capture was underway (their
+# segments' graphs and the built graph): destroying the built graph's
+# executable there invalidates a capture in the global mode (it is no
+# stream work), so it waits for the capture's end, the segments with it.
+_DEFERRED: list = []
+
+
+def _let_go(owned: list) -> None:
+    """A SegmentedGraph's finalizer: `owned` (its items and built graph)
+    is destroyed now, or, while a capture is underway (a garbage collection
+    may run in one), when that capture ends."""
+    if _SEGMENTED is not None:
+        _DEFERRED.append(owned)
+
+
+class SegmentedGraph:
+    """Work captured as one CUDA graph with its conditionals on the device:
+    the captured frame step's graph (engine/renderer.py).
+
+    What runs inside ``capture`` is captured in segments, each a
+    ``torch.cuda.CUDAGraph(keep_graph=True)`` in one private memory pool
+    (``pool``).  A ``_cond`` met there ends the segment after its
+    predicate and captures each branch as a body of its own (the second
     copying its outputs into the first's, so what follows reads one set of
     buffers; an output of the first that is an operand is cloned first, so
-    the copy writes no operand), and starts a new graph for what follows.
-    ``replay`` replays the graphs in order and, at each conditional, reads
-    the predicate to the host (one sync) and replays the branch it names.
-    Every graph shares one private memory pool (``pool``), which holds
-    because they replay in the order they were captured, a branch skipped.
+    the copy writes no operand); a ``_while_loop`` ends it after its first
+    predicate and captures its body once, with the next predicate at its
+    end.  At the end of ``capture`` the segments become one graph
+    (``ops/cuda_graph``): child-graph nodes in sequence, two IF nodes a
+    ``_cond`` (on the predicate and on its negation), one WHILE node a
+    loop, each set from its predicate on the device.  ``replay`` is one
+    graph launch and reads nothing.  The pool holds because the nodes run
+    in the order they were captured, a body skipped or run again; a loop's
+    carry lives in buffers of its own, updated in place (``_while_loop``).
 
     A wrapper counts its launch where it is recorded, so ``capture`` leaves
-    every launch count as it found it, keeps what each graph's capture
-    counted (SORTED_SAMPLES too), and ``replay`` adds that of each graph it
-    launches; ``launches`` counts the graph launches."""
+    every launch count as it found it and keeps what was counted in the
+    graph's straight line (``counts``, added at every replay) and in each
+    conditional body (``tallies``, SORTED_SAMPLES too); a replay adds the
+    first, and the device counts the runs of each body, which
+    ``launch_counts`` reads when asked.  ``launches`` counts the graph
+    launches.
+
+    What the object holds of CUDA graphs is destroyed when it dies, or,
+    if it dies while a capture is underway, when that capture ends
+    (``_let_go``)."""
 
     def __init__(self, device):
         self.device = torch.device(device)
-        self.segments: list = []    # (graph, counts) or (pred, true, false)
+        # cuda_graph.Segment / Branch / Loop; the segments' graphs hold the
+        # pool
+        self.items: list = []
         self.pool = None
         self.launches = 0
+        self.counts: dict = {}
+        self.tallies: list = []     # a conditional body's counts, by slot
+        self.graph = None           # the cuda_graph.DeviceGraph
+        self._tally = None
+        self._items = self.items
         self._mode = "global"
         self._graph = self._counts = None
+        self._capturing = False
+        self._owned = [self.items]
+        weakref.finalize(self, _let_go, self._owned).atexit = False
 
     @contextlib.contextmanager
     def capture(self, mode: str = "global"):
         """Capture what runs inside (on a side stream, in the given
-        cudaStreamCaptureMode) into this object's graphs."""
+        cudaStreamCaptureMode) into this object's graph, built at the end;
+        a capture in the relaxed mode (the warm-up that is thrown away) is
+        not built.  A capture that raises is ended (on its stream, where
+        PyTorch ends a capture) before the error propagates, so the stream
+        leaves capture mode."""
         global _SEGMENTED
         if _SEGMENTED is not None:
             raise RuntimeError("a SegmentedGraph capture is already underway")
@@ -243,57 +356,129 @@ class SegmentedGraph:
         _SEGMENTED = self
         try:
             with torch.cuda.stream(stream):
-                self._begin()
-                yield self
-                self.segments.append(self._end())
+                try:
+                    self._begin()
+                    yield self
+                    self._end()
+                except BaseException:
+                    if self._capturing:
+                        self._capturing = False
+                        with contextlib.suppress(Exception):
+                            self._graph.capture_end()
+                    raise
         finally:
             _SEGMENTED = None
             _set_counts(before)
+            _DEFERRED.clear()
         current.wait_stream(stream)
+        if mode != "relaxed":
+            self._build()
 
     def _begin(self) -> None:
-        self._graph = torch.cuda.CUDAGraph()
-        self._counts = launch_counts()
+        self._graph = torch.cuda.CUDAGraph(keep_graph=True)
+        self._counts = _raw_counts()
         self._graph.capture_begin(pool=self.pool,
                                   capture_error_mode=self._mode)
+        self._capturing = True
 
-    def _end(self):
-        self._graph.capture_end()
-        return self._graph, _count_delta(launch_counts(), self._counts)
+    def _end(self) -> None:
+        self._capturing = False
+        with warnings.catch_warnings():
+            # a segment may be empty (a conditional right after another)
+            warnings.simplefilter("ignore")
+            self._graph.capture_end()
+        self._items.append(cuda_graph.Segment(
+            self._graph, _count_delta(_raw_counts(), self._counts)))
+
+    def _body(self, fn):
+        """(the items captured from fn(), its result), between segments."""
+        outer, self._items = self._items, []
+        try:
+            self._begin()
+            out = fn()
+            self._end()
+            return self._items, out
+        finally:
+            self._items = outer
 
     def cond(self, pred, true_fn, false_fn, operands):
         """``_cond`` while this object captures."""
-        self.segments.append(self._end())
+        pred = pred.to(torch.bool)
+        self._end()
         inputs = {t.data_ptr() for t in _tensors(operands)}
-        branches, outs, leaves = [], None, None
-        for fn in (true_fn, false_fn):
-            self._begin()
-            out = fn(*operands)
-            if outs is None:
-                outs = out
-                leaves = [t.clone() if t.data_ptr() in inputs else t
-                          for t in _tensors(out)]
-            else:
-                other = list(_tensors(out))
-                if [(t.shape, t.dtype) for t in other] != [
-                        (t.shape, t.dtype) for t in leaves]:
-                    raise ValueError("_cond: the branches return tensors of "
-                                     "different shapes or dtypes")
-                for a, b in zip(leaves, other):
-                    a.copy_(b)
-            branches.append(self._end())
-        self.segments.append((pred, *branches))
+        leaves = []
+
+        def first():
+            out = true_fn(*operands)
+            leaves.extend(t.clone() if t.data_ptr() in inputs else t
+                          for t in _tensors(out))
+            return out
+
+        def second():
+            other = list(_tensors(false_fn(*operands)))
+            if [(t.shape, t.dtype) for t in other] != [
+                    (t.shape, t.dtype) for t in leaves]:
+                raise ValueError("_cond: the branches return tensors of "
+                                 "different shapes or dtypes")
+            for a, b in zip(leaves, other):
+                a.copy_(b)
+
+        true_body, outs = self._body(first)
+        false_body, _ = self._body(second)
+        for negate, body in ((False, true_body), (True, false_body)):
+            self._items.append(cuda_graph.Branch(pred, negate, body,
+                                                 self._slot()))
         self._begin()
         return _rebuild(outs, iter(leaves))
 
+    def while_loop(self, cond_fn, body_fn, carry):
+        """``_while_loop`` while this object captures, on a carry of the
+        loop's own buffers."""
+        pred = cond_fn(carry).to(torch.bool)
+        self._end()
+
+        def body():
+            _run_body(body_fn, carry)
+            return cond_fn(carry).to(torch.bool)
+
+        items, pred_next = self._body(body)
+        self._items.append(cuda_graph.Loop(pred, items, pred_next,
+                                           self._slot()))
+        self._begin()
+        return carry
+
+    def _slot(self) -> int:
+        self.tallies.append(None)
+        return len(self.tallies) - 1
+
+    def _build(self) -> None:
+        """Sum what each part counted, then build the one graph."""
+        def walk(items, into):
+            for it in items:
+                if isinstance(it, cuda_graph.Segment):
+                    for k, v in it.counts.items():
+                        if v:
+                            into[k] = into.get(k, 0) + v
+                else:
+                    self.tallies[it.slot] = {}
+                    walk(it.body, self.tallies[it.slot])
+
+        walk(self.items, self.counts)
+        taken = None
+        if self.tallies:
+            taken = torch.zeros(len(self.tallies), dtype=torch.int64,
+                                device=self.device)
+            self._tally = _Tally(taken, self.tallies)
+        self.graph = cuda_graph.DeviceGraph(self.items, taken)
+        self._owned.append(self.graph)
+
     def replay(self) -> None:
-        for seg in self.segments:
-            if len(seg) == 3:
-                seg = seg[1] if bool(seg[0]) else seg[2]
-            graph, counts = seg
-            graph.replay()
-            _add_counts(counts)
-            self.launches += 1
+        """One launch of the graph on the current stream: no host read."""
+        self.graph.launch(self.device)
+        _add_counts(self.counts)
+        if self._tally is not None and self._tally not in _PENDING:
+            _PENDING.append(self._tally)
+        self.launches += 1
 
 
 _SEGMENTED: Optional[SegmentedGraph] = None
@@ -305,12 +490,36 @@ def _cond(pred: torch.Tensor, true_fn, false_fn, *operands):
     the same structure, shapes and dtypes.  Eager (on the CPU, or on the
     card outside a capture) it reads ``bool(pred)``, one sync, and runs the
     branch it names; while a ``SegmentedGraph`` captures, it captures both
-    branches, and each replay reads `pred` and replays the one it names.
-    Both branches must have run once outside the capture (or in a capture
-    thrown away, ``capture(mode="relaxed")``) before it."""
+    branches as the bodies of two IF nodes, and the device decides at each
+    replay.  Both branches must have run once outside the capture (or in a
+    capture thrown away, ``capture(mode="relaxed")``) before it."""
     if _SEGMENTED is not None:
         return _SEGMENTED.cond(pred, true_fn, false_fn, operands)
     return true_fn(*operands) if bool(pred) else false_fn(*operands)
+
+
+def _while_loop(cond_fn, body_fn, carry):
+    """The port's ``jax.lax.while_loop``: while the 0-dim bool
+    ``cond_fn(carry)`` holds, ``carry = body_fn(carry)``; returns the last
+    carry.  The carry (a tree of tensors) is first copied into buffers of
+    the loop's own, and each body's result is copied into them (``_assign``:
+    the same shapes and dtypes), so every run of the body reads and writes
+    the same tensors.  Eager (on the CPU, or on the card outside a capture)
+    it reads ``bool(cond_fn(carry))`` before each run, one sync; while a
+    ``SegmentedGraph`` captures, it captures the body once as the body of a
+    WHILE node, and the device decides at each replay.  Each run counts in
+    LOOP_RUNS under the body's name."""
+    carry = _own(carry)
+    if _SEGMENTED is not None:
+        return _SEGMENTED.while_loop(cond_fn, body_fn, carry)
+    while bool(cond_fn(carry)):
+        _run_body(body_fn, carry)
+    return carry
+
+
+def _run_body(body_fn, carry) -> None:
+    LOOP_RUNS[body_fn.__name__] += 1
+    _assign(carry, body_fn(carry))
 
 
 def _fused_mesh_sorted_frame(cfg: RenderConfig, scene: DeviceScene,
@@ -328,8 +537,9 @@ def _fused_mesh_sorted_frame(cfg: RenderConfig, scene: DeviceScene,
     every lane that is dead from then on owes nothing.  The condensed branch
     runs when every live lane sits within the first wc lanes of its chunk
     after the first sort, as the JAX package's lax.cond decides it on the
-    device: here through ``_cond``, which reads the flag to the host, one
-    sync a sample, eagerly and between a captured frame's graphs.  Returns
+    device: here through ``_cond``, which reads the flag to the host
+    eagerly (one sync a sample) and leaves it on the device in a captured
+    frame.  Returns
     ((N,) radiance Vec3 with the environment term applied, rays
     (max_depth,) int64)."""
     n = ps.num_paths
@@ -531,43 +741,54 @@ def _wavefront_compact(cfg: RenderConfig, scene: DeviceScene,
     package's chunks do.  The queue is padded to a whole number of chunks
     with entries that point past the last lane: they gather a masked-dead
     lane and scatter into a scratch lane, so no chunk slides backwards and
-    bounces a lane twice.  The JAX package keeps the live count and the
-    chunk count on the device (lax.while_loop / fori_loop); here the live
-    count is read to the host once per bounce, which decides both whether
-    the loop goes on and how many chunks to launch.
+    bounces a lane twice.  As in the JAX package the live count stays on
+    the device: the bounces are unrolled (a bounce with no live lane runs
+    no chunk), and the chunks are a ``_while_loop`` on a device counter
+    (the JAX package's fori_loop over a dynamic chunk count).
 
     Returns ((N, 3) radiance, stats); rays_per_bounce equals the masked
-    path's."""
+    path's, and bounces_run counts bounce 0 and every bounce with a live
+    lane (a bounce with none ends the path for good)."""
+    ps, rays = _compact_loop(cfg, scene, env, lights, ps)
+    return ps.radiance.to_array(), WavefrontStats(
+        rays_per_bounce=rays, bounces_run=1 + (rays[1:] > 0).sum())
+
+
+def _compact_loop(cfg: RenderConfig, scene: DeviceScene, env: Environment,
+                  lights: DeviceLights, ps):
+    """_wavefront_compact's bounces -> (the final PathState, rays per
+    bounce (max_depth,) int64)."""
     n = ps.num_paths
     device = ps.rng.device
     rays = torch.zeros(cfg.max_depth, dtype=torch.int64, device=device)
-    rays[0] = n
+    rays[0].fill_(n)
     ps = _bounce(cfg, scene, env, lights, ps, 0, cfg.max_depth == 1,
                  fused=True)
     w = _queue_width(n)
     pad = torch.full(((n + w - 1) // w * w - n,), n, dtype=torch.int64,
                      device=device)
     lane = torch.arange(w, device=device)
-    bounce = 1
-    while bounce < cfg.max_depth:
+    for bounce in range(1, cfg.max_depth):
         queue, count = compact_indices(ps.alive)
-        live = int(count)       # the one host read of the bounce
-        if live == 0:
-            break
         rays[bounce] = count
         queue = torch.cat([queue, pad])
         is_last = bounce == cfg.max_depth - 1
-        for start in range(0, live, w):
-            idx = queue[start:start + w]
-            valid = (start + lane) < live
+
+        def more(carry):
+            return carry[0] < count
+
+        def chunk(carry):
+            start, ps = carry
+            pos = start + lane
+            idx = queue[pos]
             sub = compact_gather(ps, idx)
-            sub = sub._replace(alive=sub.alive & valid)
+            sub = sub._replace(alive=sub.alive & (pos < count))
             sub = _bounce(cfg, scene, env, lights, sub, bounce, is_last)
-            ps = scatter_back(sub, idx, ps, live - start)
-        bounce += 1
-    return ps.radiance.to_array(), WavefrontStats(
-        rays_per_bounce=rays,
-        bounces_run=torch.tensor(bounce, dtype=torch.int64, device=device))
+            return start + w, scatter_back(sub, idx, ps, count - start)
+
+        start = torch.zeros((), dtype=torch.int64, device=device)
+        _, ps = _while_loop(more, chunk, (start, ps))
+    return ps, rays
 
 
 def wavefront_sample(
@@ -659,8 +880,9 @@ def render_wavefront_regen(
     render_wavefront.  Every iteration traces through
     ``transport.trace_bounce`` and ``transport.shade`` — on a mesh scene
     the standalone cluster or instanced tracer (``ops/cuda_trace``), with
-    no fused kernels and no coherence sorts.  One host read per iteration
-    decides whether any lane of the band is left."""
+    no fused kernels and no coherence sorts.  The loop is a ``_while_loop``
+    on the device (wavefront.py:868-905's lax.while_loop): it ends when no
+    lane of the band is left or after cfg.spp * max_depth iterations."""
     if scene.accel is not None or scene.inst is not None:
         warnings.warn(
             "integrator 'regen' traces mesh scenes without the fused kernels "
@@ -677,8 +899,14 @@ def render_wavefront_regen(
     bounce = torch.zeros(n, dtype=torch.int64, device=device)
     rays = torch.zeros(cfg.max_depth, dtype=torch.int64, device=device)
     depths = torch.arange(cfg.max_depth, device=device)
-    it = 0
-    while it < cfg.spp * cfg.max_depth and bool(ps.alive.any()):
+    it = torch.zeros((), dtype=torch.int64, device=device)
+
+    def more(carry):
+        it, ps = carry[:2]
+        return (it < cfg.spp * cfg.max_depth) & ps.alive.any()
+
+    def step(carry):
+        it, ps, accum, bounce, sample_idx, rays = carry
         was_alive = ps.alive
         rays = rays + ((bounce[None, :] == depths[:, None])
                        & was_alive[None, :]).sum(1)
@@ -702,9 +930,10 @@ def render_wavefront_regen(
             emission_ok=ps.emission_ok | respawn,
         )
         bounce = torch.where(respawn, 0, bounce)
-        sample_idx = sample_next
-        it += 1
+        return it + 1, ps, accum, bounce, sample_next, rays
+
+    it, _, accum, _, _, rays = _while_loop(
+        more, step, (it, ps, accum, bounce, sample_idx, rays))
     img = accum.to_array() / cfg.spp
     return img.reshape(rows, cfg.width, 3), WavefrontStats(
-        rays_per_bounce=rays,
-        bounces_run=torch.tensor(it, dtype=torch.int64, device=device))
+        rays_per_bounce=rays, bounces_run=it)

@@ -21,7 +21,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = ("fused_frame.cu", "fused_bounce.cu", "cluster_trace.cu",
            "inst_trace.cu", "stream_trace.cu", "sort_chunks.cu",
-           "env_sample.cu")
+           "env_sample.cu", "spt_graph.cu")
 HEADERS = ("spt_common.cuh", "spt_tracers.cuh", "spt_trace_io.cuh",
            "spt_queue.cuh", "spt_launch.cuh")
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "spt_tpu_torch"
@@ -141,6 +141,20 @@ def build() -> ctypes.CDLL:
                "spt_trace_kernel_info", "spt_inst_trace_kernel_info",
                "spt_stream_trace_kernel_info", "spt_sort_kernel_info",
                "spt_env_sample_kernel_info"):
+        getattr(lib, fn).restype = i
+    # the graph entries (csrc/spt_graph.cu): graphs, nodes and executables
+    # as pointers, a conditional handle as an unsigned 64-bit word
+    u = ctypes.c_ulonglong
+    graph_entries = {
+        "spt_graph_create": [p], "spt_graph_destroy": [p],
+        "spt_graph_nodes": [p, p, p], "spt_graph_add_child": [p] * 4,
+        "spt_graph_add_empty": [p] * 3, "spt_graph_cond_handle": [p, p],
+        "spt_graph_add_set_cond": [p, p, u, p, i, p, p],
+        "spt_graph_add_conditional": [p, p, u, i, p, p],
+        "spt_graph_instantiate": [p, p], "spt_graph_launch": [p, p],
+        "spt_graph_exec_destroy": [p]}
+    for fn, args in graph_entries.items():
+        getattr(lib, fn).argtypes = args
         getattr(lib, fn).restype = i
     lib.spt_cuda_error_string.argtypes = [i]
     lib.spt_cuda_error_string.restype = ctypes.c_char_p

@@ -13,8 +13,8 @@ cards, gloo between CPU processes):
   k-frame step ends with one SUM all_reduce of the (max_depth,) ray counts
   and one MAX all_reduce of ``bounces_run``; the image is gathered only
   when the host asks for it (``gather_pixels``);
-- on the card the masked integrator's k frames of a band are k replays of
-  its captured band step (``renderer._captured_step_dyn``), the
+- on the card a band's k frames are k replays of its captured band step
+  (``renderer._captured_step_dyn``; masked, compact or regen bands), the
   counterpart of the JAX package's traced-k fori_loop inside shard_map;
   the two all_reduces follow the replays, outside the graph.
 
@@ -139,11 +139,10 @@ def sharded_frame_step_dyn(cfg: RenderConfig, mesh):
     """step(scene, env, lights, camera, rstate, k) -> (rstate, stats): k
     frames of this rank's band, then one SUM all_reduce of rays_per_bounce
     and one MAX all_reduce of bounces_run over the mesh, so the stats are
-    the whole frame's.  On the card the masked integrator replays the
-    band's captured step k times (made at the first call, and again when
-    it is given another scene, env or lights); the state it returns is
-    that step's buffers, updated in place.  Elsewhere it runs
-    shard_frames."""
+    the whole frame's.  On the card it replays the band's captured step k
+    times (made at the first call, and again when it is given another
+    scene, env or lights); the state it returns is that step's buffers,
+    updated in place.  On the CPU it runs shard_frames."""
     rank, world = _rank_world(mesh)
     row0, rows = band(cfg, rank, world)
     group = mesh.get_group(AXIS)

@@ -440,10 +440,14 @@ def test_mesh_renderer_runs_the_sorted_kernel_path_on_card(cuda_device):
 
     desc, cfg, cam = chip_smoke.port_mesh_scene(stacks=16, slices=24)
     r = Renderer(desc, cfg, camera=cam, device=cuda_device)
+    # the replays' conditional bodies count on the device: launch_counts
+    # folds them into the counters, before the counts are taken and after
+    twf.launch_counts()
     twf.SORTED_SAMPLES.clear()
     counts = (cuda_bounce.LAUNCHES, cuda_bounce.BOUNCE_LAUNCHES)
     r.render_frames(2)
     torch.cuda.synchronize()
+    twf.launch_counts()
     assert sum(twf.SORTED_SAMPLES.values()) == 2
     assert cuda_bounce.LAUNCHES == counts[0] + 2
     assert cuda_bounce.BOUNCE_LAUNCHES == counts[1] + 6
