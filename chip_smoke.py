@@ -153,7 +153,20 @@ this file; exits non-zero (printing no result) without them.  Phases:
     launch count equal, the branches and loop bodies' runs among them, both
     branches seen; one graph launch a frame, the device tallies and the
     pool bytes; eager and captured in turns: wall ms/frame, device busy
-    and idle share.
+    and idle share;
+26. the inverse-rendering trainer (``examples/inverse_albedo_torch.py``,
+    its gradient step ``megakernel.GradStep``: the forward pass and its
+    backward captured as one graph, one replay a step, Adam outside it):
+    (a) the JAX example's config, the default scene at 64x32 spp 1 d3, 150
+    steps: the gradient at the 0.5 start captured against eager (bit for
+    bit where two eager runs agree bit for bit, else phase 21's tolerance)
+    and against the CPU's, the final error on the visible materials at
+    most 0.01 on the JAX example's 7 of 9 visible rows; (b) the mesh scene
+    at 512x384 d4 (K4 inside the captured step) and (c) the hdr config at
+    512x384 d3 (K2 inside it), 10 steps each, the image MSE falling at
+    every step; the kernels' launches a replayed step, the pool's bytes,
+    eager and captured training steps in turns (wall ms a step) and the
+    launches of a step (profiler).
 
 A mesh kernel's bound counts the operations of its walks from the plain
 version's own results: each traced ray's box tests and the 64 triangle
@@ -2981,9 +2994,7 @@ def phase_megakernel(torch, np, dev, out_dir, smi):
         grads[key] = scene.materials.base_color.grad.cpu()
     gk, gc = grads["card"], grads["cpu"]
     scale = float(gc.abs().max())
-    diff = float((gk - gc).abs().max())
-    ok = bool(torch.isfinite(gk).all()) and bool(
-        ((gk - gc).abs() <= 1e-2 * gc.abs() + 1e-4 * scale).all())
+    diff, ok = grads_agree(torch, gk, gc)
     log(f"phase 21 d(image MSE)/d(base_color), default 64x48 d3: card against "
         f"CPU max |d| {diff:.3g} (largest entry {scale:.3g}; limit 1e-2 "
         f"relative + 1e-4 of the largest), {int((gc != 0).sum())} nonzero "
@@ -3785,6 +3796,286 @@ def phase_captured_step(torch, np, dev, smi):
     return rows
 
 
+# --- the trainer (phase 26) ---------------------------------------------------
+
+# The JAX example's own result, the figure case (a) is held to: its run on
+# the CPU (examples/inverse_albedo.py, main() with JAX on the CPU) prints
+# "visible materials: 7/9, max albedo error after 150 steps: 0.000", and
+# its visible rows (jax.grad of its loss at the 0.5 start, a row's largest
+# |entry| above 1e-6) are these.
+JAX_EXAMPLE_VISIBLE = (0, 1, 2, 3, 5, 6, 7)
+JAX_EXAMPLE_ERR = 0.000
+TRAIN_ERR_LIMIT = 0.01
+# Steps of each case's captured run, and pairs of timed calls of
+# TRAIN_PAIR_STEPS steps: (a) at its example's 150 steps; (b), (c) 10.
+TRAIN_STEPS = {"a": 150, "b": 10, "c": 10}
+TRAIN_PAIRS = {"a": (5, 5), "b": (3, 2), "c": (3, 2)}
+
+
+def trainer_module():
+    """``examples/inverse_albedo_torch.py`` beside this file, imported by its
+    path (a package named ``examples`` elsewhere on the path would shadow
+    the directory)."""
+    import importlib.util
+
+    name = "inverse_albedo_torch"
+    if name not in sys.modules:
+        spec = importlib.util.spec_from_file_location(
+            name, os.path.join(HERE, "examples", f"{name}.py"))
+        module = importlib.util.module_from_spec(spec)
+        sys.modules[name] = module
+        spec.loader.exec_module(module)
+    return sys.modules[name]
+
+
+def grads_agree(torch, got, want):
+    """(max |got - want|, whether every entry is within phase 21's
+    tolerance: 1e-2 of its own size plus 1e-4 of the largest, and finite)."""
+    scale = float(want.abs().max())
+    diff = (got - want).abs()
+    ok = bool(torch.isfinite(got).all()) and bool(
+        (diff <= 1e-2 * want.abs() + 1e-4 * scale).all())
+    return float(diff.max()), ok
+
+
+def _trainer_case(torch, np, case, name, inputs, smi, failed,
+                  cpu_inputs=None):
+    """Phase 26 on one scene: the gradient at the 0.5 start eagerly twice
+    (whether the card's backward is deterministic), captured
+    (``megakernel.GradStep``: one replay a call) against eager, bit for bit
+    where the eager ones agree bit for bit, else within phase 21's
+    tolerance, and against the CPU where `cpu_inputs` are given; the
+    wrappers' launches in one replayed step; the captured training run
+    (``examples/inverse_albedo_torch.train``), one replay a step; eager
+    against captured steps (gradient, Adam, clip) in turns; the launches
+    of one eager step (profiler) and the graph's pool."""
+    from spt_tpu_torch.integrators.megakernel import GradStep
+
+    albedo_loss, train = trainer_module().albedo_loss, trainer_module().train
+
+    loss_fn, true_bc = albedo_loss(*inputs)
+    init = torch.full_like(true_bc, 0.5)
+    step = GradStep(loss_fn, init)
+    eager = [tuple(t.clone() for t in step.body()) for _ in range(2)]
+    deterministic = all(_same_bits(torch, a, b)
+                        for a, b in zip(eager[0], eager[1]))
+    before = read_counts()
+    loss, grad = (t.clone() for t in step())   # the capture, then a replay
+    torch.cuda.synchronize()
+    captured_counts = read_counts()
+    loss2, grad2 = step()
+    torch.cuda.synchronize()
+    after = read_counts()
+    per_step = {k: after[k] - captured_counts[k] for k in after
+                if after[k] != captured_counts[k]}
+    first = {k: captured_counts[k] - before[k] for k in after
+             if captured_counts[k] != before[k]}
+    same = [_same_bits(torch, a, b) for a, b in
+            ((loss, eager[0][0]), (grad, eager[0][1]),
+             (loss2, eager[0][0]), (grad2, eager[0][1]))]
+    diff, close = grads_agree(torch, grad, eager[0][1])
+    ldiff = abs(float(loss) - float(eager[0][0]))
+    if deterministic and not all(same):
+        failed.append(f"({case}) the eager gradients agree bit for bit, the "
+                      f"captured one does not: {same}, max |d| {diff:.3g}")
+    if not close or not ldiff <= 1e-3 * abs(float(eager[0][0])):
+        failed.append(f"({case}) captured against eager: max |d| {diff:.3g}"
+                      f", loss {float(loss)!r} against "
+                      f"{float(eager[0][0])!r}")
+    if step.graph.launches != 2:
+        failed.append(f"({case}) {step.graph.launches} graph launches in 2 "
+                      f"calls")
+    cpu_note = ""
+    if cpu_inputs is not None:
+        cpu_loss, cpu_true = albedo_loss(*cpu_inputs)
+        if not torch.equal(cpu_true, true_bc.cpu()):
+            failed.append(f"({case}) the CPU's base colors differ")
+        _, g_cpu = GradStep(cpu_loss, torch.full_like(cpu_true, 0.5))()
+        cdiff, cok = grads_agree(torch, grad.cpu(), g_cpu)
+        cpu_note = (f"; against the CPU max |d| {cdiff:.3g} (largest entry "
+                    f"{float(g_cpu.abs().max()):.3g}; limit 1e-2 relative + "
+                    f"1e-4 of the largest)")
+        if not cok:
+            failed.append(f"({case}) captured gradient against the CPU's: "
+                          f"max |d| {cdiff:.3g}")
+    log(f"phase 26 ({case}) {name}: d(image MSE)/d(base_color) at 0.5 gray, "
+        f"two eager runs on the card "
+        f"{'bit for bit' if deterministic else 'NOT bit for bit'}; captured "
+        f"(GradStep, the capture and 2 replays) against eager: loss and "
+        f"gradient {'bit for bit' if all(same) else f'not bit for bit, max |d| {diff:.3g} (limit 1e-2 relative + 1e-4 of the largest)'}"
+        f"{cpu_note}; launches of the port's kernels in one replayed "
+        f"step {per_step or 'none'} (the warm-up and the first replay "
+        f"{first or 'none'}); pool {graph_pool_bytes(torch, step.graph)} B "
+        f"[{smi}]")
+
+    opt = torch.optim.Adam([step.param], lr=0.05)
+
+    def adam(loss_grad):
+        step.param.grad = loss_grad[1]
+        opt.step()
+        with torch.no_grad():
+            step.param.clamp_(0.0, 1.0)
+
+    pairs, n = TRAIN_PAIRS[case]
+
+    def steps_of(fn):
+        def run():
+            for _ in range(n):
+                adam(fn())
+        return run
+
+    ms = timed_pairs(torch, {"eager": steps_of(step.body),
+                             "captured": steps_of(step)}, pairs, n)
+    busy = {"eager": device_busy_ms(torch, steps_of(step.body), iters=1),
+            "captured": device_busy_ms(torch, steps_of(step), iters=1)}
+    med = {k: sorted(v)[len(v) // 2] for k, v in ms.items()}
+    pool = graph_pool_bytes(torch, step.graph)
+    del step, opt
+    torch.cuda.empty_cache()
+
+    lines = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    trained = train(loss_fn, true_bc, steps=TRAIN_STEPS[case],
+                    log=lines.append)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    losses = trained.losses.cpu()
+    falling = bool((losses[1:] < losses[:-1]).all())
+    visible = tuple(int(i) for i in np.nonzero(trained.seen)[0])
+    if trained.step.graph.launches != TRAIN_STEPS[case]:
+        failed.append(f"({case}) {trained.step.graph.launches} graph "
+                      f"launches in {TRAIN_STEPS[case]} steps")
+    if not np.isfinite(trained.err) or not bool(torch.isfinite(losses).all()):
+        failed.append(f"({case}) a loss or the error is not finite")
+    log(f"phase 26 ({case}) {name}: the captured run of "
+        f"{TRAIN_STEPS[case]} steps (gradient, Adam 0.05, clip to [0, 1]): "
+        f"{wall:.2f} s wall, {trained.step.graph.launches} graph launches, "
+        f"image MSE a step {[float(f'{x:.4g}') for x in losses]} "
+        f"({'falling at every step' if falling else 'NOT falling at every step'}); "
+        f"{' | '.join(lines)}; wall ms a training step over {pairs} pairs "
+        f"of {n}-step calls, median (range): eager {_med(ms['eager'])}, "
+        f"captured {_med(ms['captured'])}; device busy ms a step "
+        f"(profiler) eager {busy['eager'][0] / n:.4f} over "
+        f"{busy['eager'][1] / n:.1f} launches, captured "
+        f"{busy['captured'][0] / n:.4f} over {busy['captured'][1] / n:.1f}; "
+        f"pool {pool} B [{smi}]")
+    return dict(trained=trained, visible=visible, falling=falling,
+                per_step=per_step, ms=med, wall=wall, pool=pool,
+                deterministic=deterministic)
+
+
+@contextlib.contextmanager
+def eager_grad_steps():
+    """Run ``megakernel.GradStep``'s calls as its eager body: the reference
+    a captured training run is held against."""
+    from spt_tpu_torch.integrators.megakernel import GradStep
+
+    saved = GradStep.__call__
+    GradStep.__call__ = GradStep.body
+    try:
+        yield
+    finally:
+        GradStep.__call__ = saved
+
+
+def training_run(inputs, steps: int):
+    """(the loss each step saw, the final base colors) of the trainer's run
+    of `steps` steps from 0.5 gray on `inputs`, on the host."""
+    mod = trainer_module()
+    t = mod.train(*mod.albedo_loss(*inputs), steps=steps,
+                  log=lambda *_: None)
+    return t.losses.cpu(), t.step.param.detach().cpu()
+
+
+def phase_trainer(torch, np, dev, smi):
+    """Phase 26: the inverse-rendering trainer on the card
+    (``examples/inverse_albedo_torch.py``, the gradient step a captured
+    ``megakernel.GradStep``): (a) the JAX example's own config, the default
+    scene at 64x32 spp 1 d3, 150 steps, its gradient also held against the
+    CPU's, its final error on the visible materials at most
+    TRAIN_ERR_LIMIT on the JAX example's 7 of 9 visible rows; (b) the mesh
+    scene at 512x384 d4 (K4 inside the captured step) and (c) the hdr
+    config at 512x384 d3 (K2 inside it), 10 steps each, every loss and the
+    final base colors of the captured run bit for bit with an eager run
+    (``eager_grad_steps``); on (b) the image MSE falling at every step, on
+    (c) the losses within 1e-2 relative of the CPU's run at every step (its
+    MSE rises after step 7 there too: Adam's momentum carries the ground's
+    albedo past its value) and the last below the first.  Returns the
+    launches of K4 and K2 a captured step of (b) and (c)."""
+    from spt_tpu_torch.bench import build_workload
+
+    example_inputs = trainer_module().example_inputs
+    cpu = torch.device("cpu")
+
+    failed = []
+    a = _trainer_case(torch, np, "a", "default 64x32 spp 1 d3",
+                      example_inputs(dev), smi, failed,
+                      cpu_inputs=example_inputs(cpu))
+    if a["visible"] != JAX_EXAMPLE_VISIBLE:
+        failed.append(f"(a) visible rows {a['visible']}, the JAX example's "
+                      f"{JAX_EXAMPLE_VISIBLE}")
+    if not a["trained"].err <= TRAIN_ERR_LIMIT:
+        failed.append(f"(a) max albedo error {a['trained'].err} after 150 "
+                      f"steps (limit {TRAIN_ERR_LIMIT})")
+    log(f"phase 26 (a) after 150 captured steps: visible materials "
+        f"{len(a['visible'])}/{len(a['trained'].seen)} {a['visible']} (the "
+        f"JAX example's on the CPU: {JAX_EXAMPLE_VISIBLE}), max albedo error "
+        f"{a['trained'].err:.6f} (limit {TRAIN_ERR_LIMIT}; the JAX example "
+        f"on the CPU {JAX_EXAMPLE_ERR:.3f}) [{smi}]")
+    del a
+    torch.cuda.empty_cache()
+
+    def inputs(r, **cfg_kw):
+        return (r.cfg.replace(**cfg_kw), r.scene, r.env, r.lights,
+                r.camera.rays(r.device))
+
+    out = {}
+    for case, name, make, cfg_kw, kernels in (
+            ("b", f"mesh scene {MW}x{MH} d{MESH_DEPTH}",
+             lambda d: mesh_renderer(d), {}, ("closest_hit", "any_hit")),
+            ("c", f"hdr {MW}x{MH} d3",
+             lambda d: build_workload("hdr", MW, MH, d), {"max_depth": 3},
+             ("env_sample",))):
+        card = inputs(make(dev), **cfg_kw)
+        o = _trainer_case(torch, np, case, name, card, smi, failed)
+        steps = TRAIN_STEPS[case]
+        losses = o["trained"].losses.cpu()
+        with eager_grad_steps():
+            e_losses, e_param = training_run(card, steps)
+        same = (_same_bits(torch, losses, e_losses) and _same_bits(
+            torch, o["trained"].step.param.detach().cpu(), e_param))
+        note = ""
+        if case == "c":
+            c_losses, _ = training_run(inputs(make(cpu), **cfg_kw), steps)
+            rel = float(((losses - c_losses).abs() / c_losses).max())
+            note = (f"; the CPU's run {[float(f'{x:.4g}') for x in c_losses]}"
+                    f", the card's within {rel:.3g} relative (limit 1e-2)")
+            if not rel <= 1e-2 or not losses[-1] < losses[0]:
+                failed.append(f"({case}) the losses {losses.tolist()}, the "
+                              f"CPU's {c_losses.tolist()}")
+        elif not o["falling"]:
+            failed.append(f"({case}) the image MSE did not fall at every "
+                          f"step: {losses.tolist()}")
+        if not same:
+            failed.append(f"({case}) the captured run differs from the eager "
+                          f"one: {losses.tolist()} against "
+                          f"{e_losses.tolist()}")
+        for k in kernels:
+            if o["per_step"].get(k, 0) < 1:
+                failed.append(f"({case}) {k} was not launched in the "
+                              f"captured step: {o['per_step']}")
+        log(f"phase 26 ({case}) {name}: the captured run of {steps} steps "
+            f"against an eager run: every loss and the final base colors "
+            f"{'bit for bit' if same else 'NOT bit for bit'}{note} [{smi}]")
+        out.update({k: o["per_step"].get(k, 0) for k in kernels})
+        del o, card
+        torch.cuda.empty_cache()
+    if failed:
+        raise AssertionError("\n".join(failed))
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -3859,6 +4150,7 @@ def main() -> int:
     phase_sharding(torch, np, dev, smi)
     phase_sharded_world(torch, np, dev, smi)
     phase_captured_step(torch, np, dev, smi)
+    trainer = phase_trainer(torch, np, dev, smi)
 
     def entry(name, source, replaces, launches, k):
         for key in ("max_abs_err", "ms", "plain_ms"):
@@ -3931,6 +4223,11 @@ def main() -> int:
         entry("fused_bounce_small", "fused_bounce.cu",
               "spt_tpu/ops/pallas_bounce.py:752", k3_small_launches, k3_small),
     ]
+    for k in kernels:
+        # the trainer's captured gradient step (phase 26 (b), (c)) runs the
+        # cluster tracer and the equirect sampler too
+        if k["name"] in trainer:
+            k["trainer_launches_per_step"] = trainer[k["name"]]
     log(smi)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

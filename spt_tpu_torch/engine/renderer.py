@@ -118,7 +118,8 @@ class StaticStep:
     them.  A state handed to ``load`` that is not this step's own (after a
     reset, a checkpoint load, or set from outside) is copied in.  A frame
     runs without autograd: the megakernel's gradients are taken through
-    its own functions (``integrators/megakernel``), eagerly."""
+    its own functions (``integrators/megakernel``), whose ``GradStep``
+    captures a gradient step as a graph of its own."""
 
     def __init__(self, cfg: RenderConfig, scene, env, lights, device,
                  row0: int = 0, rows: Optional[int] = None):
