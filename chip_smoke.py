@@ -166,7 +166,21 @@ this file; exits non-zero (printing no result) without them.  Phases:
     512x384 d3 (K2 inside it), 10 steps each, the image MSE falling at
     every step; the kernels' launches a replayed step, the pool's bytes,
     eager and captured training steps in turns (wall ms a step) and the
-    launches of a step (profiler).
+    launches of a step (profiler);
+27. the unfused route (``wavefront._fused_ok`` declines the scene, the
+    frames run ``trace_bounce`` + ``shade_core`` in a WHILE node): the
+    final render of *Ray Tracing in One Weekend* (``rtiow_scene``, 487
+    spheres and materials, no accel) at 1920x1080 d6 masked and compact,
+    the mesh scene and the instanced grid with a ring of 40 spheres
+    (``add_sphere_ring``; K4 and K7 standalone) at 512x384 d4, and cornell
+    with its light split into 8x8 quads (``cornell_split_light``, 128 NEE
+    emitters) at 1920x1080 d8: each scene's decline reason, the captured
+    step against ``frame_chain`` bit for bit with every launch count equal
+    and a replay under sync-debug "error", no fused kernel launched, the
+    scene's tracer kernels launched (and their shared bytes and blocks per
+    SM at 41 spheres), the image against the plain path (< 1 % relative
+    RMSE; not on the grid), eager and captured wall ms/frame in turns, the
+    graph's nodes a replayed frame and its pool's bytes.
 
 A mesh kernel's bound counts the operations of its walks from the plain
 version's own results: each traced ray's box tests and the 64 triangle
@@ -449,6 +463,113 @@ def port_mesh_scene(stacks=32, slices=48, **cfg_kw):
     return desc, cfg, Camera(aspect_ratio=MW / MH, **cam)
 
 
+def rtiow_scene(scene_mod, seed=0):
+    """The final render of P. Shirley's *Ray Tracing in One Weekend*
+    (raytracing.github.io, "A Final Render"): a ground sphere of radius
+    1000, the 22x22 grid of radius-0.2 spheres drawn 80 / 15 / 5 %
+    diffuse / metal / glass (diffuse albedo random * random a channel,
+    metal albedo in [0.5, 1) and fuzz in [0, 0.5) as roughness, glass ior
+    1.5) where a sphere clears (4, 0.2, 0) by 0.9, and the three large
+    spheres (glass ior 1.5, diffuse (0.4, 0.2, 0.1), metal (0.7, 0.6, 0.5)
+    fuzz 0); one material a sphere, drawn from numpy's `seed`.  Cuts: no
+    defocus blur, the procedural sky in place of the book's gradient, no
+    light but the sky.  Takes the scene module of either package.  Returns
+    (SceneDesc, camera keyword arguments without aspect_ratio): from
+    (13, 2, 3) to the origin, vertical fov 20."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    mat = scene_mod.Material
+    d = scene_mod.SceneDesc()
+
+    def diffuse(c):
+        return d.add_material(mat(c, roughness=1.0, ior=1.0))
+
+    def metal(c, fuzz):
+        return d.add_material(mat(c, metallic=1.0, roughness=fuzz))
+
+    def glass():
+        return d.add_material(mat([1.0, 1.0, 1.0], roughness=0.0, ior=1.5,
+                                  mat_type=scene_mod.MATERIAL_TYPE_DIELECTRIC))
+
+    d.add_sphere([0.0, -1000.0, 0.0], 1000.0, diffuse([0.5, 0.5, 0.5]))
+    for a in range(-11, 11):
+        for b in range(-11, 11):
+            choose = rng.random()
+            center = np.array([a + 0.9 * rng.random(), 0.2,
+                               b + 0.9 * rng.random()])
+            if np.linalg.norm(center - np.array([4.0, 0.2, 0.0])) <= 0.9:
+                continue
+            if choose < 0.8:
+                m = diffuse(rng.random(3) * rng.random(3))
+            elif choose < 0.95:
+                m = metal(rng.uniform(0.5, 1.0, 3), rng.uniform(0.0, 0.5))
+            else:
+                m = glass()
+            d.add_sphere(center, 0.2, m)
+    d.add_sphere([0.0, 1.0, 0.0], 1.0, glass())
+    d.add_sphere([-4.0, 1.0, 0.0], 1.0, diffuse([0.4, 0.2, 0.1]))
+    d.add_sphere([4.0, 1.0, 0.0], 1.0, metal([0.7, 0.6, 0.5], 0.0))
+    return d, dict(position=(13.0, 2.0, 3.0), target=(0.0, 0.0, 0.0),
+                   fov_degrees=20.0)
+
+
+def add_sphere_ring(desc, center, radius, n=40, r=0.06, materials=(0, 1, 2)):
+    """`n` analytic spheres of radius `r` on a wavy horizontal ring of
+    `radius` around `center`, their materials cycling through
+    `materials`."""
+    import numpy as np
+
+    for i in range(n):
+        a = 2.0 * np.pi * i / n
+        desc.add_sphere([center[0] + radius * np.cos(a),
+                         center[1] + 0.3 * radius * np.sin(3.0 * a),
+                         center[2] + radius * np.sin(a)], r,
+                        materials[i % len(materials)])
+    return desc
+
+
+def cornell_split_light(scene_mod, materials_mod, split=8):
+    """The cornell config's box (spt_tpu_torch/scene/builder.py
+    build_cornell_box_scene, the same walls, spheres and materials) with its
+    ceiling light split into split x split quads: 2 * split^2 emissive
+    triangles (128 at 8), every one an NEE emitter, 140 primitives in all.
+    Takes the scene and materials modules of either package."""
+    import numpy as np
+
+    d = scene_mod.SceneDesc()
+    mat = scene_mod.Material
+    white = d.add_material(mat([0.73, 0.73, 0.73], roughness=0.9, ior=1.0))
+    red = d.add_material(mat([0.65, 0.05, 0.05], roughness=0.9, ior=1.0))
+    green = d.add_material(mat([0.12, 0.45, 0.15], roughness=0.9, ior=1.0))
+    lamp = d.add_material(materials_mod.light((1.0, 0.9, 0.75), 15.0))
+    mirror = d.add_material(materials_mod.silver())
+    glass = d.add_material(materials_mod.glass())
+
+    def quad(p0, p1, p2, p3, m):
+        mid = d.add_mesh(scene_mod.MeshData(
+            positions=np.array([p0, p1, p2, p3], np.float32),
+            indices=np.array([[0, 1, 2], [0, 2, 3]], np.uint32),
+            material_id=m))
+        d.add_instance(mid, np.eye(4, dtype=np.float32), material_id=m)
+
+    s = 2.75
+    quad([-s, 0, -s], [s, 0, -s], [s, 0, s], [-s, 0, s], white)
+    quad([-s, 2 * s, -s], [-s, 2 * s, s], [s, 2 * s, s], [s, 2 * s, -s], white)
+    quad([-s, 0, -s], [-s, 2 * s, -s], [s, 2 * s, -s], [s, 0, -s], white)
+    quad([-s, 0, -s], [-s, 0, s], [-s, 2 * s, s], [-s, 2 * s, -s], red)
+    quad([s, 0, -s], [s, 2 * s, -s], [s, 2 * s, s], [s, 0, s], green)
+    l, y = 0.9, 2 * s - 0.01
+    edges = np.linspace(-l, l, split + 1)
+    for i in range(split):
+        for j in range(split):
+            x0, x1, z0, z1 = edges[i], edges[i + 1], edges[j], edges[j + 1]
+            quad([x0, y, z0], [x1, y, z0], [x1, y, z1], [x0, y, z1], lamp)
+    d.add_sphere([-1.1, 0.9, -0.9], 0.9, mirror)
+    d.add_sphere([1.1, 0.9, 0.6], 0.9, glass)
+    return d
+
+
 # The cases the cooperative cluster walk (csrc/spt_tracers.cuh) has to get
 # right beside a coherent frame; the card tests hold the kernels to their
 # plain versions on each.
@@ -564,16 +685,24 @@ def mesh_renderer(dev, **cfg_kw):
 
 @contextlib.contextmanager
 def plain_path():
-    """Route the wavefront's kernels to their plain PyTorch versions (which
-    trace through the plain tracers themselves), run eagerly: a Renderer
-    made or used inside takes ``frame_chain``, not a captured graph."""
+    """Route the wavefront's kernels and the standalone tracers to their
+    plain PyTorch versions, run eagerly: a Renderer made or used inside
+    takes ``frame_chain``, not a captured graph."""
     from spt_tpu_torch.engine import renderer as renderer_mod
-    from spt_tpu_torch.ops import cuda_bounce, cuda_env, cuda_sort
+    from spt_tpu_torch.ops import cuda_bounce, cuda_env, cuda_sort, cuda_trace
 
     swaps = [(cuda_bounce, "fused_frame", cuda_bounce.fused_frame_reference),
              (cuda_bounce, "fused_bounce", cuda_bounce.fused_bounce_reference),
              (cuda_sort, "sort_chunks", cuda_sort.sort_chunks_reference),
              (cuda_env, "env_sample", cuda_env.env_sample_reference),
+             (cuda_trace, "closest_hit", cuda_trace.closest_hit_reference),
+             (cuda_trace, "any_hit", cuda_trace.any_hit_reference),
+             (cuda_trace, "inst_closest_hit",
+              cuda_trace.inst_closest_hit_reference),
+             (cuda_trace, "inst_any_hit", cuda_trace.inst_any_hit_reference),
+             (cuda_trace, "stream_closest_hit",
+              cuda_trace.closest_hit_reference),
+             (cuda_trace, "stream_any_hit", cuda_trace.any_hit_reference),
              (renderer_mod, "captures", lambda cfg, device: False)]
     saved = [(m, name, getattr(m, name)) for m, name, _ in swaps]
     try:
@@ -777,7 +906,7 @@ def phase_kernel_vs_plain(torch, cuda_bounce, dev, smi):
         k = cuda_bounce.fused_frame(cfg, scene, lights, ps)
         # the plain version, bounce by bounce: its tracers' operations and
         # each lane's bounces (the lanes alive when each bounce starts)
-        with capture_calls([(cuda_bounce, "fused_bounce_reference")]) as bounces:
+        with capture_calls([(transport, "shade_core")]) as bounces:
             p, ops = _walk_ops(torch, scene,
                                lambda: cuda_bounce.fused_frame_reference(
                                    cfg, scene, lights, ps))
@@ -4076,6 +4205,275 @@ def phase_trainer(torch, np, dev, smi):
     return out
 
 
+# --- the unfused route (phase 27) ---------------------------------------------
+
+# The fused kernels, which no frame of a declined scene launches.
+FUSED_KERNELS = ("fused_frame", "fused_bounce", "sort_chunks")
+
+
+def unfused_scenes():
+    """[(name, make(device) -> Renderer, tracer kernels its frames launch,
+    whether phase 27 holds its image against the plain path's, and against
+    a band rendered on the CPU)]: the scenes the fused kernels decline, each
+    through the unfused route.  Where no kernel is on the route the plain
+    path runs the same code on the same device, so the CPU band is the
+    independent check there."""
+    from spt_tpu_torch import materials
+    from spt_tpu_torch import scene as tscene
+    from spt_tpu_torch.camera import Camera
+    from spt_tpu_torch.config import RenderConfig
+    from spt_tpu_torch.engine.renderer import Renderer
+    from spt_tpu_torch.lights import LightManager
+    from spt_tpu_torch.scene import desc as tdesc
+
+    def rtiow(integrator, dev):
+        desc, cam = rtiow_scene(tscene)
+        cfg = RenderConfig(width=W, height=H, spp=1, max_depth=6,
+                           integrator=integrator)
+        return Renderer(desc, cfg, lights=LightManager().device(dev),
+                        camera=Camera(aspect_ratio=W / H, **cam), device=dev)
+
+    def ringed(build, radius, r, dev):
+        desc, cam = build(tscene, materials, tdesc)
+        add_sphere_ring(desc, (cam["target"][0], cam["target"][1] + 0.3,
+                               cam["target"][2]), radius, r=r)
+        cfg = RenderConfig(width=MW, height=MH, spp=1, max_depth=MESH_DEPTH)
+        return Renderer(desc, cfg, camera=Camera(aspect_ratio=MW / MH, **cam),
+                        device=dev)
+
+    def cornell(dev):
+        _, cfg, env, lights, cam = workload("cornell", W, H, dev)
+        return Renderer(cornell_split_light(tscene, materials), cfg, env=env,
+                        lights=lights, camera=cam, device=dev)
+
+    return [("rtiow", lambda d: rtiow("masked", d), (), True, True),
+            ("rtiow compact", lambda d: rtiow("compact", d), (), True, True),
+            ("mesh + 40 spheres", lambda d: ringed(mesh_scene, 1.3, 0.06, d),
+             ("closest_hit", "any_hit"), True, False),
+            ("instanced grid + 40 spheres",
+             lambda d: ringed(inst_grid_scene, 3.3, 0.12, d),
+             ("closest_hit_inst", "any_hit_inst"), False, False),
+            ("cornell 8x8 lights", cornell, (), True, True)]
+
+
+def graph_nodes_a_frame(graph) -> float:
+    """Nodes (kernels, copies, memsets) a replay of a captured step's graph
+    runs, a mean over its replays: each segment's nodes times its runs
+    (once a replay, or the runs the device tallied for a conditional
+    body)."""
+    from spt_tpu_torch.ops import cuda_graph
+
+    api = cuda_graph.Api()
+    runs = [] if graph._tally is None else graph._tally.taken.tolist()
+
+    def walk(items, times):
+        return sum(times * api.nodes(it.graph.raw_cuda_graph())[0]
+                   if isinstance(it, cuda_graph.Segment)
+                   else walk(it.body, runs[it.slot]) for it in items)
+
+    return walk(graph.items, graph.launches) / graph.launches
+
+
+# Rows of the band that phase 27 renders on the CPU: 9 x 1920 lanes, past
+# COMPACT_MIN_LANES, so that the compact integrator takes its chunk loops
+# there as on the card.
+CPU_BAND_ROWS = 9
+# The band's gate: at most this share of its pixels off by more than 1e-3
+# in a channel, and its mean within 1 %.  Not a relative RMSE: at spp 1 a
+# path through RTIOW's glass and mirror spheres changes outright when its
+# ray moves by an ulp (CUDA's and the CPU's transcendentals differ by
+# ulps), so a few pixels differ by up to ~0.3 whatever the two devices; the
+# CPU against itself with the camera nudged by one ulp shows as much, and
+# is printed beside it.
+CPU_BAND_OFF_SHARE = 0.01
+
+
+def _cpu_band(torch, np, make, img, cfg):
+    """The card's first frame `img` ((H * W, 3) at `cfg`) in its middle
+    CPU_BAND_ROWS rows against the same band rendered on the CPU by
+    ``make(cpu)``, and that band against the CPU's with the camera nudged
+    by one ulp -> (whether the card's passes the gate, the line's text)."""
+    from spt_tpu_torch.engine import state as state_mod
+    from spt_tpu_torch.engine.renderer import frame_chain
+
+    cpu = torch.device("cpu")
+    c = make(cpu)
+    row0 = (cfg.height - CPU_BAND_ROWS) // 2
+    cam = c.camera.rays(cpu)
+
+    def band(cam):
+        st = state_mod.init_state(cfg.width * CPU_BAND_ROWS, cpu)
+        return frame_chain(c.cfg, c.scene, c.env, c.lights, cam, st, 1,
+                           row0, CPU_BAND_ROWS)[0].accum.numpy()
+
+    t0 = time.perf_counter()
+    want = band(cam)
+    secs = time.perf_counter() - t0
+    nudged = band(cam._replace(position=torch.nextafter(
+        cam.position, torch.full_like(cam.position, float("inf")))))
+    card = img.reshape(cfg.height, cfg.width, 3)[
+        row0:row0 + CPU_BAND_ROWS].reshape(-1, 3).cpu().numpy()
+
+    def diff(a):
+        off = float((np.abs(a - want).max(axis=1) > 1e-3).mean())
+        return (off, rel_rmse(np, a, want),
+                float(abs(a.mean() / want.mean() - 1)))
+
+    (off, err, mean), (n_off, n_err, _) = diff(card), diff(nudged)
+    return off <= CPU_BAND_OFF_SHARE and mean < 0.01, (
+        f"rows [{row0}, {row0 + CPU_BAND_ROWS}) against the CPU's: "
+        f"{off:.3%} of pixels off by more than 1e-3 (limit "
+        f"{CPU_BAND_OFF_SHARE:.0%}), means within {mean:.3e} (limit 1e-2), "
+        f"relative RMSE {err:.3e}; the CPU against itself with the camera "
+        f"nudged by one ulp {n_off:.3%}, {n_err:.3e}; {secs:.1f} s a band "
+        f"on the CPU")
+
+
+def _unfused_config(torch, np, name, r, make, smi, failed, with_plain,
+                    cpu_band):
+    """Phase 27 on one Renderer `r` of a declined scene: two eager frames
+    (``frame_chain``, timed one at a time) from the initial state; the
+    Renderer's first frame (the warm-up and the capture) and one replay
+    under sync-debug "error" against them, bit for bit, every launch count
+    of the two runs equal, one graph launch; eager against captured frames
+    in turns (2 pairs at 512x384, 1 at 1080p); the graph's nodes a frame and
+    its pool; the first frame's image against the plain path's
+    (`with_plain`) and against a band rendered on the CPU (`cpu_band`,
+    ``_cpu_band``)."""
+    from spt_tpu_torch.engine import state as state_mod
+    from spt_tpu_torch.engine.renderer import frame_chain
+
+    args = (r.cfg, r.scene, r.env, r.lights, r.camera.rays(r.device))
+    st0 = state_mod.init_state(r.cfg.num_pixels, r.device)
+    wants, bad = [], []
+
+    def chain():
+        st = st0
+        for _ in range(2):
+            st, stats = frame_chain(*args, st, 1)
+            wants.append((st, stats))
+
+    def captured():
+        r.render_frames(1)
+        bad.extend(f"{p} after the capture" for p in same_run(
+            torch, (r.state, r.last_stats), wants[0]))
+        try:
+            got = replay_sync_free(torch, r.captured_step(), args[4],
+                                   r.state, 1)
+            bad.extend(f"{p} after a replay under sync-debug" for p in
+                       same_run(torch, got, wants[1]))
+        except RuntimeError as e:
+            failed.append(f"{name}: a replay waited for the device: {e}")
+
+    eager = counts_of(torch, chain)
+    got = counts_of(torch, captured)
+    graph = r.captured_step().graph
+    if bad:
+        failed.append(f"{name}: captured against frame_chain differs in {bad}")
+    if got != eager:
+        failed.append(f"{name}: launch counts eager {eager}, captured {got}")
+    launches = graph.launches
+    if launches != 1:
+        failed.append(f"{name}: {launches} graph launches for a frame")
+    nodes = graph_nodes_a_frame(graph)
+    pool = graph_pool_bytes(torch, graph)
+    state = [wants[1][0]]
+
+    def eager_frame():
+        state[0], _ = frame_chain(*args, state[0], 1)
+
+    pairs = 2 if r.cfg.num_pixels < W * H else 1
+    ms = timed_pairs(torch, {"eager": eager_frame,
+                             "captured": lambda: r.render_frames(1)},
+                     pairs, 1)
+    check_image(np, r, f"unfused_{name.split()[0]}", os.path.join(
+        HERE, "build", "chip_smoke"), 1)
+    img, notes = wants[0][0].accum, []
+    if with_plain:
+        with plain_path():
+            plain = frame_chain(*args, st0, 1)[0].accum.cpu().numpy()
+        err = rel_rmse(np, img.cpu().numpy(), plain)
+        notes.append(f"against the plain path {err:.3e}")
+        if not err < 0.01:
+            failed.append(f"{name}: image against the plain path {err:.3e}")
+    else:
+        notes.append("against the plain path skipped (phase 10 holds K7)")
+    if cpu_band:
+        ok, note = _cpu_band(torch, np, make, img, r.cfg)
+        notes.append(note)
+        if not ok:
+            failed.append(f"{name}: image {note}")
+    whiles = cond_kinds(graph.items).count("while")
+    log(f"phase 27 {name} {r.cfg.width}x{r.cfg.height} d{r.cfg.max_depth}: "
+        f"captured against frame_chain (the capture, then a replay under "
+        f"sync-debug \"error\"): {'bit for bit' if not bad else bad}; "
+        f"launch counts over 2 frames {'equal' if got == eager else 'differ'}"
+        f": {got}; {launches} graph launch for the replayed frame, {whiles} "
+        f"WHILE nodes, device tallies {device_tallies(graph)}; "
+        f"{nodes:.0f} graph nodes a replayed frame; pool {pool} B; wall "
+        f"ms/frame eager "
+        f"{_med(ms['eager'])}, captured {_med(ms['captured'])} ({pairs} "
+        f"pairs); image (1 frame, relative RMSE) {'; '.join(notes)} "
+        f"[{smi}]")
+    return dict(name=name, ms={k: sorted(v)[len(v) // 2]
+                               for k, v in ms.items()},
+                nodes=nodes, pool=pool, counts=got, whiles=whiles,
+                image="; ".join(notes))
+
+
+def phase_unfused(torch, np, dev, smi):
+    """Phase 27: the unfused route, the scenes the fused kernels decline
+    (``wavefront._fused_ok``): (a) the final render of *Ray Tracing in One
+    Weekend* (``rtiow_scene``: 487 spheres, 487 materials, no accel) at
+    1920x1080 d6, masked and compact; (b) the mesh scene with a ring of 40
+    spheres (K4 standalone) and (c) the instanced grid with one (K7
+    standalone) at 512x384 d4, with the tracers' shared bytes and blocks per
+    SM at 41 spheres; (d) cornell with its light split into 8x8 quads (128
+    NEE emitters, 140 primitives) at 1920x1080 d8.  For each: the decline
+    reason; ``_unfused_config``; no fused kernel launched and the scene's
+    tracer kernels launched (the counts reset before, read after)."""
+    from spt_tpu_torch.integrators import wavefront
+    from spt_tpu_torch.ops import cuda_bounce
+
+    failed, rows = [], []
+    for name, make, tracers, with_plain, cpu_band in unfused_scenes():
+        t0 = time.perf_counter()
+        r = make(dev)
+        reason = cuda_bounce.explain_decline(r.cfg, r.scene, r.lights)
+        if reason is None or wavefront._fused_ok(r.cfg, r.scene, r.lights):
+            failed.append(f"{name}: the fused kernels take it")
+        sc = r.scene
+        accel = ("an instanced" if sc.inst is not None
+                 else "a cluster" if sc.accel is not None else "no")
+        log(f"phase 27 {name}: {sc.num_triangles} triangles, "
+            f"{sc.num_spheres} spheres, {sc.materials.count} materials, "
+            f"{0 if sc.emitters is None else sc.emitters.count} emitters, "
+            f"{accel} accel; declined: {reason}")
+        if tracers:
+            # the standalone tracers' tables with every sphere of the scene
+            inst = sc.inst is not None
+            log_occupancy(27, smi, {k: _trace_shared_bytes(
+                ("inst_" + k[:-5]) if inst else k,
+                sc.inst if inst else sc.accel, sc) for k in tracers})
+        reset_counts()
+        row = _unfused_config(torch, np, name, r, make, smi, failed,
+                              with_plain, cpu_band)
+        launched = {k: v for k, v in read_counts().items() if v}
+        if any(k in launched for k in FUSED_KERNELS):
+            failed.append(f"{name}: fused kernels launched: {launched}")
+        if not all(k in launched for k in tracers):
+            failed.append(f"{name}: {tracers} not all launched: {launched}")
+        row.update(reason=reason, launched=launched)
+        rows.append(row)
+        log(f"phase 27 {name}: the phase's launches {launched or 'none'} "
+            f"(the tracer kernels); {time.perf_counter() - t0:.1f} s [{smi}]")
+        del r
+        torch.cuda.empty_cache()
+    if failed:
+        raise AssertionError("\n".join(failed))
+    return rows
+
+
 def main() -> int:
     try:
         import torch
@@ -4151,6 +4549,7 @@ def main() -> int:
     phase_sharded_world(torch, np, dev, smi)
     phase_captured_step(torch, np, dev, smi)
     trainer = phase_trainer(torch, np, dev, smi)
+    phase_unfused(torch, np, dev, smi)
 
     def entry(name, source, replaces, launches, k):
         for key in ("max_abs_err", "ms", "plain_ms"):

@@ -81,10 +81,13 @@ its kernels into its own ``build/``) and times ``Renderer.render_frames``
 on the card, captured, for every config (``--configs``, default all of
 ``STEP_CONFIGS``: default, cornell and hdr at 1920x1080, the mesh scene,
 the instanced grid and the baked grid at 512x384 d4, sorted and
-``*_unsorted``; masked): after a first call of one frame (the capture),
-``--reps`` calls of ``--frames`` frames, each between CUDA events with
-one sync after, then the median and range of ms/frame and the graph
-launches a frame.  The processes run in the order other, this, this,
+``*_unsorted``; masked; and compact default 1080p and regen on the mesh
+scene): after a first call of one frame (the capture), ``--reps`` calls
+of ``--frames`` frames, each between CUDA events with one sync after,
+then the median and range of ms/frame, the graph launches a frame and a
+hash of the accumulation after the last call, the same frames in every
+process, so the summary says whether both checkouts render them bit for
+bit.  The processes run in the order other, this, this,
 other (``--pairs`` times), so a drift of the card or its host falls on
 both alike; the summary gives each checkout's median over its processes,
 config by config.
@@ -165,12 +168,13 @@ TIMED_ONLY = ("notrig", "floor", "trace")
 SASS_KERNELS = ("small_bounce_kernel", "fused_bounce_kernelILi0E")
 
 STEP_CONFIGS = ("default", "cornell", "hdr", "mesh", "mesh_unsorted", "inst",
-                "inst_unsorted", "baked", "baked_unsorted")
+                "inst_unsorted", "baked", "baked_unsorted", "default_compact",
+                "mesh_regen")
 
 # The body each process of --part step runs, in its checkout's root; argv:
 # configs, frames, reps.
 STEP_CHILD = r"""
-import json, sys, torch
+import hashlib, json, sys, torch
 sys.path.insert(0, ".")
 import chip_smoke as cs
 names, frames, reps = sys.argv[1].split(","), int(sys.argv[2]), int(sys.argv[3])
@@ -186,6 +190,9 @@ makers = {
     "inst_unsorted": lambda: cs.inst_renderer(dev, ray_sort=False),
     "baked": lambda: cs.stream_renderer(dev),
     "baked_unsorted": lambda: cs.stream_renderer(dev, ray_sort=False),
+    "default_compact": lambda: cs.renderer("default", W, H, dev,
+                                           integrator="compact"),
+    "mesh_regen": lambda: cs.mesh_renderer(dev, integrator="regen"),
 }
 out = {}
 t0 = torch.cuda.Event(enable_timing=True)
@@ -203,7 +210,9 @@ for name in names:
         t1.record()
         torch.cuda.synchronize()
         ms.append(t0.elapsed_time(t1) / frames)
-    out[name] = {"ms": ms, "graphs": (graph.launches - before) / (reps * frames)}
+    out[name] = {"ms": ms, "graphs": (graph.launches - before) / (reps * frames),
+                 "accum": hashlib.sha256(
+                     r.state.accum.cpu().numpy().tobytes()).hexdigest()[:16]}
     del r, graph
     torch.cuda.empty_cache()
 print("STEP " + json.dumps(out), flush=True)
@@ -590,6 +599,8 @@ def step_part(args) -> int:
                for label, outs in runs.items()}
         graphs = {label: outs[0][name]["graphs"]
                   for label, outs in runs.items()}
+        same = len({o[name]["accum"] for outs in runs.values()
+                    for o in outs}) == 1
         print(f"frame_sweep step {name}: this "
               f"{statistics.median(med['this']):.4f} ({min(med['this']):.4f}-"
               f"{max(med['this']):.4f}), other "
@@ -597,7 +608,9 @@ def step_part(args) -> int:
               f"({min(med['other']):.4f}-{max(med['other']):.4f}) ms/frame "
               f"over {len(med['this'])} processes each; graph launches a "
               f"frame this {graphs['this']:.2f}, other "
-              f"{graphs['other']:.2f} [{smi}]", flush=True)
+              f"{graphs['other']:.2f}; the accumulation after the last call "
+              f"{'bit for bit' if same else 'differs'} across every process "
+              f"[{smi}]", flush=True)
     return 0
 
 

@@ -32,8 +32,14 @@ class CameraRays(NamedTuple):
     half_width: torch.Tensor  # ()
     half_height: torch.Tensor # ()
 
+    def ray_directions(self, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+        """x, y in [0, 1] (any batch shape) -> normalized world directions
+        (..., 3)."""
+        return self.ray_directions_v(x, y).to_array()
+
     def ray_directions_v(self, x: torch.Tensor, y: torch.Tensor) -> v3.Vec3:
-        """x, y in [0,1] (N,) -> normalized world directions as a Vec3."""
+        """x, y in [0,1] (any batch shape) -> normalized world directions as
+        a Vec3."""
         nx = (x - 0.5) * 2.0
         ny = -(y - 0.5) * 2.0
         hw, hh = self.half_width, self.half_height
@@ -138,6 +144,14 @@ class Camera:
         self._last_yaw = self.yaw
         self._last_pitch = self.pitch
         self._first_movement_check = False
+
+    def get_ray_direction(self, x: float, y: float) -> np.ndarray:
+        """One direction, Camera::getRayDirection's (tests)."""
+        nx = (x - 0.5) * 2.0
+        ny = -(y - 0.5) * 2.0
+        d = (self.forward + nx * self.half_width * self.right
+             + ny * self.half_height * self.up)
+        return (d / np.linalg.norm(d)).astype(np.float32)
 
     # --- device snapshot ------------------------------------------------------
 

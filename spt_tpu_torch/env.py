@@ -115,6 +115,27 @@ def synthetic_equirect(height: int = 64, sun_radiance: float = 40.0) -> np.ndarr
     return (img + sun).astype(np.float32)
 
 
+def procedural_sky(direction: torch.Tensor) -> torch.Tensor:
+    """getSkyColor (EnvironmentManager.cpp:35-61) over (..., 3)."""
+    return procedural_sky_v(v3.Vec3.from_array(direction)).to_array()
+
+
+def sample_equirect(image: torch.Tensor, direction: torch.Tensor) -> torch.Tensor:
+    """Bilinear equirect lookup of normalized (..., 3) directions
+    (device_programs.cu:374-387): wrap in u, clamp in v."""
+    return sample_equirect_v(image, v3.Vec3.from_array(direction)).to_array()
+
+
+def environment_color(env: Environment, direction: torch.Tensor) -> torch.Tensor:
+    """getEnvironmentColor (EnvironmentManager.cpp:9-33) over (..., 3): the
+    HDR sample clamped then scaled, else the procedural sky."""
+    d = m3.safe_normalize(direction)
+    if not env.enabled:
+        return procedural_sky(d)
+    return torch.clamp(sample_equirect(env.image, d),
+                       max=env.max_clamp) * env.intensity
+
+
 def procedural_sky_v(d: v3.Vec3) -> v3.Vec3:
     """getSkyColor (EnvironmentManager.cpp:35-61), Vec3 form."""
     t = 0.5 * (d.y + 1.0)

@@ -431,3 +431,44 @@ def shade_core(
         alive=scatter_alive,
         emission_ok=new_emission_ok,
     ), missed
+
+
+def bounce_loop(cfg: RenderConfig, scene: DeviceScene, lights: DeviceLights,
+                ps: PathState, start_bounce: int = 0, plain: bool = False,
+                while_loop=None):
+    """The masked depth loop: bounces [start_bounce, max_depth), each
+    ``trace_bounce`` + ``shade_core`` over every lane, tracking the lanes
+    that missed.  `while_loop` None runs every bounce, with no host read
+    (dead lanes come back unchanged): ``cuda_bounce.fused_frame_reference``.
+    Otherwise it is a ``while_loop(cond_fn, body_fn, carry)`` that stops
+    once no lane lives: the unfused route (wavefront.py:683-707).  `plain`
+    as in trace_bounce.
+
+    Returns (path state, missed_ever (N,) bool, rays per bounce
+    (max_depth,) int64, zero below start_bounce; bounces run).  The caller
+    owes `throughput * env(direction)` to the lanes that missed."""
+    device = ps.rng.device
+    depths = torch.arange(cfg.max_depth, device=device)
+
+    def more(carry):
+        b, ps = carry[:2]
+        return (b < cfg.max_depth) & ps.alive.any()
+
+    def bounce(carry):
+        b, ps, rays, missed_ever = carry
+        rays = torch.where(depths == b, ps.alive.sum(), rays)
+        hit = trace_bounce(scene, ps, plain=plain)
+        ps, missed = shade_core(cfg, scene, lights, ps, hit, b,
+                                b == cfg.max_depth - 1, plain=plain)
+        return b + 1, ps, rays, missed_ever | missed
+
+    carry = (torch.full((), start_bounce, dtype=torch.int64, device=device),
+             ps, torch.zeros(cfg.max_depth, dtype=torch.int64, device=device),
+             torch.zeros_like(ps.alive))
+    if while_loop is None:
+        for _ in range(start_bounce, cfg.max_depth):
+            carry = bounce(carry)
+    else:
+        carry = while_loop(more, bounce, carry)
+    b, ps, rays, missed_ever = carry
+    return ps, missed_ever, rays, b - start_bounce

@@ -7,6 +7,17 @@ lane dies at most once by missing and keeps its direction and throughput
 frozen, so one environment evaluation after the loop replaces one per
 bounce.
 
+- The route is chosen once a sample from the scene's counts alone
+  (``_fused_ok``, the counterpart of ``_pallas_bounce_ok``): the fused
+  kernels unless ``cuda_bounce.explain_decline`` names a reason, the same
+  on every device (on the CPU the fused route runs the kernels' plain
+  versions).  A declined scene (past 192 primitives without an accel,
+  more than 32 spheres beside one, more than 64 materials, more than 32
+  NEE emitters) logs its reason once and runs the JAX package's
+  ``fused=False`` loop (``transport.bounce_loop`` in a ``_while_loop``):
+  ``trace_bounce`` + ``shade_core`` while any lane lives, the environment
+  term deferred to after it.  A scene the kernels take whose tables do not
+  fit their shared memory raises.
 - Small scenes and mesh scenes whose lane count cannot be sorted: the whole
   loop in ``cuda_bounce.fused_frame``.
 - Mesh scenes (a cluster accel: resident, instanced or stream) at a
@@ -19,7 +30,8 @@ bounce.
   frame (``SegmentedGraph``) on the device.
 
 The compact path (``_wavefront_compact``) bounces every lane once through
-``cuda_bounce.fused_bounce``, then packs the live lanes into a queue
+``cuda_bounce.fused_bounce`` (through ``trace_bounce`` + ``shade`` on a
+declined scene), then packs the live lanes into a queue
 (``ops/compaction``) and bounces them in fixed-width chunks through
 ``transport.trace_bounce`` + ``shade``, the environment applied every
 bounce; its chunks, and path regeneration's iterations
@@ -30,8 +42,8 @@ Every entry takes a band of rows (``row0``, ``rows``; the whole image by
 default), whose lanes carry global pixel indices: ``parallel/sharding``
 renders one band a rank, and every decision that depends on the lane count
 sees the band's.  Every stage is the kernel for a CUDA tensor and its plain
-PyTorch version for a CPU tensor; a CUDA run the kernels cannot take
-raises.  The JAX
+PyTorch version for a CPU tensor; a kernel that fails to build or launch
+raises, and nothing runs in its place.  The JAX
 package's block swizzle of the lane -> pixel mapping is not ported (RNG is
 seeded per pixel, so the image does not depend on lane order), nor its
 ``SPT_SORT_ABLATE`` and ``SPT_CONDENSE_CHUNK`` hooks.
@@ -41,6 +53,7 @@ from __future__ import annotations
 
 import collections
 import contextlib
+import logging
 import warnings
 import weakref
 from typing import NamedTuple, Optional, Tuple
@@ -86,6 +99,8 @@ _DEAL = 128
 # Below this many lanes the compact integrator takes the masked path
 # (wavefront.py:205).
 COMPACT_MIN_LANES = 16384
+# The decline reasons _fused_ok has logged.
+_ANNOUNCED: set = set()
 
 
 class WavefrontStats(NamedTuple):
@@ -121,9 +136,39 @@ def sort_padding(n: int) -> int:
     return -n % (64 * 128)
 
 
+def _fused_ok(cfg: RenderConfig, scene: DeviceScene,
+              lights: DeviceLights) -> bool:
+    """Whether a sample runs through the fused kernels (K1, K3), the
+    counterpart of ``_pallas_bounce_ok`` (wavefront.py:49-62): from the
+    scene's counts alone, before any launch, the same on every device (on
+    the CPU the fused route runs the kernels' plain versions).  A scene
+    that ``cuda_bounce.explain_decline`` declines logs each distinct
+    reason once (``pallas_bounce.announce_decline``, :236-247) and takes
+    the unfused bounce.  A scene the kernels take but whose tables do not
+    fit them (``cuda_bounce.explain_overflow``) raises, as the JAX package
+    runs its fused kernels there.  Not a fallback: a kernel of an accepted
+    scene that fails raises."""
+    reason = cuda_bounce.explain_decline(cfg, scene, lights)
+    if reason is None:
+        overflow = cuda_bounce.explain_overflow(cfg, scene, lights)
+        if overflow is not None:
+            raise NotImplementedError(
+                f"the fused kernels take this scene but cannot hold its "
+                f"tables: {overflow}; no kernel form reads them from global "
+                f"memory")
+        return True
+    if reason not in _ANNOUNCED:
+        _ANNOUNCED.add(reason)
+        logging.getLogger("spt_tpu_torch").warning(
+            "fused kernels declined (%s); the frame runs the unfused "
+            "bounce (trace_bounce + shade_core)", reason)
+    return False
+
+
 def _ray_sort_ok(cfg: RenderConfig, scene: DeviceScene, n: int) -> bool:
     """Sort bounce rays: mesh scenes only, a chunkable lane count and at
-    least one bounce after the primary (wavefront.py:262-270)."""
+    least one bounce after the primary (wavefront.py:262-270).  Asked only
+    on the fused route, as the JAX package asks it only under ``fused``."""
     return (cfg.ray_sort and cfg.ray_sort_stages > 0
             and scene.accel is not None and cfg.max_depth > 1
             and ray_sort.chunk_size(n) > 0)
@@ -683,10 +728,14 @@ def _fused_mesh_sorted_frame(cfg: RenderConfig, scene: DeviceScene,
 def _wavefront_masked(cfg: RenderConfig, scene: DeviceScene, env: Environment,
                       lights: DeviceLights, ps: transport.PathState):
     """The depth loop of one sample plus the deferred env term
-    (wavefront.py:627-682 with fused=True)."""
+    (wavefront.py:627-707): through the fused kernels where ``_fused_ok``
+    holds, else the unfused loop (fused=False): a ``_while_loop`` of
+    ``trace_bounce`` + ``shade_core`` over every lane while any lives, its
+    trips the bounces run."""
+    fused = _fused_ok(cfg, scene, lights)
     n = ps.num_paths
     n_pad = sort_padding(n)
-    if _ray_sort_ok(cfg, scene, n + n_pad):
+    if fused and _ray_sort_ok(cfg, scene, n + n_pad):
         if n_pad:
             def pad(t):
                 return torch.nn.functional.pad(t, (0, n_pad))
@@ -699,14 +748,21 @@ def _wavefront_masked(cfg: RenderConfig, scene: DeviceScene, env: Environment,
                 rng=pad(ps.rng), alive=pad(ps.alive),
                 emission_ok=pad(ps.emission_ok))
         radiance, rays = _fused_mesh_sorted_frame(cfg, scene, env, lights, ps)
-        radiance = Vec3(*(c[:n] for c in radiance))
-    else:
+        return (Vec3(*(c[:n] for c in radiance)).to_array(),
+                WavefrontStats(rays_per_bounce=rays,
+                               bounces_run=(rays > 0).sum()))
+    if fused:
         radiance, direction, throughput, missed_ever, rays = (
             cuda_bounce.fused_frame(cfg, scene, lights, ps))
-        env_c = environment_color_v(env, direction, need=missed_ever)
-        radiance = radiance + v3.where(missed_ever, throughput * env_c,
-                                       _zeros3(radiance.x))
-    bounces = (rays > 0).sum()
+        bounces = (rays > 0).sum()
+    else:
+        ps, missed_ever, rays, bounces = transport.bounce_loop(
+            cfg, scene, lights, ps, while_loop=_while_loop)
+        radiance, direction, throughput = (ps.radiance, ps.direction,
+                                           ps.throughput)
+    env_c = environment_color_v(env, direction, need=missed_ever)
+    radiance = radiance + v3.where(missed_ever, throughput * env_c,
+                                   _zeros3(radiance.x))
     return radiance.to_array(), WavefrontStats(rays_per_bounce=rays,
                                                bounces_run=bounces)
 
@@ -735,7 +791,8 @@ def _wavefront_compact(cfg: RenderConfig, scene: DeviceScene,
     """The compacted depth loop of one sample (wavefront.py:205-259).
 
     Bounce 0 runs over every lane through fused_bounce (K3: the small form
-    on small scenes, the mesh forms on mesh scenes).  Each later bounce
+    on small scenes, the mesh forms on mesh scenes), or through
+    trace_bounce + shade on a scene ``_fused_ok`` declines.  Each later bounce
     packs the live lanes into a queue by an exclusive scan and bounces them
     in chunks of ``_queue_width(N)`` lanes, fused=False as the JAX
     package's chunks do.  The queue is padded to a whole number of chunks
@@ -763,7 +820,7 @@ def _compact_loop(cfg: RenderConfig, scene: DeviceScene, env: Environment,
     rays = torch.zeros(cfg.max_depth, dtype=torch.int64, device=device)
     rays[0].fill_(n)
     ps = _bounce(cfg, scene, env, lights, ps, 0, cfg.max_depth == 1,
-                 fused=True)
+                 fused=_fused_ok(cfg, scene, lights))
     w = _queue_width(n)
     pad = torch.full(((n + w - 1) // w * w - n,), n, dtype=torch.int64,
                      device=device)

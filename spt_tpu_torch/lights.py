@@ -91,6 +91,15 @@ def default_lights(device="cuda") -> DeviceLights:
     return lm.device(device)
 
 
+def sample_light(lights: DeviceLights, i: int, hit_point: torch.Tensor):
+    """Per-lane radiance of light `i` at (..., 3) hit points -> (Li (..., 3),
+    direction to the light (..., 3), distance (...,), active ()): the
+    (..., 3) wrapper of sample_light_v."""
+    li, ldir, dist, active = sample_light_v(lights, i,
+                                            v3.Vec3.from_array(hit_point))
+    return li.to_array(), ldir.to_array(), dist, active
+
+
 def sample_light_v(lights: DeviceLights, i: int, p: v3.Vec3):
     """Per-lane radiance for static light index `i`, Vec3 form.
     Returns (Li: Vec3, dir_to_light: Vec3, distance, active)."""

@@ -196,6 +196,12 @@ class LaneMaterials(NamedTuple):
     tex_id: torch.Tensor
 
 
+def gather(table: DeviceMaterials, mat_id: torch.Tensor) -> DeviceMaterials:
+    """Per-lane material rows, with clamped ids (device_programs.cu:341-345)."""
+    mid = torch.clamp(mat_id, 0, table.count - 1).long()
+    return DeviceMaterials(*(t[mid] for t in table))
+
+
 def gather_v(table: DeviceMaterials, mat_id: torch.Tensor) -> LaneMaterials:
     """Per-lane material fetch, Vec3 layout (clamped ids,
     device_programs.cu:341-345)."""

@@ -416,3 +416,23 @@ def build_inst_accel(meshes, instances, cluster_size: int = 64,
         inst_okey=t_(inst_okey.reshape(8, i_count, 1)),
         inst=t_(inst),
     )
+
+
+def slab_test(lo, hi, o, inv_d, tmin, tmax):
+    """Vectorized ray-AABB slab test (spt_tpu/ops/bvh.py:587-604): lo / hi
+    three scalars or tensors an axis, o / inv_d Vec3 lanes; the hit mask."""
+    t0x = (lo[0] - o.x) * inv_d.x
+    t1x = (hi[0] - o.x) * inv_d.x
+    t0y = (lo[1] - o.y) * inv_d.y
+    t1y = (hi[1] - o.y) * inv_d.y
+    t0z = (lo[2] - o.z) * inv_d.z
+    t1z = (hi[2] - o.z) * inv_d.z
+    tmin = torch.as_tensor(tmin, dtype=t0x.dtype, device=t0x.device)
+    tmax = torch.as_tensor(tmax, dtype=t0x.dtype, device=t0x.device)
+    tnear = torch.maximum(
+        torch.maximum(torch.minimum(t0x, t1x), torch.minimum(t0y, t1y)),
+        torch.maximum(torch.minimum(t0z, t1z), tmin))
+    tfar = torch.minimum(
+        torch.minimum(torch.maximum(t0x, t1x), torch.maximum(t0y, t1y)),
+        torch.minimum(torch.maximum(t0z, t1z), tmax))
+    return tnear <= tfar

@@ -14,7 +14,11 @@ mode samples the scene's texture table in-kernel (K6) when
 it has one.  ``fused_frame`` runs bounces [start_bounce, max_depth) of one
 sample and returns what the deferred environment term needs;
 ``fused_bounce`` runs one bounce and returns the new path state and the
-missed mask.
+missed mask.  A scene they decline (``explain_decline``: the JAX package's
+caps) is never handed to them: its frames take the unfused bounce
+(``integrators/wavefront._fused_ok``).  A scene they take whose tables do
+not fit a block's shared memory (``explain_overflow``, the port's own
+limit) has no route: its frames raise.
 
 - On a CUDA tensor each launches its hand-written kernel
   (``csrc/fused_frame.cu``, ``csrc/fused_bounce.cu``, built by
@@ -55,7 +59,7 @@ from spt_tpu_torch.lights import DeviceLights
 from spt_tpu_torch.materials import tex_res_of
 from spt_tpu_torch.ops import bvh, cuda_lib, cuda_trace
 from spt_tpu_torch.ops.vec3 import Vec3
-from spt_tpu_torch.scene.flatten import MAX_ACCEL_SPHERES, DeviceScene
+from spt_tpu_torch.scene.flatten import DeviceScene
 
 # Kernel launches since import (or since a caller reset them).
 LAUNCHES = 0
@@ -70,13 +74,15 @@ BOUNCE_KERNELS = {None: "small_bounce_kernel",
                   "stream": "fused_bounce_kernel<3>"}
 
 # Caps, as pallas_bounce's (MAX_PALLAS_PRIMS, MAX_PALLAS_MATERIALS,
-# MAX_PALLAS_EMITTERS, MAX_ACCEL_TRIS).  The small form's tables must fit
-# the 48 KiB of shared memory a block gets without opting in; the resident
-# form's small tables, the 227 KiB it may opt in to.
+# MAX_PALLAS_EMITTERS, MAX_ACCEL_TRIS, MAX_ACCEL_SPHERES); a scene past one
+# takes the unfused bounce.  The small form's tables must fit the 48 KiB of
+# shared memory a block gets without opting in; the resident form's small
+# tables, the 227 KiB it may opt in to; past those a frame raises.
 MAX_PRIMS = 192
 MAX_MATERIALS = 64
 MAX_EMITTERS = 32
 MAX_ACCEL_TRIS = 12288
+MAX_ACCEL_SPHERES = 32
 MAX_TABLE_BYTES = 48 * 1024
 MAX_RESIDENT_TABLE_BYTES = 227 * 1024
 
@@ -93,23 +99,23 @@ _TEXTURED = 256
 
 
 def _accel_mode(scene: DeviceScene):
-    """None (small scene, brute force), "resident" (cluster tracer over the
-    accel), "instanced" (the TLAS/BLAS tracer over scene.inst) or "stream"
-    (the supercluster tracer over an accel past MAX_ACCEL_TRIS), as
-    pallas_bounce._accel_mode (:161-182); raises where that returns None on
-    a scene past MAX_PRIMS."""
+    """None (brute force: a small scene, or one the fused kernels decline),
+    "resident" (cluster tracer over the accel), "instanced" (the TLAS/BLAS
+    tracer over scene.inst) or "stream" (the supercluster tracer over an
+    accel past MAX_ACCEL_TRIS), as pallas_bounce._accel_mode (:161-182):
+    None also past MAX_PRIMS with more than MAX_ACCEL_SPHERES spheres or
+    no cluster accel, which ``explain_decline`` names; raises past
+    bvh.MAX_STREAM_CLUSTERS, where the JAX package asserts
+    (spt_tpu/ops/bvh.py:520-522)."""
     if scene.num_triangles + scene.num_spheres <= MAX_PRIMS:
         return None
     if scene.num_spheres > MAX_ACCEL_SPHERES:
-        raise NotImplementedError(f"{scene.num_spheres} spheres > "
-                                  f"MAX_ACCEL_SPHERES={MAX_ACCEL_SPHERES}")
+        return None
     if scene.inst is not None:
         return "instanced"
     a = scene.accel
     if a is None:
-        raise NotImplementedError(
-            f"{scene.num_triangles + scene.num_spheres} primitives > "
-            f"MAX_PRIMS={MAX_PRIMS} and no cluster accel built")
+        return None
     if a.num_clusters * a.cluster_size <= MAX_ACCEL_TRIS:
         return "resident"
     if a.num_clusters > bvh.MAX_STREAM_CLUSTERS:
@@ -163,7 +169,12 @@ def shared_bytes(cfg: RenderConfig, scene: DeviceScene,
 
 def explain_decline(cfg: RenderConfig, scene: DeviceScene,
                     lights: DeviceLights):
-    """Why the kernels cannot take this workload, or None when they can.
+    """Why the fused kernels decline this workload, or None when they take
+    it: the JAX package's reasons (pallas_bounce.py:185-233) — past
+    MAX_PRIMS primitives with no cluster accel or with more than
+    MAX_ACCEL_SPHERES spheres beside it, more than MAX_MATERIALS materials,
+    more than MAX_EMITTERS emitters under NEE.  A declined scene renders
+    through the unfused bounce (``integrators/wavefront._fused_ok``).
 
     The JAX package's texture gates (pallas_bounce.py:222-228: a textured
     scene needs an accel mode, and the packed table at most
@@ -171,10 +182,15 @@ def explain_decline(cfg: RenderConfig, scene: DeviceScene,
     table stays in global memory and is read through L2, so neither
     applies: textured scenes take every mode, small ones included."""
     reasons = []
-    try:
-        mode = _accel_mode(scene)
-    except NotImplementedError as e:
-        return str(e)
+    mode = _accel_mode(scene)
+    n_prims = scene.num_triangles + scene.num_spheres
+    if mode is None and n_prims > MAX_PRIMS:
+        if scene.accel is None:
+            reasons.append(f"{n_prims} primitives > MAX_PRIMS={MAX_PRIMS} "
+                           "and no cluster accel built")
+        else:
+            reasons.append(f"{scene.num_spheres} spheres > "
+                           f"MAX_ACCEL_SPHERES={MAX_ACCEL_SPHERES}")
     if scene.materials.count > MAX_MATERIALS:
         reasons.append(f"{scene.materials.count} materials > "
                        f"MAX_MATERIALS={MAX_MATERIALS}")
@@ -182,12 +198,25 @@ def explain_decline(cfg: RenderConfig, scene: DeviceScene,
     if nee_on and scene.emitters.count > MAX_EMITTERS:
         reasons.append(f"{scene.emitters.count} emitters > "
                        f"MAX_EMITTERS={MAX_EMITTERS}")
-    nbytes = shared_bytes(cfg, scene, lights)
-    cap = MAX_TABLE_BYTES if mode is None else MAX_RESIDENT_TABLE_BYTES
-    if nbytes > cap:
-        reasons.append(f"a block's shared memory (scene tables and staging "
-                       f"buffers) takes {nbytes} B > {cap} B")
     return "; ".join(reasons) if reasons else None
+
+
+def explain_overflow(cfg: RenderConfig, scene: DeviceScene,
+                     lights: DeviceLights):
+    """Why a workload the fused kernels take does not fit a block of them,
+    or None when it does: its tables and staging buffers past the shared
+    memory a block may take (MAX_TABLE_BYTES in the small forms,
+    MAX_RESIDENT_TABLE_BYTES in the mesh forms), as with very many lights
+    or instances.  The JAX package has no such reason and runs its fused
+    kernels there, so no route of the port renders such a workload: a
+    frame raises (``integrators/wavefront._fused_ok``)."""
+    nbytes = shared_bytes(cfg, scene, lights)
+    cap = (MAX_TABLE_BYTES if _accel_mode(scene) is None
+           else MAX_RESIDENT_TABLE_BYTES)
+    if nbytes > cap:
+        return (f"a block's shared memory (scene tables and staging "
+                f"buffers) takes {nbytes} B > {cap} B")
+    return None
 
 
 def rays_from_counts(bounces_done: torch.Tensor, max_depth: int,
@@ -204,17 +233,11 @@ def rays_from_counts(bounces_done: torch.Tensor, max_depth: int,
 def fused_frame_reference(cfg: RenderConfig, scene: DeviceScene,
                           lights: DeviceLights, ps, start_bounce: int = 0):
     """The plain PyTorch version of fused_frame: the same bounces through
-    fused_bounce_reference.  Every bounce
-    runs over every lane: dead lanes come back unchanged, so the result is
-    the kernel's, and no host sync is needed to stop early."""
-    counts = torch.zeros(ps.num_paths, dtype=torch.int32, device=ps.rng.device)
-    missed_ever = torch.zeros_like(ps.alive)
-    for bounce in range(start_bounce, cfg.max_depth):
-        counts = counts + ps.alive.to(torch.int32)
-        ps, missed = fused_bounce_reference(cfg, scene, lights, ps, bounce,
-                                            bounce == cfg.max_depth - 1)
-        missed_ever = missed_ever | missed
-    rays = rays_from_counts(counts, cfg.max_depth, start_bounce)
+    the plain versions of the tracers (``transport.bounce_loop``).  Every
+    bounce runs over every lane: dead lanes come back unchanged, so the
+    result is the kernel's, and no host sync is needed to stop early."""
+    ps, missed_ever, rays, _ = transport.bounce_loop(
+        cfg, scene, lights, ps, start_bounce, plain=True)
     return ps.radiance, ps.direction, ps.throughput, missed_ever, rays
 
 
@@ -300,9 +323,13 @@ def _kernel_inputs(cfg: RenderConfig, scene: DeviceScene,
                    lights: DeviceLights, ps, what: str):
     """Checks the lanes and the scene, and returns (state pointers, scene
     arguments, keep-alive tensors) for a launch: the RNG words and flags as
-    the port holds them (int64, bool), handed over as they are."""
+    the port holds them (int64, bool), handed over as they are.  A scene
+    that ``explain_decline`` or ``explain_overflow`` names raises: the
+    frames of the one take the unfused bounce and those of the other raise
+    first, so a launch on either is the caller's fault."""
     device = ps.rng.device
-    reason = explain_decline(cfg, scene, lights)
+    reason = (explain_decline(cfg, scene, lights)
+              or explain_overflow(cfg, scene, lights))
     if reason:
         raise NotImplementedError(f"the {what} kernel cannot take this "
                                   f"scene: {reason}")

@@ -6,8 +6,12 @@
   lanes at a time, the winner carried with selects, triangles before
   spheres, and the strict ``t < best`` test, so ties resolve the same way as
   in the JAX package.
-- Above it the scene carries a cluster accel (``ops/bvh``), and the
-  module follows ``_trace_module`` (intersect.py:460-479):
+- Above it without a cluster accel (at most ``UNROLL_LIMIT`` triangles
+  beside many spheres), ``_intersect_chunked`` / ``_occluded_chunked`` on
+  every device, as the JAX package traces such a scene
+  (intersect.py:482-503) through XLA.
+- Above it with a cluster accel (``ops/bvh``), the module follows
+  ``_trace_module`` (intersect.py:460-479):
   - with an instanced TLAS/BLAS (``scene.inst``), the instanced tracer of
     ``ops/cuda_trace`` (the counterpart of ``spt_tpu.ops.pallas_inst``) on
     a CUDA tensor, its plain version on a CPU tensor or with ``plain=True``;
@@ -68,6 +72,19 @@ class HitV(NamedTuple):
         return torch.isfinite(self.t)
 
 
+class Hit(NamedTuple):
+    """Array-layout view of HitV (``intersect``)."""
+
+    t: torch.Tensor
+    normal: torch.Tensor   # (N, 3)
+    mat_id: torch.Tensor
+    kind: torch.Tensor
+
+    @property
+    def hit_mask(self) -> torch.Tensor:
+        return torch.isfinite(self.t)
+
+
 def _tri_scalar_test(scene, i, o: Vec3, d: Vec3, tmin, tmax, best_t):
     """Triangle `i` against all lanes; returns (ok, t, normal xyz, (u, v))."""
     v0x, v0y, v0z = scene.tri_v0[i, 0], scene.tri_v0[i, 1], scene.tri_v0[i, 2]
@@ -112,10 +129,13 @@ def _sph_scalar_test(scene, i, o: Vec3, d: Vec3, tmin, tmax, best_t):
 def intersect_v(scene, o: Vec3, d: Vec3, tmin=1e-4, tmax=INF,
                 plain: bool = False) -> HitV:
     """Closest hit (intersect.py:482-491's routing; `plain` keeps an accel
-    scene on the chunked version whatever the device)."""
+    scene on the chunked version whatever the device).  A scene past
+    UNROLL_LIMIT without an accel takes the chunked version on every
+    device, as in the JAX package, where that route is XLA."""
     if scene.num_triangles + scene.num_spheres <= UNROLL_LIMIT:
         return _intersect_unrolled(scene, o, d, tmin, tmax)
-    _check_accel(scene)
+    if scene.accel is None and scene.inst is None:
+        return _intersect_chunked(scene, o, d, tmin, tmax)
     from spt_tpu_torch.ops import cuda_trace
 
     kernel = o.x.device.type == "cuda" and not plain
@@ -136,7 +156,8 @@ def occluded_v(scene, o: Vec3, d: Vec3, tmin=1e-4, tmax=INF,
     intersect_v."""
     if scene.num_triangles + scene.num_spheres <= UNROLL_LIMIT:
         return _occluded_unrolled(scene, o, d, tmin, tmax)
-    _check_accel(scene)
+    if scene.accel is None and scene.inst is None:
+        return _occluded_chunked(scene, o, d, tmin, tmax)
     from spt_tpu_torch.ops import cuda_trace
 
     kernel = o.x.device.type == "cuda" and not plain
@@ -149,13 +170,6 @@ def occluded_v(scene, o: Vec3, d: Vec3, tmin=1e-4, tmax=INF,
               else cuda_trace.any_hit)
         return fn(scene.accel, scene, o, d, tmin, tmax)
     return _occluded_chunked(scene, o, d, tmin, tmax)
-
-
-def _check_accel(scene) -> None:
-    if scene.accel is None:
-        raise NotImplementedError(
-            f"{scene.num_triangles + scene.num_spheres} primitives > "
-            f"UNROLL_LIMIT={UNROLL_LIMIT} and no cluster accel built")
 
 
 def _intersect_unrolled(scene, o: Vec3, d: Vec3, tmin, tmax) -> HitV:
@@ -234,13 +248,6 @@ def _occluded_unrolled(scene, o: Vec3, d: Vec3, tmin, tmax) -> torch.Tensor:
 
 # --- chunked broadcast route (the cluster tracer's plain version) -------------
 
-def _chunk(n: int, target: int) -> int:
-    c = min(n, target)
-    while n % c:
-        c -= 1
-    return c
-
-
 def _col(tab, i):
     return tab[:, i][None, :]
 
@@ -293,14 +300,15 @@ def _lane_tmax(tmax, o: Vec3) -> torch.Tensor:
 
 
 def _scan_min(test, n_prims: int, chunk_size: int, kind_id: int, carry):
-    """Running (t, index, kind) minimum over chunks; within a chunk the
-    lowest index wins a tie, across chunks the earlier (strict <)."""
-    if not n_prims:
-        return carry
-    c = _chunk(n_prims, chunk_size)
+    """Running (t, index, kind) minimum over chunks of `chunk_size`, the
+    last one ragged; within a chunk the lowest index wins a tie, across
+    chunks the earlier (strict <), so the winner is the first minimum
+    whatever the chunking (the JAX package's chunk divides the count,
+    intersect.py:217-221, which a count of few divisors makes tiny)."""
     bt, bi, bk = carry
-    for start in range(0, n_prims, c):
-        tm, am = torch.min(test(start, start + c), dim=1)
+    for start in range(0, n_prims, chunk_size):
+        tm, am = torch.min(test(start, min(start + chunk_size, n_prims)),
+                           dim=1)
         better = tm < bt
         bt = torch.where(better, tm, bt)
         bi = torch.where(better, am + start, bi)
@@ -331,7 +339,14 @@ def _intersect_chunked(scene, o: Vec3, d: Vec3, tmin, tmax,
     zero = torch.zeros_like(best_idx)
     ti = torch.where(is_tri, best_idx, zero)
     si = torch.where(is_sph, best_idx, zero)
-    we1, we2 = scene.tri_e1[ti], scene.tri_e2[ti]
+
+    def tri_rows(tab):
+        # a scene of spheres alone gathers its triangle row 0 from one zero
+        # row (JAX's gather on an empty table clamps the same way)
+        return tab[ti] if scene.num_triangles else tab.new_zeros(
+            (best_t.shape[0], tab.shape[1]))
+
+    we1, we2 = tri_rows(scene.tri_e1), tri_rows(scene.tri_e2)
     nx = we1[:, 1] * we2[:, 2] - we1[:, 2] * we2[:, 1]
     ny = we1[:, 2] * we2[:, 0] - we1[:, 0] * we2[:, 2]
     nz = we1[:, 0] * we2[:, 1] - we1[:, 1] * we2[:, 0]
@@ -355,7 +370,7 @@ def _intersect_chunked(scene, o: Vec3, d: Vec3, tmin, tmax,
     uvx = uvy = None
     if scene.tri_ns is not None or scene.tri_uv is not None:
         # the winner's barycentrics, re-evaluated
-        wv0 = scene.tri_v0[ti]
+        wv0 = tri_rows(scene.tri_v0)
         hx = d.y * we2[:, 2] - d.z * we2[:, 1]
         hy = d.z * we2[:, 0] - d.x * we2[:, 2]
         hz = d.x * we2[:, 1] - d.y * we2[:, 0]
@@ -368,12 +383,12 @@ def _intersect_chunked(scene, o: Vec3, d: Vec3, tmin, tmax,
         qz = sx * we1[:, 1] - sy * we1[:, 0]
         bv = inv_a * (d.x * qx + d.y * qy + d.z * qz)
         if scene.tri_uv is not None:
-            r = scene.tri_uv[ti]
+            r = tri_rows(scene.tri_uv)
             uvx = torch.where(is_tri, r[:, 0] + bu * r[:, 2] + bv * r[:, 4], 0.0)
             uvy = torch.where(is_tri, r[:, 1] + bu * r[:, 3] + bv * r[:, 5], 0.0)
         if scene.tri_ns is not None:
             # zero rows keep the geometric normal
-            rn = scene.tri_ns[ti]
+            rn = tri_rows(scene.tri_ns)
             sn = [rn[:, k] + bu * rn[:, k + 3] + bv * rn[:, k + 6]
                   for k in range(3)]
             use = is_tri & (sn[0] * sn[0] + sn[1] * sn[1] + sn[2] * sn[2]
@@ -395,11 +410,9 @@ def _occluded_chunked(scene, o: Vec3, d: Vec3, tmin, tmax,
             (scene.num_spheres, lambda a, b: _sph_chunk_test(
                 o, d, scene.sph_center[a:b], scene.sph_radius[a:b], tmin,
                 tmax))):
-        if not n:
-            continue
-        c = _chunk(n, chunk_size)
-        for start in range(0, n, c):
-            blocked = blocked | torch.isfinite(test(start, start + c)).any(1)
+        for start in range(0, n, chunk_size):
+            blocked = blocked | torch.isfinite(
+                test(start, min(start + chunk_size, n))).any(1)
     return blocked
 
 
@@ -409,3 +422,26 @@ def safe_origin_v(p: Vec3, n: Vec3, front) -> Vec3:
     eps = 1e-4 * torch.clamp(mag, min=1.0)
     off = torch.where(front, eps, -eps)
     return p + n * off
+
+
+def safe_origin(hit_point: torch.Tensor, normal: torch.Tensor,
+                front) -> torch.Tensor:
+    """(N, 3) wrapper around safe_origin_v."""
+    return safe_origin_v(Vec3.from_array(hit_point), Vec3.from_array(normal),
+                         front).to_array()
+
+
+def intersect(scene, origin: torch.Tensor, direction: torch.Tensor,
+              tmin=1e-4, tmax=INF) -> Hit:
+    """(N, 3) wrapper around intersect_v."""
+    hv = intersect_v(scene, Vec3.from_array(origin),
+                     Vec3.from_array(direction), tmin, tmax)
+    return Hit(t=hv.t, normal=hv.normal.to_array(), mat_id=hv.mat_id,
+               kind=hv.kind)
+
+
+def occluded(scene, origin: torch.Tensor, direction: torch.Tensor,
+             tmin=1e-4, tmax=INF) -> torch.Tensor:
+    """(N, 3) wrapper around occluded_v."""
+    return occluded_v(scene, Vec3.from_array(origin),
+                      Vec3.from_array(direction), tmin, tmax)

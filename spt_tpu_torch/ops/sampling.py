@@ -1,7 +1,8 @@
 """BRDF math and direction sampling over Vec3 lanes.
 
 The ``_v`` forms of ``spt_tpu.ops.sampling`` that ``shade_core`` calls, in
-the same evaluation order:
+the same evaluation order, and at the end its (..., 3) forms, which no
+render path calls (wrappers over the ``_v`` forms, as ``ops/math3d``'s):
 
 - Cook-Torrance GGX evaluation (Material.cpp:84-117);
 - GGX NDF half-vector sampling (device_programs.cu:183-211);
@@ -31,6 +32,15 @@ def fresnel_schlick_eta(cos_i: torch.Tensor, eta_i: torch.Tensor,
     r0 = r0 * r0
     m = 1.0 - torch.clamp(cos_i, 0.0, 1.0)
     return r0 + (1.0 - r0) * m * m * m * m * m
+
+
+def fresnel_schlick_ior(cos_theta: torch.Tensor,
+                        ior: torch.Tensor) -> torch.Tensor:
+    """Scalar Schlick with r0 from ior (wf_math.h:93-100)."""
+    r0 = (1.0 - ior) / (1.0 + ior)
+    r0 = r0 * r0
+    x = 1.0 - torch.clamp(cos_theta, 0.0, 1.0)
+    return r0 + (1.0 - r0) * x * x * x * x * x
 
 
 def fresnel_schlick_v(cos_vh: torch.Tensor, f0: v3.Vec3) -> v3.Vec3:
@@ -173,3 +183,49 @@ def ggx_sample_vndf_v(
         v3.Vec3(alpha * nh.x, alpha * nh.y, torch.clamp(nh.z, min=0.0))
     )
     return v3.safe_normalize(v3.from_onb(t, b, n, h_local.x, h_local.y, h_local.z))
+
+
+# --- (..., 3) forms -----------------------------------------------------------
+
+_V = v3.Vec3.from_array
+
+
+def fresnel_schlick(cos_vh: torch.Tensor, f0: torch.Tensor) -> torch.Tensor:
+    """F0-vector Schlick (device_programs.cu:175-181); f0 (..., 3)."""
+    return fresnel_schlick_v(cos_vh, _V(f0)).to_array()
+
+
+def evaluate_brdf(n: torch.Tensor, v: torch.Tensor, l: torch.Tensor,
+                  base_color: torch.Tensor, metallic: torch.Tensor,
+                  roughness: torch.Tensor, ior: torch.Tensor) -> torch.Tensor:
+    """Cook-Torrance BRDF * NdotL (Material.cpp:84-117) over (..., 3)."""
+    return evaluate_brdf_v(_V(n), _V(v), _V(l), _V(base_color), metallic,
+                           roughness, ior).to_array()
+
+
+def cosine_hemisphere_local(u1: torch.Tensor, u2: torch.Tensor) -> torch.Tensor:
+    """Cosine-weighted local sample, z up (device_programs.cu:134-143)."""
+    r = safe_sqrt(u1)
+    phi = 2.0 * PI * u2
+    return torch.stack([r * torch.cos(phi), r * torch.sin(phi),
+                        safe_sqrt(1.0 - u1)], dim=-1)
+
+
+def cosine_sample(n: torch.Tensor, u1: torch.Tensor,
+                  u2: torch.Tensor) -> torch.Tensor:
+    """World-space cosine hemisphere sample around `n`
+    (device_programs.cu:668-681)."""
+    return cosine_sample_v(_V(n), u1, u2).to_array()
+
+
+def ggx_sample_half_vector(u1: torch.Tensor, u2: torch.Tensor,
+                           alpha: torch.Tensor,
+                           n: torch.Tensor) -> torch.Tensor:
+    """GGX NDF half-vector sample (device_programs.cu:183-211)."""
+    return ggx_sample_half_vector_v(u1, u2, alpha, _V(n)).to_array()
+
+
+def ggx_sample_vndf(u1: torch.Tensor, u2: torch.Tensor, alpha: torch.Tensor,
+                    n: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Heitz-2014 visible-NDF half-vector sample (Material.cpp:145-199)."""
+    return ggx_sample_vndf_v(u1, u2, alpha, _V(n), _V(v)).to_array()

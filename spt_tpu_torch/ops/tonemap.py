@@ -3,6 +3,8 @@
 - Reinhard resolve chain: exposure -> c/(1+c) -> gamma encode
   (device_programs.cu:854-899 __raygen__resolve).
 - ACES filmic polynomial (EnvironmentManager.cpp:63-74).
+- The CPU megakernel's ACES + gamma a sample, before accumulation
+  (PathTracer.cpp:293-302), for parity tests: ``aces_gamma_per_sample``.
 """
 
 from __future__ import annotations
@@ -47,3 +49,14 @@ def resolve(
         raise ValueError(f"unknown tonemap {tonemap!r}")
     c = gamma_encode(c, gamma)
     return torch.clamp(c, 0.0, 1.0)
+
+
+def aces_gamma_per_sample(color: torch.Tensor) -> torch.Tensor:
+    """The CPU megakernel's per-traceRay transform (PathTracer.cpp:293-302):
+    ACES then pow(1/2.2), applied before accumulation."""
+    return torch.pow(aces(color), 1.0 / 2.2)
+
+
+def to_u8(image01: torch.Tensor) -> torch.Tensor:
+    """[0, 1] float -> uint8 (the uchar4 pack, device_programs.cu:893-898)."""
+    return (torch.clamp(image01, 0.0, 1.0) * 255.0).to(torch.uint8)

@@ -161,6 +161,10 @@ def from_onb(t: Vec3, b: Vec3, n: Vec3, lx, ly, lz) -> Vec3:
     return t * lx + b * ly + n * lz
 
 
+def lerp(a: Vec3, b: Vec3, t: torch.Tensor) -> Vec3:
+    return a * (1.0 - t) + b * t
+
+
 def faceforward(n: Vec3, d: Vec3):
     """Flip n against d; returns (n_ff, entering)."""
     entering = dot(d, n) < 0.0

@@ -4,7 +4,7 @@ The counterpart of ``spt_tpu.scene.flatten``: instance transforms are baked
 into world-space triangles (EmbreeBackend.cpp:60-79), analytic spheres stay
 analytic, and emissive triangles form the NEE emitter table.  Material
 resolution order matches EmbreeBackend.cpp:51-57: instance override, then
-mesh material, then 0.  Above ``ACCEL_THRESHOLD`` primitives the cluster
+mesh material, then 0.  Above ``ACCEL_THRESHOLD`` triangles the cluster
 accel of ``ops/bvh`` is built over the flattened triangles, as
 ``spt_tpu.scene.flatten`` does; when those exceed ``MAX_RESIDENT_TRIS`` but
 the unique meshes fit it, the instanced TLAS/BLAS pair is built beside it
@@ -31,11 +31,9 @@ from spt_tpu_torch.ops.bvh import (InstAccel, MeshAccel, build_inst_accel,
                                    build_mesh_accel, quantize_ns)
 from spt_tpu_torch.scene.desc import NO_MATERIAL, SceneDesc
 
-# Above this many primitives a cluster accel is built.
+# Above this many triangles a cluster accel is built
+# (spt_tpu/scene/flatten.py:267).
 ACCEL_THRESHOLD = 192
-# Analytic spheres beside an accel (spt_tpu.ops.pallas_bounce
-# MAX_ACCEL_SPHERES): the tracers test them one by one before the clusters.
-MAX_ACCEL_SPHERES = 32
 
 
 class EmitterTable(NamedTuple):
@@ -69,7 +67,7 @@ class DeviceScene(NamedTuple):
     # float32, 12-bit quantized; None when interpolation would be the
     # geometric normal everywhere.
     tri_ns: Optional[torch.Tensor] = None
-    # Cluster accel (ops/bvh) above ACCEL_THRESHOLD primitives, else None.
+    # Cluster accel (ops/bvh) above ACCEL_THRESHOLD triangles, else None.
     accel: Optional[MeshAccel] = None
     # Per-triangle texture coordinates [uv0 | uv1-uv0 | uv2-uv0], (T, 6)
     # float32; None when no material is textured.
@@ -139,28 +137,21 @@ def _inst_declines(desc: SceneDesc, inst_records, total_tris: int,
 
 
 def explain_unsupported(desc: SceneDesc, cluster_size: int = 64) -> Optional[str]:
-    """Why the port cannot flatten `desc` yet, or None when it can."""
-    reasons = []
+    """Why the port cannot flatten `desc`, or None when it can: a cluster
+    accel past MAX_STREAM_CLUSTERS, which the JAX package asserts against
+    too (spt_tpu/ops/bvh.py:520-522)."""
     recs = _inst_records(desc)
     n_tris = sum(desc.meshes[mid].triangle_count for mid, _, _ in recs)
-    if n_tris + len(desc.spheres) > ACCEL_THRESHOLD:
-        clusters = -(-n_tris // cluster_size)
-        clusters += -clusters % bvh.SUPER_FAN
-        if clusters > bvh.MAX_STREAM_CLUSTERS:
-            # the flattened accel is built whatever the tier
-            reasons.append(
-                f"{n_tris} triangles in {clusters} clusters of {cluster_size}"
-                f" > MAX_STREAM_CLUSTERS={bvh.MAX_STREAM_CLUSTERS} (the "
-                "16-bit id / 15-bit rank packing of the octant keys)")
-        if n_tris <= ACCEL_THRESHOLD:
-            # the accel is built over triangles only
-            reasons.append(f"{n_tris + len(desc.spheres)} primitives > "
-                           f"{ACCEL_THRESHOLD} with no cluster accel: at "
-                           f"most {ACCEL_THRESHOLD} triangles")
-        elif len(desc.spheres) > MAX_ACCEL_SPHERES:
-            reasons.append(f"{len(desc.spheres)} spheres > MAX_ACCEL_SPHERES="
-                           f"{MAX_ACCEL_SPHERES} beside the cluster accel")
-    return "; ".join(reasons) if reasons else None
+    if n_tris <= ACCEL_THRESHOLD:
+        return None
+    clusters = -(-n_tris // cluster_size)
+    clusters += -clusters % bvh.SUPER_FAN
+    if clusters <= bvh.MAX_STREAM_CLUSTERS:
+        return None
+    # the flattened accel is built whatever the tier
+    return (f"{n_tris} triangles in {clusters} clusters of {cluster_size}"
+            f" > MAX_STREAM_CLUSTERS={bvh.MAX_STREAM_CLUSTERS} (the "
+            "16-bit id / 15-bit rank packing of the octant keys)")
 
 
 def _maybe_build_inst(desc: SceneDesc, inst_records, total_tris: int,
@@ -217,11 +208,12 @@ def _maybe_build_inst(desc: SceneDesc, inst_records, total_tris: int,
 def flatten_scene(desc: SceneDesc, device="cuda",
                   cluster_size: int = 64) -> DeviceScene:
     """Bake instance transforms into world-space SoA tensors on `device`,
-    plus the cluster accel above ACCEL_THRESHOLD primitives."""
+    plus the cluster accel above ACCEL_THRESHOLD triangles; raises for
+    what ``explain_unsupported`` names."""
     reason = explain_unsupported(desc, cluster_size)
     if reason:
-        raise NotImplementedError(f"spt_tpu_torch cannot render this scene "
-                                  f"yet: {reason}")
+        raise NotImplementedError(f"spt_tpu_torch cannot render this scene: "
+                                  f"{reason}")
     v0s, v1s, v2s, tri_mats, tri_uvs, tri_nss = [], [], [], [], [], []
     has_ns = False
     inst_records = _inst_records(desc)

@@ -239,9 +239,13 @@ def test_intersect_routes_like_jax():
                               np.float32(1e30))
     np.testing.assert_allclose(hit.t.numpy(), np.asarray(want.t), rtol=0,
                                atol=1e-4)
-    # more than UNROLL_LIMIT primitives without an accel has no route
-    with pytest.raises(NotImplementedError, match="accel"):
-        tisect.occluded_v(ts._replace(accel=None), _tv(o), _tv(d))
+    # more than UNROLL_LIMIT primitives without an accel takes the chunked
+    # route, as in the JAX package (intersect.py:482-503)
+    got = tisect.occluded_v(ts._replace(accel=None), _tv(o), _tv(d))
+    assert torch.equal(got, tisect._occluded_chunked(ts, _tv(o), _tv(d),
+                                                      1e-4, tisect.INF))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(jisect.occluded_v(
+        js._replace(accel=None), _jv(o), _jv(d))))
 
 
 # --- ray sorting ----------------------------------------------------------------

@@ -8,7 +8,9 @@
   and the flags and missed as bool in every accel mode, and the kernels
   are handed the path state's own RNG and flag tensors, unconverted; the
   resident tables have the layout the kernels read; a scene past the
-  stream tier's cluster limit raises, naming why.
+  stream tier's cluster limit raises, naming why, and none other: more
+  than 32 spheres beside a mesh, or more than 192 primitives without an
+  accel, flatten and render (the unfused route).
 - On a CUDA card (marker ``cuda``; skipped without one): each kernel against
   its plain version on the same tensors, on the procedural mesh scene of
   chip_smoke.py.  Gates: closest_hit kind and t (1e-4) and any_hit flags on
@@ -35,8 +37,10 @@ torch = pytest.importorskip("torch")
 torch.set_num_threads(2)
 
 import chip_smoke  # noqa: E402
+from spt_tpu_torch import config as tconfig  # noqa: E402
 from spt_tpu_torch import scene as tscene  # noqa: E402
 from spt_tpu_torch.camera import default_camera  # noqa: E402
+from spt_tpu_torch.engine.renderer import Renderer  # noqa: E402
 from spt_tpu_torch.integrators import transport as ttr  # noqa: E402
 from spt_tpu_torch.integrators import wavefront as twf  # noqa: E402
 from spt_tpu_torch.lights import default_lights  # noqa: E402
@@ -211,7 +215,7 @@ def test_resident_tables_layout():
     assert cuda_bounce.explain_decline(cfg, scene, lights) is None
 
 
-def test_unported_tiers_raise(monkeypatch):
+def test_only_a_mesh_past_the_cluster_cap_raises(monkeypatch):
     big = tscene.SceneDesc()
     big.add_material(tscene.Material())
     big.add_instance(big.add_mesh(tscene.create_sphere_mesh(stacks=80,
@@ -233,19 +237,27 @@ def test_unported_tiers_raise(monkeypatch):
     inst.add_instance(inst.add_mesh(tscene.create_sphere_mesh(stacks=40,
                                                               slices=80)))
     assert cuda_bounce._accel_mode(tscene.flatten_scene(inst, CPU)) == "stream"
+    # more than 32 spheres beside a mesh, and more than 192 primitives
+    # without an accel, flatten and render through the unfused route
     balls = tscene.SceneDesc()
     balls.add_material(tscene.Material())
     balls.add_instance(balls.add_mesh(tscene.create_sphere_mesh(8, 16)))
     for i in range(33):
         balls.add_sphere((i, 0.0, 0.0), 0.4, 0)
-    with pytest.raises(NotImplementedError, match="MAX_ACCEL_SPHERES"):
-        tscene.flatten_scene(balls, CPU)
     only = tscene.SceneDesc()
     only.add_material(tscene.Material())
     for i in range(200):
         only.add_sphere((i, 0.0, 0.0), 0.4, 0)
-    with pytest.raises(NotImplementedError, match="no cluster accel"):
-        tscene.flatten_scene(only, CPU)
+    cfg = tconfig.RenderConfig(width=16, height=8, spp=1, max_depth=2)
+    for desc, accel, why in ((balls, True, "MAX_ACCEL_SPHERES"),
+                             (only, False, "no cluster accel")):
+        r = Renderer(desc, cfg, camera=default_camera(16, 8), device=CPU)
+        assert (r.scene.accel is not None) == accel
+        assert cuda_bounce._accel_mode(r.scene) is None
+        assert why in cuda_bounce.explain_decline(cfg, r.scene, r.lights)
+        r.render_frames(1)
+        assert np.isfinite(r.hdr_image()).all()
+        assert int(r.last_stats.rays_per_bounce[0]) == 16 * 8
     # an accel past the resident tier takes the stream route, up to
     # MAX_STREAM_CLUSTERS clusters
     _, scene, _, _ = _mesh(CPU, 8, 8, stacks=8, slices=12)
@@ -436,8 +448,6 @@ def test_sort_chunks_matches_torch_sort_on_card(cuda_device, chunk, pattern,
 
 @pytest.mark.cuda
 def test_mesh_renderer_runs_the_sorted_kernel_path_on_card(cuda_device):
-    from spt_tpu_torch.engine.renderer import Renderer
-
     desc, cfg, cam = chip_smoke.port_mesh_scene(stacks=16, slices=24)
     r = Renderer(desc, cfg, camera=cam, device=cuda_device)
     # the replays' conditional bodies count on the device: launch_counts

@@ -143,10 +143,11 @@ def test_port_imports_no_jax():
     {"spheres_beside_mesh": 33}, {"stream_tier": True},
     {"spheres_without_mesh": 200}, {"multi_device": True}])
 def test_unported_options_raise(change, monkeypatch):
-    # what the port still refuses: more than 32 spheres beside a cluster
-    # accel, more than 192 primitives without enough triangles for one, and
-    # past the stream tier's cluster limit; and pixel-band sharding without
-    # a process group, which names how to start one
+    # what the port refuses: a mesh past the stream tier's cluster limit,
+    # and pixel-band sharding without a process group, which names how to
+    # start one; more than 32 spheres beside a cluster accel, and more than
+    # 192 primitives without enough triangles for one, render through the
+    # unfused route instead, as the JAX package renders them
     cfg = tconfig.RenderConfig(width=16, height=8)
     if change.get("multi_device"):
         with pytest.raises(RuntimeError,
@@ -169,9 +170,16 @@ def test_unported_options_raise(change, monkeypatch):
         monkeypatch.setattr(tbvh, "MAX_STREAM_CLUSTERS", 192)
         desc.add_instance(desc.add_mesh(tscene.create_sphere_mesh(
             stacks=80, slices=80)))
-    with pytest.raises(NotImplementedError):
-        r = Renderer(desc, cfg, device=CPU)
-        r.render_frame()
+        with pytest.raises(NotImplementedError):
+            r = Renderer(desc, cfg, device=CPU)
+            r.render_frame()
+        return
+    r = Renderer(desc, cfg, device=CPU)
+    why = ("MAX_ACCEL_SPHERES" if "spheres_beside_mesh" in change
+           else "no cluster accel")
+    assert why in cuda_bounce.explain_decline(cfg, r.scene, r.lights)
+    r.render_frame()
+    assert np.isfinite(r.hdr_image()).all()
 
 
 def test_cuda_device_names_the_current_card(monkeypatch):
