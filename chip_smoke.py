@@ -180,7 +180,35 @@ this file; exits non-zero (printing no result) without them.  Phases:
     scene's tracer kernels launched (and their shared bytes and blocks per
     SM at 41 spheres), the image against the plain path (< 1 % relative
     RMSE; not on the grid), eager and captured wall ms/frame in turns, the
-    graph's nodes a replayed frame and its pool's bytes.
+    graph's nodes a replayed frame and its pool's bytes;
+28. scenes whose tables pass a block's shared memory, their kernels
+    reading the tables from global memory (``*_global_kernel``,
+    ``cuda_bounce.tables_in_global``, ``cuda_trace.tables_in_global``): (a)
+    the default scene under a row of 1 200 point lights (``light_row``) at
+    1920x1080 d6, K1 small at the masked frame's call (its band held from
+    bounce 5, one bounce) and K3 small at the compact bounce-0 call, the
+    captured masked frames against ``frame_chain`` bit for bit (wall
+    ms/frame in turns), compact's captured frame at 128x128 d2 without
+    shadow rays (a replay, its launches counted) against ``frame_chain``
+    bit for bit; (b) 4 096
+    instances (``wide_grid_scene``) at 512x384 d4, K3 and K1 instanced at
+    the sorted frame's calls, the captured sorted frame against
+    ``frame_chain``, K7 at one regen frame's first two calls of each kind;
+    (c) the mesh scene and the baked grid under 5 000 point lights at
+    128x96 d2, the captured sorted frames against ``frame_chain``, K3 and
+    K1 resident and stream at the sorted frame's calls; (e) the mesh scene
+    and the baked grid with 12 000 spheres, regen at 128x96 d2, K4 and K8;
+    each call against its plain
+    version on a band of its lanes spread over the call (``BAND_LANES``,
+    ``lane_band``; the plain any-hit in one chunk, ``one_chunk``), every
+    plane bit for bit, with the band's device ms, bound and plain ms and
+    the whole call's device ms; each kernel launched on its main path and
+    no shared-placement K1 or K3 on an overflowing scene; (d) on scenes
+    that fit both placements (default 1080p d6; the mesh scene, the
+    instanced and the baked grid at 512x384 d4), each form of K1, K3 (at
+    the frames' calls), K4, K7 and K8 (on the frames' primary rays) with its
+    tables shared against the global placement forced, bit for bit, their
+    device ms in turns.
 
 A mesh kernel's bound counts the operations of its walks from the plain
 version's own results: each traced ray's box tests and the 64 triangle
@@ -208,6 +236,7 @@ import sys
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
+T_START = time.perf_counter()
 
 W, H = 1920, 1080
 MW, MH = 512, 384          # the JAX package's mesh resolution (bench.py:195-203)
@@ -375,6 +404,56 @@ def inst_grid_scene(scene_mod, materials_mod, desc_mod, stacks=48, slices=64,
     return d, cam
 
 
+def wide_grid_scene(scene_mod, materials_mod, desc_mod, side=64, stacks=4,
+                    slices=6, seed=0):
+    """``inst_grid_scene`` widened to a side x side grid: side^2 instances
+    (4 096 at the default) of one textured UV sphere of stacks x slices x
+    2 triangles (48 at the default), as a field of instanced trees or a
+    crowd is: each rotated about y by 0.4 * (gx * side + gz), cells with
+    (gx + gz) % 4 of 1 gold and of 3 glass, the materials and the texture
+    (at 64 x 64) of ``inst_grid_scene``; an analytic glass sphere above the
+    grid's centre; no ground plane.  196 608 world triangles over a one-
+    cluster BLAS, so both packages instance it, and an instance table of
+    side^2 x 22 words (360 KiB), past a block's shared memory.  Takes the
+    scene, materials and scene.desc modules of either package.  Returns
+    (SceneDesc, camera keyword arguments without aspect_ratio): over the
+    grid's near edge, looking at its centre, fov 45."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    base_tex, mr_tex = _checker_texture(np, rng, res=64)
+    d = scene_mod.SceneDesc()
+    d.add_material(scene_mod.Material([1.0, 1.0, 1.0], roughness=1.0,
+                                      metallic=1.0,
+                                      base_color_texture=base_tex,
+                                      metallic_roughness_texture=mr_tex))
+    d.add_material(materials_mod.gold())
+    d.add_material(materials_mod.glass())
+    a = d.add_mesh(scene_mod.create_sphere_mesh(stacks=stacks, slices=slices,
+                                                radius=0.5, material_id=0))
+    step = 1.3
+    for gx in range(side):
+        for gz in range(side):
+            m = np.eye(4, dtype=np.float64)
+            ang = 0.4 * (gx * side + gz)
+            c, sn = np.cos(ang), np.sin(ang)
+            m[:3, :3] = np.array([[c, 0.0, sn], [0.0, 1.0, 0.0],
+                                  [-sn, 0.0, c]])
+            m[:3, 3] = (gx * step, 0.0, gz * step)
+            over = {1: 1, 3: 2}.get((gx + gz) % 4)
+            if over is None:
+                d.add_instance(a, m.astype(np.float32))
+            else:
+                d.add_instance(a, m.astype(np.float32), material_id=over)
+    mid = 0.5 * (side - 1) * step
+    d.add_sphere([mid, 2.0, mid], 1.5, 2)
+    extent = side * step
+    cam = dict(position=np.array([mid, 0.3 * extent, mid + 0.75 * extent],
+                                 np.float32),
+               target=np.array([mid, 0.0, mid], np.float32), fov_degrees=45.0)
+    return d, cam
+
+
 def unique_grid_scene(scene_mod, materials_mod, desc_mod, stacks=48,
                       slices=64, seed=0):
     """The procedural stand-in of bench.py's stream config (the chair grid
@@ -512,6 +591,18 @@ def rtiow_scene(scene_mod, seed=0):
     d.add_sphere([4.0, 1.0, 0.0], 1.0, metal([0.7, 0.6, 0.5], 0.0))
     return d, dict(position=(13.0, 2.0, 3.0), target=(0.0, 0.0, 0.0),
                    fov_degrees=20.0)
+
+
+def light_row(manager, n, start, step, intensity):
+    """`manager` (a LightManager of either package) with n point lights at
+    start + i * step for i < n, each of `intensity`: a row of lamps, as a
+    street or a stage has, for the scenes whose light table passes a
+    block's shared memory (phase 28)."""
+    for i in range(n):
+        manager.add_point_light(
+            tuple(float(s + i * t) for s, t in zip(start, step)),
+            intensity=intensity)
+    return manager
 
 
 def add_sphere_ring(desc, center, radius, n=40, r=0.06, materials=(0, 1, 2)):
@@ -733,15 +824,10 @@ def eager_frames():
 
 def reset_counts():
     from spt_tpu_torch.integrators import wavefront
-    from spt_tpu_torch.ops import cuda_bounce, cuda_env, cuda_sort, cuda_trace
 
     wavefront.launch_counts()   # folds what earlier replays' bodies ran
-    cuda_bounce.LAUNCHES = cuda_bounce.BOUNCE_LAUNCHES = 0
-    cuda_sort.LAUNCHES = 0
-    cuda_env.LAUNCHES = 0
-    cuda_trace.CLOSEST_LAUNCHES = cuda_trace.ANY_LAUNCHES = 0
-    cuda_trace.INST_CLOSEST_LAUNCHES = cuda_trace.INST_ANY_LAUNCHES = 0
-    cuda_trace.STREAM_CLOSEST_LAUNCHES = cuda_trace.STREAM_ANY_LAUNCHES = 0
+    for m, name in wavefront._LAUNCH_COUNTERS:
+        setattr(m, name, 0)
     wavefront.SORTED_SAMPLES.clear()
     wavefront.LOOP_RUNS.clear()
 
@@ -764,7 +850,17 @@ def read_counts() -> dict:
             "any_hit_inst": cuda_trace.INST_ANY_LAUNCHES,
             "closest_hit_stream": cuda_trace.STREAM_CLOSEST_LAUNCHES,
             "any_hit_stream": cuda_trace.STREAM_ANY_LAUNCHES,
-            "env_sample": cuda_env.LAUNCHES}
+            "env_sample": cuda_env.LAUNCHES,
+            # the same kernels with their tables in global memory (phase 28)
+            "fused_frame_global": cuda_bounce.GLOBAL_LAUNCHES,
+            "fused_bounce_global": cuda_bounce.GLOBAL_BOUNCE_LAUNCHES,
+            "closest_hit_global": cuda_trace.CLOSEST_GLOBAL_LAUNCHES,
+            "any_hit_global": cuda_trace.ANY_GLOBAL_LAUNCHES,
+            "closest_hit_inst_global": cuda_trace.INST_CLOSEST_GLOBAL_LAUNCHES,
+            "any_hit_inst_global": cuda_trace.INST_ANY_GLOBAL_LAUNCHES,
+            "closest_hit_stream_global":
+                cuda_trace.STREAM_CLOSEST_GLOBAL_LAUNCHES,
+            "any_hit_stream_global": cuda_trace.STREAM_ANY_GLOBAL_LAUNCHES}
 
 
 # --- timing -------------------------------------------------------------------
@@ -1129,21 +1225,48 @@ def _walk_ops(torch, scene, plain, touched=None):
 
     with capture_calls(targets, results=True) as calls:
         out = plain()
-    ops = 0.0
+    # the counts add up lane by lane, so the traces of one kind and tmin are
+    # counted together, WALK_BATCH lanes at a time (a frame under thousands
+    # of lights makes thousands of shadow traces)
+    batches, ops = {}, 0.0
     for name, args, kw, res in calls:
         if name == "sample_texture_v":
             _mark_texels(torch, touched, *args)
             continue
         _, o, d = args
-        tmin, tmax = kw["tmin"], kw["tmax"]
-        if name == "intersect_v":
-            ops += trace_ops(torch, scene, o, d, tmin, tmax, res.t, **extra)
-        else:
-            t_end = torch.as_tensor(tmax, device=o.x.device,
-                                    dtype=torch.float32)
-            ops += trace_ops(torch, scene, o, d, tmin, tmax, t_end,
-                             blocked=res, **extra)
+        tmin = kw["tmin"]
+        tmax = torch.broadcast_to(torch.as_tensor(
+            kw["tmax"], device=o.x.device, dtype=torch.float32), o.x.shape)
+        blocked = None if name == "intersect_v" else res
+        t_end = res.t if name == "intersect_v" else tmax
+        batch = batches.setdefault((name, tmin), [])
+        batch.append((o, d, tmax, t_end, blocked))
+        if sum(b[0].x.shape[0] for b in batch) >= WALK_BATCH:
+            ops += _batch_ops(torch, trace_ops, scene, tmin, batch, extra)
+            batch.clear()
+    for (_, tmin), batch in batches.items():
+        if batch:
+            ops += _batch_ops(torch, trace_ops, scene, tmin, batch, extra)
     return out, ops
+
+
+# Lanes of traces that _walk_ops counts at once.
+WALK_BATCH = 16384
+
+
+def _batch_ops(torch, trace_ops, scene, tmin, batch, extra):
+    """trace_ops on the traces of `batch` ((o, d, tmax, t_end, blocked) of
+    one kind and tmin) put together lane by lane."""
+    from spt_tpu_torch.ops.vec3 import Vec3
+
+    def cat(k):
+        return torch.cat([b[k] for b in batch])
+
+    o, d = (Vec3(*(torch.cat([b[k][c] for b in batch]) for c in range(3)))
+            for k in (0, 1))
+    blocked = None if batch[0][4] is None else cat(4)
+    return trace_ops(torch, scene, o, d, tmin, cat(2), cat(3),
+                     blocked=blocked, **extra)
 
 
 def _mark(torch, touched, key, size, ids):
@@ -1301,8 +1424,8 @@ def _state_planes(torch, ks, km, ps_, pm):
 
 
 def _trace_shared_bytes(fn_name, acc, scene) -> int:
-    """Dynamic shared memory of a standalone tracer's block on this scene."""
-    from spt_tpu_torch.ops import cuda_lib
+    """Dynamic shared memory of a standalone tracer's block on this scene
+    (its tables in the shared placement)."""
     from spt_tpu_torch.ops import cuda_trace as ct
 
     inputs = {"closest_hit": ct._resident_inputs, "any_hit": ct._resident_inputs,
@@ -1310,7 +1433,7 @@ def _trace_shared_bytes(fn_name, acc, scene) -> int:
               "stream_closest_hit": ct._stream_inputs,
               "stream_any_hit": ct._stream_inputs}[fn_name]
     tables, _, dims = inputs(acc, scene)[:3]
-    return cuda_lib.shared_bytes(4 * tables.numel() + 2 * 8 * dims[0], True)
+    return ct.shared_bytes(tables, dims[0])
 
 
 def log_occupancy(phase: int, smi: str, smem: dict) -> dict:
@@ -1498,24 +1621,25 @@ def check_frame(torch, phase, what, args, kw, with_bound=False,
                 expect_take=None):
     """A fused_frame call against its plain version on the card: every
     plane bit for bit, missed as bool and the rays per bounce exact, and
-    the kernel's queue holding every live lane.  Logs the live lanes, the
-    blocks the kernel launched and the lanes each warp took at once, which
-    must be `expect_take` where that is given.  Returns (max |d|, the
-    call's bound when `with_bound` else None: the operations of its walks
-    and the bytes of frame_bytes, the plain version's ms)."""
+    in a mesh form the kernel's queue holding every live lane.  Logs the
+    live lanes, the blocks the kernel launched and the lanes each warp took
+    at once, which must be `expect_take` where that is given.  Returns
+    (max |d|, the call's bound when `with_bound` else None: the operations
+    of its walks and the bytes of frame_bytes, the plain version's ms)."""
     from spt_tpu_torch.ops import cuda_bounce
 
     ps = args[3]
     start = kw.get("start_bounce", args[4] if len(args) > 4 else 0)
+    queue = cuda_bounce._accel_mode(args[1]) is not None
     fk = cuda_bounce.fused_frame(*args, **kw)
     queued, blocks = frame_counters(torch, fk[4])
     plain = lambda: _timed(  # noqa: E731
         torch, lambda: cuda_bounce.fused_frame_reference(*args, **kw))
     b = None
     if with_bound:
-        touched = {}
+        touched = {} if queue else None
         (fp, plain_ms), n_ops = _walk_ops(torch, args[1], plain, touched)
-        parts = frame_bytes(torch, *args[:4], start, touched)
+        parts = frame_bytes(torch, *args[:4], start, touched or {})
         b = bound(sum(parts.values()), n_ops)
         log(f"phase {phase} {what} from bounce {start}: bound {b[0]:.4f} ms "
             f"({b[1]}; bytes {sum(parts.values())}: " + ", ".join(
@@ -1536,7 +1660,7 @@ def check_frame(torch, phase, what, args, kw, with_bound=False,
          "missed": (fk[3], fp[3])}, phase=phase,
         exact=("radiance", "direction", "throughput", "missed"))
     if (rk != rp or fk[4].dtype != torch.int64 or fk[3].dtype != torch.bool
-            or queued != alive):
+            or (queue and queued != alive)):
         raise AssertionError(
             f"{what}: rays_per_bounce {rk} ({fk[4].dtype}) against plain "
             f"{rp}, missed {fk[3].dtype}, {queued} lanes queued of {alive} "
@@ -1573,7 +1697,7 @@ def bounce_grid(torch, cfg, scene, lights, ps) -> int:
 
 
 def check_bounce(torch, phase, what, args, kw=None, with_bound=False,
-                 expect_take=None, smi=None):
+                 expect_take=None, smi=None, iters=10):
     """A fused_bounce call against its plain version on the card: every
     plane bit for bit (rng int64, the flags and missed bool), and in the
     resident form the kernel's queue holding every live lane, with the live
@@ -1581,8 +1705,9 @@ def check_bounce(torch, phase, what, args, kw=None, with_bound=False,
     logged (the take must be `expect_take` where that is given).  With
     `with_bound`, also the call's bound (the operations of its walks and the
     bytes of frame_bytes at BOUNCE_LANE_BYTES a lane) and its device time,
-    logged with `smi`.  Returns dict(max_abs_err, plain_ms, bound, ms,
-    nbytes, ops), the last four None without `with_bound`."""
+    logged with `smi` (`iters` timed launches).  Returns dict(max_abs_err,
+    plain_ms, bound, ms, nbytes, ops), the last four None without
+    `with_bound`."""
     from spt_tpu_torch.ops import cuda_bounce
 
     kw = kw or {}
@@ -1624,9 +1749,11 @@ def check_bounce(torch, phase, what, args, kw=None, with_bound=False,
         raise AssertionError(f"{what}: the warps took {take} lanes at once, "
                              f"not {expect_take}")
     if with_bound:
-        name = cuda_bounce.BOUNCE_KERNELS[mode]
+        name = (cuda_bounce.BOUNCE_KERNELS_GLOBAL
+                if cuda_bounce.tables_in_global(cfg, scene, lights)
+                else cuda_bounce.BOUNCE_KERNELS)[mode]
         out["ms"] = kernel_device_ms(torch, lambda: cuda_bounce.fused_bounce(
-            *args, **kw), name)
+            *args, **kw), name, iters)
         b = out["bound"]
         log(f"phase {phase} {name} at {what} bounce {bounce} "
             f"({ps.num_paths} lanes, {alive} alive): kernel {out['ms']:.4f} "
@@ -4208,7 +4335,8 @@ def phase_trainer(torch, np, dev, smi):
 # --- the unfused route (phase 27) ---------------------------------------------
 
 # The fused kernels, which no frame of a declined scene launches.
-FUSED_KERNELS = ("fused_frame", "fused_bounce", "sort_chunks")
+FUSED_KERNELS = ("fused_frame", "fused_bounce", "sort_chunks",
+                 "fused_frame_global", "fused_bounce_global")
 
 
 def unfused_scenes():
@@ -4330,16 +4458,16 @@ def _cpu_band(torch, np, make, img, cfg):
 
 
 def _unfused_config(torch, np, name, r, make, smi, failed, with_plain,
-                    cpu_band):
-    """Phase 27 on one Renderer `r` of a declined scene: two eager frames
+                    cpu_band, phase=27, skip_note="phase 10 holds K7"):
+    """Phase 27 (phase 28 with `phase`) on one Renderer `r`: two eager frames
     (``frame_chain``, timed one at a time) from the initial state; the
     Renderer's first frame (the warm-up and the capture) and one replay
     under sync-debug "error" against them, bit for bit, every launch count
     of the two runs equal, one graph launch; eager against captured frames
     in turns (2 pairs at 512x384, 1 at 1080p); the graph's nodes a frame and
     its pool; the first frame's image against the plain path's
-    (`with_plain`) and against a band rendered on the CPU (`cpu_band`,
-    ``_cpu_band``)."""
+    (`with_plain`; else `skip_note` says why not) and against a band
+    rendered on the CPU (`cpu_band`, ``_cpu_band``)."""
     from spt_tpu_torch.engine import state as state_mod
     from spt_tpu_torch.engine.renderer import frame_chain
 
@@ -4386,7 +4514,8 @@ def _unfused_config(torch, np, name, r, make, smi, failed, with_plain,
     ms = timed_pairs(torch, {"eager": eager_frame,
                              "captured": lambda: r.render_frames(1)},
                      pairs, 1)
-    check_image(np, r, f"unfused_{name.split()[0]}", os.path.join(
+    check_image(np, r, f"{'unfused' if phase == 27 else 'tables'}_"
+                f"{name.split()[0]}", os.path.join(
         HERE, "build", "chip_smoke"), 1)
     img, notes = wants[0][0].accum, []
     if with_plain:
@@ -4397,14 +4526,15 @@ def _unfused_config(torch, np, name, r, make, smi, failed, with_plain,
         if not err < 0.01:
             failed.append(f"{name}: image against the plain path {err:.3e}")
     else:
-        notes.append("against the plain path skipped (phase 10 holds K7)")
+        notes.append(f"against the plain path skipped ({skip_note})")
     if cpu_band:
         ok, note = _cpu_band(torch, np, make, img, r.cfg)
         notes.append(note)
         if not ok:
             failed.append(f"{name}: image {note}")
     whiles = cond_kinds(graph.items).count("while")
-    log(f"phase 27 {name} {r.cfg.width}x{r.cfg.height} d{r.cfg.max_depth}: "
+    log(f"phase {phase} {name} {r.cfg.width}x{r.cfg.height} "
+        f"d{r.cfg.max_depth}: "
         f"captured against frame_chain (the capture, then a replay under "
         f"sync-debug \"error\"): {'bit for bit' if not bad else bad}; "
         f"launch counts over 2 frames {'equal' if got == eager else 'differ'}"
@@ -4474,6 +4604,633 @@ def phase_unfused(torch, np, dev, smi):
     return rows
 
 
+# --- tables in global memory (phase 28) ---------------------------------------
+
+# The many-lights scenes: a row of 1 200 point lights over the default
+# scene (its tables pass the small forms' 48 KiB at 1 100) and one of 5 000
+# over the mesh scene and the baked grid (past the mesh forms' 227 KiB at
+# about 4 900); 12 000 spheres beside a mesh pass the standalone tracers'
+# 227 KiB.
+LIGHT_ROW = dict(start=(-6.0, 3.0, 1.0), step=(0.01, 0.0, 0.0),
+                 intensity=0.01)
+MANY_LIGHTS = 1200
+MESH_LIGHTS = 5000
+MANY_SPHERES = 12000
+# Lanes of each recorded call that phase 28 holds against the plain version
+# (the plain shading loops over every light, some 20 s a bounce under
+# 5 000 lights whatever the lanes; the plain tracers over every triangle:
+# in one chunk, ``one_chunk``), by scene.
+BAND_LANES = {"lights": 4 * W, "grid": 4096, "mesh": 1024, "baked": 128,
+              "spheres": 512}
+# Repeats of each same-process pair of placements (phase 28 (d)).
+PLACEMENT_PAIRS = 3
+
+
+@contextlib.contextmanager
+def one_chunk():
+    """The plain tracers' chunked brute force in one chunk a trace: the
+    winner is the first minimum whatever the chunking
+    (``intersect._scan_min``) and an any-hit an any, so the results are the
+    same bits, and a plain frame over thousands of lights launches a few
+    kernels a light, not a few a 128 triangles.  A small scene's unrolled
+    any-hit (``intersect._occluded_unrolled``, some 70 launches a primitive)
+    takes the chunked one too: the same tests in the same order of
+    arithmetic (``_tri_chunk_test``, ``_sph_chunk_test``), so the same
+    flags (tests/test_torch_tables.py holds the plain bounce's bits with
+    and without this)."""
+    from spt_tpu_torch.ops import intersect as isect
+
+    chunk = 1 << 17
+    closest, occluded = isect._intersect_chunked, isect._occluded_chunked
+    unrolled = isect._occluded_unrolled
+    isect._intersect_chunked = lambda *a, **k: closest(*a, chunk_size=chunk,
+                                                       **k)
+    isect._occluded_chunked = lambda *a, **k: occluded(*a, chunk_size=chunk,
+                                                       **k)
+    isect._occluded_unrolled = lambda *a: occluded(*a, chunk_size=chunk)
+    try:
+        yield
+    finally:
+        isect._intersect_chunked, isect._occluded_chunked = closest, occluded
+        isect._occluded_unrolled = unrolled
+
+
+def spread(torch, ids, k):
+    """k of the lane ids `ids` at evenly spaced places (all when fewer)."""
+    if ids.numel() <= k:
+        return ids
+    return ids[torch.linspace(0, ids.numel() - 1, k,
+                              device=ids.device).long()]
+
+
+def lane_band(torch, ps, n):
+    """The PathState `ps` on at most n of its lanes, spread evenly over
+    its live lanes (up to n / 2, more when the dead ones are fewer) and
+    its dead ones, in lane order: every plane gathered, so that the band
+    sees the image's mix of paths, not its first rows."""
+    alive = torch.nonzero(ps.alive).flatten()
+    dead = torch.nonzero(~ps.alive).flatten()
+    k = min(alive.numel(), max(n - min(dead.numel(), n // 2), n // 2))
+    idx = torch.sort(torch.cat([spread(torch, alive, k),
+                                spread(torch, dead, n - k)])).values
+
+    def take(f):
+        if isinstance(f, tuple):
+            return type(f)(*(c[idx].contiguous() for c in f))
+        return f[idx].contiguous()
+
+    return type(ps)(*(take(f) for f in ps))
+
+
+def lights_renderer(dev, w, h, depth, n=MANY_LIGHTS, **cfg_kw):
+    """The default scene under a row of `n` point lights (``light_row``)."""
+    from spt_tpu_torch import scene as tscene
+    from spt_tpu_torch.camera import default_camera
+    from spt_tpu_torch.config import RenderConfig
+    from spt_tpu_torch.engine.renderer import Renderer
+    from spt_tpu_torch.lights import LightManager
+
+    cfg = RenderConfig(width=w, height=h, spp=1, max_depth=depth, **cfg_kw)
+    return Renderer(tscene.build_default_scene(), cfg,
+                    lights=light_row(LightManager(), n, **LIGHT_ROW).device(
+                        dev), camera=default_camera(w, h), device=dev)
+
+
+def scene_renderer(dev, build, w, h, depth, lights=0, spheres=0, **cfg_kw):
+    """``build``'s scene (a builder of this file, at its default size) with
+    a row of `lights` point lights 2 above its camera target (the default
+    lights without), and a ring of `spheres` spheres beside it."""
+    from spt_tpu_torch import materials
+    from spt_tpu_torch import scene as tscene
+    from spt_tpu_torch.camera import Camera
+    from spt_tpu_torch.config import RenderConfig
+    from spt_tpu_torch.engine.renderer import Renderer
+    from spt_tpu_torch.lights import LightManager
+    from spt_tpu_torch.scene import desc as tdesc
+
+    desc, cam = build(tscene, materials, tdesc)
+    c = [float(x) for x in cam["target"]]
+    if spheres:
+        add_sphere_ring(desc, (c[0], c[1] + 0.3, c[2]), 1.3, n=spheres,
+                        r=0.01)
+    kw = {}
+    if lights:
+        kw["lights"] = light_row(
+            LightManager(), lights, (c[0] - 2.0, c[1] + 2.0, c[2] + 1.0),
+            (4.0 / lights, 0.0, 0.0), 0.002).device(dev)
+    cfg = RenderConfig(width=w, height=h, spp=1, max_depth=depth, **cfg_kw)
+    return Renderer(desc, cfg, camera=Camera(aspect_ratio=w / h, **cam),
+                    device=dev, **kw)
+
+
+def _frame_name(mode, in_global=True):
+    """fused_frame's form for accel `mode` as a profiler trace names it, in
+    the global placement or the shared one."""
+    from spt_tpu_torch.ops import cuda_bounce
+
+    return (cuda_bounce.FRAME_KERNELS_GLOBAL if in_global
+            else cuda_bounce.FRAME_KERNELS)[mode]
+
+
+def _global_fused(torch, what, fn_name, args, kw, band, smi, band_kw=None,
+                  iters=10):
+    """A fused_frame or fused_bounce (`fn_name`) call its main path gave it,
+    its tables in global memory: the whole call's device ms; on `band` of
+    its lanes (``lane_band``) the kernel against its plain version (every
+    plane bit for bit, the rays per bounce exact: check_frame /
+    check_bounce), its device ms, the plain version's ms and its bound
+    (the bytes and the walks' operations of that band's call), with
+    `band_kw` in place of `kw` where given (a later start_bounce: the plain
+    version's Python loop over thousands of lights takes some 20 s a
+    bounce).  -> the kernel-line numbers, all of the band's call, with the
+    whole call's ms beside them."""
+    from spt_tpu_torch.ops import cuda_bounce
+
+    cfg, scene, lights, ps = args[:4]
+    mode = cuda_bounce._accel_mode(scene)
+    if not cuda_bounce.tables_in_global(cfg, scene, lights):
+        raise AssertionError(f"{what}: the tables fit a block's shared "
+                             "memory")
+    fn = getattr(cuda_bounce, fn_name)
+    name = (_frame_name(mode) if fn_name == "fused_frame"
+            else cuda_bounce.BOUNCE_KERNELS_GLOBAL[mode])
+    full_ms = kernel_device_ms(torch, lambda: fn(*args, **kw), name, iters)
+    bargs = (cfg, scene, lights, lane_band(torch, ps, band)) + tuple(args[4:])
+    kw = kw if band_kw is None else band_kw
+    with one_chunk():
+        if fn_name == "fused_frame":
+            worst, b, plain_ms = check_frame(torch, 28, what, bargs, kw,
+                                             with_bound=True)
+            ms = kernel_device_ms(torch, lambda: fn(*bargs, **kw), name, iters)
+            row = dict(max_abs_err=worst, ms=ms, plain_ms=plain_ms, bound=b)
+        else:
+            row = check_bounce(torch, 28, what, bargs, kw, with_bound=True,
+                               smi=smi, iters=iters)
+    row.update(full_ms=full_ms, library_ms=None, lanes=ps.num_paths,
+               band=bargs[3].num_paths)
+    log(f"phase 28 {name} at {what}: the whole call ({ps.num_paths} lanes, "
+        f"{int(ps.alive.sum())} alive) {full_ms:.4f} ms (device time); on "
+        f"{row['band']} of its lanes kernel {row['ms']:.4f} ms, plain "
+        f"{row['plain_ms']:.4f} ms, bound {row['bound'][0]:.4f} ms "
+        f"({row['bound'][1]}), max |d| {row['max_abs_err']:.3g} [{smi}]")
+    return row
+
+
+# Each standalone tracer family by its wrappers' prefix: (packed inputs,
+# kernel name in the global placement, operations counter, closest and
+# any-hit plain versions).
+TRACE_FAMILIES = {
+    "": ("_resident_inputs", "trace_global_kernel", "_cluster_trace_ops",
+         "closest_hit_reference", "any_hit_reference"),
+    "inst_": ("_inst_inputs", "inst_trace_global_kernel", "_inst_trace_ops",
+              "inst_closest_hit_reference", "inst_any_hit_reference"),
+    "stream_": ("_stream_inputs", "stream_trace_global_kernel",
+                "_stream_trace_ops", "closest_hit_reference",
+                "any_hit_reference")}
+
+
+def _global_trace(torch, what, fn_name, args, band, smi):
+    """A standalone tracer call its main path gave it (regen), its tables in
+    global memory: the whole call's device ms; on `band` of its rays (spread
+    over the call) the
+    kernel against its plain version, every plane bit for bit, its device
+    ms, the plain version's ms and its bound (the rays' bytes in and out,
+    the tables and tri_pack once, the walks' operations)."""
+    from spt_tpu_torch.ops import cuda_trace as ct
+    from spt_tpu_torch.ops.vec3 import Vec3
+
+    src, scene, o, d, tmin, tmax = args
+    fn = getattr(ct, fn_name)
+    any_hit = fn_name.endswith("any_hit")
+    family = fn_name[:-len("any_hit" if any_hit else "closest_hit")]
+    inputs, kernel, ops_name, closest_ref, any_ref = TRACE_FAMILIES[family]
+    tables, pack, dims = getattr(ct, inputs)(src, scene)[:3]
+    if not ct.tables_in_global(tables, dims[0]):
+        raise AssertionError(f"{what}: the tables fit a block's shared memory")
+    name = f"{kernel}<{'true' if any_hit else 'false'}>"
+    full_ms = kernel_device_ms(torch, lambda: fn(*args), name)
+    idx = spread(torch, torch.arange(o.x.shape[0], device=o.x.device), band)
+    n = idx.numel()
+    bo, bd = Vec3(*(c[idx].contiguous() for c in o)), Vec3(
+        *(c[idx].contiguous() for c in d))
+    btmax = (torch.broadcast_to(tmax, o.x.shape)[idx].contiguous()
+             if isinstance(tmax, torch.Tensor) else tmax)
+    bargs = (src, scene, bo, bd, tmin, btmax)
+    ref = getattr(ct, any_ref if any_hit else closest_ref)
+    pk = fn(*bargs)
+    with one_chunk():
+        pp, plain_ms = _timed(torch, lambda: ref(*bargs))
+    ops_fn = globals()[ops_name]
+    if any_hit:
+        planes = {"blocked": (pk, pp)}
+        t_end = torch.as_tensor(btmax, device=bo.x.device,
+                                dtype=torch.float32)
+        ops = ops_fn(torch, scene, bo, bd, tmin, btmax, t_end, blocked=pp)
+        nbytes = n * (7 * 4 + 1)
+    else:
+        planes = _hit_planes(torch, pk, pp)
+        ops = ops_fn(torch, scene, bo, bd, tmin, btmax, pp.t)
+        nbytes = n * (7 * 4 + 24)
+    worst = check_planes(torch, f"{what} ({n} of {o.x.shape[0]} rays)",
+                         planes, phase=28, exact=tuple(planes))
+    ms = kernel_device_ms(torch, lambda: fn(*bargs), name)
+    b = bound(nbytes + 4 * tables.numel() + 4 * pack.numel(), ops)
+    log(f"phase 28 {name} at {what}: the whole call ({o.x.shape[0]} rays) "
+        f"{full_ms:.4f} ms (device time); on {n} rays kernel {ms:.4f} ms, "
+        f"plain {plain_ms:.4f} ms, bound {b[0]:.4f} ms ({b[1]}; "
+        f"{ops_note(ops)}) [{smi}]")
+    return dict(max_abs_err=worst, ms=ms, plain_ms=plain_ms, bound=b,
+                library_ms=None, full_ms=full_ms, lanes=o.x.shape[0], band=n)
+
+
+def _recorded(targets, run):
+    """{function name: [(args, kw), ...]} of the calls of the (module,
+    name) targets that `run` makes, eagerly (``capture_calls``)."""
+    out = {}
+    with capture_calls(targets) as calls:
+        run()
+    for name, args, kw in calls:
+        out.setdefault(name, []).append((args, kw))
+    return out
+
+
+def _main_path_counts(torch, r, frames, keys):
+    """The launch counts of `frames` frames of `r` (the counts reset
+    before, read after), and a check that each of `keys` launched."""
+    reset_counts()
+    r.render_frames(frames)
+    torch.cuda.synchronize()
+    got = {k: v for k, v in read_counts().items() if v}
+    if not all(k in got for k in keys):
+        raise AssertionError(f"{keys} not all launched: {got}")
+    return got
+
+
+def _placement_pairs(torch, what, calls, smi, failed):
+    """Phase 28 (d): each (label, fn, args, kw, shared kernel, global
+    kernel) of `calls`, a call that fits both placements, run with its
+    tables in shared memory and with the global placement forced: the
+    results bit for bit, then each placement's device ms, in turns,
+    PLACEMENT_PAIRS times.  -> {label: (shared ms, global ms)} medians."""
+    out = {}
+    for label, fn, args, kw, shared_name, global_name in calls:
+        a = _flat_planes(fn(*args, **kw, _in_global=False))
+        b = _flat_planes(fn(*args, **kw, _in_global=True))
+        torch.cuda.synchronize()
+        if len(a) != len(b) or not all(_same_bits(torch, x, y)
+                                       for x, y in zip(a, b)):
+            failed.append(f"{what} {label}: the global placement differs from "
+                          "the shared one")
+        ms = {"shared": [], "global": []}
+        for i in range(PLACEMENT_PAIRS):
+            order = (("shared", False, shared_name), ("global", True,
+                                                     global_name))
+            for key, g, name in (order if i % 2 == 0 else order[::-1]):
+                ms[key].append(kernel_device_ms(
+                    torch, lambda: fn(*args, **kw, _in_global=g), name))
+        med = {k: sorted(v)[len(v) // 2] for k, v in ms.items()}
+        out[label] = (med["shared"], med["global"])
+        log(f"phase 28 (d) {what} {label}: shared {_med(ms['shared'])} ms, "
+            f"global {_med(ms['global'])} ms (device time a launch, "
+            f"{PLACEMENT_PAIRS} in turns), global / shared "
+            f"{med['global'] / med['shared']:.3f}; results bit for bit "
+            f"[{smi}]")
+    return out
+
+
+def _flat_planes(v):
+    """The tensors of a kernel's result: a tuple / NamedTuple of planes,
+    Vec3s or tensors, flattened; None dropped."""
+    import torch
+
+    if v is None:
+        return []
+    if isinstance(v, torch.Tensor):
+        return [v]
+    return [t for x in v for t in _flat_planes(x)]
+
+
+def phase_tables_global(torch, np, dev, smi):
+    """Phase 28: scenes whose tables pass a block's shared memory, their
+    kernels reading the tables from global memory. (a) the default scene
+    under a row of 1 200 point lights at 1920x1080 d6: the captured masked frames
+    against ``frame_chain``, wall ms/frame; K1 small at the masked frame's
+    call (held on its band from bounce 5, one bounce) and K3 small at the
+    compact path's bounce-0 call; compact's main path without shadow rays,
+    the captured frame at 128x128 d2 against ``frame_chain``
+    (``_captured_replay``); (b) the 4 096-instance grid
+    (``wide_grid_scene``) at 512x384 d4: K3 and K1 instanced at the sorted
+    frame's calls, the captured sorted frame against ``frame_chain``, and
+    regen's K7 at one regen frame's first two calls of each kind; (c) the
+    mesh scene and the baked grid under 5 000 point lights at 128x96 d2:
+    the captured sorted frames against ``frame_chain``
+    (``_captured_replay``), K3 and K1 resident and stream at the sorted
+    frame's calls (K3 at bounce 0, K1 from bounce 1, the last); (e) the
+    mesh scene and the baked grid with 12 000 spheres at 128x96 d2, regen:
+    K4 and K8. Each K1, K3 and tracer call against its plain version on a
+    band of its lanes (BAND_LANES, ``lane_band``; the plain any-hit in one
+    chunk, ``one_chunk``), every plane bit for bit, with its device ms,
+    bound and plain ms there and the whole call's device ms; each kernel
+    launched on its main path (the counts reset before, read after); no
+    shared-placement K1 or K3 launched on an overflowing scene. (d) the
+    same kernels on scenes that fit both placements, shared against forced
+    global (the wrappers' private `_in_global`) in one process, in turns,
+    bit for bit: default 1080p (K1, K3 small), the mesh scene (K1, K3
+    resident, K4), the instanced grid (K1, K3 instanced, K7) and the baked
+    grid (K1, K3 stream, K8) at 512x384 d4, the tracers on the primary
+    rays. Returns (the kernel-line numbers by name, {pair: (shared ms,
+    global ms)})."""
+    from spt_tpu_torch.integrators import transport
+    from spt_tpu_torch.ops import cuda_bounce, cuda_trace
+    from spt_tpu_torch.ops.vec3 import Vec3
+
+    failed, out = [], {}
+    fused = [(cuda_bounce, "fused_frame"), (cuda_bounce, "fused_bounce")]
+    traces = [(cuda_trace, f) for f in (
+        "closest_hit", "any_hit", "inst_closest_hit", "inst_any_hit",
+        "stream_closest_hit", "stream_any_hit")]
+    t_all = time.perf_counter()
+
+    def shared_note(r):
+        return (f"{cuda_bounce.shared_bytes(r.cfg, r.scene, r.lights)} B of "
+                f"shared memory a block in the shared placement, "
+                f"{cuda_bounce.shared_bytes(r.cfg, r.scene, r.lights, True)} "
+                "in the global one")
+
+    def no_shared(what, got):
+        if any(k in got for k in ("fused_frame", "fused_bounce")):
+            failed.append(f"{what}: a shared-placement fused kernel "
+                          f"launched: {got}")
+
+    # (a) the default scene under 1 200 point lights
+    t0 = time.perf_counter()
+    r = lights_renderer(dev, W, H, 6)
+    if cuda_bounce.explain_decline(r.cfg, r.scene, r.lights) is not None:
+        failed.append("(a): the fused kernels decline 1 200 lights")
+    log(f"phase 28 (a) default + {MANY_LIGHTS} point lights {W}x{H} d6: "
+        f"{r.lights.count} lights, {shared_note(r)}")
+    reset_counts()
+    row = _unfused_config(torch, np, f"lights {MANY_LIGHTS}", r, None, smi,
+                          failed, False, False, phase=28,
+                          skip_note="the kernels are held on bands below")
+    got = {k: v for k, v in read_counts().items() if v}
+    no_shared("(a)", got)
+    calls = _recorded(fused, lambda: r.render_frames(1))
+    a, k = calls["fused_frame"][0]
+    out["fused_frame_global"] = _global_fused(
+        torch, f"default + {MANY_LIGHTS} lights {W}x{H} d6", "fused_frame",
+        a, k, BAND_LANES["lights"], smi,
+        band_kw=dict(k, start_bounce=r.cfg.max_depth - 1))
+    out["fused_frame_global"].update(launches=got.get("fused_frame_global",
+                                                      0),
+                                     captured_ms=row["ms"]["captured"])
+    ps0 = transport.gen_primary(r.cfg, r.camera.rays(dev), 0)
+    out["fused_bounce_small_global"] = _global_fused(
+        torch, f"compact bounce 0, default + {MANY_LIGHTS} lights {W}x{H}",
+        "fused_bounce", (r.cfg, r.scene, r.lights, ps0, 0, False), {},
+        BAND_LANES["lights"], smi)
+    del r, calls, a, ps0
+    torch.cuda.empty_cache()
+    # compact's chunks shade through the plain path, its light loop unrolled:
+    # without shadow rays a frame takes some 5 s to run eagerly, with them
+    # ~30 s (tests/test_torch_tables.py captures that one on the card)
+    rc = lights_renderer(dev, 128, 128, 2, integrator="compact",
+                         shadow_rays=False)
+    got, _ = _captured_replay(torch, f"(a) compact + {MANY_LIGHTS} lights, "
+                              "no shadow rays,", rc, "fused_bounce_global",
+                              smi, failed)
+    out["fused_bounce_small_global"]["launches"] = got.get(
+        "fused_bounce_global", 0)
+    del rc
+    torch.cuda.empty_cache()
+    log(f"phase 28 (a): {time.perf_counter() - t0:.1f} s [{smi}]")
+
+    # (b) 4 096 instances
+    t0 = time.perf_counter()
+    r = scene_renderer(dev, wide_grid_scene, MW, MH, MESH_DEPTH)
+    ia = r.scene.inst
+    log(f"phase 28 (b) wide grid {MW}x{MH} d{MESH_DEPTH}: "
+        f"{r.scene.num_triangles} world triangles, {ia.num_instances} "
+        f"instances of {ia.num_meshes} mesh, {shared_note(r)}")
+    reset_counts()
+    row = _unfused_config(torch, np, "wide grid", r, None, smi, failed, False,
+                          False, phase=28,
+                          skip_note="the kernels are held on bands below")
+    got = {k: v for k, v in read_counts().items() if v}
+    no_shared("(b)", got)
+    calls = _recorded(fused, lambda: r.render_frames(1))
+    a, k = calls["fused_bounce"][0]
+    out["fused_bounce_instanced_global"] = _global_fused(
+        torch, "wide grid sorted frame bounce 0", "fused_bounce", a, k,
+        BAND_LANES["grid"], smi)
+    a, k = calls["fused_frame"][0]
+    out["fused_frame_instanced_global"] = _global_fused(
+        torch, "wide grid sorted frame", "fused_frame", a, k,
+        BAND_LANES["grid"], smi)
+    for k in ("fused_frame", "fused_bounce"):
+        out[f"{k}_instanced_global"]["launches"] = got.get(f"{k}_global", 0)
+    out["fused_frame_instanced_global"]["captured_ms"] = row["ms"]["captured"]
+    rr = _twin(r, "regen")
+    calls = _recorded(traces, lambda: rr.render_frames(1))
+    for fn_name, key in (("inst_closest_hit", "closest_hit_inst_global"),
+                         ("inst_any_hit", "any_hit_inst_global")):
+        # the first call (bounce 0): the plain any-hit walks every instance
+        # in a Python loop
+        out[key] = _global_trace(torch, "wide grid regen call 1", fn_name,
+                                 calls[fn_name][0][0], BAND_LANES["grid"],
+                                 smi)
+    got = _main_path_counts(torch, rr, 2, ("closest_hit_inst_global",
+                                           "any_hit_inst_global"))
+    for key in ("closest_hit_inst_global", "any_hit_inst_global"):
+        out[key]["launches"] = got[key]
+    log(f"phase 28 (b) wide grid regen 2 frames: launches {got}; "
+        f"{time.perf_counter() - t0:.1f} s [{smi}]")
+    del r, rr, calls
+    torch.cuda.empty_cache()
+
+    # (c) 5 000 point lights over the mesh scene and the baked grid (3 timed
+    # launches of each: 50-900 ms each)
+    for label, build, mode in (("mesh", mesh_scene, "resident"),
+                               ("baked", unique_grid_scene, "stream")):
+        t0 = time.perf_counter()
+        r = scene_renderer(dev, build, 128, 96, 2, lights=MESH_LIGHTS)
+        if cuda_bounce._accel_mode(r.scene) != mode:
+            failed.append(f"(c) {label}: accel mode "
+                          f"{cuda_bounce._accel_mode(r.scene)}, not {mode}")
+        log(f"phase 28 (c) {label} + {MESH_LIGHTS} point lights 128x96 d2: "
+            f"{r.scene.num_triangles} triangles, {shared_note(r)}")
+        got, ms = _captured_replay(torch, f"(c) {label} + {MESH_LIGHTS} "
+                                   "lights", r, "fused_frame_global", smi,
+                                   failed)
+        calls = _recorded(fused, lambda: r.render_frames(1))
+        for fn_name, key, what in (
+                ("fused_bounce", {"resident": "fused_bounce_global",
+                                  "stream": "fused_bounce_stream_global"},
+                 "bounce 0"),
+                ("fused_frame", {"resident": "fused_frame_resident_global",
+                                 "stream": "fused_frame_stream_global"},
+                 "sorted frame")):
+            a, k = calls[fn_name][0]
+            out[key[mode]] = _global_fused(
+                torch, f"{label} + {MESH_LIGHTS} lights {what}", fn_name, a,
+                k, BAND_LANES[label], smi, iters=3)
+            out[key[mode]].update(launches=got.get(f"{fn_name}_global", 0),
+                                  captured_ms=ms)
+        log(f"phase 28 (c) {label}: {time.perf_counter() - t0:.1f} s [{smi}]")
+        del r, calls
+        torch.cuda.empty_cache()
+
+    # (e) 12 000 spheres beside the mesh scene and the baked grid (regen)
+    for label, build, fns in (
+            ("mesh", mesh_scene, (("closest_hit", "closest_hit_global"),
+                                  ("any_hit", "any_hit_global"))),
+            ("baked", unique_grid_scene,
+             (("stream_closest_hit", "closest_hit_stream_global"),
+              ("stream_any_hit", "any_hit_stream_global")))):
+        t0 = time.perf_counter()
+        r = scene_renderer(dev, build, 128, 96, 2, spheres=MANY_SPHERES,
+                           integrator="regen")
+        log(f"phase 28 (e) {label} + {MANY_SPHERES} spheres 128x96 d2 regen: "
+            f"{r.scene.num_triangles} triangles, {r.scene.num_spheres} "
+            f"spheres; declined: "
+            f"{cuda_bounce.explain_decline(r.cfg, r.scene, r.lights)}")
+        calls = _recorded(traces, lambda: r.render_frames(1))
+        for fn_name, key in fns:
+            rows = [_global_trace(torch, f"{label} + {MANY_SPHERES} spheres "
+                                  f"regen call {i + 1}", fn_name, a,
+                                  BAND_LANES["spheres"], smi)
+                    for i, (a, _) in enumerate(calls[fn_name])]
+            out[key] = _mean_rows(rows)
+        got = _main_path_counts(torch, r, 2, [k for _, k in fns])
+        for _, key in fns:
+            out[key]["launches"] = got[key]
+        log(f"phase 28 (e) {label} regen 2 frames: launches {got}; "
+            f"{time.perf_counter() - t0:.1f} s [{smi}]")
+        del r, calls
+        torch.cuda.empty_cache()
+
+    # (d) on scenes that fit both placements: shared against forced global
+    t0 = time.perf_counter()
+    pairs = {}
+    r = renderer("default", W, H, dev)
+    calls = _recorded(fused, lambda: r.render_frames(1))
+    a, k = calls["fused_frame"][0]
+    ps0 = transport.gen_primary(r.cfg, r.camera.rays(dev), 0)
+    pairs.update(_placement_pairs(torch, f"default {W}x{H} d6", [
+        ("K1 small", cuda_bounce.fused_frame, a, k, _frame_name(None, False),
+         _frame_name(None)),
+        ("K3 small (compact bounce 0)", cuda_bounce.fused_bounce,
+         (r.cfg, r.scene, r.lights, ps0, 0, False), {},
+         cuda_bounce.BOUNCE_KERNELS[None],
+         cuda_bounce.BOUNCE_KERNELS_GLOBAL[None])], smi, failed))
+    for label, make, mode, tr in (
+            ("mesh", mesh_renderer, "resident", ("closest_hit", "any_hit",
+                                                 "trace_kernel")),
+            ("instanced grid", inst_renderer, "instanced",
+             ("inst_closest_hit", "inst_any_hit", "inst_trace_kernel")),
+            ("baked grid", stream_renderer, "stream",
+             ("stream_closest_hit", "stream_any_hit",
+              "stream_trace_kernel"))):
+        r = make(dev)
+        calls = _recorded(fused, lambda: r.render_frames(1))
+        fa, fk = calls["fused_frame"][0]
+        ba, bk = calls["fused_bounce"][0]
+        # the tracers on the frame's primary rays
+        ps0 = ba[3]
+        ta = (r.scene.inst if mode == "instanced" else r.scene.accel,
+              r.scene, Vec3(*(c.contiguous() for c in ps0.origin)),
+              Vec3(*(c.contiguous() for c in ps0.direction)), 1e-4, 1e30)
+        g = tr[2].replace("_kernel", "_global_kernel")
+        pairs.update(_placement_pairs(torch, f"{label} {MW}x{MH} d4", [
+            (f"K1 {mode}", cuda_bounce.fused_frame, fa, fk,
+             _frame_name(mode, False), _frame_name(mode)),
+            (f"K3 {mode} bounce 0", cuda_bounce.fused_bounce, ba, bk,
+             cuda_bounce.BOUNCE_KERNELS[mode],
+             cuda_bounce.BOUNCE_KERNELS_GLOBAL[mode]),
+            (f"{tr[0]} (primary rays)", getattr(cuda_trace, tr[0]), ta, {},
+             f"{tr[2]}<false>", f"{g}<false>"),
+            (f"{tr[1]} (primary rays)", getattr(cuda_trace, tr[1]), ta, {},
+             f"{tr[2]}<true>", f"{g}<true>")], smi, failed))
+        del r, calls
+        torch.cuda.empty_cache()
+    log(f"phase 28 (d): {time.perf_counter() - t0:.1f} s [{smi}]")
+    for v in out.values():
+        v.setdefault("launches", 0)
+    log(f"phase 28: {time.perf_counter() - t_all:.1f} s in all [{smi}]")
+    if failed:
+        raise AssertionError("\n".join(failed))
+    return out, pairs
+
+
+def _captured_replay(torch, what, r, key, smi, failed):
+    """Phase 28 on an overflowing scene's main path, the Renderer's captured
+    frame: the first call (the eager warm-up and the capture), then one
+    replay, the launch counts reset just before it and read just after,
+    held bit for bit against ``frame_chain`` from the same state; no
+    shared-placement K1 or K3 in it and `key` (a kernel's launch counter)
+    in it.  -> (the replay's launch counts, its wall ms)."""
+    from spt_tpu_torch.engine.renderer import frame_chain
+
+    args = (r.cfg, r.scene, r.env, r.lights, r.camera.rays(r.device))
+    t0 = time.perf_counter()
+    r.render_frames(1)
+    torch.cuda.synchronize()
+    t_cap = time.perf_counter() - t0
+    st = type(r.state)(*(t.clone() for t in r.state))
+    t0 = time.perf_counter()
+    want = frame_chain(*args, st, 1)
+    torch.cuda.synchronize()
+    t_eager = time.perf_counter() - t0
+    reset_counts()
+    t0 = time.perf_counter()
+    r.render_frames(1)
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0)
+    got = {k: v for k, v in read_counts().items() if v}
+    bad = same_run(torch, (r.state, r.last_stats), want)
+    if bad:
+        failed.append(f"{what}: the replayed frame differs from frame_chain "
+                      f"in {bad}")
+    if not got.get(key) or "fused_frame" in got or "fused_bounce" in got:
+        failed.append(f"{what}: the replayed frame launched {got}, not "
+                      f"{key} alone of the fused kernels")
+    log(f"phase 28 {what} {r.cfg.width}x{r.cfg.height} d{r.cfg.max_depth}, "
+        f"the Renderer's captured frame: the warm-up and the capture "
+        f"{t_cap:.1f} s; one replay {ms:.4f} ms wall, launches {got}; "
+        f"against frame_chain from the same state ({t_eager:.1f} s eager): "
+        f"{'bit for bit' if not bad else bad} [{smi}]")
+    return got, ms
+
+
+def _twin(r, integrator):
+    """A Renderer on `r`'s scene, environment, lights and camera with
+    another integrator, from its initial state (no second flatten)."""
+    import copy
+
+    from spt_tpu_torch.engine import state as state_mod
+
+    twin = copy.copy(r)
+    twin.cfg = r.cfg.replace(integrator=integrator)
+    twin.state = state_mod.init_state(twin.cfg.num_pixels, r.device)
+    twin.last_stats = None
+    twin._captured = None
+    twin._wavefront_integrator = integrator
+    return twin
+
+
+def _mean_rows(rows):
+    """One kernel-line row from a form's rows at several calls: the worst
+    error, the means of the times and of the bounds' ms."""
+    k = len(rows)
+    b = sum(r["bound"][0] for r in rows) / k
+    by = max(rows, key=lambda r: r["bound"][0])["bound"][1]
+    return dict(max_abs_err=max(r["max_abs_err"] for r in rows),
+                ms=sum(r["ms"] for r in rows) / k,
+                plain_ms=sum(r["plain_ms"] for r in rows) / k, bound=(b, by),
+                full_ms=sum(r["full_ms"] for r in rows) / k, library_ms=None,
+                calls=k)
+
+
 def main() -> int:
     try:
         import torch
@@ -4517,39 +5274,52 @@ def main() -> int:
     out_dir = os.path.join(HERE, "build", "chip_smoke")
     os.makedirs(out_dir, exist_ok=True)
 
-    small = phase_kernel_vs_plain(torch, cuda_bounce, dev, smi)
-    small_launches, env_launches = phase_main_path(torch, np, cuda_bounce,
-                                                   dev, out_dir)
-    phase_image_vs_plain(torch, np, dev)
-    phase_times(torch, dev, smi)
+    def timed(phase, *args):
+        """phase(*args), its wall seconds logged (where a later slice's
+        phase finds its room in the call's time)."""
+        t = time.perf_counter()
+        try:
+            return phase(*args)
+        finally:
+            log(f"{phase.__name__}: {time.perf_counter() - t:.1f} s wall "
+                f"(script at {time.perf_counter() - T_START:.1f} s)")
 
-    mesh = phase_mesh_kernels(torch, np, dev, smi)
-    counts, branches = phase_mesh_main_path(torch, np, dev, out_dir)
-    regen = phase_regen_path(torch, np, dev, out_dir)
-    phase_mesh_images(torch, np, dev)
-    phase_mesh_times(torch, dev, smi)
+    small = timed(phase_kernel_vs_plain, torch, cuda_bounce, dev, smi)
+    small_launches, env_launches = timed(phase_main_path, torch, np,
+                                         cuda_bounce, dev, out_dir)
+    timed(phase_image_vs_plain, torch, np, dev)
+    timed(phase_times, torch, dev, smi)
 
-    inst = phase_inst_kernels(torch, np, dev, smi)
-    inst_counts = phase_inst_main_path(torch, np, dev, out_dir, smi)
-    inst_regen = phase_inst_regen_path(torch, np, dev, out_dir)
-    phase_inst_images(torch, np, dev)
+    mesh = timed(phase_mesh_kernels, torch, np, dev, smi)
+    counts, branches = timed(phase_mesh_main_path, torch, np, dev, out_dir)
+    regen = timed(phase_regen_path, torch, np, dev, out_dir)
+    timed(phase_mesh_images, torch, np, dev)
+    timed(phase_mesh_times, torch, dev, smi)
 
-    stream = phase_stream_kernels(torch, np, dev, smi)
-    stream_counts = phase_stream_main_path(torch, np, dev, out_dir, smi)
-    stream_regen = phase_stream_regen_path(torch, np, dev, out_dir)
-    phase_stream_images(torch, np, dev)
-    phase_any_size(torch, np, dev, smi)
-    env_k = phase_env_kernel(torch, np, dev, smi)
+    inst = timed(phase_inst_kernels, torch, np, dev, smi)
+    inst_counts = timed(phase_inst_main_path, torch, np, dev, out_dir, smi)
+    inst_regen = timed(phase_inst_regen_path, torch, np, dev, out_dir)
+    timed(phase_inst_images, torch, np, dev)
 
-    k3_small, k3_small_launches = phase_compact(torch, np, dev, out_dir, smi)
-    phase_megakernel(torch, np, dev, out_dir, smi)
-    phase_debug_views(torch, np, dev, smi)
-    phase_entry_points(np, out_dir, smi)
-    phase_sharding(torch, np, dev, smi)
-    phase_sharded_world(torch, np, dev, smi)
-    phase_captured_step(torch, np, dev, smi)
-    trainer = phase_trainer(torch, np, dev, smi)
-    phase_unfused(torch, np, dev, smi)
+    stream = timed(phase_stream_kernels, torch, np, dev, smi)
+    stream_counts = timed(phase_stream_main_path, torch, np, dev, out_dir,
+                          smi)
+    stream_regen = timed(phase_stream_regen_path, torch, np, dev, out_dir)
+    timed(phase_stream_images, torch, np, dev)
+    timed(phase_any_size, torch, np, dev, smi)
+    env_k = timed(phase_env_kernel, torch, np, dev, smi)
+
+    k3_small, k3_small_launches = timed(phase_compact, torch, np, dev,
+                                        out_dir, smi)
+    timed(phase_megakernel, torch, np, dev, out_dir, smi)
+    timed(phase_debug_views, torch, np, dev, smi)
+    timed(phase_entry_points, np, out_dir, smi)
+    timed(phase_sharding, torch, np, dev, smi)
+    timed(phase_sharded_world, torch, np, dev, smi)
+    timed(phase_captured_step, torch, np, dev, smi)
+    trainer = timed(phase_trainer, torch, np, dev, smi)
+    timed(phase_unfused, torch, np, dev, smi)
+    tables, _ = timed(phase_tables_global, torch, np, dev, smi)
 
     def entry(name, source, replaces, launches, k):
         for key in ("max_abs_err", "ms", "plain_ms"):
@@ -4622,6 +5392,33 @@ def main() -> int:
         entry("fused_bounce_small", "fused_bounce.cu",
               "spt_tpu/ops/pallas_bounce.py:752", k3_small_launches, k3_small),
     ]
+    # the same kernels with their tables in global memory (phase 28)
+    for name, source, replaces in (
+            ("fused_frame_global", "fused_frame.cu", "pallas_bounce.py:1090"),
+            ("fused_bounce_small_global", "fused_bounce.cu",
+             "pallas_bounce.py:752"),
+            ("fused_frame_resident_global", "fused_frame.cu",
+             "pallas_bounce.py:1090"),
+            ("fused_bounce_global", "fused_bounce.cu", "pallas_bounce.py:752"),
+            ("fused_frame_instanced_global", "fused_frame.cu",
+             "pallas_bounce.py:1090"),
+            ("fused_bounce_instanced_global", "fused_bounce.cu",
+             "pallas_bounce.py:752"),
+            ("fused_frame_stream_global", "fused_frame.cu",
+             "pallas_bounce.py:1090"),
+            ("fused_bounce_stream_global", "fused_bounce.cu",
+             "pallas_bounce.py:752"),
+            ("closest_hit_global", "cluster_trace.cu", "pallas_trace.py:497"),
+            ("any_hit_global", "cluster_trace.cu", "pallas_trace.py:617"),
+            ("closest_hit_inst_global", "inst_trace.cu",
+             "pallas_inst.py:823"),
+            ("any_hit_inst_global", "inst_trace.cu", "pallas_inst.py:840"),
+            ("closest_hit_stream_global", "stream_trace.cu",
+             "pallas_stream.py:104"),
+            ("any_hit_stream_global", "stream_trace.cu",
+             "pallas_stream.py:250")):
+        kernels.append(entry(name, source, f"spt_tpu/ops/{replaces}",
+                             tables[name]["launches"], tables[name]))
     for k in kernels:
         # the trainer's captured gradient step (phase 26 (b), (c)) runs the
         # cluster tracer and the equirect sampler too

@@ -10,7 +10,10 @@
 // resident: ClusterTracer, instanced: InstTracer, stream: StreamTracer),
 // textured or not, and reads the path state in the dtypes the port keeps it
 // in (the RNG word as int64, the flags as bytes), so the wrapper converts
-// nothing.  The sorted mesh frame (integrators/wavefront.py) runs it for
+// nothing.  Each form is two kernels of the same code, the tables copied
+// into each block's shared memory or, for a scene whose tables do not fit
+// there, read from global memory (*_global_kernel; spt_common.cuh).  The
+// sorted mesh frame (integrators/wavefront.py) runs it for
 // the bounces between its sorts: bounce 0 on every lane in pixel order,
 // then bounces 1 and 2 after a coherence sort, whose live lanes sit at the
 // head of each sort chunk (condensed to 65 536 lanes on the mesh scene);
@@ -135,92 +138,113 @@ __device__ inline void stride_paths(const BounceIO& io, const Tables& tb, const 
   }
 }
 
-__global__ void __launch_bounds__(kSmallBounceBlock, kSmallBounceMinBlocks)
-    small_bounce_kernel(BounceIO io, SceneArgs sc, ShadeArgs sa) {
-  extern __shared__ __align__(16) float smem[];
-  const Tables tb = load_small_tables(smem, sc);
-  const SmallTracer<kSmallBounceEarly != 0> tracer{&tb};
-  stride_paths(io, tb, tracer, sa);
-}
+// Each form is defined once as a macro and instantiated twice: NAME with
+// GLOBAL false copies the tables into shared memory, the *_global_kernel
+// with GLOBAL true reads them from global memory (spt_common.cuh
+// load_tables), each kernel's body its own text as in fused_frame.cu.
+#define SPT_SMALL_BOUNCE_KERNEL(NAME, GLOBAL)                                       \
+  __global__ void __launch_bounds__(kSmallBounceBlock, kSmallBounceMinBlocks)       \
+      NAME(BounceIO io, SceneArgs sc, ShadeArgs sa) {                               \
+    extern __shared__ __align__(16) float smem[];                                   \
+    const Tables tb = load_small_tables<GLOBAL>(smem, sc);                          \
+    const SmallTracer<kSmallBounceEarly != 0> tracer{&tb};                          \
+    stride_paths(io, tb, tracer, sa);                                               \
+  }
+
+SPT_SMALL_BOUNCE_KERNEL(small_bounce_kernel, false)
+SPT_SMALL_BOUNCE_KERNEL(small_bounce_global_kernel, true)
 
 // kMode: 2 instanced (InstTracer), 3 stream (StreamTracer); one thread a
 // lane.
-template <int kMode>
-__global__ void __launch_bounds__(kBlock)
-    fused_bounce_kernel(BounceIO io, SceneArgs sc, ShadeArgs sa) {
-  extern __shared__ __align__(16) float smem[];
-  const Tables tb = load_tables(smem, sc);
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= io.n) return;
-
-  Path p = load_path(io.in, i, io.bounce);
-  if (p.alive) {
-    const bool is_last = io.is_last != 0;
-    if constexpr (kMode == 3) {
-      p.alive = shade_bounce(tb, stream_tracer(tb, sc), sa, p.bounce, is_last, p.o, p.d, p.thr,
-                             p.rad, p.rng, p.emok, p.missed);
-    } else {
-      p.alive = shade_bounce(tb, inst_tracer(tb, sc), sa, p.bounce, is_last, p.o, p.d, p.thr,
-                             p.rad, p.rng, p.emok, p.missed);
-    }
+#define SPT_FUSED_BOUNCE_KERNEL(NAME, GLOBAL)                                       \
+  template <int kMode>                                                              \
+  __global__ void __launch_bounds__(kBlock) NAME(BounceIO io, SceneArgs sc, ShadeArgs sa) { \
+    extern __shared__ __align__(16) float smem[];                                   \
+    const Tables tb = load_tables<GLOBAL>(smem, sc);                                \
+    const int i = blockIdx.x * blockDim.x + threadIdx.x;                            \
+    if (i >= io.n) return;                                                          \
+                                                                                    \
+    Path p = load_path(io.in, i, io.bounce);                                        \
+    if (p.alive) {                                                                  \
+      const bool is_last = io.is_last != 0;                                         \
+      if constexpr (kMode == 3) {                                                   \
+        p.alive = shade_bounce(tb, stream_tracer(tb, sc), sa, p.bounce, is_last, p.o, p.d, \
+                               p.thr, p.rad, p.rng, p.emok, p.missed);              \
+      } else {                                                                      \
+        p.alive = shade_bounce(tb, inst_tracer(tb, sc), sa, p.bounce, is_last, p.o, p.d, \
+                               p.thr, p.rad, p.rng, p.emok, p.missed);              \
+      }                                                                             \
+    }                                                                               \
+    io.store(i, p);                                                                 \
   }
-  io.store(i, p);
-}
+
+SPT_FUSED_BOUNCE_KERNEL(fused_bounce_kernel, false)
+SPT_FUSED_BOUNCE_KERNEL(fused_bounce_global_kernel, true)
 
 // The queue kernel (spt_queue.cuh); kMode 1 resident (ClusterTracer).
-template <int kMode>
-__global__ void __launch_bounds__(kBlock, kBounceMinBlocks)
-    fused_bounce_queue_kernel(BounceIO io, SceneArgs sc, ShadeArgs sa) {
-  extern __shared__ __align__(16) float smem[];
-  unsigned long long* queued = io.counters + 1;
-  // dead lanes' outputs are their inputs, missed 0
-  sweep_queue(io.in.alive, io.n, true, queued, io.queue, [&](int i) {
-    io.o_ox[i] = io.in.ox[i];
-    io.o_oy[i] = io.in.oy[i];
-    io.o_oz[i] = io.in.oz[i];
-    io.o_dx[i] = io.in.dx[i];
-    io.o_dy[i] = io.in.dy[i];
-    io.o_dz[i] = io.in.dz[i];
-    io.o_tx[i] = io.in.tx[i];
-    io.o_ty[i] = io.in.ty[i];
-    io.o_tz[i] = io.in.tz[i];
-    io.o_rx[i] = io.in.rx[i];
-    io.o_ry[i] = io.in.ry[i];
-    io.o_rz[i] = io.in.rz[i];
-    io.o_rng[i] = io.in.rng[i];
-    io.o_alive[i] = 0;
-    io.o_emok[i] = io.in.emok[i] != 0;
-    io.o_missed[i] = 0;
-  });
-  grid_barrier(queued + 1);
-  int live;
-  const int take = queue_take(queued, live);
-  if (take == 0) return;
-  const Tables tb = load_tables(smem, sc);
-  run_queue<kMode>(io, tb, sc, sa, nullptr, live, take);
-}
+#define SPT_FUSED_BOUNCE_QUEUE_KERNEL(NAME, GLOBAL)                                 \
+  template <int kMode>                                                              \
+  __global__ void __launch_bounds__(kBlock, kBounceMinBlocks)                       \
+      NAME(BounceIO io, SceneArgs sc, ShadeArgs sa) {                               \
+    extern __shared__ __align__(16) float smem[];                                   \
+    unsigned long long* queued = io.counters + 1;                                   \
+    /* dead lanes' outputs are their inputs, missed 0 */                            \
+    sweep_queue(io.in.alive, io.n, true, queued, io.queue, [&](int i) {             \
+      io.o_ox[i] = io.in.ox[i];                                                     \
+      io.o_oy[i] = io.in.oy[i];                                                     \
+      io.o_oz[i] = io.in.oz[i];                                                     \
+      io.o_dx[i] = io.in.dx[i];                                                     \
+      io.o_dy[i] = io.in.dy[i];                                                     \
+      io.o_dz[i] = io.in.dz[i];                                                     \
+      io.o_tx[i] = io.in.tx[i];                                                     \
+      io.o_ty[i] = io.in.ty[i];                                                     \
+      io.o_tz[i] = io.in.tz[i];                                                     \
+      io.o_rx[i] = io.in.rx[i];                                                     \
+      io.o_ry[i] = io.in.ry[i];                                                     \
+      io.o_rz[i] = io.in.rz[i];                                                     \
+      io.o_rng[i] = io.in.rng[i];                                                   \
+      io.o_alive[i] = 0;                                                            \
+      io.o_emok[i] = io.in.emok[i] != 0;                                            \
+      io.o_missed[i] = 0;                                                           \
+    });                                                                             \
+    grid_barrier(queued + 1);                                                       \
+    int live;                                                                       \
+    const int take = queue_take(queued, live);                                      \
+    if (take == 0) return;                                                          \
+    const Tables tb = load_tables<GLOBAL>(smem, sc);                                \
+    run_queue<kMode>(io, tb, sc, sa, nullptr, live, take);                          \
+  }
 
-// One launch of a one-thread-a-lane form.
+SPT_FUSED_BOUNCE_QUEUE_KERNEL(fused_bounce_queue_kernel, false)
+SPT_FUSED_BOUNCE_QUEUE_KERNEL(fused_bounce_queue_global_kernel, true)
+
+// One launch of a one-thread-a-lane form, in the global placement when
+// `global`.
 template <int kMode>
 inline cudaError_t launch_lanes(BounceIO& io, SceneArgs& sc, ShadeArgs& sa, size_t smem,
-                                cudaStream_t st) {
-  cudaError_t err = reserve_smem(fused_bounce_kernel<kMode>, smem);
+                                bool global, cudaStream_t st) {
+  void (*kernel)(BounceIO, SceneArgs, ShadeArgs) = fused_bounce_kernel<kMode>;
+  if (global) kernel = fused_bounce_global_kernel<kMode>;
+  cudaError_t err = reserve_smem(kernel, smem);
   if (err != cudaSuccess) return err;
   const int grid = (io.n + kBlock - 1) / kBlock;
-  fused_bounce_kernel<kMode><<<grid, kBlock, smem, st>>>(io, sc, sa);
+  kernel<<<grid, kBlock, smem, st>>>(io, sc, sa);
   return cudaSuccess;
 }
 
 // One launch of the small form on as many blocks as the SMs hold at once
-// and no more than one a kSmallBounceBlock lanes.
+// and no more than one a kSmallBounceBlock lanes, in the global placement
+// when `global`.
 inline cudaError_t launch_small(BounceIO& io, SceneArgs& sc, ShadeArgs& sa, size_t smem,
-                                cudaStream_t st) {
+                                bool global, cudaStream_t st) {
+  void (*kernel)(BounceIO, SceneArgs, ShadeArgs) = small_bounce_kernel;
+  if (global) kernel = small_bounce_global_kernel;
   int blocks = 0;
-  cudaError_t err = resident_blocks(small_bounce_kernel, kSmallBounceBlock, smem, &blocks);
+  cudaError_t err = resident_blocks(kernel, kSmallBounceBlock, smem, &blocks);
   if (err != cudaSuccess) return err;
   if (blocks < 1) return cudaErrorInvalidConfiguration;
   const int grid = min(blocks, (io.n + kSmallBounceBlock - 1) / kSmallBounceBlock);
-  small_bounce_kernel<<<grid, kSmallBounceBlock, smem, st>>>(io, sc, sa);
+  kernel<<<grid, kSmallBounceBlock, smem, st>>>(io, sc, sa);
   return cudaSuccess;
 }
 
@@ -234,8 +258,11 @@ extern "C" {
 // `missed`.  `pack` null selects the small form, n_inst > 0 the instanced
 // one, `cbox` (with `corder`) the stream one, else the resident one, which
 // needs `counters`, (3) int64 zeroed, and `queue`, (n) int32 scratch, and
-// makes one cooperative launch.  Launches on `stream` and returns the CUDA
-// error of the launch (0: accepted).  Allocates nothing and does not
+// makes one cooperative launch.  `global_tables` nonzero selects the global
+// placement of the tables (spt_common.cuh; the small form's `tables` then
+// 16-byte aligned), else the shared one, refused when a block's shared
+// memory cannot hold it.  Launches on `stream` and returns the CUDA error
+// of the launch (0: accepted).  Allocates nothing and does not
 // synchronise.
 int spt_fused_bounce(const float* ox, const float* oy, const float* oz, const float* dx,
                      const float* dy, const float* dz, const float* tx, const float* ty,
@@ -249,7 +276,8 @@ int spt_fused_bounce(const float* ox, const float* oy, const float* oz, const fl
                      int n_lights, int n_emit, int flags, const float* pack, int pack_w,
                      int n_clusters, int cluster_size, int n_inst, int n_meshes,
                      const int* tex, int tex_res, const float* cbox, const uint16_t* corder,
-                     int n, int bounce, int is_last, int rr_after, float hit_eps,
+                     int global_tables, int n, int bounce, int is_last, int rr_after,
+                     float hit_eps,
                      float ray_offset_dir, float firefly_clamp, void* stream) {
   BounceIO io{{ox, oy, oz, dx, dy, dz, tx, ty, tz, rx, ry, rz, rng, alive, emok},
               o_ox, o_oy, o_oz, o_dx, o_dy, o_dz, o_tx, o_ty, o_tz, o_rx, o_ry, o_rz,
@@ -259,20 +287,26 @@ int spt_fused_bounce(const float* ox, const float* oy, const float* oz, const fl
                cbox, corder};
   ShadeArgs sa{rr_after, flags, hit_eps, ray_offset_dir, firefly_clamp};
   const bool resident = pack != nullptr && n_inst <= 0 && cbox == nullptr;
+  const bool global = global_tables != 0;
   const size_t smem =
-      pack == nullptr ? sizeof(float) * static_cast<size_t>(small_table_words(sc)) : smem_bytes(sc);
-  if (n_mats < 1 || smem > 227 * 1024 || (cbox != nullptr && corder == nullptr) ||
-      (resident && (counters == nullptr || queue == nullptr)))
+      pack == nullptr
+          ? (global ? 0 : sizeof(float) * static_cast<size_t>(small_table_words(sc)))
+          : smem_bytes(sc, global);
+  if (n_mats < 1 || smem > kMaxSharedBytes || (cbox != nullptr && corder == nullptr) ||
+      (resident && (counters == nullptr || queue == nullptr)) ||
+      (pack == nullptr && global && reinterpret_cast<uintptr_t>(tables) % 16 != 0))
     return static_cast<int>(cudaErrorInvalidValue);
   if (n <= 0) return static_cast<int>(cudaGetLastError());
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (pack == nullptr) {
-    err = launch_small(io, sc, sa, smem, st);
+    err = launch_small(io, sc, sa, smem, global, st);
   } else if (n_inst > 0) {
-    err = launch_lanes<2>(io, sc, sa, smem, st);
+    err = launch_lanes<2>(io, sc, sa, smem, global, st);
   } else if (cbox != nullptr) {
-    err = launch_lanes<3>(io, sc, sa, smem, st);
+    err = launch_lanes<3>(io, sc, sa, smem, global, st);
+  } else if (global) {
+    err = launch_queue(fused_bounce_queue_global_kernel<1>, io, sc, sa, smem, st);
   } else {
     err = launch_queue(fused_bounce_queue_kernel<1>, io, sc, sa, smem, st);
   }
@@ -282,15 +316,27 @@ int spt_fused_bounce(const float* ox, const float* oy, const float* oz, const fl
 
 // Registers per thread, local (spill) bytes and blocks per SM at `smem`
 // bytes of dynamic shared memory of the small (mode 0), resident (1),
-// instanced (2) or stream (3) form.
+// instanced (2) or stream (3) form in the shared placement, or of the same
+// form in the global one (mode 4 + form).
 int spt_fused_bounce_kernel_info(int mode, int smem, int* num_regs, int* local_bytes,
                                  int* blocks) {
-  return mode == 3   ? kernel_info(fused_bounce_kernel<3>, smem, num_regs, local_bytes, blocks)
-         : mode == 2 ? kernel_info(fused_bounce_kernel<2>, smem, num_regs, local_bytes, blocks)
-         : mode == 1
-             ? kernel_info(fused_bounce_queue_kernel<1>, smem, num_regs, local_bytes, blocks)
-             : kernel_info(small_bounce_kernel, smem, num_regs, local_bytes, blocks,
-                           kSmallBounceBlock);
+  switch (mode) {
+    case 1:
+      return kernel_info(fused_bounce_queue_kernel<1>, smem, num_regs, local_bytes, blocks);
+    case 2: return kernel_info(fused_bounce_kernel<2>, smem, num_regs, local_bytes, blocks);
+    case 3: return kernel_info(fused_bounce_kernel<3>, smem, num_regs, local_bytes, blocks);
+    case 4:
+      return kernel_info(small_bounce_global_kernel, smem, num_regs, local_bytes, blocks,
+                         kSmallBounceBlock);
+    case 5:
+      return kernel_info(fused_bounce_queue_global_kernel<1>, smem, num_regs, local_bytes,
+                         blocks);
+    case 6: return kernel_info(fused_bounce_global_kernel<2>, smem, num_regs, local_bytes, blocks);
+    case 7: return kernel_info(fused_bounce_global_kernel<3>, smem, num_regs, local_bytes, blocks);
+    default:
+      return kernel_info(small_bounce_kernel, smem, num_regs, local_bytes, blocks,
+                         kSmallBounceBlock);
+  }
 }
 
 }  // extern "C"

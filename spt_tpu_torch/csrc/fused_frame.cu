@@ -16,6 +16,12 @@
 //   shared memory and the cluster boxes and orders read from global memory
 //   (StreamTracer; the TPU form runs pallas_stream's tiles in the kernel,
 //   pallas_bounce.py:634-655).
+// Each form is two kernels of the same code (spt_common.cuh, "The placement
+// of the tables"): one copies the tables into every block's shared memory,
+// the other (small_frame_global_kernel, fused_frame_global_kernel<1..3>)
+// reads them from global memory, for the scenes whose tables do not fit a
+// block (a thousand lights, thousands of instances), which the TPU kernel
+// holds in VMEM.
 // It computes bounces [start_bounce, max_depth) of
 // spt_tpu_torch.integrators.transport (trace_bounce + shade_core) for every
 // lane and hands back what the deferred environment term needs: final
@@ -136,13 +142,15 @@ static_assert(kSmallBlock % 32 == 0, "the refill works on whole warps");
 // The mesh forms', chosen on the card with frame_sweep.py (PERF.md).
 constexpr int kFrameMinBlocks = 4;   // __launch_bounds__ blocks per SM
 
-// Dynamic shared memory of a fused_frame block: the tables (and, in a mesh
-// form, the visit orders and the warps' staging buffers), then the
-// histogram of bounces run (0 .. max_depth - start_bounce).
-__host__ __device__ inline size_t frame_smem(const SceneArgs& sc, int span) {
-  const size_t tables = sc.pack == nullptr
-                            ? sizeof(float) * static_cast<size_t>(small_table_words(sc))
-                            : smem_bytes(sc);
+// Dynamic shared memory of a fused_frame block: the tables (the shared
+// placement; and, in a mesh form, the visit orders and the warps' staging
+// buffers), then the histogram of bounces run (0 .. max_depth -
+// start_bounce).
+__host__ __device__ inline size_t frame_smem(const SceneArgs& sc, int span, bool global) {
+  const size_t tables =
+      sc.pack == nullptr
+          ? (global ? 0 : sizeof(float) * static_cast<size_t>(small_table_words(sc)))
+          : smem_bytes(sc, global);
   return tables + sizeof(int) * static_cast<size_t>(span + 1);
 }
 
@@ -158,48 +166,75 @@ __device__ inline void add_rays(const FrameIO& io, const int* hist) {
   }
 }
 
-__global__ void __launch_bounds__(kSmallBlock, kSmallMinBlocks)
-    small_frame_kernel(FrameIO io, SceneArgs sc, ShadeArgs sa) {
-  extern __shared__ __align__(16) float small_smem[];
-  const int span = io.max_depth - io.start_bounce;
-  int* hist = reinterpret_cast<int*>(small_smem + small_table_words(sc));
-  for (int k = threadIdx.x; k <= span; k += blockDim.x) hist[k] = 0;
-  const Tables tb = load_small_tables(small_smem, sc);  // its barrier covers hist
-  run_paths<false>(io, tb, RolledTracer{&tb}, sa, hist, io.n, kChunk, 32, kRefillMin);
-  add_rays(io, hist);
-}
+// Each form is defined once as a macro and instantiated twice: NAME with
+// GLOBAL false copies the tables into shared memory, the *_global_kernel
+// with GLOBAL true reads them from global memory (spt_common.cuh
+// load_tables).  A macro, not a common inlined body, so that each kernel's
+// body is its own text and the shared kernels compile to the code they had
+// before the global ones existed (a common body changed the stream form's
+// SASS and local bytes).
+#define SPT_SMALL_FRAME_KERNEL(NAME, GLOBAL)                                        \
+  __global__ void __launch_bounds__(kSmallBlock, kSmallMinBlocks)                   \
+      NAME(FrameIO io, SceneArgs sc, ShadeArgs sa) {                                \
+    extern __shared__ __align__(16) float small_smem[];                             \
+    const int span = io.max_depth - io.start_bounce;                                \
+    int* hist = reinterpret_cast<int*>(small_smem + (GLOBAL ? 0 : small_table_words(sc))); \
+    for (int k = threadIdx.x; k <= span; k += blockDim.x) hist[k] = 0;              \
+    /* the loader's barrier covers hist */                                          \
+    const Tables tb = load_small_tables<GLOBAL>(small_smem, sc);                    \
+    run_paths<false>(io, tb, RolledTracer{&tb}, sa, hist, io.n, kChunk, 32, kRefillMin); \
+    add_rays(io, hist);                                                             \
+  }
 
-// kMode: 1 resident (ClusterTracer), 2 instanced (InstTracer), 3 stream
-// (StreamTracer).
-template <int kMode>
-__global__ void __launch_bounds__(kBlock, kFrameMinBlocks)
-    fused_frame_kernel(FrameIO io, SceneArgs sc, ShadeArgs sa) {
-  extern __shared__ __align__(16) float smem[];
-  unsigned long long* queued = io.counts + io.max_depth + 1;
-  // dead lanes' outputs are their inputs, missed 0
-  sweep_queue(io.in.alive, io.n, io.start_bounce < io.max_depth, queued, io.queue, [&](int i) {
-    io.o_dx[i] = io.in.dx[i];
-    io.o_dy[i] = io.in.dy[i];
-    io.o_dz[i] = io.in.dz[i];
-    io.o_tx[i] = io.in.tx[i];
-    io.o_ty[i] = io.in.ty[i];
-    io.o_tz[i] = io.in.tz[i];
-    io.o_rx[i] = io.in.rx[i];
-    io.o_ry[i] = io.in.ry[i];
-    io.o_rz[i] = io.in.rz[i];
-    io.o_missed[i] = 0;
-  });
-  grid_barrier(queued + 1);
-  int live;
-  const int take = queue_take(queued, live);
-  if (take == 0) return;
+SPT_SMALL_FRAME_KERNEL(small_frame_kernel, false)
+SPT_SMALL_FRAME_KERNEL(small_frame_global_kernel, true)
 
-  const int span = io.max_depth - io.start_bounce;
-  int* hist = reinterpret_cast<int*>(reinterpret_cast<char*>(smem) + smem_bytes(sc));
-  for (int k = threadIdx.x; k <= span; k += blockDim.x) hist[k] = 0;
-  const Tables tb = load_tables(smem, sc);  // its barrier covers hist
-  run_queue<kMode>(io, tb, sc, sa, hist, live, take);
-  add_rays(io, hist);
+// The mesh forms.  kMode: 1 resident (ClusterTracer), 2 instanced
+// (InstTracer), 3 stream (StreamTracer).
+#define SPT_FUSED_FRAME_KERNEL(NAME, GLOBAL)                                        \
+  template <int kMode>                                                              \
+  __global__ void __launch_bounds__(kBlock, kFrameMinBlocks)                        \
+      NAME(FrameIO io, SceneArgs sc, ShadeArgs sa) {                                \
+    extern __shared__ __align__(16) float smem[];                                   \
+    unsigned long long* queued = io.counts + io.max_depth + 1;                      \
+    /* dead lanes' outputs are their inputs, missed 0 */                            \
+    sweep_queue(io.in.alive, io.n, io.start_bounce < io.max_depth, queued, io.queue, \
+                [&](int i) {                                                        \
+                  io.o_dx[i] = io.in.dx[i];                                         \
+                  io.o_dy[i] = io.in.dy[i];                                         \
+                  io.o_dz[i] = io.in.dz[i];                                         \
+                  io.o_tx[i] = io.in.tx[i];                                         \
+                  io.o_ty[i] = io.in.ty[i];                                         \
+                  io.o_tz[i] = io.in.tz[i];                                         \
+                  io.o_rx[i] = io.in.rx[i];                                         \
+                  io.o_ry[i] = io.in.ry[i];                                         \
+                  io.o_rz[i] = io.in.rz[i];                                         \
+                  io.o_missed[i] = 0;                                               \
+                });                                                                 \
+    grid_barrier(queued + 1);                                                       \
+    int live;                                                                       \
+    const int take = queue_take(queued, live);                                      \
+    if (take == 0) return;                                                          \
+                                                                                    \
+    const int span = io.max_depth - io.start_bounce;                                \
+    int* hist = reinterpret_cast<int*>(reinterpret_cast<char*>(smem) + smem_bytes(sc, GLOBAL)); \
+    for (int k = threadIdx.x; k <= span; k += blockDim.x) hist[k] = 0;              \
+    /* the loader's barrier covers hist */                                          \
+    const Tables tb = load_tables<GLOBAL>(smem, sc);                                \
+    run_queue<kMode>(io, tb, sc, sa, hist, live, take);                             \
+    add_rays(io, hist);                                                             \
+  }
+
+SPT_FUSED_FRAME_KERNEL(fused_frame_kernel, false)
+SPT_FUSED_FRAME_KERNEL(fused_frame_global_kernel, true)
+
+// One launch of a form in the placement `global`: Shared is the kernel of
+// the shared placement, Global that of the global one.
+template <class Shared, class Global>
+inline cudaError_t launch_frame(Shared shared, Global global_form, bool global, FrameIO& io,
+                                SceneArgs& sc, ShadeArgs& sa, size_t smem, cudaStream_t st) {
+  return global ? launch_queue(global_form, io, sc, sa, smem, st)
+                : launch_queue(shared, io, sc, sa, smem, st);
 }
 
 }  // namespace
@@ -213,9 +248,12 @@ extern "C" {
 // `counts` (the rest are the kernel's counters).  A null `pack` selects the
 // small form, n_inst > 0 the instanced one, `cbox` (with `corder`) the
 // stream one, else the resident one; a mesh form needs `queue`, (n) int32
-// scratch.  One persistent launch on `stream` (cooperative in the mesh
-// forms); returns the CUDA error of the launch (0: accepted).  Allocates
-// nothing and does not synchronise.
+// scratch.  `global_tables` nonzero selects the global placement of the
+// tables (spt_common.cuh; the small form's `tables` then 16-byte aligned),
+// else the shared one, refused when a block's shared memory cannot hold
+// it.  One persistent launch on `stream` (cooperative in the mesh forms);
+// returns the CUDA error of the launch (0: accepted).  Allocates nothing
+// and does not synchronise.
 int spt_fused_frame(const float* ox, const float* oy, const float* oz, const float* dx,
                     const float* dy, const float* dz, const float* tx, const float* ty,
                     const float* tz, const float* rx, const float* ry, const float* rz,
@@ -226,7 +264,8 @@ int spt_fused_frame(const float* ox, const float* oy, const float* oz, const flo
                     int n_sphs, int n_mats, int n_lights, int n_emit, int flags,
                     const float* pack, int pack_w, int n_clusters, int cluster_size,
                     int n_inst, int n_meshes, const int* tex, int tex_res, const float* cbox,
-                    const uint16_t* corder, int n, int start_bounce, int max_depth,
+                    const uint16_t* corder, int global_tables, int n, int start_bounce,
+                    int max_depth,
                     int rr_after, float hit_eps, float ray_offset_dir, float firefly_clamp,
                     void* stream) {
   FrameIO io{{ox, oy, oz, dx, dy, dz, tx, ty, tz, rx, ry, rz, rng, alive, emok},
@@ -237,28 +276,35 @@ int spt_fused_frame(const float* ox, const float* oy, const float* oz, const flo
                cbox, corder};
   ShadeArgs sa{rr_after, flags, hit_eps, ray_offset_dir, firefly_clamp};
   const bool small = pack == nullptr;
+  const bool global = global_tables != 0;
   if (n_mats < 1 || start_bounce < 0 || start_bounce > max_depth ||
-      (!small && queue == nullptr) || (cbox != nullptr && corder == nullptr))
+      (!small && queue == nullptr) || (cbox != nullptr && corder == nullptr) ||
+      (small && global && reinterpret_cast<uintptr_t>(tables) % 16 != 0))
     return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = frame_smem(sc, max_depth - start_bounce);
-  if (smem > 227 * 1024) return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = frame_smem(sc, max_depth - start_bounce, global);
+  if (smem > kMaxSharedBytes) return static_cast<int>(cudaErrorInvalidValue);
   if (n <= 0) return static_cast<int>(cudaGetLastError());
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (small) {
+    void (*kernel)(FrameIO, SceneArgs, ShadeArgs) = small_frame_kernel;
+    if (global) kernel = small_frame_global_kernel;
     int blocks = 0;
-    err = resident_blocks(small_frame_kernel, kSmallBlock, smem, &blocks);
+    err = resident_blocks(kernel, kSmallBlock, smem, &blocks);
     if (err != cudaSuccess) return static_cast<int>(err);
     // no more blocks than the lanes give each warp a chunk
     const int lanes_a_block = kChunk * (kSmallBlock / 32);
     const int grid = max(1, min(blocks, (n + lanes_a_block - 1) / lanes_a_block));
-    small_frame_kernel<<<grid, kSmallBlock, smem, st>>>(io, sc, sa);
+    kernel<<<grid, kSmallBlock, smem, st>>>(io, sc, sa);
   } else if (n_inst > 0) {
-    err = launch_queue(fused_frame_kernel<2>, io, sc, sa, smem, st);
+    err = launch_frame(fused_frame_kernel<2>, fused_frame_global_kernel<2>, global, io, sc, sa,
+                       smem, st);
   } else if (cbox != nullptr) {
-    err = launch_queue(fused_frame_kernel<3>, io, sc, sa, smem, st);
+    err = launch_frame(fused_frame_kernel<3>, fused_frame_global_kernel<3>, global, io, sc, sa,
+                       smem, st);
   } else {
-    err = launch_queue(fused_frame_kernel<1>, io, sc, sa, smem, st);
+    err = launch_frame(fused_frame_kernel<1>, fused_frame_global_kernel<1>, global, io, sc, sa,
+                       smem, st);
   }
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
@@ -266,14 +312,23 @@ int spt_fused_frame(const float* ox, const float* oy, const float* oz, const flo
 
 // Registers per thread, local (spill) bytes and blocks per SM at `smem`
 // bytes of dynamic shared memory of the small (mode 0), resident (1),
-// instanced (2) or stream (3) form.
+// instanced (2) or stream (3) form in the shared placement, or of the same
+// form in the global one (mode 4 + form).
 int spt_fused_frame_kernel_info(int mode, int smem, int* num_regs, int* local_bytes,
                                 int* blocks) {
-  return mode == 3   ? kernel_info(fused_frame_kernel<3>, smem, num_regs, local_bytes, blocks)
-         : mode == 2 ? kernel_info(fused_frame_kernel<2>, smem, num_regs, local_bytes, blocks)
-         : mode == 1 ? kernel_info(fused_frame_kernel<1>, smem, num_regs, local_bytes, blocks)
-                     : kernel_info(small_frame_kernel, smem, num_regs, local_bytes, blocks,
-                                   kSmallBlock);
+  switch (mode) {
+    case 1: return kernel_info(fused_frame_kernel<1>, smem, num_regs, local_bytes, blocks);
+    case 2: return kernel_info(fused_frame_kernel<2>, smem, num_regs, local_bytes, blocks);
+    case 3: return kernel_info(fused_frame_kernel<3>, smem, num_regs, local_bytes, blocks);
+    case 4:
+      return kernel_info(small_frame_global_kernel, smem, num_regs, local_bytes, blocks,
+                         kSmallBlock);
+    case 5: return kernel_info(fused_frame_global_kernel<1>, smem, num_regs, local_bytes, blocks);
+    case 6: return kernel_info(fused_frame_global_kernel<2>, smem, num_regs, local_bytes, blocks);
+    case 7: return kernel_info(fused_frame_global_kernel<3>, smem, num_regs, local_bytes, blocks);
+    default:
+      return kernel_info(small_frame_kernel, smem, num_regs, local_bytes, blocks, kSmallBlock);
+  }
 }
 
 const char* spt_cuda_error_string(int err) {

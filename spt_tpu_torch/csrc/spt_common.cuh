@@ -50,6 +50,9 @@ constexpr int kWarps = 4;
 constexpr int kMtCols = 9;
 constexpr int kStageRows = 64;
 constexpr int kStageFloats = kStageRows * kMtCols;
+// Dynamic shared memory a block may opt in to (cuda_lib.MAX_SHARED_BYTES):
+// an entry refuses a launch that asks for more.
+constexpr size_t kMaxSharedBytes = 227 * 1024;
 
 // RenderConfig toggles, one bit each.
 constexpr int kNee = 1 << 0;            // cfg.nee and the scene has emitters
@@ -63,7 +66,8 @@ constexpr int kHasNs = 1 << 7;          // the flat tables carry shading normals
 constexpr int kTextured = 1 << 8;       // the scene has a texture table
 
 // The mesh forms' scene tables as one float buffer in global memory,
-// copied whole into shared memory by every block:
+// copied whole into shared memory by every block (the shared placement) or
+// read where they lie (the global placement, below):
 //   sph | mat | light | emit | cluster boxes | instances | octant keys
 // (the small forms read their own layout, small_table_words).  The
 // resident form fills the cluster boxes and bvh.MeshAccel.cl_okey (8 x C int32 bits, (rank << 16) | cluster id).  The
@@ -104,40 +108,58 @@ __host__ __device__ inline int table_words(const SceneArgs& s) {
          s.n_emit * kEmitWords + s.n_clusters * (kBoxWords + 8) + s.n_inst * kInstWords;
 }
 
-// Bytes of the tables plus the visit orders.
-__host__ __device__ inline size_t table_bytes(const SceneArgs& s) {
-  return sizeof(float) * static_cast<size_t>(table_words(s)) +
+// The placement of the tables.  A scene whose tables fit a block's shared
+// memory has every block copy them there (shared, the kernels' usual
+// form); one whose tables do not (thousands of lights or instances) has
+// them read where they lie, in global memory through L1 and L2 (global,
+// the kernels named *_global_kernel).  Each placement is its own kernel,
+// instantiated from the same code with kGlobal, so the shared one's code
+// is that of a kernel without the choice.  The caller chooses from the
+// table bytes (ops/cuda_lib.py tables_in_global).
+// In both, what is per block stays in shared memory: the visit orders
+// (at most 8 x 12 288 ids, 192 KiB, at the smallest cluster the tiers
+// allow), the staging buffers and lock words, the bounce histogram.
+
+// Bytes of a block's copy of the tables (the shared placement only) plus
+// the visit orders.
+__host__ __device__ inline size_t table_bytes(const SceneArgs& s, bool global = false) {
+  return (global ? 0 : sizeof(float) * static_cast<size_t>(table_words(s))) +
          sizeof(uint16_t) * 8 * static_cast<size_t>(s.n_clusters);
 }
 
 // The mesh forms' staging buffers start at the first 16-byte boundary
 // after the tables.
-__host__ __device__ inline size_t stage_offset(const SceneArgs& s) {
-  return (table_bytes(s) + 15) / 16 * 16;
+__host__ __device__ inline size_t stage_offset(const SceneArgs& s, bool global = false) {
+  return (table_bytes(s, global) + 15) / 16 * 16;
 }
 
-// Dynamic shared memory of a mesh form's block: the tables and visit
-// orders, then the warps' staging buffers and lock words.
-__host__ __device__ inline size_t smem_bytes(const SceneArgs& s) {
-  return stage_offset(s) + kWarps * (sizeof(float) * kStageFloats + sizeof(int));
+// Dynamic shared memory of a mesh form's block: the tables (shared
+// placement) and visit orders, then the warps' staging buffers and lock
+// words.
+__host__ __device__ inline size_t smem_bytes(const SceneArgs& s, bool global = false) {
+  return stage_offset(s, global) + kWarps * (sizeof(float) * kStageFloats + sizeof(int));
 }
 
-// Copies the tables into shared memory, builds the visit orders (the whole
-// block takes part), frees the staging buffers and returns the pointers
-// into it.
+// Copies the tables into shared memory (kGlobal: leaves them in global
+// memory), builds the visit orders in shared memory (the whole block takes
+// part), frees the staging buffers and returns the pointers to each.
+template <bool kGlobal = false>
 __device__ inline Tables load_tables(float* smem, const SceneArgs& s) {
   const int words = table_words(s);
-  for (int k = threadIdx.x; k < words; k += blockDim.x) smem[k] = s.tables[k];
+  if constexpr (!kGlobal)
+    for (int k = threadIdx.x; k < words; k += blockDim.x) smem[k] = s.tables[k];
+  const float* tables = kGlobal ? s.tables : smem;
   // order[row * cmax + rank] = id, from the keys in global memory
   const int c = s.n_clusters;
   const int cmax = c / max(s.n_meshes, 1);
   const int* okey = reinterpret_cast<const int*>(s.tables + words - 8 * c);
-  uint16_t* order = reinterpret_cast<uint16_t*>(smem + words);
+  uint16_t* order = reinterpret_cast<uint16_t*>(kGlobal ? smem : smem + words);
   for (int k = threadIdx.x; k < 8 * c; k += blockDim.x) {
     const int key = okey[k];
     order[(k / cmax) * cmax + (key >> 16)] = static_cast<uint16_t>(key & 0xFFFF);
   }
-  float* stage = reinterpret_cast<float*>(reinterpret_cast<char*>(smem) + stage_offset(s));
+  float* stage =
+      reinterpret_cast<float*>(reinterpret_cast<char*>(smem) + stage_offset(s, kGlobal));
   int* stage_lock = reinterpret_cast<int*>(stage + kWarps * kStageFloats);
   if (threadIdx.x < kWarps) stage_lock[threadIdx.x] = 0;
   __syncthreads();
@@ -145,7 +167,7 @@ __device__ inline Tables load_tables(float* smem, const SceneArgs& s) {
   tb.stage = stage;
   tb.stage_lock = stage_lock;
   tb.tri = tb.ns = tb.uv = nullptr;  // the mesh forms' triangles are in tri_pack
-  tb.sph = smem;
+  tb.sph = tables;
   tb.mat = tb.sph + s.n_sphs * kSphWords;
   tb.light = tb.mat + s.n_mats * kMatWords;
   tb.emit = tb.light + s.n_lights * kLightWords;
@@ -163,7 +185,8 @@ __device__ inline Tables load_tables(float* smem, const SceneArgs& s) {
 }
 
 // The small forms' tables, copied whole into shared memory by every
-// block (the first 16-byte aligned):
+// block (the first 16-byte aligned) or, in the global placement, read from
+// the buffer (16-byte aligned too):
 //   tri (kSmallTriWords) | sph (kSmallSphWords) | mat | light | emit | ns | uv
 // with ns on a scene with shading normals and uv on a textured one.
 __host__ __device__ inline int small_table_words(const SceneArgs& s) {
@@ -173,13 +196,17 @@ __host__ __device__ inline int small_table_words(const SceneArgs& s) {
          ((s.flags & kTextured) ? s.n_tris * kUvWords : 0);
 }
 
-// load_tables for the small layout; `smem` 16-byte aligned.
+// load_tables for the small layout; `smem` 16-byte aligned (kGlobal: not
+// read, the tables left in global memory).
+template <bool kGlobal = false>
 __device__ inline Tables load_small_tables(float* smem, const SceneArgs& s) {
-  const int words = small_table_words(s);
-  for (int k = threadIdx.x; k < words; k += blockDim.x) smem[k] = s.tables[k];
+  if constexpr (!kGlobal) {
+    const int words = small_table_words(s);
+    for (int k = threadIdx.x; k < words; k += blockDim.x) smem[k] = s.tables[k];
+  }
   __syncthreads();
   Tables tb;
-  tb.tri = smem;
+  tb.tri = kGlobal ? s.tables : smem;
   tb.sph = tb.tri + s.n_tris * kSmallTriWords;
   tb.mat = tb.sph + s.n_sphs * kSmallSphWords;
   tb.light = tb.mat + s.n_mats * kMatWords;

@@ -60,10 +60,17 @@ inline SceneArgs trace_scene(const float* tables, int n_sphs, const float* pack,
                    corder};
 }
 
-template <class K>
-inline int launch_trace(K kernel, const TraceIO& io, const SceneArgs& sc, void* stream) {
-  const size_t smem = smem_bytes(sc);
-  if (sc.pack == nullptr || smem > 227 * 1024) return static_cast<int>(cudaErrorInvalidValue);
+// One launch of a standalone tracer: `shared` the kernel of the shared
+// placement of the tables, `global_form` that of the global one, which
+// `global_tables` nonzero selects; a shared placement that a block's shared
+// memory cannot hold is refused.
+inline int launch_trace(void (*shared)(TraceIO, SceneArgs),
+                        void (*global_form)(TraceIO, SceneArgs), int global_tables,
+                        const TraceIO& io, const SceneArgs& sc, void* stream) {
+  const bool global = global_tables != 0;
+  void (*kernel)(TraceIO, SceneArgs) = global ? global_form : shared;
+  const size_t smem = smem_bytes(sc, global);
+  if (sc.pack == nullptr || smem > kMaxSharedBytes) return static_cast<int>(cudaErrorInvalidValue);
   if (io.n <= 0) return static_cast<int>(cudaGetLastError());
   const int grid = (io.n + kTraceBlock - 1) / kTraceBlock;
   cudaError_t err = reserve_smem(kernel, smem);

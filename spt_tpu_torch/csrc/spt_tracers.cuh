@@ -50,6 +50,10 @@
 //   shared memory; the cluster boxes (C * 24 B, up to 384 KiB) and orders
 //   stay in global memory.
 //
+// In the global placement of the tables (spt_common.cuh) the rows marked
+// "shared" below (spheres, boxes, instance rows) are read where they lie in
+// global memory; the visit orders and staging buffers stay in shared memory.
+//
 // What bounds the mesh tracers: the 64 Moller-Trumbore tests of each opened
 // cluster (ALU, an IEEE division each) and the wait for their rows.  The
 // boxes, instance rows and visit orders (a few KB) sit in shared memory;

@@ -17,7 +17,8 @@ bounce.
   ``fused=False`` loop (``transport.bounce_loop`` in a ``_while_loop``):
   ``trace_bounce`` + ``shade_core`` while any lane lives, the environment
   term deferred to after it.  A scene the kernels take whose tables do not
-  fit their shared memory raises.
+  fit a block's shared memory runs them all the same, its tables read from
+  global memory (``cuda_bounce.tables_in_global``).
 - Small scenes and mesh scenes whose lane count cannot be sorted: the whole
   loop in ``cuda_bounce.fused_frame``.
 - Mesh scenes (a cluster accel: resident, instanced or stream) at a
@@ -85,7 +86,14 @@ _LAUNCH_COUNTERS = (
     (cuda_trace, "CLOSEST_LAUNCHES"), (cuda_trace, "ANY_LAUNCHES"),
     (cuda_trace, "INST_CLOSEST_LAUNCHES"), (cuda_trace, "INST_ANY_LAUNCHES"),
     (cuda_trace, "STREAM_CLOSEST_LAUNCHES"),
-    (cuda_trace, "STREAM_ANY_LAUNCHES"))
+    (cuda_trace, "STREAM_ANY_LAUNCHES"),
+    (cuda_bounce, "GLOBAL_LAUNCHES"), (cuda_bounce, "GLOBAL_BOUNCE_LAUNCHES"),
+    (cuda_trace, "CLOSEST_GLOBAL_LAUNCHES"),
+    (cuda_trace, "ANY_GLOBAL_LAUNCHES"),
+    (cuda_trace, "INST_CLOSEST_GLOBAL_LAUNCHES"),
+    (cuda_trace, "INST_ANY_GLOBAL_LAUNCHES"),
+    (cuda_trace, "STREAM_CLOSEST_GLOBAL_LAUNCHES"),
+    (cuda_trace, "STREAM_ANY_GLOBAL_LAUNCHES"))
 _BRANCHES = ("condensed", "full_width")
 
 # Runs of each _while_loop body, by the body function's name ("chunk": the
@@ -145,17 +153,11 @@ def _fused_ok(cfg: RenderConfig, scene: DeviceScene,
     that ``cuda_bounce.explain_decline`` declines logs each distinct
     reason once (``pallas_bounce.announce_decline``, :236-247) and takes
     the unfused bounce.  A scene the kernels take but whose tables do not
-    fit them (``cuda_bounce.explain_overflow``) raises, as the JAX package
-    runs its fused kernels there.  Not a fallback: a kernel of an accepted
-    scene that fails raises."""
+    fit a block's shared memory runs them too, reading its tables from
+    global memory (``cuda_bounce.tables_in_global``).  Not a fallback: a
+    kernel of an accepted scene that fails raises."""
     reason = cuda_bounce.explain_decline(cfg, scene, lights)
     if reason is None:
-        overflow = cuda_bounce.explain_overflow(cfg, scene, lights)
-        if overflow is not None:
-            raise NotImplementedError(
-                f"the fused kernels take this scene but cannot hold its "
-                f"tables: {overflow}; no kernel form reads them from global "
-                f"memory")
         return True
     if reason not in _ANNOUNCED:
         _ANNOUNCED.add(reason)

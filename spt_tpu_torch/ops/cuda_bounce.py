@@ -16,9 +16,11 @@ sample and returns what the deferred environment term needs;
 ``fused_bounce`` runs one bounce and returns the new path state and the
 missed mask.  A scene they decline (``explain_decline``: the JAX package's
 caps) is never handed to them: its frames take the unfused bounce
-(``integrators/wavefront._fused_ok``).  A scene they take whose tables do
-not fit a block's shared memory (``explain_overflow``, the port's own
-limit) has no route: its frames raise.
+(``integrators/wavefront._fused_ok``).  Every other scene runs them, in one
+of two placements of its tables (``tables_in_global``): copied into each
+block's shared memory, or, when they do not fit there (thousands of lights
+or instances), read from global memory by kernels of the same code
+(``*_global_kernel``).
 
 - On a CUDA tensor each launches its hand-written kernel
   (``csrc/fused_frame.cu``, ``csrc/fused_bounce.cu``, built by
@@ -45,8 +47,9 @@ refills its warps from a counter in that buffer, fused_bounce's
 no counter.
 
 ``LAUNCHES`` counts fused_frame launches and ``BOUNCE_LAUNCHES``
-fused_bounce launches, so a run can show that its main path went through
-the kernels.
+fused_bounce launches in the shared placement, ``GLOBAL_LAUNCHES`` and
+``GLOBAL_BOUNCE_LAUNCHES`` those in the global one, so a run can show that
+its main path went through the kernels.
 """
 
 from __future__ import annotations
@@ -64,27 +67,42 @@ from spt_tpu_torch.scene.flatten import DeviceScene
 # Kernel launches since import (or since a caller reset them).
 LAUNCHES = 0
 BOUNCE_LAUNCHES = 0
+GLOBAL_LAUNCHES = 0
+GLOBAL_BOUNCE_LAUNCHES = 0
 
-# The small form of fused_frame as a profiler trace names it, and each form
-# of fused_bounce by accel mode.
-SMALL_KERNEL = "small_frame_kernel"
+# Each form of fused_frame and of fused_bounce as a profiler trace names it,
+# by accel mode; then the same in the global placement.
+FRAME_KERNELS = {None: "small_frame_kernel",
+                 "resident": "fused_frame_kernel<1>",
+                 "instanced": "fused_frame_kernel<2>",
+                 "stream": "fused_frame_kernel<3>"}
+SMALL_KERNEL = FRAME_KERNELS[None]
 BOUNCE_KERNELS = {None: "small_bounce_kernel",
                   "resident": "fused_bounce_queue_kernel<1>",
                   "instanced": "fused_bounce_kernel<2>",
                   "stream": "fused_bounce_kernel<3>"}
+FRAME_KERNELS_GLOBAL = {None: "small_frame_global_kernel",
+                        "resident": "fused_frame_global_kernel<1>",
+                        "instanced": "fused_frame_global_kernel<2>",
+                        "stream": "fused_frame_global_kernel<3>"}
+BOUNCE_KERNELS_GLOBAL = {None: "small_bounce_global_kernel",
+                         "resident": "fused_bounce_queue_global_kernel<1>",
+                         "instanced": "fused_bounce_global_kernel<2>",
+                         "stream": "fused_bounce_global_kernel<3>"}
 
 # Caps, as pallas_bounce's (MAX_PALLAS_PRIMS, MAX_PALLAS_MATERIALS,
 # MAX_PALLAS_EMITTERS, MAX_ACCEL_TRIS, MAX_ACCEL_SPHERES); a scene past one
-# takes the unfused bounce.  The small form's tables must fit the 48 KiB of
-# shared memory a block gets without opting in; the resident form's small
-# tables, the 227 KiB it may opt in to; past those a frame raises.
+# takes the unfused bounce.  A block copies the tables into its shared
+# memory while they fit: in the small forms the 48 KiB a block gets without
+# opting in, in the mesh forms the 227 KiB it may opt in to; past those the
+# kernels read them from global memory (``tables_in_global``).
 MAX_PRIMS = 192
 MAX_MATERIALS = 64
 MAX_EMITTERS = 32
 MAX_ACCEL_TRIS = 12288
 MAX_ACCEL_SPHERES = 32
-MAX_TABLE_BYTES = 48 * 1024
-MAX_RESIDENT_TABLE_BYTES = 227 * 1024
+MAX_TABLE_BYTES = cuda_lib.SMALL_SHARED_BYTES
+MAX_RESIDENT_TABLE_BYTES = cuda_lib.MAX_SHARED_BYTES
 
 # Words per table row, as the k*Words constants in csrc/spt_common.cuh;
 # the small forms' triangle and sphere rows are padded to 16-byte words
@@ -154,16 +172,17 @@ def _table_words(scene: DeviceScene, lights: DeviceLights, nee_on: bool,
 
 
 def shared_bytes(cfg: RenderConfig, scene: DeviceScene,
-                 lights: DeviceLights) -> int:
+                 lights: DeviceLights, in_global: bool = False) -> int:
     """Dynamic shared memory of a fused_frame block on this workload (a
-    fused_bounce block takes no more): the tables, the visit orders and, in
-    a mesh form, the warps' staging buffers (cuda_lib.shared_bytes), then
-    the histogram of bounces run from bounce 0."""
+    fused_bounce block takes no more): the tables (not in the global
+    placement, `in_global`), the visit orders and, in a mesh form, the
+    warps' staging buffers (cuda_lib.shared_bytes), then the histogram of
+    bounces run from bounce 0."""
     mode = _accel_mode(scene)
     nee_on = cfg.nee and scene.emitters is not None
+    tables = 0 if in_global else 4 * _table_words(scene, lights, nee_on, mode)
     return cuda_lib.shared_bytes(
-        4 * _table_words(scene, lights, nee_on, mode)
-        + 2 * 8 * _clusters(scene, mode), mode is not None) + 4 * (
+        tables + 2 * 8 * _clusters(scene, mode), mode is not None) + 4 * (
             cfg.max_depth + 1)
 
 
@@ -201,22 +220,15 @@ def explain_decline(cfg: RenderConfig, scene: DeviceScene,
     return "; ".join(reasons) if reasons else None
 
 
-def explain_overflow(cfg: RenderConfig, scene: DeviceScene,
-                     lights: DeviceLights):
-    """Why a workload the fused kernels take does not fit a block of them,
-    or None when it does: its tables and staging buffers past the shared
-    memory a block may take (MAX_TABLE_BYTES in the small forms,
-    MAX_RESIDENT_TABLE_BYTES in the mesh forms), as with very many lights
-    or instances.  The JAX package has no such reason and runs its fused
-    kernels there, so no route of the port renders such a workload: a
-    frame raises (``integrators/wavefront._fused_ok``)."""
-    nbytes = shared_bytes(cfg, scene, lights)
-    cap = (MAX_TABLE_BYTES if _accel_mode(scene) is None
-           else MAX_RESIDENT_TABLE_BYTES)
-    if nbytes > cap:
-        return (f"a block's shared memory (scene tables and staging "
-                f"buffers) takes {nbytes} B > {cap} B")
-    return None
+def tables_in_global(cfg: RenderConfig, scene: DeviceScene,
+                     lights: DeviceLights) -> bool:
+    """Whether the fused kernels read this workload's tables from global
+    memory: whether a block's shared copy of them (``shared_bytes``) passes
+    MAX_TABLE_BYTES in the small forms, MAX_RESIDENT_TABLE_BYTES in the
+    mesh forms, as with a thousand lights or thousands of instances
+    (``cuda_lib.tables_in_global``)."""
+    return cuda_lib.tables_in_global(shared_bytes(cfg, scene, lights),
+                                     _accel_mode(scene) is not None)
 
 
 def rays_from_counts(bounces_done: torch.Tensor, max_depth: int,
@@ -320,19 +332,22 @@ def _flags(cfg: RenderConfig, scene: DeviceScene, nee_on: bool,
 
 
 def _kernel_inputs(cfg: RenderConfig, scene: DeviceScene,
-                   lights: DeviceLights, ps, what: str):
+                   lights: DeviceLights, ps, what: str,
+                   in_global: bool | None = None):
     """Checks the lanes and the scene, and returns (state pointers, scene
     arguments, keep-alive tensors) for a launch: the RNG words and flags as
-    the port holds them (int64, bool), handed over as they are.  A scene
-    that ``explain_decline`` or ``explain_overflow`` names raises: the
-    frames of the one take the unfused bounce and those of the other raise
-    first, so a launch on either is the caller's fault."""
+    the port holds them (int64, bool), handed over as they are; the last
+    scene argument is the placement of the tables, ``tables_in_global``'s
+    unless `in_global` forces one (tests and chip_smoke.py compare the
+    two).  A scene that ``explain_decline`` names raises: its frames take
+    the unfused bounce, so a launch on it is the caller's fault."""
     device = ps.rng.device
-    reason = (explain_decline(cfg, scene, lights)
-              or explain_overflow(cfg, scene, lights))
+    reason = explain_decline(cfg, scene, lights)
     if reason:
         raise NotImplementedError(f"the {what} kernel cannot take this "
                                   f"scene: {reason}")
+    if in_global is None:
+        in_global = tables_in_global(cfg, scene, lights)
     n = ps.num_paths
     planes = [*ps.origin, *ps.direction, *ps.throughput, *ps.radiance]
     for name, t in zip(("origin", "direction", "throughput", "radiance"),
@@ -379,20 +394,23 @@ def _kernel_inputs(cfg: RenderConfig, scene: DeviceScene,
     scene_args = (tables.data_ptr(), n_tris, scene.num_spheres,
                   scene.materials.count, lights.count,
                   scene.emitters.count if nee_on else 0,
-                  _flags(cfg, scene, nee_on, mode)) + accel + tex + stream
+                  _flags(cfg, scene, nee_on, mode)) + accel + tex + stream + (
+                      int(bool(in_global)),)
     return [t.data_ptr() for t in planes + ints], scene_args, keep
 
 
 def fused_frame(cfg: RenderConfig, scene: DeviceScene, lights: DeviceLights,
-                ps, start_bounce: int = 0):
+                ps, start_bounce: int = 0, *, _in_global: bool | None = None):
     """Bounces [start_bounce, max_depth) of one sample.
 
     Returns (radiance Vec3, final_direction Vec3, final_throughput Vec3,
     missed_ever (N,) bool, rays_per_bounce (max_depth,) int64; entries below
     start_bounce are zero).  The caller owes `throughput * env(direction)`
-    to missed lanes (the deferred-env contract).
+    to missed lanes (the deferred-env contract).  `_in_global` forces a
+    placement of the tables on the card (see ``_kernel_inputs``); no entry
+    point passes it.
     """
-    global LAUNCHES
+    global LAUNCHES, GLOBAL_LAUNCHES
     device = ps.rng.device
     if device.type == "cpu":
         return fused_frame_reference(cfg, scene, lights, ps, start_bounce)
@@ -402,7 +420,7 @@ def fused_frame(cfg: RenderConfig, scene: DeviceScene, lights: DeviceLights,
         raise ValueError(f"start_bounce {start_bounce} outside "
                          f"[0, {cfg.max_depth}]")
     ins, scene_args, keep = _kernel_inputs(cfg, scene, lights, ps,
-                                           "fused_frame")
+                                           "fused_frame", _in_global)
     n = ps.num_paths
     outs_f = [torch.empty(n, dtype=torch.float32, device=device)
               for _ in range(9)]
@@ -423,27 +441,31 @@ def fused_frame(cfg: RenderConfig, scene: DeviceScene, lights: DeviceLights,
             cfg.firefly_clamp, cuda_lib.stream_of(device))
     cuda_lib.check(err, "fused_frame")
     del keep, queue
-    LAUNCHES += 1
+    if scene_args[-1]:
+        GLOBAL_LAUNCHES += 1
+    else:
+        LAUNCHES += 1
     return (Vec3(*outs_f[6:9]), Vec3(*outs_f[0:3]), Vec3(*outs_f[3:6]),
             missed, counts[:cfg.max_depth])
 
 
 def fused_bounce(cfg: RenderConfig, scene: DeviceScene, lights: DeviceLights,
-                 ps, bounce: int, is_last: bool):
+                 ps, bounce: int, is_last: bool, *,
+                 _in_global: bool | None = None):
     """One bounce of every lane (trace_bounce + shade_core).  Returns
     (new PathState, missed (N,) bool); the caller owes
     `throughput * env(direction)` to the missed lanes, which keep their
     direction and throughput.  The new state is in fresh tensors; in the
     resident form the kernel's counters follow the new RNG words in their
-    buffer."""
-    global BOUNCE_LAUNCHES
+    buffer.  `_in_global` as fused_frame's."""
+    global BOUNCE_LAUNCHES, GLOBAL_BOUNCE_LAUNCHES
     device = ps.rng.device
     if device.type == "cpu":
         return fused_bounce_reference(cfg, scene, lights, ps, bounce, is_last)
     if device.type != "cuda":
         raise ValueError(f"fused_bounce runs on CUDA or CPU tensors, not {device}")
     ins, scene_args, keep = _kernel_inputs(cfg, scene, lights, ps,
-                                           "fused_bounce")
+                                           "fused_bounce", _in_global)
     n = ps.num_paths
     outs_f = [torch.empty(n, dtype=torch.float32, device=device)
               for _ in range(12)]
@@ -470,7 +492,10 @@ def fused_bounce(cfg: RenderConfig, scene: DeviceScene, lights: DeviceLights,
             cuda_lib.stream_of(device))
     cuda_lib.check(err, "fused_bounce")
     del keep, queue
-    BOUNCE_LAUNCHES += 1
+    if scene_args[-1]:
+        GLOBAL_BOUNCE_LAUNCHES += 1
+    else:
+        BOUNCE_LAUNCHES += 1
     return transport.PathState(
         origin=Vec3(*outs_f[0:3]), direction=Vec3(*outs_f[3:6]),
         throughput=Vec3(*outs_f[6:9]), radiance=Vec3(*outs_f[9:12]),

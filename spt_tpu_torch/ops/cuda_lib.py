@@ -104,20 +104,20 @@ def build() -> ctypes.CDLL:
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     # tables, n_tris, n_sphs, n_mats, n_lights, n_emit, flags, pack,
     # pack_w, n_clusters, cluster_size, n_inst, n_meshes, tex, tex_res,
-    # cbox, corder
-    scene = [p, i, i, i, i, i, i, p, i, i, i, i, i, p, i, p, p]
+    # cbox, corder, global_tables
+    scene = [p, i, i, i, i, i, i, p, i, i, i, i, i, p, i, p, p, i]
     lib.spt_fused_frame.argtypes = [p] * 27 + scene + [i] * 4 + [f] * 3 + [p]
     lib.spt_fused_bounce.argtypes = [p] * 33 + scene + [i] * 4 + [f] * 3 + [p]
     # tables, n_sphs, pack, pack_w, n_clusters, cluster_size, n_inst,
-    # n_meshes, n, tmin, stream
-    trace = [i, p] + [i] * 6 + [f, p]
+    # n_meshes, global_tables, n, tmin, stream
+    trace = [i, p] + [i] * 7 + [f, p]
     for fn in ("spt_closest_hit", "spt_inst_closest_hit"):
         getattr(lib, fn).argtypes = [p] * 16 + trace
     for fn in ("spt_any_hit", "spt_inst_any_hit"):
         getattr(lib, fn).argtypes = [p] * 9 + trace
     # the stream tracer: tables, n_sphs, pack, pack_w, n_supers,
-    # cluster_size, cbox, corder, n, tmin, stream
-    stream = [i, p, i, i, i, p, p, i, f, p]
+    # cluster_size, cbox, corder, global_tables, n, tmin, stream
+    stream = [i, p, i, i, i, p, p, i, i, f, p]
     lib.spt_stream_closest_hit.argtypes = [p] * 16 + stream
     lib.spt_stream_any_hit.argtypes = [p] * 9 + stream
     # dx, dy, dz, need, map, h, w, max_clamp, intensity, out rgb, n, stream
@@ -175,6 +175,22 @@ def stream_of(device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
+# Dynamic shared memory a block may take: 48 KiB without opting in (the
+# small forms), 227 KiB with it (the mesh forms and the standalone
+# tracers); csrc/spt_common.cuh kMaxSharedBytes.
+SMALL_SHARED_BYTES = 48 * 1024
+MAX_SHARED_BYTES = 227 * 1024
+
+
+def tables_in_global(nbytes: int, mesh: bool) -> bool:
+    """Whether a kernel whose block would take `nbytes` of shared memory
+    with its tables copied there (``shared_bytes``) reads them from global
+    memory instead: whether those bytes pass SMALL_SHARED_BYTES in a small
+    form, MAX_SHARED_BYTES in a mesh form (`mesh`).  Decided from the
+    counts, before any launch; both placements run the same arithmetic."""
+    return nbytes > (MAX_SHARED_BYTES if mesh else SMALL_SHARED_BYTES)
+
+
 def shared_bytes(table_bytes: int, mesh: bool) -> int:
     """Dynamic shared memory of a block whose tables and visit orders take
     `table_bytes` (csrc/spt_common.cuh smem_bytes): in a mesh form the
@@ -200,7 +216,8 @@ def sort_kernel_info(chunk: int) -> dict:
 
 
 def kernel_info(smem: dict | None = None, sort_chunk: int = 32768) -> dict:
-    """Registers per thread and local (spill) bytes of every kernel; for the
+    """Registers per thread and local (spill) bytes of every kernel, the
+    global placement's (``<name>_global``) beside the shared one's; for the
     kernels named in `smem` (name -> dynamic shared bytes of a launch) also
     those bytes and the blocks an SM holds at once with them; for the sort,
     its launch shape and active clusters at `sort_chunk`
@@ -208,21 +225,24 @@ def kernel_info(smem: dict | None = None, sort_chunk: int = 32768) -> dict:
     lib = build()
     smem = smem or {}
     out = {}
-    modes = (
-        ("fused_frame", lib.spt_fused_frame_kernel_info, 0),
-        ("fused_frame_resident", lib.spt_fused_frame_kernel_info, 1),
-        ("fused_frame_instanced", lib.spt_fused_frame_kernel_info, 2),
-        ("fused_frame_stream", lib.spt_fused_frame_kernel_info, 3),
-        ("fused_bounce", lib.spt_fused_bounce_kernel_info, 0),
-        ("fused_bounce_resident", lib.spt_fused_bounce_kernel_info, 1),
-        ("fused_bounce_instanced", lib.spt_fused_bounce_kernel_info, 2),
-        ("fused_bounce_stream", lib.spt_fused_bounce_kernel_info, 3),
-        ("closest_hit", lib.spt_trace_kernel_info, 0),
-        ("any_hit", lib.spt_trace_kernel_info, 1),
-        ("closest_hit_inst", lib.spt_inst_trace_kernel_info, 0),
-        ("any_hit_inst", lib.spt_inst_trace_kernel_info, 1),
-        ("closest_hit_stream", lib.spt_stream_trace_kernel_info, 0),
-        ("any_hit_stream", lib.spt_stream_trace_kernel_info, 1))
+    forms = (
+        ("fused_frame", lib.spt_fused_frame_kernel_info, 0, 4),
+        ("fused_frame_resident", lib.spt_fused_frame_kernel_info, 1, 4),
+        ("fused_frame_instanced", lib.spt_fused_frame_kernel_info, 2, 4),
+        ("fused_frame_stream", lib.spt_fused_frame_kernel_info, 3, 4),
+        ("fused_bounce", lib.spt_fused_bounce_kernel_info, 0, 4),
+        ("fused_bounce_resident", lib.spt_fused_bounce_kernel_info, 1, 4),
+        ("fused_bounce_instanced", lib.spt_fused_bounce_kernel_info, 2, 4),
+        ("fused_bounce_stream", lib.spt_fused_bounce_kernel_info, 3, 4),
+        ("closest_hit", lib.spt_trace_kernel_info, 0, 2),
+        ("any_hit", lib.spt_trace_kernel_info, 1, 2),
+        ("closest_hit_inst", lib.spt_inst_trace_kernel_info, 0, 2),
+        ("any_hit_inst", lib.spt_inst_trace_kernel_info, 1, 2),
+        ("closest_hit_stream", lib.spt_stream_trace_kernel_info, 0, 2),
+        ("any_hit_stream", lib.spt_stream_trace_kernel_info, 1, 2))
+    # the global placement's form of each is `mode` + its offset
+    modes = [m for name, fn, mode, glob in forms
+             for m in ((name, fn, mode), (name + "_global", fn, mode + glob))]
     for name, fn, mode in modes:
         regs, local, blocks = ctypes.c_int(0), ctypes.c_int(0), ctypes.c_int(0)
         err = fn(mode, smem.get(name, 0), ctypes.addressof(regs),

@@ -41,11 +41,17 @@ version:
   fold by strict ``<``.  Any tests every crossed instance (the order cannot
   change a flag).
 
+Each kernel copies its tables (spheres, boxes, instance rows, keys) into
+a block's shared memory while they fit there, and otherwise reads them from
+global memory through a kernel of the same code (``tables_in_global``:
+thousands of instances, or of spheres beside a mesh).
+
 Kernel and plain version agree except on exact ties in t and on a grazing
 ray whose cluster box test and triangle test round apart.
 ``CLOSEST_LAUNCHES``, ``ANY_LAUNCHES``, ``INST_CLOSEST_LAUNCHES``,
 ``INST_ANY_LAUNCHES``, ``STREAM_CLOSEST_LAUNCHES`` and
-``STREAM_ANY_LAUNCHES`` count kernel launches.
+``STREAM_ANY_LAUNCHES`` count kernel launches in the shared placement, the
+same names with ``_GLOBAL`` before ``_LAUNCHES`` those in the global one.
 """
 
 from __future__ import annotations
@@ -64,6 +70,12 @@ INST_CLOSEST_LAUNCHES = 0
 INST_ANY_LAUNCHES = 0
 STREAM_CLOSEST_LAUNCHES = 0
 STREAM_ANY_LAUNCHES = 0
+CLOSEST_GLOBAL_LAUNCHES = 0
+ANY_GLOBAL_LAUNCHES = 0
+INST_CLOSEST_GLOBAL_LAUNCHES = 0
+INST_ANY_GLOBAL_LAUNCHES = 0
+STREAM_CLOSEST_GLOBAL_LAUNCHES = 0
+STREAM_ANY_GLOBAL_LAUNCHES = 0
 
 _BIG = 1e30          # pallas_trace._BIG
 _MT_EPS = 1e-9
@@ -485,7 +497,30 @@ def _stream_inputs(accel, scene):
                           cbox.data_ptr(), corder.data_ptr()), (cbox, corder)
 
 
-def _closest(what, fn, tables, pack, dims, scene, o, d, tmin, tmax):
+def shared_bytes(tables: torch.Tensor, n_clusters: int,
+                 in_global: bool = False) -> int:
+    """Dynamic shared memory of a tracer's block (csrc/spt_common.cuh
+    smem_bytes): the packed `tables` (not in the global placement), the
+    visit orders of `n_clusters` boxes, the warps' staging buffers."""
+    return cuda_lib.shared_bytes(
+        (0 if in_global else 4 * tables.numel()) + 2 * 8 * n_clusters, True)
+
+
+def tables_in_global(tables: torch.Tensor, n_clusters: int) -> bool:
+    """Whether a tracer reads its packed `tables` from global memory:
+    whether a block's shared copy passes cuda_lib.MAX_SHARED_BYTES, as
+    with some 2 500 instances (22 words each) or 11 000 spheres beside a
+    mesh (``cuda_lib.tables_in_global``)."""
+    return cuda_lib.tables_in_global(shared_bytes(tables, n_clusters), True)
+
+
+def _placement(tables, dims, in_global) -> bool:
+    return (tables_in_global(tables, dims[0]) if in_global is None
+            else bool(in_global))
+
+
+def _closest(what, fn, tables, pack, dims, scene, o, d, tmin, tmax,
+             in_global):
     device = o.x.device
     rays = _rays_in(o, d, tmax)
     n = o.x.shape[0]
@@ -500,7 +535,7 @@ def _closest(what, fn, tables, pack, dims, scene, o, d, tmin, tmax):
     with torch.cuda.device(device):
         err = fn(*(t.data_ptr() for t in rays + out_f + out_i), *uv_ptrs,
                  tables.data_ptr(), scene.num_spheres, pack.data_ptr(),
-                 pack.shape[-1], *dims, n, float(tmin),
+                 pack.shape[-1], *dims, int(in_global), n, float(tmin),
                  cuda_lib.stream_of(device))
     cuda_lib.check(err, what)
     t, nx, ny, nz = out_f
@@ -509,7 +544,7 @@ def _closest(what, fn, tables, pack, dims, scene, o, d, tmin, tmax):
                       uvy=uv[1] if uv else None)
 
 
-def _any(what, fn, tables, pack, dims, scene, o, d, tmin, tmax):
+def _any(what, fn, tables, pack, dims, scene, o, d, tmin, tmax, in_global):
     device = o.x.device
     rays = _rays_in(o, d, tmax)
     n = o.x.shape[0]
@@ -518,7 +553,7 @@ def _any(what, fn, tables, pack, dims, scene, o, d, tmin, tmax):
     with torch.cuda.device(device):
         err = fn(*(t.data_ptr() for t in rays), blocked.data_ptr(),
                  tables.data_ptr(), scene.num_spheres, pack.data_ptr(),
-                 pack.shape[-1], *dims, n, float(tmin),
+                 pack.shape[-1], *dims, int(in_global), n, float(tmin),
                  cuda_lib.stream_of(device))
     cuda_lib.check(err, what)
     return blocked
@@ -532,84 +567,110 @@ def _device_of(o: Vec3, what: str):
 
 
 def closest_hit(accel, scene, o: Vec3, d: Vec3, tmin=0.0,
-                tmax=math.inf) -> isect.HitV:
-    """Closest hit of every lane against the spheres and the clusters."""
-    global CLOSEST_LAUNCHES
+                tmax=math.inf, *, _in_global=None) -> isect.HitV:
+    """Closest hit of every lane against the spheres and the clusters.
+    `_in_global` forces a placement of the tables on the card
+    (``tables_in_global`` decides otherwise); no entry point passes it."""
+    global CLOSEST_LAUNCHES, CLOSEST_GLOBAL_LAUNCHES
     if _device_of(o, "closest_hit").type == "cpu":
         return closest_hit_reference(accel, scene, o, d, tmin, tmax)
     tables, pack, dims = _resident_inputs(accel, scene)
+    glob = _placement(tables, dims, _in_global)
     hit = _closest("closest_hit", cuda_lib.build().spt_closest_hit, tables,
-                   pack, dims, scene, o, d, tmin, tmax)
-    CLOSEST_LAUNCHES += 1
+                   pack, dims, scene, o, d, tmin, tmax, glob)
+    if glob:
+        CLOSEST_GLOBAL_LAUNCHES += 1
+    else:
+        CLOSEST_LAUNCHES += 1
     return hit
 
 
 def any_hit(accel, scene, o: Vec3, d: Vec3, tmin=0.0,
-            tmax=math.inf) -> torch.Tensor:
+            tmax=math.inf, *, _in_global=None) -> torch.Tensor:
     """Whether anything blocks each lane's ray within (tmin, tmax)."""
-    global ANY_LAUNCHES
+    global ANY_LAUNCHES, ANY_GLOBAL_LAUNCHES
     if _device_of(o, "any_hit").type == "cpu":
         return any_hit_reference(accel, scene, o, d, tmin, tmax)
     tables, pack, dims = _resident_inputs(accel, scene)
+    glob = _placement(tables, dims, _in_global)
     blocked = _any("any_hit", cuda_lib.build().spt_any_hit, tables, pack,
-                   dims, scene, o, d, tmin, tmax)
-    ANY_LAUNCHES += 1
+                   dims, scene, o, d, tmin, tmax, glob)
+    if glob:
+        ANY_GLOBAL_LAUNCHES += 1
+    else:
+        ANY_LAUNCHES += 1
     return blocked
 
 
 def inst_closest_hit(ia, scene, o: Vec3, d: Vec3, tmin=0.0,
-                     tmax=math.inf) -> isect.HitV:
+                     tmax=math.inf, *, _in_global=None) -> isect.HitV:
     """Closest hit of every lane against the spheres and the instances."""
-    global INST_CLOSEST_LAUNCHES
+    global INST_CLOSEST_LAUNCHES, INST_CLOSEST_GLOBAL_LAUNCHES
     if _device_of(o, "inst_closest_hit").type == "cpu":
         return inst_closest_hit_reference(ia, scene, o, d, tmin, tmax)
     tables, pack, dims = _inst_inputs(ia, scene)
+    glob = _placement(tables, dims, _in_global)
     hit = _closest("inst_closest_hit", cuda_lib.build().spt_inst_closest_hit,
-                   tables, pack, dims, scene, o, d, tmin, tmax)
-    INST_CLOSEST_LAUNCHES += 1
+                   tables, pack, dims, scene, o, d, tmin, tmax, glob)
+    if glob:
+        INST_CLOSEST_GLOBAL_LAUNCHES += 1
+    else:
+        INST_CLOSEST_LAUNCHES += 1
     return hit
 
 
 def inst_any_hit(ia, scene, o: Vec3, d: Vec3, tmin=0.0,
-                 tmax=math.inf) -> torch.Tensor:
+                 tmax=math.inf, *, _in_global=None) -> torch.Tensor:
     """Whether anything blocks each lane's ray within (tmin, tmax), through
     the instances."""
-    global INST_ANY_LAUNCHES
+    global INST_ANY_LAUNCHES, INST_ANY_GLOBAL_LAUNCHES
     if _device_of(o, "inst_any_hit").type == "cpu":
         return inst_any_hit_reference(ia, scene, o, d, tmin, tmax)
     tables, pack, dims = _inst_inputs(ia, scene)
+    glob = _placement(tables, dims, _in_global)
     blocked = _any("inst_any_hit", cuda_lib.build().spt_inst_any_hit, tables,
-                   pack, dims, scene, o, d, tmin, tmax)
-    INST_ANY_LAUNCHES += 1
+                   pack, dims, scene, o, d, tmin, tmax, glob)
+    if glob:
+        INST_ANY_GLOBAL_LAUNCHES += 1
+    else:
+        INST_ANY_LAUNCHES += 1
     return blocked
 
 
 def stream_closest_hit(accel, scene, o: Vec3, d: Vec3, tmin=0.0,
-                       tmax=math.inf) -> isect.HitV:
+                       tmax=math.inf, *, _in_global=None) -> isect.HitV:
     """Closest hit of every lane against the spheres and the clusters of a
     stream-tier accel."""
-    global STREAM_CLOSEST_LAUNCHES
+    global STREAM_CLOSEST_LAUNCHES, STREAM_CLOSEST_GLOBAL_LAUNCHES
     if _device_of(o, "stream_closest_hit").type == "cpu":
         return closest_hit_reference(accel, scene, o, d, tmin, tmax)
     tables, pack, dims, keep = _stream_inputs(accel, scene)
+    glob = _placement(tables, dims, _in_global)
     hit = _closest("stream_closest_hit",
                    cuda_lib.build().spt_stream_closest_hit, tables, pack, dims,
-                   scene, o, d, tmin, tmax)
+                   scene, o, d, tmin, tmax, glob)
     del keep
-    STREAM_CLOSEST_LAUNCHES += 1
+    if glob:
+        STREAM_CLOSEST_GLOBAL_LAUNCHES += 1
+    else:
+        STREAM_CLOSEST_LAUNCHES += 1
     return hit
 
 
 def stream_any_hit(accel, scene, o: Vec3, d: Vec3, tmin=0.0,
-                   tmax=math.inf) -> torch.Tensor:
+                   tmax=math.inf, *, _in_global=None) -> torch.Tensor:
     """Whether anything blocks each lane's ray within (tmin, tmax), through
     a stream-tier accel."""
-    global STREAM_ANY_LAUNCHES
+    global STREAM_ANY_LAUNCHES, STREAM_ANY_GLOBAL_LAUNCHES
     if _device_of(o, "stream_any_hit").type == "cpu":
         return any_hit_reference(accel, scene, o, d, tmin, tmax)
     tables, pack, dims, keep = _stream_inputs(accel, scene)
+    glob = _placement(tables, dims, _in_global)
     blocked = _any("stream_any_hit", cuda_lib.build().spt_stream_any_hit,
-                   tables, pack, dims, scene, o, d, tmin, tmax)
+                   tables, pack, dims, scene, o, d, tmin, tmax, glob)
     del keep
-    STREAM_ANY_LAUNCHES += 1
+    if glob:
+        STREAM_ANY_GLOBAL_LAUNCHES += 1
+    else:
+        STREAM_ANY_LAUNCHES += 1
     return blocked

@@ -15,9 +15,9 @@ On the CPU:
   the fused route on default, cornell, hdr and chip_smoke's mesh scene;
   a declined scene logs each reason once; a kernel that fails on a
   supported scene raises and switches no route; the kernels' inputs
-  refuse a declined scene; a scene the kernels take whose tables do not
-  fit their shared memory (the port's own limit, which the JAX package
-  lacks) raises and renders nothing;
+  refuse a declined scene (a scene the kernels take whose tables do not
+  fit a block's shared memory stays on the fused route, its tables read
+  from global memory: ``tests/test_torch_tables.py``);
 - the unfused masked route against the fused one (through
   ``fused_frame_reference``), bit for bit in radiance, rays per bounce
   and bounces run, on each declined class and on default;
@@ -309,34 +309,6 @@ def test_the_kernels_refuse_a_declined_scene():
     with pytest.raises(NotImplementedError, match="MAX_EMITTERS"):
         cuda_bounce._kernel_inputs(t.cfg, t.scene, t.lights, ps,
                                    "fused_frame")
-
-
-def test_a_scene_past_shared_memory_raises(J):
-    # 1200 point lights: the JAX package runs its fused kernels on it, the
-    # port's do not hold its light table in a block's 48 KiB, and no route
-    # of the port renders it in their place
-    def lit(manager):
-        lm = manager()
-        for i in range(1200):
-            lm.add_point_light((0.01 * i - 6.0, 3.0, 1.0), intensity=0.01)
-        return lm
-
-    js = J.scene.flatten_scene(J.scene.build_default_scene())
-    assert J.pb.explain_decline(js, lit(J.lights.LightManager).device(), 64,
-                                pad_ok=True) is None
-    lights = lit(tlights.LightManager).device(CPU)
-    # 128 x 128 lanes: compact checks the route at its bounce 0
-    for integrator, w in (("masked", 8), ("compact", 128)):
-        cfg = tconfig.RenderConfig(width=w, height=w, spp=1, max_depth=2,
-                                   integrator=integrator)
-        r = Renderer(tscene.build_default_scene(), cfg, lights=lights,
-                     camera=tcamera.default_camera(w, w), device=CPU)
-        assert cuda_bounce.explain_decline(cfg, r.scene, r.lights) is None
-        assert "shared memory" in cuda_bounce.explain_overflow(
-            cfg, r.scene, r.lights)
-        with pytest.raises(NotImplementedError, match="shared memory"):
-            r.render_frames(1)
-        assert not r.state.accum.any()
 
 
 # --- the unfused route against the fused one ----------------------------------------
