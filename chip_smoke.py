@@ -80,8 +80,8 @@ this file; exits non-zero (printing no result) without them.  Phases:
     any_hit_stream) and one sorted frame (fused_bounce and fused_frame
     stream, textured, every plane bit for bit; sort_chunks at
     the full-width calls), where their times and bounds are taken; the
-    stream fused_frame from bounce 0 on all lanes, timed, and on
-    ``FRAME_EDGES``;
+    stream fused_frame from bounce 0 on all lanes, timed, held on a band
+    of STREAM_BAND of them, and on ``FRAME_EDGES``;
 15. the stream main path: ``Renderer.render_frames(8)`` on the baked grid
     at 512x384 depth 4 through the sorted frame, launch counts reset before
     and read after; ms/frame (a second chain, of replays), Mrays/s, device
@@ -89,7 +89,8 @@ this file; exits non-zero (printing no result) without them.  Phases:
 16. the stream tracer's standalone path: ``Renderer.render_frames(2)`` with
     ``integrator="regen"`` on the baked grid;
 17. baked-grid images: the sorted kernel path against the unsorted one (8
-    frames) and against the plain path (1 frame);
+    frames) and, at a quarter of the width and height, against the plain
+    path (1 frame);
 18. the stream tier at any size: the baked grid at 144 x 192 tessellation
     (about 940k triangles, a tri_pack past the L2), the stream tracer per
     launch at one regen frame's calls and against its plain version on
@@ -188,9 +189,13 @@ this file; exits non-zero (printing no result) without them.  Phases:
     1920x1080 d6, K1 small at the masked frame's call (its band held from
     bounce 5, one bounce) and K3 small at the compact bounce-0 call, the
     captured masked frames against ``frame_chain`` bit for bit (wall
-    ms/frame in turns), compact's captured frame at 128x128 d2 without
-    shadow rays (a replay, its launches counted) against ``frame_chain``
-    bit for bit; (b) 4 096
+    ms/frame in turns), compact's captured frame at 128x128 d3, two chunk
+    loops (a replay, its launches counted, its ms beside the eager frame's,
+    its graph's nodes by body, and a second replay) against
+    ``frame_chain`` bit for bit, and at 128x128 ``MANY_LIGHT_FRAMES``
+    (compact d4, regen, the megakernel, the unfused route masked and
+    compact), two replays each bit for bit; (b)
+    4 096
     instances (``wide_grid_scene``) at 512x384 d4, K3 and K1 instanced at
     the sorted frame's calls, the captured sorted frame against
     ``frame_chain``, K7 at one regen frame's first two calls of each kind;
@@ -591,6 +596,40 @@ def rtiow_scene(scene_mod, seed=0):
     d.add_sphere([4.0, 1.0, 0.0], 1.0, metal([0.7, 0.6, 0.5], 0.0))
     return d, dict(position=(13.0, 2.0, 3.0), target=(0.0, 0.0, 0.0),
                    fov_degrees=20.0)
+
+
+def sphere_field(scene_mod, seed=3):
+    """200 spheres and no triangles, no accel: a ground sphere and 199
+    small ones of three materials (grey diffuse, copper metal, glass) at
+    places drawn from numpy's `seed`; past the 192 primitives the fused
+    kernels take without an accel, so it renders through the unfused
+    route.  Takes the scene module of either package; the camera is
+    ``SPHERE_POSE``."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    d = scene_mod.SceneDesc()
+    sphere_materials(scene_mod, d)
+    d.add_sphere([0.0, -100.0, 0.0], 100.0, 0)
+    for _ in range(199):
+        d.add_sphere(rng.uniform([-3.0, 0.1, -3.0], [3.0, 1.5, 1.0]),
+                     float(rng.uniform(0.08, 0.25)), int(rng.integers(3)))
+    return d
+
+
+def sphere_materials(scene_mod, d):
+    """Add sphere_field's three materials to the SceneDesc `d`: grey
+    diffuse (0), copper metal (1), glass (2)."""
+    d.add_material(scene_mod.Material([0.7, 0.7, 0.7], roughness=0.8))
+    d.add_material(scene_mod.Material([0.9, 0.6, 0.3], metallic=1.0,
+                                      roughness=0.2))
+    d.add_material(scene_mod.Material(
+        [1.0, 1.0, 1.0], roughness=0.0, ior=1.5,
+        mat_type=scene_mod.MATERIAL_TYPE_DIELECTRIC))
+
+
+SPHERE_POSE = dict(position=(0.0, 1.4, 5.0), target=(0.0, 0.6, 0.0),
+                   fov_degrees=50.0)
 
 
 def light_row(manager, n, start, step, intensity):
@@ -1618,14 +1657,21 @@ def edge_take(case):
 
 
 def check_frame(torch, phase, what, args, kw, with_bound=False,
-                expect_take=None):
+                expect_take=None, live_only=False, band=None):
     """A fused_frame call against its plain version on the card: every
     plane bit for bit, missed as bool and the rays per bounce exact, and
     in a mesh form the kernel's queue holding every live lane.  Logs the
     live lanes, the blocks the kernel launched and the lanes each warp took
-    at once, which must be `expect_take` where that is given.  Returns
-    (max |d|, the call's bound when `with_bound` else None: the operations
-    of its walks and the bytes of frame_bytes, the plain version's ms)."""
+    at once, which must be `expect_take` where that is given.  With
+    `live_only` the plain version runs on the call's live lanes and
+    FRAME_DEAD_SAMPLE of its dead ones (``live_lanes``; a lane's path is
+    its own and a dead lane adds no ray, so its rays per bounce are the
+    whole call's), held against the kernel's whole call on those lanes;
+    with `band` on that many of the call's lanes (``band_lanes``), the
+    same, the rays per bounce (a count over the whole call) not held.
+    Returns (max |d|, the call's bound when `with_bound` else None: the
+    operations of its walks and the bytes of frame_bytes, the plain
+    version's ms)."""
     from spt_tpu_torch.ops import cuda_bounce
 
     ps = args[3]
@@ -1633,8 +1679,16 @@ def check_frame(torch, phase, what, args, kw, with_bound=False,
     queue = cuda_bounce._accel_mode(args[1]) is not None
     fk = cuda_bounce.fused_frame(*args, **kw)
     queued, blocks = frame_counters(torch, fk[4])
+    pargs, on = args, ""
+    if live_only or band:
+        idx = (live_lanes(torch, ps, FRAME_DEAD_SAMPLE) if live_only
+               else band_lanes(torch, ps, band))
+        pargs = (*args[:3], _take_lanes(ps, idx), *args[4:])
+        fk = tuple(_take_lanes(f, idx) for f in fk[:4]) + (fk[4],)
+        on = (f", held on its live lanes and {idx.numel()} in all"
+              if live_only else f", held on a band of {idx.numel()}")
     plain = lambda: _timed(  # noqa: E731
-        torch, lambda: cuda_bounce.fused_frame_reference(*args, **kw))
+        torch, lambda: cuda_bounce.fused_frame_reference(*pargs, **kw))
     b = None
     if with_bound:
         touched = {} if queue else None
@@ -1652,15 +1706,15 @@ def check_frame(torch, phase, what, args, kw, with_bound=False,
     worst = check_planes(
         torch, f"{what} from bounce {start} ({ps.num_paths} lanes, "
         f"{int(ps.alive.sum())} alive; the kernel queued {queued} lanes on "
-        f"{blocks} blocks, {take} a warp at once); rays_per_bounce kernel "
-        f"{rk} plain {rp}",
+        f"{blocks} blocks, {take} a warp at once{on}); rays_per_bounce "
+        f"kernel {rk} plain {'(the band alone) ' if band else ''}{rp}",
         {"radiance": (_v(torch, fk[0]), _v(torch, fp[0])),
          "direction": (_v(torch, fk[1]), _v(torch, fp[1])),
          "throughput": (_v(torch, fk[2]), _v(torch, fp[2])),
          "missed": (fk[3], fp[3])}, phase=phase,
         exact=("radiance", "direction", "throughput", "missed"))
-    if (rk != rp or fk[4].dtype != torch.int64 or fk[3].dtype != torch.bool
-            or (queue and queued != alive)):
+    if ((rk != rp and not band) or fk[4].dtype != torch.int64
+            or fk[3].dtype != torch.bool or (queue and queued != alive)):
         raise AssertionError(
             f"{what}: rays_per_bounce {rk} ({fk[4].dtype}) against plain "
             f"{rp}, missed {fk[3].dtype}, {queued} lanes queued of {alive} "
@@ -1672,12 +1726,36 @@ def check_frame(torch, phase, what, args, kw, with_bound=False,
 
 
 def check_frame_edges(torch, np, phase, what, cfg, scene, lights, ps):
-    """check_frame on each of FRAME_EDGES from the primary state `ps`."""
+    """check_frame on each of FRAME_EDGES from the primary state `ps`, the
+    plain version on the live lanes (``live_only``)."""
     grid = frame_grid(torch, cfg, scene, lights, ps)
     for case in FRAME_EDGES:
         eps, start = frame_edge(torch, np, case, ps, grid)
         check_frame(torch, phase, f"{what} {case}", (cfg, scene, lights, eps),
-                    {"start_bounce": start}, expect_take=edge_take(case))
+                    {"start_bounce": start}, expect_take=edge_take(case),
+                    live_only=True)
+
+
+# Dead lanes of an edge case that its plain check takes beside the live
+# ones (``check_frame`` with ``live_only``).
+FRAME_DEAD_SAMPLE = 4096
+
+
+def live_lanes(torch, ps, k):
+    """The lane ids of every live lane of `ps` and of k of its dead ones
+    spread over them (``spread``), in lane order."""
+    alive = torch.nonzero(ps.alive).flatten()
+    dead = torch.nonzero(~ps.alive).flatten()
+    return torch.sort(torch.cat([alive, spread(torch, dead, k)])).values
+
+
+def _take_lanes(x, idx):
+    """`x` (a PathState, a Vec3 or a lane tensor) at the lanes `idx`."""
+    import torch
+
+    if isinstance(x, torch.Tensor):
+        return x[idx].contiguous()
+    return type(x)(*(_take_lanes(f, idx) for f in x))
 
 
 # Bytes of fused_bounce's path state a lane: 12 float planes, the int64 RNG
@@ -2659,6 +2737,11 @@ def _timed(torch, fn):
     return out, t0.elapsed_time(t1)
 
 
+# Lanes of phase 14's stream fused_frame from bounce 0 that its plain
+# check takes (``check_frame``'s `band`).
+STREAM_BAND = 8192
+
+
 def phase_stream_kernels(torch, np, dev, smi):
     """Phase 14: the stream-tier kernels (K8, K1/K3 stream, textured)
     against their plain versions on the card, at the inputs recorded from
@@ -2770,10 +2853,14 @@ def phase_stream_kernels(torch, np, dev, smi):
         "any_hit_stream": _trace_shared_bytes("stream_any_hit", a, scene),
         "fused_bounce_stream": cuda_bounce.shared_bytes(*args[:3]),
         "fused_frame_stream": cuda_bounce.shared_bytes(*args[:3])})
-    # the stream fused_frame over every bounce of all lanes (ray_sort off)
+    # the stream fused_frame over every bounce of all lanes (ray_sort off),
+    # held on a band of them (the plain walk over 104 448 triangles takes
+    # ~8 s a bounce on all of them; the sorted frame's call above holds the
+    # rays per bounce), timed
     cfg, lights = r.cfg, args[2]
     ps0 = transport.gen_primary(cfg, r.camera.rays(dev), 0)
-    check_frame(torch, 14, "fused_frame stream", (cfg, scene, lights, ps0), {})
+    check_frame(torch, 14, "fused_frame stream", (cfg, scene, lights, ps0),
+                {}, band=STREAM_BAND)
     ms0 = kernel_device_ms(torch, lambda: cuda_bounce.fused_frame(
         cfg, scene, lights, ps0), "fused_frame_kernel<3>")
     log(f"phase 14 fused_frame stream from bounce 0 at {MW}x{MH} "
@@ -2879,7 +2966,9 @@ def phase_stream_regen_path(torch, np, dev, out_dir):
 
 def phase_stream_images(torch, np, dev):
     """Phase 17: the baked grid's sorted kernel path against its unsorted
-    kernel path (8 frames) and against the plain path (1 frame)."""
+    kernel path (8 frames) and, at a quarter of the width and height (the
+    plain walk over 104 448 triangles takes ~8 s a bounce at 512x384),
+    against the plain path (1 frame)."""
     imgs = {}
     for label, frames, kw, ctx in (
             ("sorted", 8, {}, contextlib.nullcontext),
@@ -2887,6 +2976,8 @@ def phase_stream_images(torch, np, dev):
             ("sorted_1", 1, {}, contextlib.nullcontext),
             ("plain", 1, {}, plain_path)):
         r = stream_renderer(dev, **kw)
+        if frames == 1:
+            r.resize(MW // 4, MH // 4)
         t0 = time.perf_counter()
         with ctx():
             r.render_frames(frames)
@@ -3986,7 +4077,7 @@ def phase_captured_step(torch, np, dev, smi):
               ("baked grid", lambda: stream_renderer(dev)),
               ("baked grid unsorted",
                lambda: stream_renderer(dev, ray_sort=False))]
-    # the eager frames of these take 0.1-0.8 s: fewer, shorter pairs
+    # the eager frames of these take 0.1-0.8 s: one shorter pair
     others = [(f"{name} compact", lambda name=name: renderer(
                   name, W, H, dev, integrator="compact"))
               for name in ("default", "cornell", "hdr")]
@@ -4003,7 +4094,7 @@ def phase_captured_step(torch, np, dev, smi):
                    "default", W, H, dev, integrator="megakernel"))]
     for group, pairs, frames, check in (
             (masked, CAPTURE_PAIRS, CAPTURE_FRAMES, CAPTURE_CHECK),
-            (others, 2, 4, (1, 3))):
+            (others, 1, 4, (1, 3))):
         for name, make in group:
             t0 = time.perf_counter()
             r = make()
@@ -4402,6 +4493,19 @@ def graph_nodes_a_frame(graph) -> float:
     return walk(graph.items, graph.launches) / graph.launches
 
 
+def body_nodes(items) -> list:
+    """The nodes of a captured step's graph by part (``SegmentedGraph.items``):
+    a segment's node count, a conditional as {"if" | "while": [its body's
+    parts]}."""
+    from spt_tpu_torch.ops import cuda_graph
+
+    api = cuda_graph.Api()
+    return [api.nodes(it.graph.raw_cuda_graph())[0]
+            if isinstance(it, cuda_graph.Segment) else
+            {"if" if isinstance(it, cuda_graph.Branch) else "while":
+             body_nodes(it.body)} for it in items]
+
+
 # Rows of the band that phase 27 renders on the CPU: 9 x 1920 lanes, past
 # COMPACT_MIN_LANES, so that the compact integrator takes its chunk loops
 # there as on the card.
@@ -4617,11 +4721,14 @@ MANY_LIGHTS = 1200
 MESH_LIGHTS = 5000
 MANY_SPHERES = 12000
 # Lanes of each recorded call that phase 28 holds against the plain version
-# (the plain shading loops over every light, some 20 s a bounce under
-# 5 000 lights whatever the lanes; the plain tracers over every triangle:
-# in one chunk, ``one_chunk``), by scene.
-BAND_LANES = {"lights": 4 * W, "grid": 4096, "mesh": 1024, "baked": 128,
+# (the plain shading tests every light's shadow ray against every
+# triangle, in one chunk, ``one_chunk``: on the baked grid under 5 000
+# lights some 40 s a bounce at 128 lanes), by scene.
+BAND_LANES = {"lights": 4 * W, "grid": 4096, "mesh": 1024, "baked": 64,
               "spheres": 512}
+# Ray-primitive tests one plain any-hit slice holds at once in
+# ``one_chunk``: 64 Mi, 256 MB a float plane.
+ONE_CHUNK_TESTS = 1 << 26
 # Repeats of each same-process pair of placements (phase 28 (d)).
 PLACEMENT_PAIRS = 3
 
@@ -4637,17 +4744,35 @@ def one_chunk():
     takes the chunked one too: the same tests in the same order of
     arithmetic (``_tri_chunk_test``, ``_sph_chunk_test``), so the same
     flags (tests/test_torch_tables.py holds the plain bounce's bits with
-    and without this)."""
+    and without this).  The shading's light groups hand the any-hit a
+    group's lanes at once (``transport.light_group``), so it takes them in
+    slices of at most ONE_CHUNK_TESTS / primitives lanes: each lane's flag
+    is its own, so the slices give the same bits."""
+    import torch
+
     from spt_tpu_torch.ops import intersect as isect
+    from spt_tpu_torch.ops.vec3 import Vec3
 
     chunk = 1 << 17
     closest, occluded = isect._intersect_chunked, isect._occluded_chunked
     unrolled = isect._occluded_unrolled
+
+    def sliced(scene, o, d, tmin, tmax, **k):
+        n = o.x.shape[0]
+        step = max(1, ONE_CHUNK_TESTS // max(
+            1, min(chunk, scene.num_triangles + scene.num_spheres)))
+        if n <= step:
+            return occluded(scene, o, d, tmin, tmax, chunk_size=chunk)
+        tmax = isect._lane_tmax(tmax, o)
+        return torch.cat([occluded(
+            scene, Vec3(*(c[a:a + step] for c in o)),
+            Vec3(*(c[a:a + step] for c in d)), tmin, tmax[a:a + step],
+            chunk_size=chunk) for a in range(0, n, step)])
+
     isect._intersect_chunked = lambda *a, **k: closest(*a, chunk_size=chunk,
                                                        **k)
-    isect._occluded_chunked = lambda *a, **k: occluded(*a, chunk_size=chunk,
-                                                       **k)
-    isect._occluded_unrolled = lambda *a: occluded(*a, chunk_size=chunk)
+    isect._occluded_chunked = sliced
+    isect._occluded_unrolled = sliced
     try:
         yield
     finally:
@@ -4663,23 +4788,21 @@ def spread(torch, ids, k):
                               device=ids.device).long()]
 
 
-def lane_band(torch, ps, n):
-    """The PathState `ps` on at most n of its lanes, spread evenly over
-    its live lanes (up to n / 2, more when the dead ones are fewer) and
-    its dead ones, in lane order: every plane gathered, so that the band
-    sees the image's mix of paths, not its first rows."""
+def band_lanes(torch, ps, n):
+    """The ids of at most n lanes of the PathState `ps`, spread evenly over
+    its live lanes (up to n / 2, more when the dead ones are fewer) and its
+    dead ones, in lane order, so that the band sees the image's mix of
+    paths, not its first rows."""
     alive = torch.nonzero(ps.alive).flatten()
     dead = torch.nonzero(~ps.alive).flatten()
     k = min(alive.numel(), max(n - min(dead.numel(), n // 2), n // 2))
-    idx = torch.sort(torch.cat([spread(torch, alive, k),
-                                spread(torch, dead, n - k)])).values
+    return torch.sort(torch.cat([spread(torch, alive, k),
+                                 spread(torch, dead, n - k)])).values
 
-    def take(f):
-        if isinstance(f, tuple):
-            return type(f)(*(c[idx].contiguous() for c in f))
-        return f[idx].contiguous()
 
-    return type(ps)(*(take(f) for f in ps))
+def lane_band(torch, ps, n):
+    """The PathState `ps` on its ``band_lanes``, every plane gathered."""
+    return _take_lanes(ps, band_lanes(torch, ps, n))
 
 
 def lights_renderer(dev, w, h, depth, n=MANY_LIGHTS, **cfg_kw):
@@ -4916,9 +5039,10 @@ def phase_tables_global(torch, np, dev, smi):
     under a row of 1 200 point lights at 1920x1080 d6: the captured masked frames
     against ``frame_chain``, wall ms/frame; K1 small at the masked frame's
     call (held on its band from bounce 5, one bounce) and K3 small at the
-    compact path's bounce-0 call; compact's main path without shadow rays,
-    the captured frame at 128x128 d2 against ``frame_chain``
-    (``_captured_replay``); (b) the 4 096-instance grid
+    compact path's bounce-0 call; compact's main path, the captured frame
+    at 128x128 d3 (two chunk loops) against ``frame_chain``
+    (``_captured_replay``, then ``_replay_again``) and the other captured
+    frames under those lights (``_many_light_frames``); (b) the 4 096-instance grid
     (``wide_grid_scene``) at 512x384 d4: K3 and K1 instanced at the sorted
     frame's calls, the captured sorted frame against ``frame_chain``, and
     regen's K7 at one regen frame's first two calls of each kind; (c) the
@@ -4991,18 +5115,19 @@ def phase_tables_global(torch, np, dev, smi):
         BAND_LANES["lights"], smi)
     del r, calls, a, ps0
     torch.cuda.empty_cache()
-    # compact's chunks shade through the plain path, its light loop unrolled:
-    # without shadow rays a frame takes some 5 s to run eagerly, with them
-    # ~30 s (tests/test_torch_tables.py captures that one on the card)
-    rc = lights_renderer(dev, 128, 128, 2, integrator="compact",
-                         shadow_rays=False)
-    got, _ = _captured_replay(torch, f"(a) compact + {MANY_LIGHTS} lights, "
-                              "no shadow rays,", rc, "fused_bounce_global",
-                              smi, failed)
+    # compact's chunks shade through the plain path, its lights in groups
+    # (transport.light_group); depth 3 runs two chunk loops (ROADMAP.md
+    # section 3, fault 3)
+    rc = lights_renderer(dev, 128, 128, 3, integrator="compact")
+    what = f"(a) compact + {MANY_LIGHTS} lights"
+    got, _ = _captured_replay(torch, what, rc, "fused_bounce_global", smi,
+                              failed, nodes=True)
     out["fused_bounce_small_global"]["launches"] = got.get(
         "fused_bounce_global", 0)
+    _replay_again(torch, what, rc, smi, failed)
     del rc
     torch.cuda.empty_cache()
+    _many_light_frames(torch, dev, smi, failed)
     log(f"phase 28 (a): {time.perf_counter() - t0:.1f} s [{smi}]")
 
     # (b) 4 096 instances
@@ -5162,13 +5287,15 @@ def phase_tables_global(torch, np, dev, smi):
     return out, pairs
 
 
-def _captured_replay(torch, what, r, key, smi, failed):
+def _captured_replay(torch, what, r, key, smi, failed, nodes=False):
     """Phase 28 on an overflowing scene's main path, the Renderer's captured
     frame: the first call (the eager warm-up and the capture), then one
     replay, the launch counts reset just before it and read just after,
     held bit for bit against ``frame_chain`` from the same state; no
     shared-placement K1 or K3 in it and `key` (a kernel's launch counter)
-    in it.  -> (the replay's launch counts, its wall ms)."""
+    in it; the replay's ms beside the eager frame's, and with `nodes` the
+    graph's nodes by body (``body_nodes``).  -> (the replay's launch
+    counts, its wall ms)."""
     from spt_tpu_torch.engine.renderer import frame_chain
 
     args = (r.cfg, r.scene, r.env, r.lights, r.camera.rays(r.device))
@@ -5194,12 +5321,85 @@ def _captured_replay(torch, what, r, key, smi, failed):
     if not got.get(key) or "fused_frame" in got or "fused_bounce" in got:
         failed.append(f"{what}: the replayed frame launched {got}, not "
                       f"{key} alone of the fused kernels")
+    shape = (f"; nodes by body {body_nodes(r.captured_step().graph.items)}"
+             if nodes else "")
     log(f"phase 28 {what} {r.cfg.width}x{r.cfg.height} d{r.cfg.max_depth}, "
         f"the Renderer's captured frame: the warm-up and the capture "
-        f"{t_cap:.1f} s; one replay {ms:.4f} ms wall, launches {got}; "
-        f"against frame_chain from the same state ({t_eager:.1f} s eager): "
+        f"{t_cap:.1f} s; one replay {ms:.4f} ms wall, the eager frame "
+        f"{1e3 * t_eager:.4f} ms wall, launches {got}{shape}; against "
+        f"frame_chain from the same state: "
         f"{'bit for bit' if not bad else bad} [{smi}]")
     return got, ms
+
+
+def _replay_again(torch, what, r, smi, failed):
+    """One more replay of `r`'s captured frame, held bit for bit against
+    ``frame_chain`` from the same state (a graph whose conditional bodies
+    held ~3 million nodes ran its first launch right and faulted at its
+    second: ROADMAP.md section 3, fault 3); logs its wall ms beside the
+    eager frame's."""
+    from spt_tpu_torch.engine.renderer import frame_chain
+
+    args = (r.cfg, r.scene, r.env, r.lights, r.camera.rays(r.device))
+    st = type(r.state)(*(t.clone() for t in r.state))
+    t0 = time.perf_counter()
+    want = frame_chain(*args, st, 1)
+    torch.cuda.synchronize()
+    eager = 1e3 * (time.perf_counter() - t0)
+    launches = r.captured_step().graph.launches
+    t0 = time.perf_counter()
+    r.render_frames(1)
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0)
+    bad = same_run(torch, (r.state, r.last_stats), want)
+    if bad:
+        failed.append(f"{what}: the graph's launch {launches + 1} differs "
+                      f"from frame_chain in {bad}")
+    log(f"phase 28 {what} {r.cfg.width}x{r.cfg.height} d{r.cfg.max_depth}: "
+        f"the graph's launch {launches + 1}, {ms:.4f} ms wall, the eager "
+        f"frame {eager:.4f} ms wall; against frame_chain: "
+        f"{'bit for bit' if not bad else bad} [{smi}]")
+
+
+# The other captured frames phase 28 (a) runs under MANY_LIGHTS lights at
+# 128x128 (tests/test_torch_tables.py holds each, and compact at 1920x1080
+# d6): (integrator, depth, scene), "spheres" the unfused route's
+# ``sphere_field``.
+MANY_LIGHT_FRAMES = (("compact", 4, "default"), ("regen", 3, "default"),
+                     ("megakernel", 3, "default"), ("masked", 3, "spheres"),
+                     ("compact", 3, "spheres"))
+
+
+def _many_light_frames(torch, dev, smi, failed):
+    """Phase 28 (a): each of MANY_LIGHT_FRAMES, the Renderer's first call
+    (the eager warm-up and the capture), its graph's nodes by body, then
+    two replays (``_replay_again``)."""
+    from spt_tpu_torch import scene as tscene
+    from spt_tpu_torch.camera import Camera
+    from spt_tpu_torch.config import RenderConfig
+    from spt_tpu_torch.engine.renderer import Renderer
+    from spt_tpu_torch.lights import LightManager
+
+    for integrator, depth, name in MANY_LIGHT_FRAMES:
+        if name == "spheres":
+            cfg = RenderConfig(width=128, height=128, spp=1, max_depth=depth,
+                               integrator=integrator)
+            r = Renderer(sphere_field(tscene), cfg, lights=light_row(
+                LightManager(), MANY_LIGHTS, **LIGHT_ROW).device(dev),
+                camera=Camera(aspect_ratio=1.0, **SPHERE_POSE), device=dev)
+        else:
+            r = lights_renderer(dev, 128, 128, depth, integrator=integrator)
+        what = f"(a) {integrator} on {name} + {MANY_LIGHTS} lights"
+        t0 = time.perf_counter()
+        r.render_frames(1)
+        torch.cuda.synchronize()
+        log(f"phase 28 {what} d{depth}: the warm-up and the capture "
+            f"{time.perf_counter() - t0:.1f} s; nodes by body "
+            f"{body_nodes(r.captured_step().graph.items)}")
+        for _ in range(2):
+            _replay_again(torch, what, r, smi, failed)
+        del r
+        torch.cuda.empty_cache()
 
 
 def _twin(r, integrator):

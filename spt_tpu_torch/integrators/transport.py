@@ -185,6 +185,27 @@ def sample_texture_v(textures, tex_id, uvx, uvy):
     return Vec3(vals[0], vals[1], vals[2]), vals[3], vals[4]
 
 
+# Elements of one plane of shade_core's light loop, by device type: it
+# shades G lights of N lanes at once in (G, N) planes, the shadow test's
+# (G * N, C) where that test holds a lane against C primitives at once, G =
+# LIGHT_PLANE // (N * C) (at least one).  A captured body then holds ~1 400
+# nodes a group on the default scene and one add a light, not ~1 400 a
+# light (ROADMAP.md section 3, fault 3): on the card 38 groups under 1 200
+# lights in the 1920x1080 compact chunk's 519 168 lanes, 150 in the regen
+# step's 2 073 600.  On the CPU, where a plane past the caches runs a few
+# times slower, the planes stay at 4 MB.  The groups change no bit.
+LIGHT_PLANE = {"cuda": 1 << 24, "cpu": 1 << 20}
+
+
+def light_group(lights: DeviceLights, lanes: int, columns: int = 1,
+                device="cuda") -> int:
+    """The lights shade_core takes at once on `lanes` lanes of `device`,
+    its shadow test `columns` primitives wide
+    (``intersect.occluded_columns``)."""
+    plane = LIGHT_PLANE.get(torch.device(device).type, LIGHT_PLANE["cpu"])
+    return max(1, min(lights.count, plane // (max(lanes, 1) * columns)))
+
+
 def shade_core(
     cfg: RenderConfig,
     scene: DeviceScene,
@@ -243,24 +264,36 @@ def shade_core(
     direct_ok = surf if cfg.direct_light_dielectric else (surf & ~is_dielectric)
     view = v3.safe_normalize(-ps.direction)
     front = torch.ones(shape, dtype=torch.bool, device=device)
-    for li in range(lights.count):
-        li_rad, ldir, ldist, lactive = sample_light_v(lights, li, p)
+    if cfg.shadow_rays:
+        shadow_o = isect.safe_origin_v(p, n, front)
+    rad = torch.stack(tuple(radiance))
+    group = light_group(lights, shape[0], isect.occluded_columns(
+        scene, device, plain) if cfg.shadow_rays else 1, device)
+    for a in range(0, lights.count, group):
+        # lights a..a+g-1 at once, (g, N) planes; each lane's sum stays in
+        # light order
+        g = min(group, lights.count - a)
+        li_rad, ldir, ldist, lactive = sample_light_v(lights,
+                                                      slice(a, a + g), p)
         cos_theta = torch.clamp(v3.dot(n, ldir), min=0.0)
         contrib_mask = direct_ok & lactive & (cos_theta > 0.0)
         if cfg.shadow_rays:
-            shadow_o = isect.safe_origin_v(p, n, front)
+            tmax = torch.where(contrib_mask, ldist - cfg.hit_eps, 0.0)
             blocked = isect.occluded_v(
-                scene, shadow_o, ldir, tmin=cfg.hit_eps,
-                tmax=torch.where(contrib_mask, ldist - cfg.hit_eps, 0.0),
-                plain=plain,
-            )
+                scene, Vec3(*(c.expand(g, -1).reshape(-1) for c in shadow_o)),
+                Vec3(*(c.reshape(-1) for c in ldir)), tmin=cfg.hit_eps,
+                tmax=tmax.reshape(-1), plain=plain,
+            ).reshape(g, -1)
             contrib_mask = contrib_mask & ~blocked
         brdf_nl = sampling.evaluate_brdf_v(
             n, view, ldir, mat.base_color, mat.metallic, mat.roughness, mat.ior
         )
-        radiance = radiance + v3.where(
+        contrib = torch.stack(tuple(v3.where(
             contrib_mask, ps.throughput * brdf_nl * li_rad, zero3
-        )
+        )))
+        for j in range(g):
+            rad = rad + contrib[:, j]
+    radiance = Vec3(*rad.unbind(0))
 
     # --- NEE toward emissive triangles (area lights) --------------------------
     rng = ps.rng

@@ -100,17 +100,27 @@ def sample_light(lights: DeviceLights, i: int, hit_point: torch.Tensor):
     return li.to_array(), ldir.to_array(), dist, active
 
 
-def sample_light_v(lights: DeviceLights, i: int, p: v3.Vec3):
+def sample_light_v(lights: DeviceLights, i, p: v3.Vec3):
     """Per-lane radiance for static light index `i`, Vec3 form.
-    Returns (Li: Vec3, dir_to_light: Vec3, distance, active)."""
-    kind = lights.kind[i]
-    vx, vy, vz = lights.vec[i, 0], lights.vec[i, 1], lights.vec[i, 2]
-    it = lights.intensity[i]
-    cx = lights.color[i, 0] * it
-    cy = lights.color[i, 1] * it
-    cz = lights.color[i, 2] * it
-    a0, a1, a2 = (lights.attenuation[i, 0], lights.attenuation[i, 1],
-                  lights.attenuation[i, 2])
+    Returns (Li: Vec3, dir_to_light: Vec3, distance, active).  `i` may be
+    a slice of the table: each result then has a leading axis, one row a
+    light (`p`'s lanes broadcast along it), every element the same
+    arithmetic as for that light alone."""
+    if isinstance(i, slice):
+        def row(t, *k):
+            return t[(i, *k, None)]
+    else:
+        def row(t, *k):
+            return t[(i, *k)]
+
+    kind = row(lights.kind)
+    vx, vy, vz = row(lights.vec, 0), row(lights.vec, 1), row(lights.vec, 2)
+    it = row(lights.intensity)
+    cx = row(lights.color, 0) * it
+    cy = row(lights.color, 1) * it
+    cz = row(lights.color, 2) * it
+    a0, a1, a2 = (row(lights.attenuation, 0), row(lights.attenuation, 1),
+                  row(lights.attenuation, 2))
 
     is_point = kind == KIND_POINT
     lvx, lvy, lvz = vx - p.x, vy - p.y, vz - p.z

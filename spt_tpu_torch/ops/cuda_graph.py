@@ -30,6 +30,15 @@ from spt_tpu_torch.ops import cuda_lib
 
 IF, WHILE = 0, 1
 
+# Nodes the conditional bodies of one graph may hold in all.  On an H100
+# under CUDA 12.8, bodies of ~3.0 million kernel nodes (two WHILE bodies of
+# 1.5 million, or one of 3.0 million) ran right at the graph's first launch
+# and faulted with an illegal address at its second, where 2.2 million (two
+# of 1.1 million) and 1.7 million in one body ran right at every launch, as
+# did 3.0 million outside any conditional (graph_probe.py; ROADMAP.md
+# section 3, fault 3).  A graph past it raises before it is instantiated.
+MAX_BODY_NODES = 2_200_000
+
 # cudaGraphNodeType values a conditional body may not hold, by name
 NODE_TYPES = {3: "host", 6: "wait_event", 7: "event_record",
               8: "ext_semaphore_signal", 9: "ext_semaphore_wait",
@@ -120,12 +129,15 @@ class Api:
             self.lib.spt_graph_destroy(graph)
 
 
-def emit(api, graph, items: List, taken: int, dep=None, body: bool = False):
+def emit(api, graph, items: List, taken: int, dep=None, body: bool = False,
+         held: list = None):
     """Append `items` to `graph` as a chain after the node `dep` (None: the
     graph's first); returns the last node.  `taken` is the address of the
     device tally (unsigned 64-bit words by slot).  In a conditional body
     (`body`) a segment holding a node a body may not hold raises, naming
-    its type; a body left with no node gets an empty one."""
+    its type, and its nodes are added to ``held[0]``; a body left with no
+    node gets an empty one."""
+    held = [0] if held is None else held
     for it in items:
         if isinstance(it, Segment):
             raw = it.graph.raw_cuda_graph()
@@ -136,6 +148,8 @@ def emit(api, graph, items: List, taken: int, dep=None, body: bool = False):
                     "empty, child-graph and conditional nodes only; a "
                     "segment captured into one holds a "
                     f"{NODE_TYPES.get(bad, bad)} node")
+            if body:
+                held[0] += count
             if count:
                 dep = api.child(graph, dep, raw)
             continue
@@ -144,12 +158,13 @@ def emit(api, graph, items: List, taken: int, dep=None, body: bool = False):
         if isinstance(it, Branch):
             dep = api.set_cond(graph, dep, h, it.pred, it.negate, slot)
             dep, inner = api.conditional(graph, dep, h, IF)
-            if emit(api, inner, it.body, taken, body=True) is None:
+            if emit(api, inner, it.body, taken, body=True,
+                    held=held) is None:
                 api.empty(inner, None)
         else:
             dep = api.set_cond(graph, dep, h, it.pred, False, slot)
             dep, inner = api.conditional(graph, dep, h, WHILE)
-            last = emit(api, inner, it.body, taken, body=True)
+            last = emit(api, inner, it.body, taken, body=True, held=held)
             api.set_cond(inner, last, h, it.pred_next, False, slot)
     return dep
 
@@ -157,15 +172,22 @@ def emit(api, graph, items: List, taken: int, dep=None, body: bool = False):
 class DeviceGraph:
     """`items` built into one CUDA graph and instantiated; ``launch``
     replays it on a stream.  The graph holds copies of the segments' graphs,
-    whose memory pool (and so every address they use) the caller keeps."""
+    whose memory pool (and so every address they use) the caller keeps.
+    Conditional bodies past MAX_BODY_NODES in all raise."""
 
     def __init__(self, items: List, taken, api=None):
         self.api = api or Api()
         self.graph = self.api.create()
         self.exec = None
         self._finalizer = self._destroyer(None)
+        held = [0]
         emit(self.api, self.graph, items,
-             taken.data_ptr() if taken is not None else 0)
+             taken.data_ptr() if taken is not None else 0, held=held)
+        if held[0] > MAX_BODY_NODES:
+            raise RuntimeError(
+                f"the graph's conditional bodies hold {held[0]} nodes, past "
+                f"the {MAX_BODY_NODES} whose replays were seen to run "
+                "(cuda_graph.MAX_BODY_NODES)")
         self.exec = self.api.instantiate(self.graph)
         self._finalizer.detach()
         self._finalizer = self._destroyer(self.exec)

@@ -53,6 +53,8 @@ KIND_SPHERE = 2
 _MT_EPS = 1e-9
 
 UNROLL_LIMIT = 192
+# Primitives a lane meets at once in _intersect_chunked / _occluded_chunked.
+CHUNK_SIZE = 128
 
 
 class HitV(NamedTuple):
@@ -170,6 +172,18 @@ def occluded_v(scene, o: Vec3, d: Vec3, tmin=1e-4, tmax=INF,
               else cuda_trace.any_hit)
         return fn(scene.accel, scene, o, d, tmin, tmax)
     return _occluded_chunked(scene, o, d, tmin, tmax)
+
+
+def occluded_columns(scene, device, plain: bool = False) -> int:
+    """Primitives occluded_v holds a lane against at once on `device`: 1
+    where it takes them one at a time (unrolled) or a kernel takes the
+    lanes, else the chunked tests' CHUNK_SIZE."""
+    if scene.num_triangles + scene.num_spheres <= UNROLL_LIMIT:
+        return 1
+    if (scene.accel is not None or scene.inst is not None) and (
+            torch.device(device).type == "cuda" and not plain):
+        return 1
+    return CHUNK_SIZE
 
 
 def _intersect_unrolled(scene, o: Vec3, d: Vec3, tmin, tmax) -> HitV:
@@ -317,7 +331,7 @@ def _scan_min(test, n_prims: int, chunk_size: int, kind_id: int, carry):
 
 
 def _intersect_chunked(scene, o: Vec3, d: Vec3, tmin, tmax,
-                       chunk_size: int = 128) -> HitV:
+                       chunk_size: int = CHUNK_SIZE) -> HitV:
     """Closest hit by chunked brute force (intersect.py:272-377)."""
     tmax = _lane_tmax(tmax, o)
     n, dev = o.x.shape[0], o.x.device
@@ -399,7 +413,7 @@ def _intersect_chunked(scene, o: Vec3, d: Vec3, tmin, tmax,
 
 
 def _occluded_chunked(scene, o: Vec3, d: Vec3, tmin, tmax,
-                      chunk_size: int = 128) -> torch.Tensor:
+                      chunk_size: int = CHUNK_SIZE) -> torch.Tensor:
     """Any hit by chunked brute force (intersect.py:380-412)."""
     tmax = _lane_tmax(tmax, o)
     blocked = torch.zeros(o.x.shape, dtype=torch.bool, device=o.x.device)

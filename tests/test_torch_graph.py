@@ -286,6 +286,36 @@ def test_emit_lays_the_conditionals_out_as_one_chain():
             p, False, [seg(_Raw("F", bad=7), {})], 0)], 0)
 
 
+def test_device_graph_refuses_bodies_past_the_node_limit():
+    # conditional bodies of ~3 million nodes in all faulted at the graph's
+    # second launch on the card (ROADMAP.md section 3, fault 3): a graph
+    # past MAX_BODY_NODES raises before it is instantiated; nodes outside
+    # the bodies do not count
+    class Api(_RecordingApi):
+        def create(self):
+            return "top"
+
+        def instantiate(self, graph):
+            return "exec"
+
+        def destroy(self, graph, exec_):
+            pass
+
+    seg, n = cuda_graph.Segment, cuda_graph.MAX_BODY_NODES
+
+    def items(extra):
+        return [seg(_Raw("A", count=4 * n), {}),
+                cuda_graph.Loop("q", [seg(_Raw("B", count=n // 2), {})],
+                                "q2", 0),
+                cuda_graph.Branch("p", False, [cuda_graph.Loop(
+                    "r", [seg(_Raw("C", count=n - n // 2 + extra), {})],
+                    "r2", 2)], 1)]
+
+    assert cuda_graph.DeviceGraph(items(0), None, api=Api()).exec == "exec"
+    with pytest.raises(RuntimeError, match=f"hold {n + 1} nodes"):
+        cuda_graph.DeviceGraph(items(1), None, api=Api())
+
+
 def test_segmented_replay_reads_each_decision_and_counts_launches():
     # a replay is one graph launch and reads nothing: the straight line's
     # launches count at once; the device tallies each conditional body's

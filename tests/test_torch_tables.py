@@ -26,9 +26,11 @@ over):
 On the card (``cuda`` marker; skipped without one): every global form of
 K1, K3, K4, K7 and K8 bit for bit with its plain version and with the
 shared form forced onto a scene that fits both, and the captured frames of
-the overflowing scenes bit for bit with ``frame_chain``; a captured compact
-frame at depth 3 under ~1 000 lights fails (ROADMAP.md open fault 3): its
-test is marked strictly as expected to fail, and runs last.
+the overflowing scenes bit for bit with ``frame_chain``, and every captured
+integrator under 1 080 or 1 200 lights at 128 x 128 (compact at depths 3 and
+4, regen, the megakernel, the unfused route on ``chip_smoke.sphere_field``)
+and compact at 1920 x 1080 depth 6 (compact at depth 3 failed while the
+light loop shaded one light at a time, ROADMAP.md section 3, fault 3).
     python -m pytest --noconftest tests/test_torch_tables.py -m cuda
 """
 
@@ -245,10 +247,11 @@ def test_standalone_tracers_place_their_tables_by_bytes():
 
 
 @pytest.mark.parametrize("name", ["lights", "mesh"])
-def test_one_chunk_keeps_the_plain_bits(name):
+def test_one_chunk_keeps_the_plain_bits(monkeypatch, name):
     # chip_smoke.one_chunk runs the plain any-hit of a small scene (the
     # default one: unrolled) and of a mesh scene in one chunk: the plain
-    # bounce and frame give the same bits with it and without it
+    # bounce and frame give the same bits with it and without it, and with
+    # the any-hit's lanes taken in slices of a few lanes
     if name == "lights":
         r = _lit(40, 16, 8)
     else:
@@ -264,8 +267,12 @@ def test_one_chunk_keeps_the_plain_bits(name):
     want = run()
     with chip_smoke.one_chunk():
         got = run()
-    assert len(got) == len(want)
+    monkeypatch.setattr(chip_smoke, "ONE_CHUNK_TESTS", 1000)
+    with chip_smoke.one_chunk():
+        sliced = run()
+    assert len(got) == len(want) == len(sliced)
     assert all(_same(a, b) for a, b in zip(got, want))
+    assert all(_same(a, b) for a, b in zip(sliced, want))
     assert bool(want[9].any()) and not bool(want[9].all())  # missed: some
 
 
@@ -450,17 +457,27 @@ def test_standalone_tracers_global_on_card(cuda_device, name):
     assert torch.equal(gb, wb)
 
 
-def _captured_against_chain(r, dev):
-    """`r`'s captured frames (1, then 3) against frame_chain's from the
-    same state, bit for bit -> the launch counts of the captured ones."""
+def _node_total(part) -> int:
+    """The nodes of a ``chip_smoke.body_nodes`` part in all."""
+    if isinstance(part, int):
+        return part
+    if isinstance(part, dict):
+        return _node_total(next(iter(part.values())))
+    return sum(_node_total(x) for x in part)
+
+
+def _captured_against_chain(r, dev, frames=(1, 3)):
+    """`r`'s captured frames (`frames` a call: 1, then 3) against
+    frame_chain's from the same state, bit for bit -> the launch counts of
+    the captured ones."""
     args = (r.cfg, r.scene, r.env, r.lights, r.camera.rays(dev))
     wants = []
     st = r.state
-    for k in (1, 3):
+    for k in frames:
         st, stats = frame_chain(*args, st, k)
         wants.append((st, stats))
     before = twf.launch_counts()
-    for k, (ws, wstats) in zip((1, 3), wants):
+    for k, (ws, wstats) in zip(frames, wants):
         r.render_frames(k)
         assert all(_same(a, b) for a, b in zip(r.state, ws))
         assert _same(r.last_stats.rays_per_bounce, wstats.rays_per_bounce)
@@ -473,7 +490,7 @@ def _captured_against_chain(r, dev):
     ("lights", "masked"), ("lights", "compact"), ("grid", "masked")])
 def test_captured_overflow_frames_match_frame_chain_on_card(
         cuda_device, name, integrator):
-    # compact at depth 2: one chunk loop (depth 3 shows open fault 3, below)
+    # compact at depth 2: one chunk loop (depth 3 and more lights below)
     w, h = (128, 128) if integrator == "compact" else (128, 96)
     if name == "grid":
         r = _grid(w, h, 3, device=cuda_device)
@@ -491,17 +508,46 @@ def test_captured_overflow_frames_match_frame_chain_on_card(
 
 
 @pytest.mark.cuda
-@pytest.mark.xfail(strict=True, raises=RuntimeError,
-                   reason="ROADMAP.md section 3, open fault 3")
-@pytest.mark.parametrize("n_lights", [1080, 1200])
+@pytest.mark.parametrize("integrator, n_lights, depth, size", [
+    ("compact", 1080, 3, 128), ("compact", 1200, 3, 128),
+    ("compact", 1200, 4, 128), ("compact", 1200, 6, 1080),
+    ("regen", 1200, 3, 128), ("megakernel", 1200, 3, 128),
+    ("spheres-masked", 1200, 3, 128), ("spheres-compact", 1200, 3, 128)])
 def test_captured_compact_with_many_lights_matches_frame_chain_on_card(
-        cuda_device, n_lights):
-    # open fault 3 (ROADMAP.md section 3): compact at depth 3, two chunk
-    # loops of a ~1 000-light shading body each, fails with an illegal
-    # memory access in its captured frame, in the shared placement (1 080
-    # lights) and the global one (1 200) alike; depth 2 passes.  Strict: the
-    # repair turns this into a failure until the mark goes.  It runs last:
-    # the fault leaves the process's CUDA context unusable.
-    r = _lit(n_lights, 128, 128, integrator="compact", depth=3,
-             device=cuda_device)
-    _captured_against_chain(r, cuda_device)
+        cuda_device, integrator, n_lights, depth, size):
+    # every captured integrator under ~1 000 point lights at 128x128 (compact
+    # past COMPACT_MIN_LANES, two, three and five chunk loops), and compact
+    # at 1920x1080 d6 (519 168 lanes a chunk), bit for bit with frame_chain:
+    # the light loop shades its lights in groups (transport.light_group),
+    # so a chunk body holds ~4 800 nodes at 128x128 (~23 000 on the sphere
+    # field, whose shadow test is chunked) and ~55 000 at 1080p,
+    # not the ~1.5 million that failed at depth 3 (ROADMAP.md section 3,
+    # fault 3), whose second replay faulted; "spheres-*" is
+    # chip_smoke.sphere_field, declined by the fused kernels: the unfused
+    # route's loop (masked) and chunks (compact).  At 1080p (some 40 s a
+    # frame) a call of one frame (the eager warm-up and the capture), then
+    # one of two: two replays.
+    w, h = (1920, 1080) if size == 1080 else (128, 128)
+    if integrator.startswith("spheres-"):
+        cfg = tconfig.RenderConfig(width=w, height=h, spp=1,
+                                   max_depth=depth,
+                                   integrator=integrator.split("-")[1])
+        r = Renderer(chip_smoke.sphere_field(tscene), cfg,
+                     lights=_row(tlights.LightManager, n_lights).device(
+                         cuda_device),
+                     camera=tcamera.Camera(aspect_ratio=1.0,
+                                           **chip_smoke.SPHERE_POSE),
+                     device=cuda_device)
+    else:
+        r = _lit(n_lights, w, h, integrator=integrator, depth=depth,
+                 device=cuda_device)
+    delta = _captured_against_chain(
+        r, cuda_device, (1, 2) if size == 1080 else (1, 3))
+    graph = r.captured_step().graph
+    assert graph.launches == (2 if size == 1080 else 3)
+    nodes = chip_smoke.body_nodes(graph.items)
+    bodies = [x for x in nodes if isinstance(x, dict)]
+    if integrator in ("compact", "spheres-compact"):
+        assert len(bodies) == depth - 1
+        assert max(_node_total(b) for b in bodies) < 60000
+        assert delta[("loop", "chunk")] > 0

@@ -67,28 +67,14 @@ def J():
                                  materials=materials, scene=scene,
                                  Renderer=Renderer, debug=debug,
                                  pb=pallas_bounce)
-POSE = dict(position=(0.0, 1.4, 5.0), target=(0.0, 0.6, 0.0),
-            fov_degrees=50.0)
+POSE = chip_smoke.SPHERE_POSE
 
 
-def _mats(mod, d):
-    d.add_material(mod.Material([0.7, 0.7, 0.7], roughness=0.8))
-    d.add_material(mod.Material([0.9, 0.6, 0.3], metallic=1.0, roughness=0.2))
-    d.add_material(mod.Material([1.0, 1.0, 1.0], roughness=0.0, ior=1.5,
-                                mat_type=mod.MATERIAL_TYPE_DIELECTRIC))
+_mats = chip_smoke.sphere_materials
 
 
-def _spheres(mod, seed=3):
-    """200 spheres and no triangles: a ground sphere and 199 small ones of
-    three materials at places drawn from `seed`."""
-    rng = np.random.default_rng(seed)
-    d = mod.SceneDesc()
-    _mats(mod, d)
-    d.add_sphere([0.0, -100.0, 0.0], 100.0, 0)
-    for _ in range(199):
-        d.add_sphere(rng.uniform([-3.0, 0.1, -3.0], [3.0, 1.5, 1.0]),
-                     float(rng.uniform(0.08, 0.25)), int(rng.integers(3)))
-    return d
+# 200 spheres and no triangles (no accel)
+_spheres = chip_smoke.sphere_field
 
 
 def _mesh_spheres(mod, seed=4, n=33):
