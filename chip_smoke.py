@@ -265,6 +265,17 @@ def smi_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+def library_parts() -> dict:
+    """Seconds of each child of the kernel library's set-up span
+    ("library": hash, on a cold build compile.<source> and link, load)."""
+    from spt_tpu_torch.utils import timing
+
+    spans = timing.snapshot().spans
+    lib = [s.id for s in spans if s.name == "library"]
+    return {s.name: round((s.end_ns - s.start_ns) * 1e-9, 2) for s in spans
+            if lib and s.parent == lib[0]}
+
+
 def bound(nbytes: float, flops: float):
     """(bound_ms, bound_by): the larger of the bytes over HBM bandwidth and
     the operations over the float32 peak."""
@@ -5464,8 +5475,8 @@ def main() -> int:
 
     t0 = time.perf_counter()
     cuda_lib.build()
-    log(f"phase 0 build: {time.perf_counter() - t0:.2f} s in all, per source "
-        f"{ {k: round(v, 2) for k, v in cuda_lib.BUILD_SECONDS.items()} }")
+    log(f"phase 0 build: {time.perf_counter() - t0:.2f} s in all, its parts "
+        f"{library_parts()}")
     log(f"phase 0 kernels: {cuda_lib.kernel_info()}")
     for line in cuda_lib.PTXAS_LOG.splitlines():
         if "Compiling entry" in line or "spill" in line or "Used" in line:

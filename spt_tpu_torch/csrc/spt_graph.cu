@@ -20,6 +20,11 @@
 // wrappers' launch counts need (integrators/wavefront.py reads them only
 // when asked, after the frames).
 //
+// spt_stamp is not part of a graph: it enqueues stamp_kernel, which writes
+// the device's %globaltimer (ns) into one int64 slot, on a stream between
+// two pieces of work, outside any capture (utils/timing.py reads the slots
+// back after the work and puts them on the host clock).
+//
 // Every entry returns its CUDA error (0 on success); graphs, nodes,
 // handles and streams are the same CUgraph / CUstream objects under both
 // runtimes, so they pass between this library's runtime and PyTorch's.
@@ -37,6 +42,12 @@ __global__ void set_cond_kernel(cudaGraphConditionalHandle handle,
   const bool value = (*pred != 0) != (negate != 0);
   cudaGraphSetConditional(handle, value ? 1u : 0u);
   if (value && taken != nullptr) *taken += 1ull;
+}
+
+__global__ void stamp_kernel(unsigned long long* slot) {
+  unsigned long long ns;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(ns));
+  *slot = ns;
 }
 
 // A conditional body holds kernel, memcpy, memset, empty, child-graph and
@@ -177,6 +188,14 @@ int spt_graph_launch(void* exec, void* stream) {
 
 int spt_graph_exec_destroy(void* exec) {
   return cudaGraphExecDestroy(static_cast<cudaGraphExec_t>(exec));
+}
+
+// One thread writes the globaltimer into *slot once the work enqueued on
+// `stream` before it has run.
+int spt_stamp(void* slot, void* stream) {
+  stamp_kernel<<<1, 1, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<unsigned long long*>(slot));
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // extern "C"

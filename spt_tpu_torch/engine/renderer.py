@@ -50,6 +50,7 @@ from spt_tpu_torch.lights import DeviceLights, default_lights
 from spt_tpu_torch.ops.tonemap import resolve
 from spt_tpu_torch.scene.desc import SceneDesc
 from spt_tpu_torch.scene.flatten import flatten_scene
+from spt_tpu_torch.utils import timing
 
 
 def _frame_image(cfg, scene, env, lights, camera, frame_index, row0=0,
@@ -181,7 +182,12 @@ class CapturedStep:
     a replay.  A capture that fails raises: nothing runs eagerly in its
     place.  The wrappers' launch counts tick for the eager frame as it
     launches and for each replay by what its capture counted, the
-    conditional bodies' share when ``wavefront.launch_counts`` is read."""
+    conditional bodies' share when ``wavefront.launch_counts`` is read.
+
+    The capture is the set-up span "capture" (utils/timing.py); a call,
+    while a torch.profiler records, the spans "load", "replays" and
+    "stats" and device stamps outside the graph: before the load copies,
+    before each replay, after the last replay and after the stats."""
 
     def __init__(self, step: StaticStep):
         self.step = step
@@ -190,29 +196,45 @@ class CapturedStep:
     def _capture(self) -> None:
         s = self.step
         device = s.state.accum.device
-        current = torch.cuda.current_stream(device)
-        side = torch.cuda.Stream(device)
-        side.wait_stream(current)
-        with torch.cuda.stream(side):
-            s.frame()
-        current.wait_stream(side)
-        with wavefront.SegmentedGraph(device).capture(mode="relaxed"):
-            s.frame()
-        graph = wavefront.SegmentedGraph(device)
-        with graph.capture():
-            s.frame()
+        with timing.setup_span("capture"):
+            with timing.setup_span("warmup_frame"):
+                current = torch.cuda.current_stream(device)
+                side = torch.cuda.Stream(device)
+                side.wait_stream(current)
+                with torch.cuda.stream(side):
+                    s.frame()
+                current.wait_stream(side)
+            with timing.setup_span("capture_relaxed"):
+                with wavefront.SegmentedGraph(device).capture(mode="relaxed"):
+                    s.frame()
+            with timing.setup_span("capture_global"):
+                graph = wavefront.SegmentedGraph(device)
+                with graph.capture():
+                    s.frame()
         self.graph = graph
 
     def __call__(self, camera: CameraRays, rstate, k: int):
         """`k` frames (at least one) -> (the step's state, stats)."""
-        self.step.load(camera, rstate)
+        device = self.step.state.accum.device
+        timing.stamp("load", device)
+        with timing.span("load"):
+            self.step.load(camera, rstate)
         k = max(k, 1)
         if self.graph is None:
             self._capture()
             k -= 1
-        for _ in range(k):
-            self.graph.replay()
-        return self.step.state, self.step.stats()
+        # one flag check for the loop, not one a replay
+        stamp = timing.RECORDER.stamp if timing.recording() else None
+        with timing.span("replays"):
+            for _ in range(k):
+                if stamp is not None:
+                    stamp("replay", device)
+                self.graph.replay()
+        timing.stamp("stats", device)
+        with timing.span("stats"):
+            stats = self.step.stats()
+        timing.stamp("end", device)
+        return self.step.state, stats
 
 
 def _captured_step_dyn(cfg: RenderConfig, scene, env, lights, device,
@@ -257,7 +279,12 @@ def tree_tensors(obj):
 
 class Renderer:
     """Progressive renderer over one scene, on one device or, under a
-    process group, over a mesh of one device a rank."""
+    process group, over a mesh of one device a rank.
+
+    The constructor is the set-up span "renderer_init" (utils/timing.py),
+    its parts "mesh", "flatten", "env_lights", "state" and "replicate";
+    while a torch.profiler records, ``render_frames`` and ``image`` record
+    spans of their parts and enqueue device stamps (PERF.md section 3)."""
 
     def __init__(
         self,
@@ -270,6 +297,10 @@ class Renderer:
         *,
         device="cuda",
     ):
+        with timing.setup_span("renderer_init"):
+            self._init(desc, cfg, env, lights, camera, multi_device, device)
+
+    def _init(self, desc, cfg, env, lights, camera, multi_device, device):
         self.cfg = cfg or RenderConfig()
         # Shard the image into row bands when a process group of several
         # ranks is up and the height tiles; an auto-detected mesh yields to
@@ -290,30 +321,39 @@ class Renderer:
         if multi_device:
             from spt_tpu_torch.parallel import sharding
 
-            self.mesh = sharding.make_mesh(self.device.type)
+            with timing.setup_span("mesh"):
+                self.mesh = sharding.make_mesh(self.device.type)
         self.rank = dist.get_rank() if world > 1 else 0
-        self.scene = flatten_scene(desc, self.device)
-        self.env = (env if env is not None
-                    else make_procedural_environment(self.device))
-        self.lights = (lights if lights is not None
-                       else default_lights(self.device))
-        for name, obj in (("env", self.env), ("lights", self.lights)):
-            for t in tree_tensors(obj):
-                if t.device != self.device:
-                    raise ValueError(f"{name} lies on {t.device}, the "
-                                     f"renderer on {self.device}")
-        self.camera = camera or Camera(aspect_ratio=self.cfg.width / self.cfg.height)
-        self.state = state_mod.init_state(self.cfg.num_pixels, self.device)
-        self.last_stats = None
-        self._captured = None
-        self._wavefront_integrator = (
-            "masked" if self.cfg.integrator == "megakernel"
-            else self.cfg.integrator)
+        with timing.setup_span("flatten"):
+            self.scene = flatten_scene(desc, self.device)
+        with timing.setup_span("env_lights"):
+            self.env = (env if env is not None
+                        else make_procedural_environment(self.device))
+            self.lights = (lights if lights is not None
+                           else default_lights(self.device))
+            for name, obj in (("env", self.env), ("lights", self.lights)):
+                for t in tree_tensors(obj):
+                    if t.device != self.device:
+                        raise ValueError(f"{name} lies on {t.device}, the "
+                                         f"renderer on {self.device}")
+        with timing.setup_span("state"):
+            self.camera = camera or Camera(
+                aspect_ratio=self.cfg.width / self.cfg.height)
+            self.state = state_mod.init_state(self.cfg.num_pixels,
+                                              self.device)
+            self.last_stats = None
+            self._captured = None
+            self._wavefront_integrator = (
+                "masked" if self.cfg.integrator == "megakernel"
+                else self.cfg.integrator)
+            if self.mesh is not None:
+                self._step = sharding.sharded_frame_step_dyn(self.cfg,
+                                                             self.mesh)
+                self.state = sharding.shard_pixels(self.mesh, self.state)
         if self.mesh is not None:
-            self._step = sharding.sharded_frame_step_dyn(self.cfg, self.mesh)
-            self.state = sharding.shard_pixels(self.mesh, self.state)
-            for tree in (self.scene, self.env, self.lights):
-                sharding.replicate(self.mesh, tree)
+            with timing.setup_span("replicate"):
+                for tree in (self.scene, self.env, self.lights):
+                    sharding.replicate(self.mesh, tree)
 
     def toggle_integrator(self) -> str:
         """Flip wavefront <-> megakernel and reset accumulation, the
@@ -372,20 +412,24 @@ class Renderer:
         call capturing it (``_captured_step_dyn``); the state is then the
         step's buffers, updated in place.  Nothing in the loop waits for
         the device; on a mesh the call ends with the step's two all_reduces
-        of the stats."""
-        if check_camera and self.camera.has_moved_since_last_check():
-            self.state = state_mod.reset(self.state)
-        rays = self.camera.rays(self.device)
-        if self.mesh is not None:
-            self.state, self.last_stats = self._step(
-                self.scene, self.env, self.lights, rays, self.state, k)
-        elif captures(self.cfg, self.device):
-            self.state, self.last_stats = self.captured_step()(
-                rays, self.state, k)
-        else:
-            self.state, self.last_stats = frame_chain(
-                self.cfg, self.scene, self.env, self.lights, rays,
-                self.state, k)
+        of the stats.  While a torch.profiler records: the span
+        "render_frames" and a device stamp before the camera's upload."""
+        with timing.span("render_frames"):
+            if check_camera and self.camera.has_moved_since_last_check():
+                self.state = state_mod.reset(self.state)
+            timing.stamp("upload", self.device)
+            with timing.span("camera_upload"):
+                rays = self.camera.rays(self.device)
+            if self.mesh is not None:
+                self.state, self.last_stats = self._step(
+                    self.scene, self.env, self.lights, rays, self.state, k)
+            elif captures(self.cfg, self.device):
+                self.state, self.last_stats = self.captured_step()(
+                    rays, self.state, k)
+            else:
+                self.state, self.last_stats = frame_chain(
+                    self.cfg, self.scene, self.env, self.lights, rays,
+                    self.state, k)
 
     def captured_step(self) -> CapturedStep:
         """The whole image's captured step for the current cfg (its band is
@@ -414,16 +458,28 @@ class Renderer:
             return self.state
         from spt_tpu_torch.parallel import sharding
 
-        return self.state._replace(
-            accum=sharding.gather_pixels(self.mesh, self.state.accum))
+        with timing.span("gather"):
+            return self.state._replace(
+                accum=sharding.gather_pixels(self.mesh, self.state.accum))
 
     def image(self) -> np.ndarray:
-        """Resolved display image, (H, W, 3) float in [0, 1]."""
-        st = self._full_state()
-        img = resolve(st.accum, st.sample_count,
-                      exposure=self.cfg.exposure, gamma=self.cfg.gamma,
-                      tonemap=self.cfg.tonemap)
-        return img.reshape(self.cfg.height, self.cfg.width, 3).cpu().numpy()
+        """Resolved display image, (H, W, 3) float in [0, 1].  While a
+        torch.profiler records: the span "image" (its parts "gather" on a
+        mesh, "resolve", "readback") and device stamps before the gather or
+        resolve, after the resolve and after the readback."""
+        with timing.span("image"):
+            timing.stamp("image", self.device)
+            st = self._full_state()
+            with timing.span("resolve"):
+                img = resolve(st.accum, st.sample_count,
+                              exposure=self.cfg.exposure, gamma=self.cfg.gamma,
+                              tonemap=self.cfg.tonemap)
+            timing.stamp("readback", self.device)
+            with timing.span("readback"):
+                out = img.reshape(self.cfg.height, self.cfg.width,
+                                  3).cpu().numpy()
+            timing.stamp("end", self.device)
+        return out
 
     def hdr_image(self) -> np.ndarray:
         """Linear HDR mean radiance, (H, W, 3) float32."""

@@ -73,6 +73,7 @@ from spt_tpu_torch.ops.compaction import (compact_gather, compact_indices,
 from spt_tpu_torch.ops import vec3 as v3
 from spt_tpu_torch.ops.vec3 import Vec3
 from spt_tpu_torch.scene.flatten import DeviceScene
+from spt_tpu_torch.utils import timing
 
 # Samples the sorted mesh frame finished, by branch ("full_width" or
 # "condensed"), so a run can show which one it took.
@@ -390,7 +391,8 @@ class SegmentedGraph:
         a capture in the relaxed mode (the warm-up that is thrown away) is
         not built.  A capture that raises is ended (on its stream, where
         PyTorch ends a capture) before the error propagates, so the stream
-        leaves capture mode."""
+        leaves capture mode.  The build is the set-up span "graph_build"
+        (utils/timing.py)."""
         global _SEGMENTED
         if _SEGMENTED is not None:
             raise RuntimeError("a SegmentedGraph capture is already underway")
@@ -419,7 +421,8 @@ class SegmentedGraph:
             _DEFERRED.clear()
         current.wait_stream(stream)
         if mode != "relaxed":
-            self._build()
+            with timing.setup_span("graph_build"):
+                self._build()
 
     def _begin(self) -> None:
         self._graph = torch.cuda.CUDAGraph(keep_graph=True)

@@ -18,6 +18,8 @@ import subprocess
 import time
 from pathlib import Path
 
+from spt_tpu_torch.utils import timing
+
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = ("fused_frame.cu", "fused_bounce.cu", "cluster_trace.cu",
            "inst_trace.cu", "stream_trace.cu", "sort_chunks.cu",
@@ -32,9 +34,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
 # warps a block, each kStageRows 64 rows x kMtCols 9 floats and a lock word.
 STAGE_BYTES = 4 * (64 * 9 * 4 + 4)
 
-# Filled by build(): seconds per source (0 when the cached library loaded)
-# and the ptxas report (registers, spill stores and loads per kernel).
-BUILD_SECONDS: dict = {}
+# Filled by a build that compiles: the ptxas report (registers, spill
+# stores and loads per kernel).  The build's times are the set-up span
+# "library" and its children (utils/timing.py).
 PTXAS_LOG = ""
 
 _LIB = None
@@ -59,13 +61,13 @@ def _compile(out_dir: Path, lib_path: Path) -> None:
     for name in SOURCES:
         obj = out_dir / f"{Path(name).stem}.{os.getpid()}.o"
         cmd = [exe, *NVCC_FLAGS, "-c", "-o", str(obj), str(CSRC / name)]
-        procs.append((name, obj, cmd, time.perf_counter(),
+        procs.append((name, obj, cmd, time.perf_counter_ns(),
                       subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                        stderr=subprocess.PIPE, text=True)))
     logs, failed = [], []
     for name, obj, cmd, t0, proc in procs:
         out, err = proc.communicate()
-        BUILD_SECONDS[name] = time.perf_counter() - t0
+        timing.record(f"compile.{name}", t0, time.perf_counter_ns())
         logs.append(f"== {name}\n{out}{err}")
         if proc.returncode != 0:
             failed.append(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
@@ -75,7 +77,8 @@ def _compile(out_dir: Path, lib_path: Path) -> None:
         raise RuntimeError("\n".join(failed))
     tmp = out_dir / f"libspt_kernels.{os.getpid()}.tmp.so"
     cmd = [exe, "-shared", "-o", str(tmp), *(str(p[1]) for p in procs)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    with timing.setup_span("link"):
+        proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc link failed ({proc.returncode}): "
                            f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
@@ -86,21 +89,29 @@ def _compile(out_dir: Path, lib_path: Path) -> None:
 
 def build() -> ctypes.CDLL:
     """Compile csrc (once per source hash) and load it.  Raises on a failed
-    build."""
+    build.  The first call in a process records the set-up span "library":
+    "hash", on a cold build "compile.<source>" for each source and "link",
+    then "load"."""
     global _LIB
     if _LIB is not None:
         return _LIB
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES + HEADERS:
-        h.update((CSRC / name).read_bytes())
-    out_dir = BUILD_ROOT / h.hexdigest()[:16]
-    lib_path = out_dir / "libspt_kernels.so"
-    if not lib_path.exists():
-        out_dir.mkdir(parents=True, exist_ok=True)
-        _compile(out_dir, lib_path)
-    else:
-        BUILD_SECONDS.update({name: 0.0 for name in SOURCES})
-    lib = ctypes.CDLL(str(lib_path))
+    with timing.setup_span("library"):
+        with timing.setup_span("hash"):
+            h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+            for name in SOURCES + HEADERS:
+                h.update((CSRC / name).read_bytes())
+            out_dir = BUILD_ROOT / h.hexdigest()[:16]
+            lib_path = out_dir / "libspt_kernels.so"
+        if not lib_path.exists():
+            out_dir.mkdir(parents=True, exist_ok=True)
+            _compile(out_dir, lib_path)
+        with timing.setup_span("load"):
+            _LIB = _bind(ctypes.CDLL(str(lib_path)))
+    return _LIB
+
+
+def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the argument and return types of every C entry."""
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     # tables, n_tris, n_sphs, n_mats, n_lights, n_emit, flags, pack,
     # pack_w, n_clusters, cluster_size, n_inst, n_meshes, tex, tex_res,
@@ -156,9 +167,10 @@ def build() -> ctypes.CDLL:
     for fn, args in graph_entries.items():
         getattr(lib, fn).argtypes = args
         getattr(lib, fn).restype = i
+    lib.spt_stamp.argtypes = [p, p]
+    lib.spt_stamp.restype = i
     lib.spt_cuda_error_string.argtypes = [i]
     lib.spt_cuda_error_string.restype = ctypes.c_char_p
-    _LIB = lib
     return lib
 
 

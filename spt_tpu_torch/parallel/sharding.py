@@ -37,6 +37,7 @@ from spt_tpu_torch.engine import state as state_mod
 from spt_tpu_torch.engine.renderer import (_captured_step_dyn, captures,
                                            frame_chain, tree_tensors)
 from spt_tpu_torch.integrators.wavefront import WavefrontStats
+from spt_tpu_torch.utils import timing
 
 AXIS = "px"
 
@@ -142,7 +143,9 @@ def sharded_frame_step_dyn(cfg: RenderConfig, mesh):
     the whole frame's.  On the card it replays the band's captured step k
     times (made at the first call, and again when it is given another
     scene, env or lights); the state it returns is that step's buffers,
-    updated in place.  On the CPU it runs shard_frames."""
+    updated in place.  On the CPU it runs shard_frames.  While a
+    torch.profiler records, the all_reduces are the span "reduce", with a
+    device stamp before and after them."""
     rank, world = _rank_world(mesh)
     row0, rows = band(cfg, rank, world)
     group = mesh.get_group(AXIS)
@@ -161,11 +164,15 @@ def sharded_frame_step_dyn(cfg: RenderConfig, mesh):
         else:
             st, stats = shard_frames(cfg, scene, env, lights, camera, rstate,
                                      k, rank, world)
-        # the chain's stats are its own tensors: reduced in place
-        dist.all_reduce(stats.rays_per_bounce, op=dist.ReduceOp.SUM,
-                        group=group)
-        dist.all_reduce(stats.bounces_run.reshape(1), op=dist.ReduceOp.MAX,
-                        group=group)
+        device = rstate.accum.device
+        timing.stamp("reduce", device)
+        with timing.span("reduce"):
+            # the chain's stats are its own tensors: reduced in place
+            dist.all_reduce(stats.rays_per_bounce, op=dist.ReduceOp.SUM,
+                            group=group)
+            dist.all_reduce(stats.bounces_run.reshape(1),
+                            op=dist.ReduceOp.MAX, group=group)
+        timing.stamp("end", device)
         return st, stats
 
     return step

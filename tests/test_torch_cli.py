@@ -1,4 +1,4 @@
-"""spt_tpu_torch's CLI, bench entry, debug views, timing and viewer.
+"""spt_tpu_torch's CLI, bench entry, debug views and viewer.
 
 The parser is held to ``spt_tpu.cli``'s action by action (dest, default,
 choices, flags).  The debug views are held to ``spt_tpu.integrators.debug``
@@ -19,7 +19,6 @@ torch = pytest.importorskip("torch")
 jax = pytest.importorskip("jax")
 torch.set_num_threads(2)
 
-import jax.numpy as jnp  # noqa: E402
 
 from spt_tpu import camera as jcamera  # noqa: E402
 from spt_tpu import cli as jcli  # noqa: E402
@@ -36,8 +35,6 @@ from spt_tpu_torch import scene as tscene  # noqa: E402
 from spt_tpu_torch.engine import display  # noqa: E402
 from spt_tpu_torch.engine.image import read_png  # noqa: E402
 from spt_tpu_torch.integrators import debug  # noqa: E402
-from spt_tpu_torch.integrators.wavefront import WavefrontStats  # noqa: E402
-from spt_tpu_torch.utils.timing import RayThroughput, StageTimer  # noqa: E402
 
 CPU = torch.device("cpu")
 
@@ -158,37 +155,6 @@ def test_render_debug_bad_mode():
         debug.render_debug(cfg, tscene.flatten_scene(tscene.build_default_scene(),
                                                      CPU),
                            tcamera.default_camera(8, 8).rays(CPU), "bogus")
-
-
-# --- timing ---------------------------------------------------------------------
-
-def test_stage_timer():
-    import time
-
-    t = StageTimer()
-    with t.stage("a"):
-        time.sleep(0.01)
-    with t.stage("a"):
-        time.sleep(0.01)
-    with t.stage("b", block_on=torch.ones(4)):
-        pass
-    assert t.totals["a"] >= 0.02 and t.counts["a"] == 2
-    assert "a" in t.report() and "b" in t.report()
-
-
-def test_ray_throughput_matches_jax():
-    from spt_tpu.utils.timing import RayThroughput as JaxRT
-    from spt_tpu.integrators.wavefront import WavefrontStats as JaxStats
-
-    rt, jrt = RayThroughput(n_lights=1), JaxRT(n_lights=1)
-    rays = [100, 40, 10, 0]
-    rt.add_frame(WavefrontStats(rays_per_bounce=torch.tensor(rays),
-                                bounces_run=torch.tensor(3)))
-    jrt.add_frame(JaxStats(rays_per_bounce=jnp.array(rays),
-                           bounces_run=jnp.int32(3)))
-    assert rt.total_rays == jrt.total_rays == 200   # 150 path + 50 shadow
-    assert rt.mrays_per_sec > 0
-    assert "Mrays" in rt.report()
 
 
 # --- the ANSI viewer --------------------------------------------------------------
