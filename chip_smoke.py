@@ -14,10 +14,18 @@ this file; exits non-zero (printing no result) without them.  Phases:
    exact; at each, its device time (torch.profiler), the wrapper's and the
    plain version's time, its bound, registers, spill and blocks per SM,
    and the SIMT efficiency of warps and blocks of lanes in pixel order,
-   from the plain version's per-lane bounce counts;
+   from the plain version's per-lane bounce counts; on default, K1's
+   whole-frame form (``cuda_bounce.whole_frame``) in each placement of
+   its tables against its plain version, the split frame's chain in
+   plain PyTorch (primary rays, fused_frame_reference, the sky term and
+   the sum into the accumulation), the accumulation bit for bit and the
+   rays per bounce exact, with its device time, the chain's time and its
+   bound;
 2. the small-scene main path: ``Renderer.render_frames(8)`` on default
    1920x1080 depth 6, Cornell (NEE) and HDR glass with a 1024x2048
-   synthetic map, launch counts reset before and read after (on the card
+   synthetic map, launch counts reset before and read after (default and
+   Cornell take their frames whole, one whole_frame launch a frame; HDR
+   runs the split frame, fused_frame and env_sample; on the card
    a Renderer runs its first frame eagerly, captures the frame and replays
    it for the rest, phase 25; a replay adds to the counts what its capture
    counted, a conditional body's by the runs the device tallied);
@@ -892,6 +900,7 @@ def read_counts() -> dict:
     wavefront.launch_counts()
 
     return {"fused_frame": cuda_bounce.LAUNCHES,
+            "whole_frame": cuda_bounce.WHOLE_LAUNCHES,
             "fused_bounce": cuda_bounce.BOUNCE_LAUNCHES,
             "sort_chunks": cuda_sort.LAUNCHES,
             "closest_hit": cuda_trace.CLOSEST_LAUNCHES,
@@ -904,6 +913,7 @@ def read_counts() -> dict:
             # the same kernels with their tables in global memory (phase 28)
             "fused_frame_global": cuda_bounce.GLOBAL_LAUNCHES,
             "fused_bounce_global": cuda_bounce.GLOBAL_BOUNCE_LAUNCHES,
+            "whole_frame_global": cuda_bounce.WHOLE_GLOBAL_LAUNCHES,
             "closest_hit_global": cuda_trace.CLOSEST_GLOBAL_LAUNCHES,
             "any_hit_global": cuda_trace.ANY_GLOBAL_LAUNCHES,
             "closest_hit_inst_global": cuda_trace.INST_CLOSEST_GLOBAL_LAUNCHES,
@@ -1038,8 +1048,71 @@ def simt_efficiency(torch, lane_bounces, group: int) -> float:
     return float(c.sum()) / max(float(c.amax(1).sum()) * group, 1.0)
 
 
+def whole_vs_plain(torch, cuda_bounce, cfg, scene, lights, cam, ops, dev,
+                   smi) -> dict:
+    """Phase 1 on default: K1's whole-frame form at the main path's call
+    (one frame from frame index 0, added into an accumulation of zeros),
+    with its tables in each placement, against its plain version, the
+    split frame's chain in plain PyTorch (``plain_path``: primary_lanes,
+    fused_frame_reference and the sky term in ``render_wavefront``, then
+    accumulate_'s sum), the accumulation bit for bit and the rays per
+    bounce equal.  Returns the kernel-line numbers of "whole_frame" and
+    "whole_frame_global": the kernel's device ms, the chain's ms and the
+    bound (24 B a lane, the accumulation read and written, and the counts;
+    the split form's counted operations, ``ops``)."""
+    from spt_tpu_torch.env import make_procedural_environment
+    from spt_tpu_torch.integrators import wavefront
+
+    env = make_procedural_environment(dev)
+    rays = cam.rays(dev)
+    n = cfg.width * cfg.height
+    fi = torch.zeros((), dtype=torch.int32, device=dev)
+    cam_buf = torch.cat([rays.position, rays.forward, rays.right, rays.up,
+                         rays.half_width.reshape(1),
+                         rays.half_height.reshape(1)])
+    tables = cuda_bounce.frame_tables(cfg, scene, lights)
+
+    def plain():
+        with plain_path():
+            img, stats = wavefront.render_wavefront(cfg, scene, env, lights,
+                                                    rays, fi)
+        acc = torch.zeros(n, 3, dtype=torch.float32, device=dev)
+        acc.add_(img.reshape(-1, 3) * float(cfg.spp))
+        return acc, stats.rays_per_bounce
+
+    p_acc, p_rays = plain()
+    plain_ms = time_call(torch, plain, warmup=1, iters=3)
+    b = bound(n * 24 + (cfg.max_depth + 3) * 8, ops)
+    out = {}
+    for in_global in (False, True):
+        name = "whole_frame_global" if in_global else "whole_frame"
+        acc = torch.zeros(n, 3, dtype=torch.float32, device=dev)
+        k_rays = cuda_bounce.whole_frame(cfg, scene, lights, cam_buf, acc, fi,
+                                         tables, _in_global=in_global)
+        torch.cuda.synchronize()
+        err = check_planes(torch, f"{name}, default {W}x{H} d{cfg.max_depth} "
+                           "one frame into zeros", {"accum": (acc, p_acc)},
+                           phase=1, exact=("accum",))
+        rk, rp = k_rays.tolist(), p_rays.tolist()
+        if rk != rp:
+            raise AssertionError(f"{name}'s rays per bounce {rk} differ from "
+                                 f"the plain chain's {rp}")
+        scratch = torch.zeros_like(acc)
+        ms = kernel_device_ms(torch, lambda: cuda_bounce.whole_frame(
+            cfg, scene, lights, cam_buf, scratch, fi, tables,
+            _in_global=in_global), f"{name}_kernel")
+        log(f"phase 1 {name} at default {W}x{H} d{cfg.max_depth}: rays per "
+            f"bounce {rk} (equal to the plain chain's); kernel {ms:.4f} ms "
+            f"(device time), plain chain {plain_ms:.4f} ms per call, bound "
+            f"{b[0]:.4f} ms ({b[1]}; {ops_note(ops)}) [{smi}]")
+        out[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound=b,
+                         library_ms=None)
+    return out
+
+
 def phase_kernel_vs_plain(torch, cuda_bounce, dev, smi):
-    """Phase 1.  Returns the default-scene numbers for the kernel line."""
+    """Phase 1.  Returns the default-scene numbers for the kernel line,
+    the whole-frame form's under "whole"."""
     from spt_tpu_torch.integrators import transport
     from spt_tpu_torch.ops import cuda_lib
     from spt_tpu_torch.scene import flatten_scene
@@ -1087,25 +1160,32 @@ def phase_kernel_vs_plain(torch, cuda_bounce, dev, smi):
         b = bound(cfg.width * cfg.height * (12 * 4 + 8 + 2 + 9 * 4 + 1)
                   + (cfg.max_depth + 1) * 8, ops)
         smem = cuda_bounce.shared_bytes(cfg, scene, lights)
-        info = cuda_lib.kernel_info({"fused_frame": smem})["fused_frame"]
+        infos = cuda_lib.kernel_info({"fused_frame": smem, "whole_frame": smem})
+        info, whole = infos["fused_frame"], infos["whole_frame"]
         log(f"phase 1 fused_frame small at {name} {W}x{H} d{cfg.max_depth}: "
             f"kernel {ms:.4f} ms (device time), wrapper {wrapper_ms:.4f} ms, "
             f"plain {plain_ms:.4f} ms per call, bound {b[0]:.4f} ms ({b[1]}; "
             f"{ops_note(ops)}); {info['registers']} registers, "
             f"{info['local_bytes']} B local, {smem} B shared a block, "
-            f"{info['blocks_per_sm']} blocks/SM; SIMT efficiency of the "
+            f"{info['blocks_per_sm']} blocks/SM (the whole-frame form "
+            f"{whole['registers']}, {whole['local_bytes']} B, "
+            f"{whole['blocks_per_sm']}); SIMT efficiency of the "
             f"plain version's paths in pixel order: warps of 32 "
             f"{simt_efficiency(torch, lane_bounces, 32):.4f}, blocks of 128 "
             f"{simt_efficiency(torch, lane_bounces, 128):.4f} [{smi}]")
         if name == "default":
             result = dict(max_abs_err=max_abs, ms=ms, plain_ms=plain_ms,
-                          bound=b)
+                          bound=b, whole=whole_vs_plain(
+                              torch, cuda_bounce, cfg, scene, lights, cam,
+                              ops, dev, smi))
     return result
 
 
 def phase_main_path(torch, np, cuda_bounce, dev, out_dir):
     """Phase 2: the small-scene Renderer on the card; returns the launch
-    counts of fused_frame and of the environment sampler (on hdr, whose map
+    counts of K1 small's split form (fused_frame: hdr), of its whole-frame
+    form (whole_frame: default and cornell, under the procedural sky, take
+    their frames whole) and of the environment sampler (on hdr, whose map
     made the .hdr round trip)."""
     from spt_tpu_torch.ops import cuda_env
 
@@ -1115,25 +1195,25 @@ def phase_main_path(torch, np, cuda_bounce, dev, out_dir):
     torch.cuda.synchronize()
     reset_counts()
     for name, r in renderers.items():
-        before, env_before = cuda_bounce.LAUNCHES, cuda_env.LAUNCHES
+        before = read_counts()
         r.render_frames(frames)
         torch.cuda.synchronize()
-        grew = cuda_bounce.LAUNCHES - before
-        env_grew = cuda_env.LAUNCHES - env_before
+        after = read_counts()
+        grew, whole, env_grew = (after[k] - before[k] for k in (
+            "fused_frame", "whole_frame", "env_sample"))
         rays, path = check_image(np, r, name, out_dir, frames)
         log(f"phase 2 {name} {W}x{H} d{r.cfg.max_depth}: {frames} frames, "
-            f"LAUNCHES +{grew}, env_sample +{env_grew}, rays_per_bounce "
-            f"{rays.tolist()}, mean hdr {float(r.hdr_image().mean()):.6g}, "
-            f"png {path}")
-        if grew != frames:
-            raise AssertionError(f"{name}: LAUNCHES grew by {grew}, "
-                                 f"expected {frames}")
+            f"fused_frame +{grew}, whole_frame +{whole}, env_sample "
+            f"+{env_grew}, rays_per_bounce {rays.tolist()}, mean hdr "
+            f"{float(r.hdr_image().mean()):.6g}, png {path}")
+        want = (0, frames) if name != "hdr" else (frames, 0)
+        if (grew, whole) != want:
+            raise AssertionError(f"{name}: fused_frame grew by {grew} and "
+                                 f"whole_frame by {whole}, expected {want}")
         if env_grew != (frames if name == "hdr" else 0):
             raise AssertionError(f"{name}: env_sample grew by {env_grew}")
     counts = read_counts()
-    if counts["fused_frame"] == 0:
-        raise AssertionError("the main path launched no kernel")
-    return counts["fused_frame"], counts["env_sample"]
+    return counts["fused_frame"], counts["whole_frame"], counts["env_sample"]
 
 
 def phase_image_vs_plain(torch, np, dev):
@@ -3769,10 +3849,9 @@ def phase_sharded_world(torch, np, dev, smi):
             f"captured {_med(o['pairs']['captured'])}; the "
             f"step's two all_reduces {o['collectives_ms']:.4f} ms a "
             f"render_frames call (CUDA events, 20 pairs) [{smi}]")
-        if o["counts"]["fused_frame"] != frames:
-            failed.append(f"rank {i} launched fused_frame "
-                          f"{o['counts']['fused_frame']} times in {frames} "
-                          "frames")
+        if o["counts"]["whole_frame"] != frames:
+            failed.append(f"rank {i} took {o['counts']['whole_frame']} "
+                          f"frames whole in {frames} frames")
     log(f"phase 24 NCCL world of {n} rank(s) ({spawn_s:.1f} s to spawn, run "
         f"and join); single-device Renderer here: {ms:.4f} ms/frame (CUDA "
         f"events over a chain after a warm-up frame); image against it: lanes not "
@@ -3814,6 +3893,22 @@ def same_run(torch, got, want) -> list:
     pairs["bounces_run"] = (gstats.bounces_run, wstats.bounces_run)
     return [k for k, (a, b) in pairs.items()
             if a.shape != b.shape or not _same_bits(torch, a, b)]
+
+
+def captured_counts(r, eager: dict, frames: int) -> dict:
+    """The launch counts (``counts_of``) a captured run of `frames` frames
+    of `r` should add, given what the eager ``frame_chain`` run of the same
+    frames added: the same, except where the step takes its frames whole
+    (``StaticStep.whole``): then one launch a frame of the whole-frame
+    kernel in its tables' placement and nothing else, where the chain
+    launched fused_frame and the PyTorch code around it."""
+    from spt_tpu_torch.ops import cuda_bounce
+
+    if r.captured_step().step.whole:
+        return {(cuda_bounce.__name__, "WHOLE_GLOBAL_LAUNCHES"
+                 if cuda_bounce.tables_in_global(r.cfg, r.scene, r.lights)
+                 else "WHOLE_LAUNCHES"): frames}
+    return eager
 
 
 def counts_of(torch, fn) -> dict:
@@ -3945,7 +4040,7 @@ def _captured_config(torch, name, r, smi, failed, branches_seen,
     pool = graph_pool_bytes(torch, graph)
     if bad:
         failed.append(f"{name}: captured against frame_chain differs in {bad}")
-    if got != eager:
+    if got != captured_counts(r, eager, sum(check)):
         failed.append(f"{name}: launch counts eager {eager}, captured {got}")
     sorted_frames = sum(v for k, v in eager.items() if k[0] is None)
     if (launches[0] != 0 or per_frame != 1
@@ -3977,8 +4072,9 @@ def _captured_config(torch, name, r, smi, failed, branches_seen,
         f"captured step against frame_chain after k={check} and 2 "
         f"replays under sync-debug \"error\": "
         f"{'bit for bit' if not bad else bad}; launch counts over "
-        f"{sum(check)} frames {'equal' if got == eager else 'differ'}"
-        f": {got}; branch and loop tallies {tallies}; device tallies since "
+        f"{sum(check)} frames "
+        f"{'as expected' if got == captured_counts(r, eager, sum(check)) else 'unexpected'}"
+        f": {got} (eager {eager}); branch and loop tallies {tallies}; device tallies since "
         f"the capture ({launches[-1] + 2} replays): {device_tallies(graph)}; "
         f"graph launches {per_frame:.0f} a frame ({n_if} IF nodes, "
         f"{cond_kinds(graph.items).count('while')} WHILE nodes); pool "
@@ -4613,7 +4709,7 @@ def _unfused_config(torch, np, name, r, make, smi, failed, with_plain,
     graph = r.captured_step().graph
     if bad:
         failed.append(f"{name}: captured against frame_chain differs in {bad}")
-    if got != eager:
+    if got != captured_counts(r, eager, 2):
         failed.append(f"{name}: launch counts eager {eager}, captured {got}")
     launches = graph.launches
     if launches != 1:
@@ -4652,7 +4748,8 @@ def _unfused_config(torch, np, name, r, make, smi, failed, with_plain,
         f"d{r.cfg.max_depth}: "
         f"captured against frame_chain (the capture, then a replay under "
         f"sync-debug \"error\"): {'bit for bit' if not bad else bad}; "
-        f"launch counts over 2 frames {'equal' if got == eager else 'differ'}"
+        f"launch counts over 2 frames "
+        f"{'as expected' if got == captured_counts(r, eager, 2) else 'unexpected'}"
         f": {got}; {launches} graph launch for the replayed frame, {whiles} "
         f"WHILE nodes, device tallies {device_tallies(graph)}; "
         f"{nodes:.0f} graph nodes a replayed frame; pool {pool} B; wall "
@@ -5093,7 +5190,8 @@ def phase_tables_global(torch, np, dev, smi):
                 "in the global one")
 
     def no_shared(what, got):
-        if any(k in got for k in ("fused_frame", "fused_bounce")):
+        if any(k in got for k in ("fused_frame", "fused_bounce",
+                                  "whole_frame")):
             failed.append(f"{what}: a shared-placement fused kernel "
                           f"launched: {got}")
 
@@ -5116,9 +5214,16 @@ def phase_tables_global(torch, np, dev, smi):
         torch, f"default + {MANY_LIGHTS} lights {W}x{H} d6", "fused_frame",
         a, k, BAND_LANES["lights"], smi,
         band_kw=dict(k, start_bounce=r.cfg.max_depth - 1))
+    # the captured masked frames take K1's whole-frame form; the split form
+    # runs in frame_chain, which they are held against
+    if got.get("whole_frame_global", 0) < 1:
+        failed.append(f"(a): the captured masked frames launched no "
+                      f"whole_frame_global: {got}")
     out["fused_frame_global"].update(launches=got.get("fused_frame_global",
                                                       0),
                                      captured_ms=row["ms"]["captured"])
+    out["whole_frame_global"] = {"launches": got.get("whole_frame_global",
+                                                     0)}
     ps0 = transport.gen_primary(r.cfg, r.camera.rays(dev), 0)
     out["fused_bounce_small_global"] = _global_fused(
         torch, f"compact bounce 0, default + {MANY_LIGHTS} lights {W}x{H}",
@@ -5496,8 +5601,9 @@ def main() -> int:
                 f"(script at {time.perf_counter() - T_START:.1f} s)")
 
     small = timed(phase_kernel_vs_plain, torch, cuda_bounce, dev, smi)
-    small_launches, env_launches = timed(phase_main_path, torch, np,
-                                         cuda_bounce, dev, out_dir)
+    whole = small.pop("whole")
+    small_launches, whole_launches, env_launches = timed(
+        phase_main_path, torch, np, cuda_bounce, dev, out_dir)
     timed(phase_image_vs_plain, torch, np, dev)
     timed(phase_times, torch, dev, smi)
 
@@ -5549,6 +5655,14 @@ def main() -> int:
     kernels = [
         entry("fused_frame", "fused_frame.cu",
               "spt_tpu/ops/pallas_bounce.py:1090", small_launches, small),
+        # K1 small from lane index to accumulation (phases 1, 2 and 28 (a))
+        entry("whole_frame", "fused_frame.cu",
+              "spt_tpu/ops/pallas_bounce.py:1090", whole_launches,
+              whole["whole_frame"]),
+        entry("whole_frame_global", "fused_frame.cu",
+              "spt_tpu/ops/pallas_bounce.py:1090",
+              tables["whole_frame_global"]["launches"],
+              whole["whole_frame_global"]),
         entry("fused_frame_resident", "fused_frame.cu",
               "spt_tpu/ops/pallas_bounce.py:1090", counts["fused_frame"],
               mesh["fused_frame_resident"]),

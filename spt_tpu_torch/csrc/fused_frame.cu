@@ -41,6 +41,20 @@
 // are; in the mesh forms, the walks' tests of each opened cluster and the
 // wait for its rows (spt_tracers.cuh).
 //
+// The whole-frame form (whole_frame_kernel, whole_frame_global_kernel) is
+// the small form run from a lane index to the render state's accumulation:
+// the masked frame at spp 1 under the procedural sky in one launch.  Where
+// the small form loads a lane's path state it makes the lane's primary ray
+// (load_path on a Primary: transport.primary_lanes, the camera and the
+// frame index read through pointers, so a captured launch sees each
+// replay's), and where it writes what the deferred environment term needs
+// it adds the sky term to a missed path (procedural_sky: env.procedural_sky_v)
+// and the path's radiance into the accumulation (WholeIO::store:
+// wavefront._wavefront_masked, render_wavefront and state.accumulate_, op
+// for op).  Its lane reads and writes the accumulation's 12 B, where the
+// small form's reads 58 B of path state and writes 37 B (and the PyTorch
+// glue around it made some 200 passes over the lanes).
+//
 // Both kinds of kernel are persistent: a grid of as many blocks as the SMs
 // hold at once loads the tables into shared memory once per block, and
 // each warp takes lanes from a counter in global memory and refills the
@@ -131,6 +145,114 @@ struct FrameIO {
   }
 };
 
+// The whole-frame form's path state at refill: a lane's primary ray.
+struct Primary {
+  // position, forward, right, up, half_width, half_height (14 floats)
+  const float* camera;
+  const int* frame_index;  // the render state's RNG epoch
+  int width, row0, jitter;
+  float inv_w, inv_h;  // 1 / width, 1 / height, rounded as the host rounds them
+};
+
+// transport.primary_lanes for lane i at spp 1, op for op as PyTorch runs it
+// on the card: the pixel's RNG seed (rng.seed_paths), the jitter's two
+// draws, x and y (a division by a Python scalar is a multiplication by its
+// reciprocal there), Camera.ray_directions_v and vec3.safe_normalize; the
+// origin is position + 0, the throughput 1, the radiance 0, alive, emission
+// counted.
+__device__ __forceinline__ Path load_path(const Primary& in, int i, int bounce) {
+  const int pixel = in.row0 * in.width + i;
+  const float px = static_cast<float>(pixel % in.width);
+  const float py = static_cast<float>(pixel / in.width);
+  Path p;
+  p.rng = wang_hash((static_cast<uint32_t>(pixel) + 1u) ^
+                    (static_cast<uint32_t>(*in.frame_index) * 9781u + 1u));
+  float ju = 0.5f, jv = 0.5f;
+  if (in.jitter) {
+    ju = next_float(p.rng);
+    jv = next_float(p.rng);
+  }
+  const float x = (px + ju) * in.inv_w;
+  const float y = (py + jv) * in.inv_h;
+  const float nx = (x - 0.5f) * 2.0f;
+  const float ny = -(y - 0.5f) * 2.0f;
+  const float* c = in.camera;
+  const float hw = c[12], hh = c[13];
+  p.d = safe_normalize(v3(c[3] + nx * (hw * c[6]) + ny * (hh * c[9]),
+                          c[4] + nx * (hw * c[7]) + ny * (hh * c[10]),
+                          c[5] + nx * (hw * c[8]) + ny * (hh * c[11])));
+  p.o = v3(c[0] + 0.0f, c[1] + 0.0f, c[2] + 0.0f);
+  p.thr = v3(1.0f, 1.0f, 1.0f);
+  p.rad = v3(0.0f, 0.0f, 0.0f);
+  p.alive = true;
+  p.emok = true;
+  p.missed = false;
+  p.bounce = bounce;
+  p.nb = 0;
+  return p;
+}
+
+// torch.clamp as PyTorch runs it on the card: a NaN passes through.
+__device__ __forceinline__ float torch_clamp(float v, float lo, float hi) {
+  return isnan(v) ? v : fminf(fmaxf(v, lo), hi);
+}
+
+// env.procedural_sky_v of a normalized direction, op for op (math3d.smoothstep
+// with edges 0 and 1, the powers through powf as torch.pow by a scalar).
+__device__ __forceinline__ V3 procedural_sky(V3 d, V3 sun) {
+  float t = 0.5f * (d.y + 1.0f);
+  t = torch_clamp((t - 0.0f) * (1.0f / (1.0f - 0.0f)), 0.0f, 1.0f);
+  t = t * t * (3.0f - 2.0f * t);
+  V3 sky = v3(F32(0.7) * (1.0f - t) + F32(0.2) * t, F32(0.8) * (1.0f - t) + F32(0.4) * t,
+              F32(0.9) * (1.0f - t) + F32(0.8) * t);
+  float sun_dot = d.x * sun.x + d.y * sun.y + d.z * sun.z;
+  sun_dot = isnan(sun_dot) ? sun_dot : fmaxf(sun_dot, 0.0f);
+  const float glow = powf(sun_dot, 64.0f) + powf(sun_dot, 8.0f) * F32(0.3);
+  sky = v3(sky.x + glow * 1.0f, sky.y + glow * F32(0.9), sky.z + glow * F32(0.7));
+  return scale(sky, F32(0.8));
+}
+
+// The samples a pixel of the whole-frame form's frame (cfg.spp).
+constexpr float kWholeSpp = 1.0f;
+
+// The whole-frame form's IO: bounces [0, max_depth) of primary rays made at
+// refill, each ended path's radiance added into the accumulation.
+struct WholeIO {
+  Primary in;
+  float* accum;  // (n, 3) the band's sums of radiance
+  // (max_depth + 3), zeroed by the caller: the rays per bounce, then the
+  // lanes handed out (FrameIO's layout)
+  unsigned long long* counts;
+  int n, max_depth;
+  V3 sun;  // env.SUN_DIRECTION in float32
+  static constexpr int start_bounce = 0;
+  static constexpr int* queue = nullptr;  // every lane in turn: no queue
+
+  static constexpr bool kCountsRays = true;
+  __device__ unsigned long long* handed() const { return counts + max_depth; }
+  __device__ int first() const { return 0; }
+  __device__ int stop() const { return max_depth; }
+  __device__ bool last(int bounce) const { return bounce == max_depth - 1; }
+  // the deferred sky term of a missed path (_wavefront_masked: radiance +
+  // where(missed, throughput * sky(safe_normalize(direction)), 0)), the
+  // sample's mean (render_wavefront: (0 + radiance) / spp) and its fold into
+  // the sums (accumulate_: accum + mean * spp)
+  __device__ void store(int i, const Path& p) const {
+    V3 r;
+    if (p.missed) {
+      const V3 env = procedural_sky(safe_normalize(p.d), sun);
+      r = v3(p.rad.x + p.thr.x * env.x, p.rad.y + p.thr.y * env.y, p.rad.z + p.thr.z * env.z);
+    } else {
+      r = v3(p.rad.x + 0.0f, p.rad.y + 0.0f, p.rad.z + 0.0f);
+    }
+    const float inv_spp = 1.0f / kWholeSpp;
+    float* a = accum + 3 * static_cast<size_t>(i);
+    a[0] = a[0] + ((0.0f + r.x) * inv_spp) * kWholeSpp;
+    a[1] = a[1] + ((0.0f + r.y) * inv_spp) * kWholeSpp;
+    a[2] = a[2] + ((0.0f + r.z) * inv_spp) * kWholeSpp;
+  }
+};
+
 // The small form's launch shape and refill, chosen on the card with
 // frame_sweep.py (PERF.md).
 constexpr int kSmallBlock = 128;     // threads a block
@@ -156,7 +278,8 @@ __host__ __device__ inline size_t frame_smem(const SceneArgs& sc, int span, bool
 
 // Adds the block's histogram of bounces run to the rays per bounce: a path
 // that ran nb bounces was live at bounces start .. start + nb - 1.
-__device__ inline void add_rays(const FrameIO& io, const int* hist) {
+template <class IO>
+__device__ inline void add_rays(const IO& io, const int* hist) {
   const int span = io.max_depth - io.start_bounce;
   __syncthreads();
   for (int j = threadIdx.x; j < span; j += blockDim.x) {
@@ -172,10 +295,11 @@ __device__ inline void add_rays(const FrameIO& io, const int* hist) {
 // load_tables).  A macro, not a common inlined body, so that each kernel's
 // body is its own text and the shared kernels compile to the code they had
 // before the global ones existed (a common body changed the stream form's
-// SASS and local bytes).
-#define SPT_SMALL_FRAME_KERNEL(NAME, GLOBAL)                                        \
+// SASS and local bytes).  The small form's IO is FrameIO, the whole-frame
+// form's WholeIO: the same loop, instantiated apart.
+#define SPT_SMALL_FRAME_KERNEL(NAME, GLOBAL, IO)                                    \
   __global__ void __launch_bounds__(kSmallBlock, kSmallMinBlocks)                   \
-      NAME(FrameIO io, SceneArgs sc, ShadeArgs sa) {                                \
+      NAME(IO io, SceneArgs sc, ShadeArgs sa) {                                     \
     extern __shared__ __align__(16) float small_smem[];                             \
     const int span = io.max_depth - io.start_bounce;                                \
     int* hist = reinterpret_cast<int*>(small_smem + (GLOBAL ? 0 : small_table_words(sc))); \
@@ -186,8 +310,10 @@ __device__ inline void add_rays(const FrameIO& io, const int* hist) {
     add_rays(io, hist);                                                             \
   }
 
-SPT_SMALL_FRAME_KERNEL(small_frame_kernel, false)
-SPT_SMALL_FRAME_KERNEL(small_frame_global_kernel, true)
+SPT_SMALL_FRAME_KERNEL(small_frame_kernel, false, FrameIO)
+SPT_SMALL_FRAME_KERNEL(small_frame_global_kernel, true, FrameIO)
+SPT_SMALL_FRAME_KERNEL(whole_frame_kernel, false, WholeIO)
+SPT_SMALL_FRAME_KERNEL(whole_frame_global_kernel, true, WholeIO)
 
 // The mesh forms.  kMode: 1 resident (ClusterTracer), 2 instanced
 // (InstTracer), 3 stream (StreamTracer).
@@ -310,10 +436,56 @@ int spt_fused_frame(const float* ox, const float* oy, const float* oz, const flo
   return static_cast<int>(cudaGetLastError());
 }
 
+// The whole-frame form (whole_frame_kernel): the masked frame at spp 1 under
+// the procedural sky of the band of n = width x rows lanes from row `row0`,
+// from each lane's primary ray (the camera, 14 floats, and the int32 frame
+// index read on the device) to its radiance added into the (n, 3) `accum`;
+// the rays per bounce are added into counts[0 .. max_depth) of the zeroed
+// (max_depth + 3) int64 `counts`, as spt_fused_frame's.  `jitter` nonzero
+// draws the subpixel offset; `sun` is env.SUN_DIRECTION in float32.  The
+// scene arguments are the small form's (`global_tables` as there).  One
+// persistent launch on `stream`; returns the CUDA error of the launch (0:
+// accepted).  Allocates nothing and does not synchronise.
+int spt_whole_frame(const float* camera, const int* frame_index, float* accum,
+                    unsigned long long* counts, const float* tables, int n_tris, int n_sphs,
+                    int n_mats, int n_lights, int n_emit, int flags, const int* tex, int tex_res,
+                    int global_tables, int n, int width, int height, int row0, int max_depth,
+                    int jitter, float sun_x, float sun_y, float sun_z, int rr_after,
+                    float hit_eps, float ray_offset_dir, float firefly_clamp, void* stream) {
+  // PyTorch divides a tensor by a Python scalar as a multiplication by the
+  // scalar's reciprocal, taken on the host in float
+  const float inv_w = 1.0f / static_cast<float>(width);
+  const float inv_h = 1.0f / static_cast<float>(height);
+  WholeIO io{{camera, frame_index, width, row0, jitter, inv_w, inv_h},
+             accum, counts, n, max_depth, V3{sun_x, sun_y, sun_z}};
+  SceneArgs sc{tables, n_tris, n_sphs, n_mats, n_lights, n_emit, flags, nullptr,
+               0, 0, 0, 0, 1, tex, tex_res, nullptr, nullptr};
+  ShadeArgs sa{rr_after, flags, hit_eps, ray_offset_dir, firefly_clamp};
+  const bool global = global_tables != 0;
+  if (n_mats < 1 || max_depth < 0 || width < 1 || height < 1 || row0 < 0 ||
+      n % width != 0 || camera == nullptr || frame_index == nullptr ||
+      (global && reinterpret_cast<uintptr_t>(tables) % 16 != 0))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = frame_smem(sc, max_depth, global);
+  if (smem > kMaxSharedBytes) return static_cast<int>(cudaErrorInvalidValue);
+  if (n <= 0) return static_cast<int>(cudaGetLastError());
+  void (*kernel)(WholeIO, SceneArgs, ShadeArgs) = whole_frame_kernel;
+  if (global) kernel = whole_frame_global_kernel;
+  int blocks = 0;
+  cudaError_t err = resident_blocks(kernel, kSmallBlock, smem, &blocks);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  // no more blocks than the lanes give each warp a chunk
+  const int lanes_a_block = kChunk * (kSmallBlock / 32);
+  const int grid = max(1, min(blocks, (n + lanes_a_block - 1) / lanes_a_block));
+  kernel<<<grid, kSmallBlock, smem, static_cast<cudaStream_t>(stream)>>>(io, sc, sa);
+  return static_cast<int>(cudaGetLastError());
+}
+
 // Registers per thread, local (spill) bytes and blocks per SM at `smem`
 // bytes of dynamic shared memory of the small (mode 0), resident (1),
 // instanced (2) or stream (3) form in the shared placement, or of the same
-// form in the global one (mode 4 + form).
+// form in the global one (mode 4 + form); the whole-frame form's: 8 shared,
+// 9 global.
 int spt_fused_frame_kernel_info(int mode, int smem, int* num_regs, int* local_bytes,
                                 int* blocks) {
   switch (mode) {
@@ -326,6 +498,11 @@ int spt_fused_frame_kernel_info(int mode, int smem, int* num_regs, int* local_by
     case 5: return kernel_info(fused_frame_global_kernel<1>, smem, num_regs, local_bytes, blocks);
     case 6: return kernel_info(fused_frame_global_kernel<2>, smem, num_regs, local_bytes, blocks);
     case 7: return kernel_info(fused_frame_global_kernel<3>, smem, num_regs, local_bytes, blocks);
+    case 8:
+      return kernel_info(whole_frame_kernel, smem, num_regs, local_bytes, blocks, kSmallBlock);
+    case 9:
+      return kernel_info(whole_frame_global_kernel, smem, num_regs, local_bytes, blocks,
+                         kSmallBlock);
     default:
       return kernel_info(small_frame_kernel, smem, num_regs, local_bytes, blocks, kSmallBlock);
   }

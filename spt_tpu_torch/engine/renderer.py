@@ -47,6 +47,7 @@ from spt_tpu_torch.integrators import wavefront
 from spt_tpu_torch.integrators.megakernel import render_megakernel
 from spt_tpu_torch.integrators.wavefront import WavefrontStats, render_wavefront
 from spt_tpu_torch.lights import DeviceLights, default_lights
+from spt_tpu_torch.ops import cuda_bounce
 from spt_tpu_torch.ops.tonemap import resolve
 from spt_tpu_torch.scene.desc import SceneDesc
 from spt_tpu_torch.scene.flatten import flatten_scene
@@ -120,7 +121,16 @@ class StaticStep:
     reset, a checkpoint load, or set from outside) is copied in.  A frame
     runs without autograd: the megakernel's gradients are taken through
     its own functions (``integrators/megakernel``), whose ``GradStep``
-    captures a gradient step as a graph of its own."""
+    captures a gradient step as a graph of its own.
+
+    On the card, where ``wavefront._whole_frame_ok`` holds for the step's
+    inputs (``whole``: the masked frame at spp 1 of a small scene under the
+    procedural sky), a frame is one launch of ``cuda_bounce.whole_frame``
+    from lane index to accumulation, which reads the camera buffer and the
+    frame index on the device, on tables packed here once (``tables``);
+    the stats and the state's two counters follow it.  Every other frame,
+    and every frame on the CPU, is the split frame, ``_frame_image`` and
+    ``state.accumulate_``, whose bits the whole frame keeps."""
 
     def __init__(self, cfg: RenderConfig, scene, env, lights, device,
                  row0: int = 0, rows: Optional[int] = None):
@@ -128,9 +138,14 @@ class StaticStep:
         self.cfg, self.scene, self.env, self.lights = cfg, scene, env, lights
         self.row0, self.rows = row0, rows
         # position, forward, right, up, half_width, half_height
-        cam = torch.zeros(14, dtype=torch.float32, device=device)
+        self.cam = torch.zeros(14, dtype=torch.float32, device=device)
+        cam = self.cam
         self.camera = CameraRays(cam[0:3], cam[3:6], cam[6:9], cam[9:12],
                                  cam[12], cam[13])
+        self.whole = (device.type == "cuda"
+                      and wavefront._whole_frame_ok(cfg, scene, env, lights))
+        self.tables = (cuda_bounce.frame_tables(cfg, scene, lights)
+                       if self.whole else None)
         self.state = state_mod.init_state(cfg.width * rows, device)
         self.rays = torch.zeros(cfg.max_depth, dtype=torch.int64,
                                 device=device)
@@ -152,11 +167,20 @@ class StaticStep:
 
     @torch.no_grad()
     def frame(self) -> None:
-        img, stats = _frame_image(self.cfg, self.scene, self.env, self.lights,
-                                  self.camera, self.state.frame_index,
-                                  self.row0, self.rows)
-        state_mod.accumulate_(self.state, img.reshape(-1, 3),
-                              float(self.cfg.spp))
+        if self.whole:
+            rays = cuda_bounce.whole_frame(
+                self.cfg, self.scene, self.lights, self.cam, self.state.accum,
+                self.state.frame_index, self.tables, self.row0)
+            stats = WavefrontStats(rays_per_bounce=rays,
+                                   bounces_run=(rays > 0).sum())
+            state_mod.count_(self.state, float(self.cfg.spp))
+        else:
+            img, stats = _frame_image(self.cfg, self.scene, self.env,
+                                      self.lights, self.camera,
+                                      self.state.frame_index, self.row0,
+                                      self.rows)
+            state_mod.accumulate_(self.state, img.reshape(-1, 3),
+                                  float(self.cfg.spp))
         self.rays.add_(stats.rays_per_bounce)
         torch.maximum(self.bounces, stats.bounces_run, out=self.bounces)
 

@@ -59,6 +59,12 @@ def accumulate_(state: RenderState, radiance: torch.Tensor,
     tensors (the captured frame step, whose graph reads and writes fixed
     buffers; the JAX package's arrays are immutable).  Returns `state`."""
     state.accum.add_(radiance * spp)
+    return count_(state, spp)
+
+
+def count_(state: RenderState, spp: float) -> RenderState:
+    """accumulate_'s counters alone, for a frame whose radiance is already
+    in the sums (the whole-frame kernel adds it there).  Returns `state`."""
     state.sample_count.add_(spp)
     state.frame_index.add_(1)
     return state

@@ -30,6 +30,13 @@ bounce.
   the port's ``lax.cond``: eagerly one host read a sample, in a captured
   frame (``SegmentedGraph``) on the device.
 
+The captured frame step (``engine/renderer.StaticStep``) takes a frame
+whole on the card where ``_whole_frame_ok`` holds (masked, spp 1, a small
+scene the fused kernels take, the procedural sky): one launch of
+``cuda_bounce.whole_frame`` from lane index to accumulation, which keeps
+the bits of this module's split frame (``render_wavefront``), the one every
+other frame and the CPU run.
+
 The compact path (``_wavefront_compact``) bounces every lane once through
 ``cuda_bounce.fused_bounce`` (through ``trace_bounce`` + ``shade`` on a
 declined scene), then packs the live lanes into a queue
@@ -94,7 +101,8 @@ _LAUNCH_COUNTERS = (
     (cuda_trace, "INST_CLOSEST_GLOBAL_LAUNCHES"),
     (cuda_trace, "INST_ANY_GLOBAL_LAUNCHES"),
     (cuda_trace, "STREAM_CLOSEST_GLOBAL_LAUNCHES"),
-    (cuda_trace, "STREAM_ANY_GLOBAL_LAUNCHES"))
+    (cuda_trace, "STREAM_ANY_GLOBAL_LAUNCHES"),
+    (cuda_bounce, "WHOLE_LAUNCHES"), (cuda_bounce, "WHOLE_GLOBAL_LAUNCHES"))
 _BRANCHES = ("condensed", "full_width")
 
 # Runs of each _while_loop body, by the body function's name ("chunk": the
@@ -166,6 +174,19 @@ def _fused_ok(cfg: RenderConfig, scene: DeviceScene,
             "fused kernels declined (%s); the frame runs the unfused "
             "bounce (trace_bounce + shade_core)", reason)
     return False
+
+
+def _whole_frame_ok(cfg: RenderConfig, scene: DeviceScene, env: Environment,
+                    lights: DeviceLights, start_bounce: int = 0) -> bool:
+    """Whether a frame on the card runs whole (``cuda_bounce.whole_frame``):
+    the masked integrator at spp 1 from bounce 0, a scene the fused kernels
+    take in the small form (no accel mode) and the procedural sky.  From
+    the inputs alone, so a CPU test can ask it.  Every other frame (an HDR
+    map, a mesh, compact, regen, the megakernel, spp > 1) runs the split
+    frame."""
+    return (cfg.integrator == "masked" and cfg.spp == 1 and start_bounce == 0
+            and not env.enabled and cuda_bounce._accel_mode(scene) is None
+            and _fused_ok(cfg, scene, lights))
 
 
 def _ray_sort_ok(cfg: RenderConfig, scene: DeviceScene, n: int) -> bool:

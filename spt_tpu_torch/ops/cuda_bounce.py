@@ -46,9 +46,19 @@ refills its warps from a counter in that buffer, fused_bounce's
 (``small_bounce_kernel``) walks the lanes in a grid-stride loop and needs
 no counter.
 
-``LAUNCHES`` counts fused_frame launches and ``BOUNCE_LAUNCHES``
-fused_bounce launches in the shared placement, ``GLOBAL_LAUNCHES`` and
-``GLOBAL_BOUNCE_LAUNCHES`` those in the global one, so a run can show that
+``whole_frame`` is fused_frame's small form run from a lane index to the
+render state's accumulation (``whole_frame_kernel``): the masked frame at
+spp 1 under the procedural sky in one launch, primary rays made and the sky
+term and the accumulation added in the kernel, op for op as the PyTorch
+code around fused_frame computes them, on tables packed once
+(``frame_tables``).  It has no plain version of its own: its plain version
+is the split frame's chain (``transport.primary_lanes``,
+``fused_frame_reference``, the sky term and the sum), which the CPU runs.
+
+``LAUNCHES`` counts fused_frame launches, ``BOUNCE_LAUNCHES``
+fused_bounce launches and ``WHOLE_LAUNCHES`` whole_frame launches in the
+shared placement, ``GLOBAL_LAUNCHES``, ``GLOBAL_BOUNCE_LAUNCHES`` and
+``WHOLE_GLOBAL_LAUNCHES`` those in the global one, so a run can show that
 its main path went through the kernels.
 """
 
@@ -57,6 +67,7 @@ from __future__ import annotations
 import torch
 
 from spt_tpu_torch.config import RenderConfig
+from spt_tpu_torch.env import SUN_DIRECTION
 from spt_tpu_torch.integrators import transport
 from spt_tpu_torch.lights import DeviceLights
 from spt_tpu_torch.materials import tex_res_of
@@ -69,6 +80,8 @@ LAUNCHES = 0
 BOUNCE_LAUNCHES = 0
 GLOBAL_LAUNCHES = 0
 GLOBAL_BOUNCE_LAUNCHES = 0
+WHOLE_LAUNCHES = 0
+WHOLE_GLOBAL_LAUNCHES = 0
 
 # Each form of fused_frame and of fused_bounce as a profiler trace names it,
 # by accel mode; then the same in the global placement.
@@ -447,6 +460,84 @@ def fused_frame(cfg: RenderConfig, scene: DeviceScene, lights: DeviceLights,
         LAUNCHES += 1
     return (Vec3(*outs_f[6:9]), Vec3(*outs_f[0:3]), Vec3(*outs_f[3:6]),
             missed, counts[:cfg.max_depth])
+
+
+def frame_tables(cfg: RenderConfig, scene: DeviceScene,
+                 lights: DeviceLights) -> torch.Tensor:
+    """The tables the kernels read for this workload (``_pack_tables`` in
+    its accel mode), packed once by a caller that launches on them frame
+    after frame (``whole_frame``)."""
+    return _pack_tables(scene, lights, cfg.nee and scene.emitters is not None,
+                        _accel_mode(scene))
+
+
+def whole_frame(cfg: RenderConfig, scene: DeviceScene, lights: DeviceLights,
+                camera: torch.Tensor, accum: torch.Tensor,
+                frame_index: torch.Tensor, tables: torch.Tensor,
+                row0: int = 0, *, _in_global: bool | None = None):
+    """One masked frame at spp 1 under the procedural sky on the card, in
+    one launch of the whole-frame kernel: the band of ``accum``'s
+    n = width x rows pixels from row `row0`, each pixel's primary ray
+    (transport.primary_lanes) run through bounces [0, max_depth) as
+    fused_frame runs them, the sky term of a missed path and the sample
+    added into ``accum`` ((n, 3) float32) in place, as
+    ``wavefront._wavefront_masked``, ``render_wavefront`` and
+    ``state.accumulate_`` add them.  ``camera`` is the 14-float buffer of
+    the camera rays (position, forward, right, up, half_width,
+    half_height) and ``frame_index`` the render state's int32 epoch: the
+    kernel reads both on the device, so a captured launch reads each
+    replay's.  ``tables`` is ``frame_tables``'.  Returns rays_per_bounce
+    (max_depth,) int64.  The caller decides that the frame takes this form
+    (``wavefront._whole_frame_ok``); `_in_global` forces a placement of
+    the tables as fused_frame's."""
+    global WHOLE_LAUNCHES, WHOLE_GLOBAL_LAUNCHES
+    device = accum.device
+    if device.type != "cuda":
+        raise ValueError(f"whole_frame runs on CUDA tensors, not {device}")
+    n = accum.shape[0]
+    if (accum.dtype != torch.float32 or accum.shape != (n, 3)
+            or not accum.is_contiguous() or n % cfg.width):
+        raise ValueError(f"accum must be a contiguous float32 (width x rows, "
+                         f"3) tensor, not {tuple(accum.shape)} "
+                         f"{accum.dtype}")
+    for name, t, dt, numel in (("camera", camera, torch.float32, 14),
+                               ("frame_index", frame_index, torch.int32, 1),
+                               ("tables", tables, torch.float32,
+                                tables.numel())):
+        if (t.device != device or t.dtype != dt or t.numel() != numel
+                or not t.is_contiguous()):
+            raise ValueError(f"{name} must be a contiguous {dt} tensor of "
+                             f"{numel} elements on {device}")
+    if _in_global is None:
+        _in_global = tables_in_global(cfg, scene, lights)
+    nee_on = cfg.nee and scene.emitters is not None
+    tex = (None, 0)
+    keep = []
+    if scene.textures is not None:
+        textures = scene.textures.contiguous()
+        keep.append(textures)
+        tex = (textures.data_ptr(), tex_res_of(textures))
+    counts = torch.zeros(cfg.max_depth + 3, dtype=torch.int64, device=device)
+    sun = SUN_DIRECTION.astype("float32")
+    lib = cuda_lib.build()
+    with torch.cuda.device(device):
+        err = lib.spt_whole_frame(
+            camera.data_ptr(), frame_index.data_ptr(), accum.data_ptr(),
+            counts.data_ptr(), tables.data_ptr(), scene.num_triangles,
+            scene.num_spheres, scene.materials.count, lights.count,
+            scene.emitters.count if nee_on else 0,
+            _flags(cfg, scene, nee_on), *tex, int(bool(_in_global)), n,
+            cfg.width, cfg.height, row0, cfg.max_depth, int(bool(cfg.jitter)),
+            *(float(c) for c in sun), min(cfg.rr_after, 2 ** 31 - 1),
+            cfg.hit_eps, cfg.ray_offset_dir, cfg.firefly_clamp,
+            cuda_lib.stream_of(device))
+    cuda_lib.check(err, "whole_frame")
+    del keep
+    if _in_global:
+        WHOLE_GLOBAL_LAUNCHES += 1
+    else:
+        WHOLE_LAUNCHES += 1
+    return counts[:cfg.max_depth]
 
 
 def fused_bounce(cfg: RenderConfig, scene: DeviceScene, lights: DeviceLights,

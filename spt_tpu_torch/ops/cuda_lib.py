@@ -119,6 +119,12 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     scene = [p, i, i, i, i, i, i, p, i, i, i, i, i, p, i, p, p, i]
     lib.spt_fused_frame.argtypes = [p] * 27 + scene + [i] * 4 + [f] * 3 + [p]
     lib.spt_fused_bounce.argtypes = [p] * 33 + scene + [i] * 4 + [f] * 3 + [p]
+    # camera, frame_index, accum, counts, tables, n_tris, n_sphs, n_mats,
+    # n_lights, n_emit, flags, tex, tex_res, global_tables, n, width,
+    # height, row0, max_depth, jitter, sun xyz, rr_after, hit_eps,
+    # ray_offset_dir, firefly_clamp, stream
+    lib.spt_whole_frame.argtypes = ([p] * 5 + [i] * 6 + [p] + [i] * 8
+                                    + [f] * 3 + [i] + [f] * 3 + [p])
     # tables, n_sphs, pack, pack_w, n_clusters, cluster_size, n_inst,
     # n_meshes, global_tables, n, tmin, stream
     trace = [i, p] + [i] * 7 + [f, p]
@@ -143,7 +149,7 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     # local bytes
     lib.spt_sort_kernel_info.argtypes = [i] + [p] * 6
     lib.spt_env_sample_kernel_info.argtypes = [p, p]
-    for fn in ("spt_fused_frame", "spt_fused_bounce",
+    for fn in ("spt_fused_frame", "spt_fused_bounce", "spt_whole_frame",
                "spt_closest_hit",
                "spt_any_hit", "spt_inst_closest_hit", "spt_inst_any_hit",
                "spt_stream_closest_hit", "spt_stream_any_hit",
@@ -242,6 +248,7 @@ def kernel_info(smem: dict | None = None, sort_chunk: int = 32768) -> dict:
         ("fused_frame_resident", lib.spt_fused_frame_kernel_info, 1, 4),
         ("fused_frame_instanced", lib.spt_fused_frame_kernel_info, 2, 4),
         ("fused_frame_stream", lib.spt_fused_frame_kernel_info, 3, 4),
+        ("whole_frame", lib.spt_fused_frame_kernel_info, 8, 1),
         ("fused_bounce", lib.spt_fused_bounce_kernel_info, 0, 4),
         ("fused_bounce_resident", lib.spt_fused_bounce_kernel_info, 1, 4),
         ("fused_bounce_instanced", lib.spt_fused_bounce_kernel_info, 2, 4),

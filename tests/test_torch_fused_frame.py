@@ -16,6 +16,15 @@
   three scenes over three bounces and on the lanes its persistent
   grid-stride loop has to get right (``chip_smoke.SMALL_BOUNCE_EDGES`` and
   more lanes than one round of the grid).
+- The whole-frame form (``cuda_bounce.whole_frame``): on the CPU, which
+  frames take it (``wavefront._whole_frame_ok``), that a CPU StaticStep
+  packs no tables ahead and that ``frame_tables`` packs what a launch
+  packs; on the card, its accumulation after three frames byte for byte
+  with the split frame's (``frame_chain``: fused_frame and the PyTorch code
+  around it) at 1920x1080 on the whole frame and each of four bands, in
+  both placements of the tables, with and without the pixel jitter, from a
+  frame index about to wrap; a card StaticStep packs its tables once and
+  launches the form once a frame.
 - On the CPU, fused_bounce's small form: ``fused_bounce_reference`` against
   ``spt_tpu.ops.pallas_bounce.fused_bounce`` in interpret mode, at bounce 0
   and at bounce 1 as the last with every third lane dead; the RNG words,
@@ -35,8 +44,12 @@ torch.set_num_threads(2)
 import chip_smoke  # noqa: E402
 from spt_tpu_torch import config as tconfig  # noqa: E402
 from spt_tpu_torch import scene as tscene  # noqa: E402
+from spt_tpu_torch import env as tenv  # noqa: E402
 from spt_tpu_torch.camera import Camera, default_camera  # noqa: E402
+from spt_tpu_torch.engine import state as state_mod  # noqa: E402
+from spt_tpu_torch.engine.renderer import StaticStep, frame_chain  # noqa: E402
 from spt_tpu_torch.integrators import transport as ttr  # noqa: E402
+from spt_tpu_torch.integrators import wavefront as twf  # noqa: E402
 from spt_tpu_torch.lights import LightManager, default_lights  # noqa: E402
 from spt_tpu_torch.ops import cuda_bounce  # noqa: E402
 
@@ -232,6 +245,82 @@ def test_explain_decline_names_the_cap():
     assert cuda_bounce.explain_decline(cfg, ok, default_lights(CPU)) is None
 
 
+def _whole_case(case):
+    """(cfg, scene, env, lights, start_bounce) of a frame that takes the
+    whole-frame form ("default") or of one that does not (the others)."""
+    cfg = tconfig.RenderConfig(width=32, height=16, spp=1, max_depth=6)
+    desc, lights = tscene.build_default_scene(), default_lights(CPU)
+    env = tenv.make_procedural_environment(CPU)
+    start = 0
+    if case == "hdr":
+        env = tenv.make_hdr_environment(tenv.synthetic_equirect(16), CPU)
+    elif case == "mesh":
+        desc, cfg, _ = chip_smoke.port_mesh_scene(stacks=12, slices=16)
+        lights = default_lights(CPU)
+    elif case in ("compact", "regen", "megakernel"):
+        cfg = cfg.replace(integrator=case)
+    elif case == "spp2":
+        cfg = cfg.replace(spp=2)
+    elif case == "start1":
+        start = 1
+    scene = tscene.flatten_scene(desc, CPU)
+    return cfg, scene, env, lights, start
+
+
+@pytest.mark.parametrize("case, whole", [
+    ("default", True), ("hdr", False), ("mesh", False), ("compact", False),
+    ("regen", False), ("megakernel", False), ("spp2", False),
+    ("start1", False)])
+def test_whole_frame_ok_takes_the_masked_small_sky_frame_only(case, whole):
+    # masked, spp 1, from bounce 0, a small scene, the procedural sky: an
+    # HDR map (K2), a mesh accel, the other integrators, spp > 1 and a
+    # start past bounce 0 run the split frame
+    cfg, scene, env, lights, start = _whole_case(case)
+    if case == "mesh":
+        assert cuda_bounce._accel_mode(scene) == "resident"
+    assert twf._whole_frame_ok(cfg, scene, env, lights, start) is whole
+
+
+def _count_packs(monkeypatch) -> list:
+    """The calls of ``cuda_bounce._pack_tables`` from here on, recorded."""
+    calls = []
+    pack = cuda_bounce._pack_tables
+
+    def counted(*a, **kw):
+        calls.append(a)
+        return pack(*a, **kw)
+
+    monkeypatch.setattr(cuda_bounce, "_pack_tables", counted)
+    return calls
+
+
+def _packed_once(monkeypatch, cfg, scene, env, lights, dev):
+    """A StaticStep built and run three frames on `dev`, the tables it
+    packed counted -> (step, the number of packs)."""
+    calls = _count_packs(monkeypatch)
+    step = StaticStep(cfg, scene, env, lights, dev)
+    step.load(default_camera(cfg.width, cfg.height).rays(dev), step.state)
+    for _ in range(3):
+        step.frame()
+    return step, len(calls)
+
+
+def test_static_step_packs_the_tables_once(monkeypatch):
+    # the whole-frame form (on the card) reads tables packed when the step
+    # is built, not in every (captured) frame, and they are the ones a
+    # launch packs; a CPU step runs the split frame and packs nothing
+    # ahead (the card's count: ..._once_on_card)
+    cfg, scene, env, lights, _ = _whole_case("default")
+    assert twf._whole_frame_ok(cfg, scene, env, lights)
+    step, packs = _packed_once(monkeypatch, cfg, scene, env, lights, CPU)
+    assert not step.whole and step.tables is None and packs == 0
+    # the packing a launch does; compared as words: an int column of -1 is
+    # a NaN as a float
+    fresh = cuda_bounce.frame_tables(cfg, scene, lights)
+    assert torch.equal(fresh.view(torch.int32), cuda_bounce._pack_tables(
+        scene, lights, scene.emitters is not None, None).view(torch.int32))
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
@@ -419,3 +508,83 @@ def test_small_fused_bounce_edges_match_plain_on_card(cuda_device, case):
     _assert_state_bits(k, p)
     if case == "all_dead":
         assert not k[1].any() and not k[0].alive.any()
+
+
+# The whole-frame form against the split frame on the card: the default
+# scene at depth 6 and cornell under the procedural sky at depth 8, the
+# whole 1920x1080 frame and each of its four bands, the tables in shared
+# and in global memory, the pixel jitter on and off.
+WHOLE_CARD_CASES = [(name, band, in_global, jitter)
+                    for name in ("default", "cornell")
+                    for band in (None, 0, 1, 2, 3)
+                    for in_global in (False, True)
+                    for jitter in (True, False)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,band,in_global,jitter", WHOLE_CARD_CASES)
+def test_whole_frame_matches_split_frame_on_card(cuda_device, name, band,
+                                                 in_global, jitter):
+    # three frames from the same state, from a frame index about to wrap
+    # (the int32 epoch passes 2**31 - 1): the accumulation byte for byte,
+    # the counters and the rays per bounce equal
+    w, h = 1920, 1080
+    cfg, desc, lights, cam = _card_workload(name, {"jitter": jitter},
+                                            cuda_device, w, h)
+    scene = tscene.flatten_scene(desc, cuda_device)
+    env = tenv.make_procedural_environment(cuda_device)
+    assert twf._whole_frame_ok(cfg, scene, env, lights)
+    row0, rows = (0, h) if band is None else (band * h // 4, h // 4)
+    rays = cam.rays(cuda_device)
+    st = state_mod.init_state(w * rows, cuda_device)
+    st.frame_index.fill_(2 ** 31 - 2)
+    want, wstats = frame_chain(cfg, scene, env, lights, rays,
+                               state_mod.RenderState(*(t.clone() for t in st)),
+                               3, row0, rows)
+    cam_buf = torch.cat([rays.position, rays.forward, rays.right, rays.up,
+                         rays.half_width.reshape(1),
+                         rays.half_height.reshape(1)])
+    tables = cuda_bounce.frame_tables(cfg, scene, lights)
+    total = torch.zeros(cfg.max_depth, dtype=torch.int64, device=cuda_device)
+    for _ in range(3):
+        total += cuda_bounce.whole_frame(cfg, scene, lights, cam_buf, st.accum,
+                                         st.frame_index, tables, row0,
+                                         _in_global=in_global)
+        state_mod.count_(st, 1.0)
+    torch.cuda.synchronize()
+    assert torch.equal(st.accum.view(torch.int32), want.accum.view(torch.int32))
+    assert torch.equal(st.sample_count, want.sample_count)
+    assert torch.equal(st.frame_index, want.frame_index)
+    assert int(st.frame_index) == -2 ** 31 + 1
+    assert torch.equal(total, wstats.rays_per_bounce)
+    assert int(total[0]) == 3 * w * rows
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("jitter", [True, False])
+def test_static_step_packs_the_tables_once_on_card(cuda_device, monkeypatch,
+                                                   jitter):
+    # the default 1080p step on the card takes its frames whole: its tables
+    # packed once when it is built (the ones a launch packs), one shared
+    # whole_frame launch a frame and no split one, the state after three
+    # frames run eagerly bit for bit as frame_chain leaves it
+    w, h = 1920, 1080
+    cfg, desc, lights, cam = _card_workload("default", {"jitter": jitter},
+                                            cuda_device, w, h)
+    scene = tscene.flatten_scene(desc, cuda_device)
+    env = tenv.make_procedural_environment(cuda_device)
+    before = twf.launch_counts()
+    step, packs = _packed_once(monkeypatch, cfg, scene, env, lights,
+                               cuda_device)
+    torch.cuda.synchronize()
+    grew = {k: v - before.get(k, 0) for k, v in twf.launch_counts().items()
+            if v != before.get(k, 0)}
+    assert step.whole and packs == 1
+    assert grew == {(cuda_bounce, "WHOLE_LAUNCHES"): 3}
+    fresh = cuda_bounce._pack_tables(scene, lights,
+                                     scene.emitters is not None, None)
+    assert torch.equal(step.tables.view(torch.int32), fresh.view(torch.int32))
+    want, _ = frame_chain(cfg, scene, env, lights, cam.rays(cuda_device),
+                          state_mod.init_state(w * h, cuda_device), 3)
+    for a, b in zip(step.state, want):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))

@@ -19,7 +19,9 @@ line counted at once, the device-tallied bodies when
 (compact and regen also on the mesh scene), the sorted mesh frame on the
 mesh scene (the condensed branch) and the instanced grid (the full-width
 branch), one graph launch a frame, every launch count equal to the eager
-chain's, and replays that run under
+chain's (the masked default frame, taken whole, counts one whole_frame
+launch a frame where the chain counts its fused_frame launch, and its graph
+is one segment of a handful of nodes), and replays that run under
 ``torch.cuda.set_sync_debug_mode("error")``.
 """
 
@@ -406,7 +408,10 @@ def _captured_against_chain(r):
     """Renderer.render_frames(1) (the capture), (8) and (1) (replays)
     against frame_chain from the same states, bit for bit, and every launch
     count of both runs equal (the sorted frame's branches, the loop bodies'
-    launches); one graph launch a replayed frame; then two more frames
+    launches), except where the step takes its frames whole
+    (``StaticStep.whole``): then the captured run counts one whole_frame
+    launch a frame in the tables' placement and nothing else, where the
+    chain counts its fused_frame launches; one graph launch a replayed frame; then two more frames
     replayed under sync-debug "error", bit for bit too.  Returns the
     counts the eager chain added (its nonzero ones)."""
     args = (r.cfg, r.scene, r.env, r.lights, r.camera.rays(r.device))
@@ -426,8 +431,11 @@ def _captured_against_chain(r):
             r.render_frames(k)
             _assert_same_run((r.state, r.last_stats), want)
 
-    assert _counts_of(captured) == eager
     step = r.captured_step()
+    whole = (cuda_bounce, "WHOLE_GLOBAL_LAUNCHES" if cuda_bounce.
+             tables_in_global(r.cfg, r.scene, r.lights) else "WHOLE_LAUNCHES")
+    assert _counts_of(captured) == (
+        {whole: sum(frames)} if step.step.whole else eager)
     assert step.graph.launches == sum(frames) - 1
     want = frame_chain(*args, _copy(r.state), 2)
     rays = r.camera.rays(r.device)
@@ -467,6 +475,15 @@ def test_captured_step_matches_frame_chain_default_on_card(cuda_device,
              if isinstance(it, cuda_graph.Loop)]
     # a chunk loop a bounce after the first; one regen loop
     assert len(loops) == {"compact": 5, "regen": 1}.get(integrator, 0)
+    step = r.captured_step()
+    assert step.step.whole == (integrator == "masked")
+    if step.step.whole:
+        # the whole-frame form: one segment, its one hand-written kernel and
+        # a handful of scalar nodes (the ray counters' zeroing, the stats'
+        # add and maximum, the state's two counters), no full-width pass
+        nodes = chip_smoke.body_nodes(step.graph.items)
+        assert len(nodes) == 1 and isinstance(nodes[0], int)
+        assert nodes[0] <= 10, nodes
 
 
 @pytest.mark.cuda

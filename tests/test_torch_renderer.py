@@ -4,7 +4,9 @@ Gate: hdr_image relative RMSE < 1 % against the JAX Renderer on the same
 config (the repo's existing image gate; the two packages trace the same
 per-pixel RNG streams, so the images differ only by float rounding and the
 rare lane that takes the other side of a branch).  Telemetry:
-rays_per_bounce[0] == frames * W * H exactly.
+rays_per_bounce[0] == frames * W * H exactly.  The captured step's body
+(``StaticStep.frame``, run eagerly) on the frames the card takes whole
+and on those it does not, bit for bit with ``frame_chain``.
 """
 
 import ast
@@ -30,8 +32,11 @@ from spt_tpu_torch import config as tconfig  # noqa: E402
 from spt_tpu_torch import env as tenv  # noqa: E402
 from spt_tpu_torch import lights as tlights  # noqa: E402
 from spt_tpu_torch import scene as tscene  # noqa: E402
+from spt_tpu_torch.engine import state as tstate  # noqa: E402
 from spt_tpu_torch.engine.image import read_png  # noqa: E402
-from spt_tpu_torch.engine.renderer import Renderer  # noqa: E402
+from spt_tpu_torch.engine.renderer import (Renderer, StaticStep,  # noqa: E402
+                                           frame_chain)
+from spt_tpu_torch.integrators import wavefront as twf  # noqa: E402
 from spt_tpu_torch.ops import cuda_bounce  # noqa: E402
 
 CPU = torch.device("cpu")
@@ -227,3 +232,67 @@ def test_progressive_loop_reset_resize_png(tmp_path):
     assert r.image().shape == (8, 24, 3)
     assert int(r.last_stats.rays_per_bounce[0]) == 2 * 24 * 8
     assert abs(r.camera.aspect_ratio - 3.0) < 1e-12
+
+
+# (scene, RenderConfig changes, band rows or None, whether the frame runs
+# whole on the card): the default scene and cornell under the procedural
+# sky at 64x36, with and without jitter and on a band past row 0, take the
+# whole-frame form; an HDR map, spp 2, regen and a mesh scene do not.
+STEP_CASES = [
+    ("default", {}, None, True), ("default", {"jitter": False}, None, True),
+    ("default", {}, (12, 12), True), ("cornell", {"max_depth": 8}, None, True),
+    ("cornell", {"jitter": False}, (24, 12), True),
+    ("hdr", {}, None, False), ("default", {"spp": 2}, None, False),
+    ("default", {"integrator": "regen"}, (12, 12), False),
+    ("mesh", {"max_depth": 3}, None, False)]
+
+
+@pytest.mark.parametrize("name, change, band, whole", STEP_CASES)
+def test_static_step_matches_frame_chain_whole_or_split(name, change, band,
+                                                        whole):
+    # three frames of the captured body run eagerly, from a frame index
+    # about to wrap, against frame_chain: every word of the state and the
+    # stats equal.  The rule takes the frames marked whole; on the CPU
+    # every frame is the split one, and no whole-frame kernel launches
+    # (the card's whole frames: tests/test_torch_fused_frame.py)
+    import chip_smoke
+
+    w, h = 64, 36
+    cfg = tconfig.RenderConfig(width=w, height=h, spp=1, max_depth=6)
+    env = tenv.make_procedural_environment(CPU)
+    lights = tlights.default_lights(CPU)
+    cam = tcamera.default_camera(w, h)
+    desc = tscene.build_default_scene()
+    if name == "cornell":
+        desc, lights = tscene.build_cornell_box_scene(), tlights.LightManager(
+        ).device(CPU)
+        cam = tcamera.Camera(position=(0, 2.75, 9.0), target=(0, 2.75, 0.0),
+                             fov_degrees=50.0, aspect_ratio=w / h)
+    elif name == "hdr":
+        env = tenv.make_hdr_environment(tenv.synthetic_equirect(16), CPU)
+    elif name == "mesh":
+        desc, _, _ = chip_smoke.port_mesh_scene(stacks=12, slices=16)
+    cfg = cfg.replace(**change)
+    scene = tscene.flatten_scene(desc, CPU)
+    row0, rows = band or (0, h)
+    assert twf._whole_frame_ok(cfg, scene, env, lights) is whole
+    step = StaticStep(cfg, scene, env, lights, CPU, row0, rows)
+    assert not step.whole and step.tables is None
+    rays = cam.rays(CPU)
+    st = tstate.init_state(w * rows, CPU)
+    st.frame_index.fill_(2 ** 31 - 2)
+    want = frame_chain(cfg, scene, env, lights, rays,
+                       tstate.RenderState(*(t.clone() for t in st)), 3, row0,
+                       rows)
+    whole_counts = [(cuda_bounce, "WHOLE_LAUNCHES"),
+                    (cuda_bounce, "WHOLE_GLOBAL_LAUNCHES")]
+    before = [twf.launch_counts()[k] for k in whole_counts]
+    step.load(rays, st)
+    for _ in range(3):
+        step.frame()
+    assert [twf.launch_counts()[k] for k in whole_counts] == before
+    for a, b in zip(step.state, want[0]):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+    assert int(step.state.frame_index) == -2 ** 31 + 1
+    for a, b in zip(step.stats(), want[1]):
+        assert torch.equal(a, b)

@@ -501,9 +501,17 @@ def test_captured_overflow_frames_match_frame_chain_on_card(
     delta = _captured_against_chain(r, cuda_device)
     assert delta[(cuda_bounce, "LAUNCHES")] == 0
     assert delta[(cuda_bounce, "BOUNCE_LAUNCHES")] == 0
-    # masked runs K1 (and on the grid K3), compact K3 at bounce 0
-    assert delta[(cuda_bounce, "GLOBAL_BOUNCE_LAUNCHES" if integrator ==
-                  "compact" else "GLOBAL_LAUNCHES")] > 0
+    assert cuda_bounce.tables_in_global(r.cfg, r.scene, r.lights)
+    if r.captured_step().step.whole:
+        # masked on the small scene: K1's whole-frame form, a frame a launch
+        # with the tables in global memory
+        assert delta[(cuda_bounce, "WHOLE_GLOBAL_LAUNCHES")] == 4
+        assert delta[(cuda_bounce, "WHOLE_LAUNCHES")] == 0
+        assert delta[(cuda_bounce, "GLOBAL_LAUNCHES")] == 0
+    else:
+        # masked on the grid runs K1 and K3, compact K3 at bounce 0
+        assert delta[(cuda_bounce, "GLOBAL_BOUNCE_LAUNCHES" if integrator ==
+                      "compact" else "GLOBAL_LAUNCHES")] > 0
     assert r.captured_step().graph.launches == 3
 
 
