@@ -3681,6 +3681,8 @@ def sharded_rank(rank, world, frames):
                rays=r.last_stats.rays_per_bounce.cpu().numpy(),
                bounces=int(r.last_stats.bounces_run), counts=counts,
                first_s=first_s, setup_s=setup_s,
+               band_edges=r.band_edges, band_work_share=r.band_work_share,
+               band_device_ms=r.band_device_ms,
                image=img if rank == 0 else None)
     out["ms"] = frame_ms(torch, r, frames)
     # the eager sharded step (the band's frame_chain, then the two
@@ -3692,9 +3694,9 @@ def sharded_rank(rank, world, frames):
     st = [state_mod.RenderState(*(t.clone() for t in r.state))]
 
     def eager():
-        st[0], stats = sharding.shard_frames(cfg, r.scene, r.env, r.lights,
-                                             cam_rays, st[0], frames, rank,
-                                             world)
+        st[0], stats = sharding.shard_frames(r.cfg, r.scene, r.env,
+                                             r.lights, cam_rays, st[0],
+                                             frames, rank, world)
         dist.all_reduce(stats.rays_per_bounce, op=dist.ReduceOp.SUM)
         dist.all_reduce(stats.bounces_run.reshape(1), op=dist.ReduceOp.MAX)
 
@@ -3709,20 +3711,116 @@ def sharded_rank(rank, world, frames):
     return out
 
 
+def band_layouts(torch, name, cfg, args, dev):
+    """[(world, (layout, cfg of the layout))]: for worlds of 2 and 4 the
+    equal bands, then those the sharded Renderer's probe cuts where they
+    differ, the probe run whole in this process: "counted", by the rays
+    (``sharding.strip_work`` on every strip at frame index 0,
+    ``balanced_edges``), and "timed", that cut refined by each band's
+    device time (``refine_edges`` with ``band_device_ns`` band after
+    band).  It logs each cut's edges, its bands' shares of the rays and
+    their timed ms, and the probe's seconds."""
+    import types
+
+    from spt_tpu_torch.bench import shadow_rays_per_surface_lane
+    from spt_tpu_torch.parallel import sharding
+
+    scene, env, lights, rays = args
+    n_shadow = shadow_rays_per_surface_lane(types.SimpleNamespace(
+        cfg=cfg, scene=scene, lights=lights))
+    frame_index = torch.zeros((), dtype=torch.int32, device=dev)
+    out = []
+    for world in (2, 4):
+        equal = tuple(r * cfg.height // world for r in range(world + 1))
+        out.append((world, ("equal", cfg)))
+        g = sharding.strip_rows(cfg, world)
+        strips = cfg.height // g
+        keeps = sharding.band_keeps_route(cfg, scene, lights, world)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        counts = sharding.strip_work(cfg, scene, env, lights, rays,
+                                     frame_index, range(strips), g,
+                                     n_shadow).tolist()
+        counted = sharding.balanced_edges(counts, world, g, keeps)
+        probe_s = time.perf_counter() - t0
+        rounds = []
+
+        def measure(edges):
+            times = [sharding.band_device_ns(cfg, scene, env, lights, rays,
+                                             frame_index, a, b - a)
+                     for a, b in zip(edges, edges[1:])]
+            rounds.append((edges, times))
+            return times
+
+        t0 = time.perf_counter()
+        timed, _ = sharding.refine_edges(counts, counted, world, g, keeps,
+                                         measure)
+        refine_s = time.perf_counter() - t0
+        log(f"phase 24 {name} {cfg.width}x{cfg.height}, world {world}: "
+            f"probe of {strips} strips of {g} rows in {probe_s:.3f} s (one "
+            f"process; a rank of the sharded Renderer probes 1/{world} of "
+            f"them), the refinement's {len(rounds)} timed cuts in "
+            f"{refine_s:.3f} s (one process, band after band); the equal "
+            f"bands' shares of the rays "
+            f"{[round(x, 4) for x in sharding.band_shares(counts, equal, g)]}")
+        for edges, times in [(equal, None)] + rounds:
+            share = sharding.band_shares(counts, edges, g)
+            ms = times or [sharding.band_device_ns(
+                cfg, scene, env, lights, rays, frame_index, a, b - a)
+                for a, b in zip(edges, edges[1:])]
+            kind = ("equal" if times is None else "counted"
+                    if edges == counted else "refined")
+            log(f"phase 24 {name} world {world} cut {kind}: band_edges "
+                f"{edges}, band_work_share {[round(x, 4) for x in share]}, "
+                f"band ms {[round(t / 1e6, 4) for t in ms]} (slowest over "
+                f"mean {max(ms) * world / sum(ms) - 1:.2%})"
+                + (" <- kept" if edges == timed and times else ""))
+        for layout, edges in (("counted", counted), ("timed", timed)):
+            if edges != equal and (layout == "counted" or edges != counted):
+                out.append((world, (layout, cfg.replace(band_edges=edges))))
+    return out
+
+
+def band_replay_ms(torch, cfg, args, dev, row0, rows, replays: int = 32):
+    """ms a replay of the band's captured step (``_captured_step_dyn``):
+    CUDA events around `replays` replays after the capture."""
+    from spt_tpu_torch.engine import state as state_mod
+    from spt_tpu_torch.engine.renderer import _captured_step_dyn
+
+    scene, env, lights, rays = args
+    step = _captured_step_dyn(cfg, scene, env, lights, dev, row0, rows)
+    st = state_mod.init_state(rows * cfg.width, dev)
+    st, _ = step(rays, st, 2)
+    torch.cuda.synchronize()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    step(rays, st, replays)
+    t1.record()
+    torch.cuda.synchronize()
+    return t0.elapsed_time(t1) / replays
+
+
 def phase_sharding(torch, np, dev, smi):
     """Phase 24 (a), pixel-band sharding.  (a) Every band of worlds of 2 and 4,
     one after another in this process on the card, through the per-shard
     body (``parallel.sharding.shard_frames``, 2 frames) on default and hdr
-    1920x1080 d6 and the mesh scene 512x384 d4 (sorted frame): the bands put
-    together held to the unsharded frame's accumulation bit for bit, the
-    rays per bounce summed exactly; per band the port's kernel launches a
-    band-frame (counts reset before, read after), the device busy time and
-    kernel launches a band-frame and K1's device ms per band launch
-    (profiler).  (b) A real process group: ``device_count()`` ranks (at most
+    1920x1080 d6 and the mesh scene 512x384 d4 (sorted frame), in the equal
+    bands and in the cuts of the sharded Renderer's probe (``band_layouts``:
+    the cut by the rays and the cut refined by the bands' timed frames,
+    their edges, shares of the rays, band ms and the probe's seconds
+    logged): the bands put together held to the unsharded frame's
+    accumulation bit for bit, the rays per bounce summed exactly; per band
+    the port's kernel launches a band-frame (counts reset before, read
+    after), the device busy time and kernel launches a band-frame and K1's
+    device ms per band launch (profiler); on default, each band's captured
+    step timed (CUDA events over 32 replays) and the bands' spread, slowest
+    over mean.  (b) A real process group: ``device_count()`` ranks (at most
     4), NCCL, one card each, ``Renderer(multi_device=True)``
     .render_frames(8) on default 1080p d6 against a single-device Renderer
-    here: image bit for bit, last_stats equal; both chains timed with CUDA
-    events, the group's set-up and the step's all_reduces timed."""
+    here: image bit for bit, last_stats equal, each rank's band edges, ray
+    shares and timed band ms logged; both chains timed with CUDA events,
+    the group's set-up and the step's all_reduces timed."""
     from spt_tpu_torch.engine import state as state_mod
     from spt_tpu_torch.env import make_procedural_environment
     from spt_tpu_torch.integrators import wavefront
@@ -3749,13 +3847,15 @@ def phase_sharding(torch, np, dev, smi):
         full, fstats = sharding.shard_frames(
             cfg, *args, state_mod.init_state(cfg.num_pixels, dev), frames, 0,
             1)
-        for world in (2, 4):
-            bands, rays = [], 0
+        for world, (layout, bcfg) in band_layouts(torch, name, cfg, args,
+                                                  dev):
+            bands, rays, replay_ms = [], 0, []
             for rank in range(world):
-                st0 = state_mod.init_state(cfg.num_pixels // world, dev)
+                row0, rows = sharding.band(bcfg, rank, world)
+                st0 = state_mod.init_state(rows * cfg.width, dev)
                 torch.cuda.synchronize()
                 reset_counts()
-                st, stats = sharding.shard_frames(cfg, *args, st0, frames,
+                st, stats = sharding.shard_frames(bcfg, *args, st0, frames,
                                                   rank, world)
                 torch.cuda.synchronize()
                 counts = {k: v for k, v in read_counts().items() if v}
@@ -3763,7 +3863,7 @@ def phase_sharding(torch, np, dev, smi):
                 bands.append(st.accum)
                 rays = rays + stats.rays_per_bounce
                 band_frame = lambda: sharding.shard_frames(
-                    cfg, *args, st0, 1, rank, world)
+                    bcfg, *args, st0, 1, rank, world)
                 busy, per = device_busy_ms(torch, band_frame, iters=2)
                 k1_ms = kernel_device_ms(torch, band_frame, k1_name, iters=4)
                 if name == "mesh":
@@ -3774,15 +3874,19 @@ def phase_sharding(torch, np, dev, smi):
                     for _, a_, k_ in k3s:
                         check_bounce(torch, 24, f"fused_bounce in mesh band "
                                      f"{rank} of {world}", a_, k_)
-                row0, rows = sharding.band(cfg, rank, world)
-                log(f"phase 24 {name} {size}, band {rank} of {world} (rows "
-                    f"{row0}-{row0 + rows - 1}, {st0.num_pixels} lanes): "
-                    f"launches {counts} in {frames} band-frames"
+                if name == "default":
+                    replay_ms.append(band_replay_ms(torch, bcfg, args, dev,
+                                                    row0, rows))
+                log(f"phase 24 {name} {size}, {layout} band {rank} of {world} "
+                    f"(rows {row0}-{row0 + rows - 1}, {st0.num_pixels} "
+                    f"lanes): launches {counts} in {frames} band-frames"
                     + (f", sorted-frame branches {branches}" if branches
                        else "")
                     + f"; {k1_name} {k1_ms:.4f} ms per launch; busy "
                     f"{busy:.4f} ms over {per:.1f} kernel launches a "
-                    f"band-frame (profiler) [{smi}]")
+                    f"band-frame (profiler)"
+                    + (f"; captured band step {replay_ms[-1]:.4f} ms a "
+                       f"replay" if replay_ms else "") + f" [{smi}]")
                 want = ({"fused_frame": frames, "fused_bounce": 3 * frames}
                         if name == "mesh" else {"fused_frame": frames})
                 if name == "hdr":
@@ -3796,14 +3900,21 @@ def phase_sharding(torch, np, dev, smi):
             off = float(lanes_off(torch, got, full.accum).float().mean())
             share, ulps = ulps_apart(torch, got, full.accum)
             same_rays = torch.equal(rays, fstats.rays_per_bounce)
-            log(f"phase 24 {name} {size}, {world} bands put together against "
-                f"the unsharded frame ({frames} frames): lanes not bit-equal "
+            if replay_ms:
+                log(f"phase 24 {name} {size}, {layout} bands of {world}: "
+                    f"captured band steps {[round(x, 4) for x in replay_ms]} "
+                    f"ms a replay, slowest over mean "
+                    f"{max(replay_ms) * world / sum(replay_ms) - 1:.2%}")
+            log(f"phase 24 {name} {size}, {world} {layout} bands put together "
+                f"against the unsharded frame ({frames} frames): lanes not "
+                f"bit-equal "
                 f"{share:.6%}, largest distance {ulps} ulp, lanes off by more "
                 f"than 1e-3 {off:.6%}; rays per bounce summed "
                 f"{rays.tolist()} unsharded {fstats.rays_per_bounce.tolist()} "
                 f"(equal: {same_rays})")
             if share or not same_rays:
-                failed.append(f"{name} over {world} bands: {share:.6%} of "
+                failed.append(f"{name} over {world} {layout} bands: "
+                              f"{share:.6%} of "
                               f"lanes differ ({ulps} ulp), rays equal "
                               f"{same_rays}")
     if failed:
@@ -3841,7 +3952,9 @@ def phase_sharded_world(torch, np, dev, smi):
         log(f"phase 24 NCCL rank {i} of {o['world']} on {o['device']}: "
             f"init_process_group {v.init_seconds:.3f} s, first all_reduce "
             f"{o['first_s']:.3f} s, Renderer(multi_device=True) "
-            f"{o['setup_s']:.3f} s; render_frames({frames}) launches "
+            f"{o['setup_s']:.3f} s, band_edges {o['band_edges']}, "
+            f"band_work_share {o['band_work_share']}, band_device_ms "
+            f"{o['band_device_ms']}; render_frames({frames}) launches "
             f"{ {k: c for k, c in o['counts'].items() if c} }, "
             f"{o['ms']:.4f} ms/frame (CUDA events over a chain after a warm-up "
             f"frame); {CAPTURE_PAIRS} pairs of {frames}-frame calls in turns, "

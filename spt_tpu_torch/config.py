@@ -1,11 +1,12 @@
 """Render configuration — the same frozen dataclass as ``spt_tpu.config``.
 
 Fields and defaults match field for field, so one config maps 1:1 between
-the JAX package and this port.  ``ray_sort``, ``ray_sort_stages``,
-``condense`` and ``condense_width`` drive the sorted mesh frame
-(integrators/wavefront.py) on scenes with a cluster accel, as in the JAX
-package; they regroup lanes and leave the image unchanged to float
-tolerance.  ``swizzle`` is accepted and has no effect: the port keeps
+the JAX package and this port; ``band_edges``, the row bands of a sharded
+render (``parallel/sharding``), is the port's own.  ``ray_sort``,
+``ray_sort_stages``, ``condense`` and ``condense_width`` drive the sorted
+mesh frame (integrators/wavefront.py) on scenes with a cluster accel, as
+in the JAX package; they regroup lanes and leave the image unchanged to
+float tolerance.  ``swizzle`` is accepted and has no effect: the port keeps
 pixels in row-major lane order (RNG is seeded per pixel).  Every
 ``integrator`` is ported: "masked", "compact" and "regen"
 (integrators/wavefront.py) and "megakernel" (integrators/megakernel.py).
@@ -38,7 +39,7 @@ Quirk decisions (SURVEY.md §5 "behavioral quirks"):
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Optional, Tuple
 
 
 @dataclasses.dataclass(frozen=True)
@@ -167,6 +168,11 @@ class RenderConfig:
 
     # Compute dtype for shading math. Intersection always runs fp32.
     dtype: str = "float32"
+
+    # The row bands of a sharded render, world + 1 row edges from 0 to
+    # height (parallel/sharding.band); None is height / world rows a rank.
+    # The sharded Renderer sets them from a probe of the frame's work.
+    band_edges: Optional[Tuple[int, ...]] = None
 
     @property
     def resolution(self) -> Tuple[int, int]:

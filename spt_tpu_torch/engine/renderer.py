@@ -22,8 +22,10 @@ reference the graph is held against.
 
 Under an initialized process group of several ranks (``torchrun``), the
 Renderer shards the image into row bands, one a rank
-(``parallel/sharding``), as the JAX Renderer shards over a device mesh:
-each rank renders its band on its own device, the stats are summed over
+(``parallel/sharding``), as the JAX Renderer shards over a device mesh,
+the bands sized by a probe of the frame's work at construction
+(``cfg.band_edges``; ``resize`` probes again): each rank renders its band
+on its own device, the stats are summed over
 the ranks once per ``render_frames`` call, and ``image()``,
 ``hdr_image()`` and ``save_checkpoint`` gather the bands (every rank must
 call them); only rank 0 writes a file.
@@ -306,7 +308,8 @@ class Renderer:
     process group, over a mesh of one device a rank.
 
     The constructor is the set-up span "renderer_init" (utils/timing.py),
-    its parts "mesh", "flatten", "env_lights", "state" and "replicate";
+    its parts "mesh", "flatten", "env_lights", "state", and on a mesh
+    "replicate" and "band_probe" (``_shard``);
     while a torch.profiler records, ``render_frames`` and ``image`` record
     spans of their parts and enqueue device stamps (PERF.md section 3)."""
 
@@ -370,14 +373,38 @@ class Renderer:
             self._wavefront_integrator = (
                 "masked" if self.cfg.integrator == "megakernel"
                 else self.cfg.integrator)
-            if self.mesh is not None:
-                self._step = sharding.sharded_frame_step_dyn(self.cfg,
-                                                             self.mesh)
-                self.state = sharding.shard_pixels(self.mesh, self.state)
+            self.band_edges = self.band_work_share = None
+            self.band_device_ms = None
         if self.mesh is not None:
             with timing.setup_span("replicate"):
                 for tree in (self.scene, self.env, self.lights):
                     sharding.replicate(self.mesh, tree)
+            self._shard()
+
+    def _shard(self) -> None:
+        """Size the bands by the frame's work from the camera as it stands
+        (the set-up span "band_probe", ``sharding.probe_edges``), set them
+        on ``cfg.band_edges``, make the sharded step and keep this rank's
+        band of the whole-frame state.  The probe renders on states of its
+        own: the state, its frame index and ``last_stats`` are left as
+        they were.  ``band_work_share`` is each band's share of the probe's
+        rays (None where the image makes one strip a rank),
+        ``band_device_ms`` each band's timed frame on the card (None on
+        the CPU)."""
+        from spt_tpu_torch.bench import shadow_rays_per_surface_lane
+        from spt_tpu_torch.parallel import sharding
+
+        with timing.setup_span("band_probe"):
+            probe = sharding.probe_edges(
+                self.cfg, self.scene, self.env, self.lights,
+                self.camera.rays(self.device), self.state.frame_index,
+                self.mesh, shadow_rays_per_surface_lane(self))
+        self.band_edges = probe.edges
+        self.band_work_share = probe.work_share
+        self.band_device_ms = probe.device_ms
+        self.cfg = self.cfg.replace(band_edges=self.band_edges)
+        self._step = sharding.sharded_frame_step_dyn(self.cfg, self.mesh)
+        self.state = sharding.shard_pixels(self.mesh, self.state, self.cfg)
 
     def toggle_integrator(self) -> str:
         """Flip wavefront <-> megakernel and reset accumulation, the
@@ -402,23 +429,23 @@ class Renderer:
         """Change the render resolution in place: reset accumulation, keep
         scene/camera/lights; the camera adopts the new aspect ratio
         (OptixBackend::resize, OptixBackend.cpp:1508-1543).  On a device
-        mesh the new height must still tile over the ranks; otherwise the
-        renderer drops the mesh and every rank renders the whole frame on
-        its own device (spt_tpu/engine/renderer.py:259-265)."""
+        mesh the new height must still tile over the ranks, and the bands
+        are probed again for it; otherwise the renderer drops the mesh and
+        every rank renders the whole frame on its own device
+        (spt_tpu/engine/renderer.py:259-265)."""
         if (width, height) == (self.cfg.width, self.cfg.height):
             return
-        self.cfg = self.cfg.replace(width=width, height=height)
+        self.cfg = self.cfg.replace(width=width, height=height,
+                                    band_edges=None)
+        self.band_edges = self.band_work_share = None
+        self.band_device_ms = None
         self.camera.set_aspect_ratio(width / height)
         self.state = state_mod.init_state(self.cfg.num_pixels, self.device)
         self.last_stats = None
         self._captured = None
         if self.mesh is not None:
-            from spt_tpu_torch.parallel import sharding
-
             if height % self.mesh.size() == 0:
-                self._step = sharding.sharded_frame_step_dyn(self.cfg,
-                                                             self.mesh)
-                self.state = sharding.shard_pixels(self.mesh, self.state)
+                self._shard()
             else:
                 self.mesh = None
 
@@ -483,8 +510,8 @@ class Renderer:
         from spt_tpu_torch.parallel import sharding
 
         with timing.span("gather"):
-            return self.state._replace(
-                accum=sharding.gather_pixels(self.mesh, self.state.accum))
+            return self.state._replace(accum=sharding.gather_bands(
+                self.mesh, self.state.accum, self.cfg))
 
     def image(self) -> np.ndarray:
         """Resolved display image, (H, W, 3) float in [0, 1].  While a
@@ -539,5 +566,5 @@ class Renderer:
         if self.mesh is not None:
             from spt_tpu_torch.parallel import sharding
 
-            st = sharding.shard_pixels(self.mesh, st)
+            st = sharding.shard_pixels(self.mesh, st, self.cfg)
         self.state = st

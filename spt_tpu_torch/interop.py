@@ -149,15 +149,16 @@ def path_state(src, device) -> PathState:
     )
 
 
-def render_state(src, device, rank=None, world=None) -> RenderState:
+def render_state(src, device, rank=None, world=None, cfg=None) -> RenderState:
     """The whole frame's state, or with `rank` and `world` that rank's band
     of it (the rows of ``accum`` that ``parallel.sharding.shard_pixels``
-    keeps)."""
+    keeps: the bands of `cfg`, a sharded Renderer's ``cfg``, where it is
+    given, else equal bands)."""
     accum = np.asarray(src.accum, np.float32)
     if world is not None:
         from spt_tpu_torch.parallel.sharding import band_lanes
 
-        accum = band_lanes(accum, rank, world)
+        accum = band_lanes(accum, rank, world, cfg)
     return RenderState(
         accum=_f32(accum, device),
         sample_count=_f32(src.sample_count, device),

@@ -5,8 +5,17 @@ with one process per rank, as ``torchrun`` launches them (NCCL between
 cards, gloo between CPU processes):
 
 - one mesh axis "px", a 1-D ``DeviceMesh`` over the process group;
-- each rank owns a horizontal band of ``height / world`` rows of the image
-  and that band's full path state;
+- each rank owns a horizontal band of rows of the image and that band's
+  full path state: ``height / world`` rows each, or where
+  ``RenderConfig.band_edges`` is set, the bands it names.  The sharded
+  Renderer sets them from a probe of the frame's work (``probe_edges``):
+  each rank renders a share of the frame's strips of rows one eager frame,
+  one all_gather gives every rank the rays each strip traced, and
+  ``balanced_edges`` cuts the image where each band holds about 1/world of
+  them; on the card each rank then times its band's frame and the cut is
+  refined by the gathered times (``refine_edges``), so no band waits at
+  the stats' all_reduce for one that holds the scene while another holds
+  sky;
 - scene, materials, lights and env are replicated (broadcast from rank 0
   once, ``replicate``);
 - no collective inside the frame loop: paths never leave their band.  A
@@ -27,19 +36,35 @@ one process.
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+import functools
+import itertools
+from typing import Callable, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
 
 from spt_tpu_torch.config import RenderConfig
 from spt_tpu_torch.engine import state as state_mod
-from spt_tpu_torch.engine.renderer import (_captured_step_dyn, captures,
-                                           frame_chain, tree_tensors)
+from spt_tpu_torch.engine.renderer import (StaticStep, _captured_step_dyn,
+                                           captures, frame_chain,
+                                           tree_tensors)
+from spt_tpu_torch.integrators import wavefront
 from spt_tpu_torch.integrators.wavefront import WavefrontStats
+from spt_tpu_torch.ops import ray_sort
 from spt_tpu_torch.utils import timing
 
 AXIS = "px"
+# The probe cuts the image into strips of at most about this many a rank
+STRIPS_PER_RANK = 32
+# and of at least this many lanes: a strip of a few warps' paths says
+# little of its work from one frame, and a band that small fills no card
+MIN_STRIP_LANES = 2048
+# On the card the cut is refined by the bands' measured device time: at
+# most this many cuts are timed, each band over this many frames
+REFINE_ROUNDS = 4
+REFINE_FRAMES = 8
+# clock cycles of the spin the timed frames queue behind (~5 ms)
+_SPIN_CYCLES = 10_000_000
 
 
 def make_mesh(device_type: Optional[str] = None):
@@ -62,7 +87,17 @@ def make_mesh(device_type: Optional[str] = None):
 
 
 def band(cfg: RenderConfig, rank: int, world: int) -> Tuple[int, int]:
-    """(row0, rows) of rank's band of the image."""
+    """(row0, rows) of rank's band of the image: between
+    ``cfg.band_edges[rank]`` and ``[rank + 1]`` where they are set, else
+    ``height / world`` rows from ``rank * height / world``."""
+    edges = cfg.band_edges
+    if edges is not None:
+        if (len(edges) != world + 1 or edges[0] != 0
+                or edges[-1] != cfg.height
+                or any(b <= a for a, b in zip(edges, edges[1:]))):
+            raise ValueError(f"band edges {edges} do not cut {cfg.height} "
+                             f"rows into {world} bands")
+        return edges[rank], edges[rank + 1] - edges[rank]
     if cfg.height % world:
         raise ValueError(f"image height {cfg.height} must divide the mesh "
                          f"size {world}")
@@ -70,13 +105,110 @@ def band(cfg: RenderConfig, rank: int, world: int) -> Tuple[int, int]:
     return rank * rows, rows
 
 
+def strip_rows(cfg: RenderConfig, world: int) -> int:
+    """The probe's strip, in rows: the least divisor of the equal band's
+    ``height / world`` rows that makes at most about STRIPS_PER_RANK strips
+    a rank of at least MIN_STRIP_LANES lanes each (the equal band itself
+    where none does).  So the equal bands lie on strip edges: 9 rows at
+    1920x1080 over 4 ranks, 120 strips."""
+    rows = cfg.height // world
+    least = max(-(-cfg.height // (STRIPS_PER_RANK * world)),
+                -(-MIN_STRIP_LANES // cfg.width), 1)
+    return next((g for g in range(least, rows) if rows % g == 0), rows)
+
+
+def _lane_route(cfg: RenderConfig, scene, lights, n: int) -> tuple:
+    """What a band of `n` lanes decides from its lane count
+    (``wavefront.wavefront_sample``, ``_wavefront_masked``): whether the
+    compact integrator runs its queue, and on the sorted mesh frame the
+    sort chunk and whether the frame may condense.  A whole-frame, a small
+    masked or a regen band needs only whole rows."""
+    if cfg.integrator == "regen":
+        return ()
+    if (cfg.integrator == "compact" and cfg.max_depth > 1
+            and n >= wavefront.COMPACT_MIN_LANES):
+        return ("compact",)
+    n += wavefront.sort_padding(n)
+    if (wavefront._fused_ok(cfg, scene, lights)
+            and wavefront._ray_sort_ok(cfg, scene, n)):
+        chunk = ray_sort.chunk_size(n)
+        return ("sorted", chunk,
+                wavefront._condense_plan(cfg, n, chunk) is not None)
+    return ("masked",)
+
+
+def band_keeps_route(cfg: RenderConfig, scene, lights,
+                     world: int) -> Callable[[int], bool]:
+    """keeps(rows): whether a band of `rows` rows makes the lane-count
+    decisions of the equal band (``_lane_route``), so that balancing moves
+    rows between bands and never moves a band to another route."""
+    equal = _lane_route(cfg, scene, lights, cfg.num_pixels // world)
+    return lambda rows: _lane_route(cfg, scene, lights,
+                                    rows * cfg.width) == equal
+
+
+def balanced_edges(counts: Sequence[int], world: int, granule: int,
+                   keeps: Optional[Callable[[int], bool]] = None
+                   ) -> Tuple[int, ...]:
+    """world + 1 row edges of contiguous bands over the strips of `granule`
+    rows whose work is `counts` (strip by strip, top down), cut at strip
+    edges where the largest band's work is least (exact over integers,
+    by dynamic programming over the prefix sums).  Every band holds at
+    least one strip, and `keeps(rows)`, when given, of every band.  Where
+    the strips split into equal bands and no cut beats their largest
+    band, the equal bands: uniform work gives exactly ``band``'s equal
+    split.  Among equal cuts the one whose last band is closest to the
+    largest before it, so the spare work is spread."""
+    counts = [int(c) for c in counts]
+    s = len(counts)
+    if world < 1 or s < world:
+        raise ValueError(f"{s} strips do not make {world} bands")
+    prefix = [0, *itertools.accumulate(counts)]
+    ok = [False] + [keeps is None or keeps(k * granule)
+                    for k in range(1, s + 1)]
+    # most[b][j]: the least largest band of b bands over strips [0, j)
+    most = [[None] * (s + 1) for _ in range(world + 1)]
+    cut = [[0] * (s + 1) for _ in range(world + 1)]
+    most[0][0] = 0
+    for b in range(1, world + 1):
+        for j in range(b, s - (world - b) + 1):
+            best = None
+            for i in range(b - 1, j):
+                before = most[b - 1][i]
+                if before is None or not ok[j - i]:
+                    continue
+                load = prefix[j] - prefix[i]
+                key = (max(before, load), abs(before - load))
+                if best is None or key < best:
+                    best, cut[b][j] = key, i
+            most[b][j] = None if best is None else best[0]
+    if s % world == 0:
+        per = s // world
+        equal = max(prefix[(r + 1) * per] - prefix[r * per]
+                    for r in range(world))
+        if most[world][s] is None or equal <= most[world][s]:
+            return tuple(r * per * granule for r in range(world + 1))
+    if most[world][s] is None:
+        raise ValueError(f"no {world} bands of {s} strips keep the route")
+    edges, j = [s], s
+    for b in range(world, 0, -1):
+        j = cut[b][j]
+        edges.append(j)
+    return tuple(e * granule for e in reversed(edges))
+
+
 def _rank_world(mesh) -> Tuple[int, int]:
     return mesh.get_local_rank(AXIS), mesh.size()
 
 
-def band_lanes(pixels, rank: int, world: int):
+def band_lanes(pixels, rank: int, world: int,
+               cfg: Optional[RenderConfig] = None):
     """Rank's band of a whole frame's per-pixel rows (a tensor or array of
-    H*W rows): rank r holds rows [r * n / world, (r + 1) * n / world)."""
+    H*W rows): the rows of ``band(cfg, rank, world)`` where `cfg` is
+    given, else rows [r * n / world, (r + 1) * n / world)."""
+    if cfg is not None:
+        row0, rows = band(cfg, rank, world)
+        return pixels[row0 * cfg.width:(row0 + rows) * cfg.width]
     n = pixels.shape[0]
     if n % world:
         raise ValueError(f"{n} pixels do not split into {world} bands")
@@ -84,11 +216,13 @@ def band_lanes(pixels, rank: int, world: int):
     return pixels[rank * lanes:(rank + 1) * lanes]
 
 
-def shard_pixels(mesh, state: state_mod.RenderState) -> state_mod.RenderState:
-    """This rank's band of a full-frame state: its rows of ``accum``, with
-    ``sample_count`` and ``frame_index`` replicated."""
+def shard_pixels(mesh, state: state_mod.RenderState,
+                 cfg: Optional[RenderConfig] = None) -> state_mod.RenderState:
+    """This rank's band of a full-frame state (``band_lanes``, the bands of
+    `cfg` where it is given): its rows of ``accum``, with ``sample_count``
+    and ``frame_index`` replicated."""
     return state._replace(
-        accum=band_lanes(state.accum, *_rank_world(mesh)).clone())
+        accum=band_lanes(state.accum, *_rank_world(mesh), cfg).clone())
 
 
 def replicate(mesh, tree):
@@ -109,13 +243,187 @@ def replicate(mesh, tree):
     return tree
 
 
+def _all_gather(out: torch.Tensor, part: torch.Tensor, group) -> None:
+    # all_gather_into_tensor is named all_gather_single from torch 2.13
+    fn = (getattr(dist, "all_gather_single", None)
+          or dist.all_gather_into_tensor)
+    fn(out, part, group=group)
+
+
 def gather_pixels(mesh, accum: torch.Tensor) -> torch.Tensor:
-    """The full (H*W, 3) accumulation on every rank, from each rank's band
-    (one list all_gather)."""
+    """Every rank's `accum`, all of one length, in rank order on every rank
+    (one all_gather_into_tensor)."""
     _, world = _rank_world(mesh)
-    parts = [torch.empty_like(accum) for _ in range(world)]
-    dist.all_gather(parts, accum.contiguous(), group=mesh.get_group(AXIS))
-    return torch.cat(parts)
+    part = accum.contiguous()
+    out = part.new_empty((world * part.shape[0], *part.shape[1:]))
+    _all_gather(out, part, mesh.get_group(AXIS))
+    return out
+
+
+def gather_bands(mesh, accum: torch.Tensor, cfg: RenderConfig) -> torch.Tensor:
+    """The full (H*W, 3) accumulation on every rank from each rank's band
+    of `cfg`: each band padded to the largest, ``gather_pixels``, then the
+    bands' rows in order."""
+    _, world = _rank_world(mesh)
+    lanes = [band(cfg, r, world)[1] * cfg.width for r in range(world)]
+    most = max(lanes)
+    if accum.shape[0] < most:
+        accum = torch.nn.functional.pad(accum,
+                                        (0, 0, 0, most - accum.shape[0]))
+    full = gather_pixels(mesh, accum)
+    if min(lanes) == most:
+        return full
+    return torch.cat([full[r * most:r * most + n]
+                      for r, n in enumerate(lanes)])
+
+
+def strip_work(cfg: RenderConfig, scene, env, lights, camera,
+               frame_index: torch.Tensor, strips: Sequence[int],
+               granule: int, n_shadow: int) -> torch.Tensor:
+    """(len(strips),) int64 on the device: the rays each strip of `granule`
+    rows (strip s is rows [s * granule, (s + 1) * granule)) traced in one
+    eager frame of its own at `frame_index` (``frame_chain`` on a state of
+    its own): its ``rays_per_bounce`` summed, plus `n_shadow` shadow rays
+    for each ray past the primary."""
+    device = frame_index.device
+    work = torch.zeros(len(strips), dtype=torch.int64, device=device)
+    for k, s in enumerate(strips):
+        st = state_mod.init_state(granule * cfg.width, device)._replace(
+            frame_index=frame_index.clone())
+        _, stats = frame_chain(cfg, scene, env, lights, camera, st, 1,
+                               s * granule, granule)
+        rays = stats.rays_per_bounce
+        work[k] = rays.sum() + rays[1:].sum() * n_shadow
+    return work
+
+
+def band_shares(counts: Sequence[int], edges: Sequence[int],
+                granule: int) -> Tuple[float, ...]:
+    """Each band's share of the strips' work."""
+    total = sum(counts)
+    return tuple(sum(counts[a // granule:b // granule]) / total
+                 for a, b in zip(edges, edges[1:]))
+
+
+def rescale_costs(costs: Sequence[int], edges: Sequence[int],
+                  times: Sequence[int], granule: int) -> list:
+    """The strips' costs with each band's scaled to sum to its measured
+    time (integers: a strip's cost times the band's time over the band's
+    cost, rounded down, at least 1), so a region whose rays cost more
+    than the probe counted weighs more at the next cut."""
+    out = []
+    for a, b, t in zip(edges, edges[1:], times):
+        part = costs[a // granule:b // granule]
+        total = sum(part)
+        out += [max(c * int(t) // total, 1) for c in part]
+    return out
+
+
+def refine_edges(costs: Sequence[int], edges: Tuple[int, ...], world: int,
+                 granule: int, keeps: Optional[Callable[[int], bool]],
+                 measure: Callable[[Tuple[int, ...]], Sequence[int]]):
+    """Refine a cut by the bands' measured times -> (the cut whose slowest
+    band measured least, its bands' times).  ``measure(edges)`` gives each
+    band's time (integers); each round rescales the strips' costs to the
+    times (``rescale_costs``) and cuts again, for at most REFINE_ROUNDS
+    cuts, ending early at a cut already measured."""
+    measured = {}
+    best = edges
+    for _ in range(REFINE_ROUNDS):
+        times = [int(t) for t in measure(edges)]
+        measured[edges] = times
+        if max(times) < max(measured[best]):
+            best = edges
+        costs = rescale_costs(costs, edges, times, granule)
+        edges = balanced_edges(costs, world, granule, keeps)
+        if edges in measured:
+            break
+    return best, measured[best]
+
+
+def band_device_ns(cfg: RenderConfig, scene, env, lights, camera,
+                   frame_index: torch.Tensor, row0: int, rows: int) -> int:
+    """Device ns a frame of the band takes on the card as the captured step
+    runs it: ``StaticStep.frame`` on a state of its own, REFINE_FRAMES
+    frames after one, queued behind a spin kernel so the CUDA events
+    around them bracket the device's time and not the host's enqueue."""
+    device = frame_index.device
+    step = StaticStep(cfg, scene, env, lights, device, row0, rows)
+    step.load(camera, state_mod.init_state(rows * cfg.width, device)._replace(
+        frame_index=frame_index.clone()))
+    step.frame()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(_SPIN_CYCLES)
+    start.record()
+    for _ in range(REFINE_FRAMES):
+        step.frame()
+    end.record()
+    end.synchronize()
+    return int(start.elapsed_time(end) * 1e6) // REFINE_FRAMES
+
+
+class BandProbe(NamedTuple):
+    edges: Tuple[int, ...]          # world + 1 row edges
+    work_share: Optional[Tuple[float, ...]]   # each band's share of the rays
+    device_ms: Optional[Tuple[float, ...]]    # each band's timed frame
+
+
+def probe_edges(cfg: RenderConfig, scene, env, lights, camera,
+                frame_index: torch.Tensor, mesh, n_shadow: int,
+                band_ns: Optional[Callable[[int, int], int]] = None
+                ) -> BandProbe:
+    """The bands of `cfg` sized by the frame's work.  The image is cut into
+    strips of ``strip_rows`` rows; rank r probes strips r, r + world, ...
+    (``strip_work``), and one all_gather of the int64 counts gives every
+    rank the same vector, from which every rank cuts the same edges
+    (``balanced_edges``, each band keeping its route's lane-count
+    decisions).  On the card the cut is then refined by the bands' device
+    time (``refine_edges``): each rank times its own band
+    (``band_ns(row0, rows)``, by default ``band_device_ns``) and one
+    all_gather of the times gives every rank the same times, so every rank
+    keeps the same cut: a count weighs every ray alike, where a ray's time
+    depends on what it hits (on the default 1080p frame the rows of the
+    glass cube and the spheres took about twice their share of the rays
+    in time, so the counted cut left the slowest of four bands within 4 %
+    of the equal cut's).  Where the image makes one strip a rank (or the
+    world is one rank) the bands are the equal ones, unprobed."""
+    rank, world = _rank_world(mesh)
+    granule = strip_rows(cfg, world)
+    strips = cfg.height // granule
+    if strips == world or world == 1:
+        return BandProbe(tuple(r * cfg.height // world
+                               for r in range(world + 1)), None, None)
+    device = frame_index.device
+    group = mesh.get_group(AXIS)
+    per = -(-strips // world)
+    work = torch.zeros(per, dtype=torch.int64, device=device)
+    mine = range(rank, strips, world)
+    work[:len(mine)] = strip_work(cfg, scene, env, lights, camera,
+                                  frame_index, mine, granule, n_shadow)
+    every = torch.empty(per * world, dtype=torch.int64, device=device)
+    _all_gather(every, work, group)
+    # every[r * per + k] is strip r + k * world
+    counts = every.view(world, per).t().reshape(-1)[:strips].tolist()
+    keeps = band_keeps_route(cfg, scene, lights, world)
+    edges = balanced_edges(counts, world, granule, keeps)
+    if band_ns is None and captures(cfg, device):
+        band_ns = functools.partial(band_device_ns, cfg, scene, env, lights,
+                                    camera, frame_index)
+    device_ms = None
+    if band_ns is not None:
+        def measure(cut):
+            row0 = cut[rank]
+            mine = torch.tensor([band_ns(row0, cut[rank + 1] - row0)],
+                                dtype=torch.int64, device=device)
+            times = torch.empty(world, dtype=torch.int64, device=device)
+            _all_gather(times, mine, group)
+            return times.tolist()
+
+        edges, times = refine_edges(counts, edges, world, granule, keeps,
+                                    measure)
+        device_ms = tuple(t / 1e6 for t in times)
+    return BandProbe(edges, band_shares(counts, edges, granule), device_ms)
 
 
 def barrier(mesh, device) -> None:

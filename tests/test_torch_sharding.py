@@ -446,6 +446,180 @@ def test_cli_in_a_world_of_two_writes_one_png(world, tmp_path):
                                read_png(single), atol=1 / 255 + 1e-6)
 
 
+# --- bands sized by the frame's work ---------------------------------------
+
+@pytest.mark.parametrize("counts,world,granule,keeps,want", [
+    # uniform work: exactly the equal bands
+    ([7] * 12, 4, 9, None, (0, 27, 54, 81, 108)),
+    ([7] * 8, 2, 16, None, (0, 64, 128)),
+    # sky on top: the top band takes more rows
+    ([1, 1, 1, 1, 10, 10, 10, 10], 2, 8, None, (0, 48, 64)),
+    ([1] * 6 + [5, 9, 9, 5], 2, 4, None, (0, 32, 40)),
+    # a route that takes bands of an even number of strips alone
+    ([1, 1, 1, 1, 10, 10, 10, 10], 2, 8, lambda rows: rows % 16 == 0,
+     (0, 48, 64)),
+    ([1, 1, 1, 10, 10, 10], 2, 8, lambda rows: rows % 16 == 0,
+     (0, 32, 48)),
+    # no cut beats the equal bands: they stay
+    ([9, 1, 1, 9], 2, 5, None, (0, 10, 20)),
+    # one band a strip
+    ([3, 1, 4, 1], 4, 2, None, (0, 2, 4, 6, 8)),
+    # a world of one
+    ([3, 1, 4, 1, 5], 1, 6, None, (0, 30)),
+], ids=["uniform4", "uniform2", "top_heavy", "middle", "even_strips",
+        "even_strips_odd", "equal_best", "a_strip_each", "world1"])
+def test_balanced_edges(counts, world, granule, keeps, want):
+    got = sharding.balanced_edges(counts, world, granule, keeps)
+    assert got == want
+    # the edges cover [0, height] on strip edges, each band a strip or more
+    assert len(got) == world + 1
+    assert got[0] == 0 and got[-1] == len(counts) * granule
+    assert all(e % granule == 0 for e in got)
+    assert all(b - a >= granule for a, b in zip(got, got[1:]))
+    if keeps is not None:
+        assert all(keeps(b - a) for a, b in zip(got, got[1:]))
+
+    def largest(edges):
+        return max(sum(counts[a // granule:b // granule])
+                   for a, b in zip(edges, edges[1:]))
+
+    if len(counts) % world == 0:
+        per = len(counts) // world * granule
+        assert largest(got) <= largest(tuple(range(0, per * world + 1, per)))
+
+
+def test_rescale_costs_gives_each_band_its_time():
+    got = sharding.rescale_costs([1, 1, 2, 2, 3], (0, 4, 10), [10, 70], 2)
+    assert got == [5, 5, 20, 20, 30]
+    # a band's costs never fall to zero
+    assert sharding.rescale_costs([1, 1000], (0, 1, 2), [1, 5], 1) == [1, 5]
+
+
+def test_refine_edges_follows_the_measured_time():
+    # rays cost three times as much in strips 8-11 as the count says; each
+    # band also pays a fixed 50 a frame
+    counts = [10] * 8 + [40] * 4 + [20] * 4
+    true = [c * (3 if 8 <= i < 12 else 1) for i, c in enumerate(counts)]
+    calls = []
+
+    def measure(edges):
+        calls.append(edges)
+        return [50 + sum(true[a:b]) for a, b in zip(edges, edges[1:])]
+
+    counted = sharding.balanced_edges(counts, 4, 1)
+    best, times = sharding.refine_edges(counts, counted, 4, 1, None, measure)
+    assert calls[0] == counted and len(calls) <= sharding.REFINE_ROUNDS
+    assert times == measure(best)
+    assert max(times) < max(measure(counted))
+    # what no cut of the true costs beats, give or take a strip
+    ideal = sharding.balanced_edges(true, 4, 1)
+    assert max(times) <= max(measure(ideal)) + 120
+
+
+def test_refine_edges_keeps_a_cut_that_measures_even():
+    counts = [5] * 8
+    calls = []
+
+    def measure(edges):
+        calls.append(edges)
+        return [100] * 4
+
+    best, times = sharding.refine_edges(counts, (0, 2, 4, 6, 8), 4, 1, None,
+                                        measure)
+    assert best == (0, 2, 4, 6, 8) and times == [100] * 4
+    assert calls == [(0, 2, 4, 6, 8)]
+
+
+@pytest.mark.parametrize("width,height,world,want", [
+    (1920, 1080, 4, 9), (1920, 1080, 2, 18), (512, 384, 4, 4),
+    (64, 128, 2, 32), (32, 32, 2, 16), (32, 16, 2, 8)])
+def test_strip_rows_divide_the_equal_band(width, height, world, want):
+    cfg = CFG.replace(width=width, height=height)
+    g = sharding.strip_rows(cfg, world)
+    assert g == want and (height // world) % g == 0
+
+
+def test_band_follows_the_edges():
+    cfg = CFG.replace(band_edges=(0, 20, 26, 32))
+    assert [sharding.band(cfg, r, 3) for r in range(3)] == [
+        (0, 20), (20, 6), (26, 6)]
+    lanes = torch.arange(CFG.num_pixels)
+    assert torch.equal(sharding.band_lanes(lanes, 1, 3, cfg),
+                       lanes[20 * 32:26 * 32])
+    for bad in ((0, 20, 32), (0, 20, 20, 32), (0, 20, 26, 31)):
+        with pytest.raises(ValueError, match="band edges"):
+            sharding.band(CFG.replace(band_edges=bad), 0, 3)
+
+
+@pytest.fixture(scope="module")
+def balanced():
+    """torch_sharding_ranks.balanced_case on a gloo world of 2 -> every
+    rank's results."""
+    return [r.value for r in launch.spawn(ranks.balanced_case, 2,
+                                          timeout=240)]
+
+
+def test_balanced_bands_are_uneven_and_agree(balanced):
+    edges = balanced[0]["edges"]
+    assert edges != (0, 64, 128) and edges[0] == 0 and edges[-1] == 128
+    g = sharding.strip_rows(ranks.SKY_CFG, 2)
+    assert all(e % g == 0 for e in edges)
+    # the sky band holds more rows
+    assert edges[1] > 64
+    for res in balanced:
+        assert res["edges"] == edges and res["cfg_edges"] == edges
+        assert res["share"] == balanced[0]["share"]
+        assert res["fresh"]
+    share = balanced[0]["share"]
+    assert abs(sum(share) - 1.0) < 1e-12 and max(share) < 0.6
+
+
+def test_balanced_bands_render_the_unsharded_frame(balanced):
+    for res in balanced:
+        for key in ("image", "hdr", "resumed_hdr"):
+            assert res[key].shape == res["one_" + key].shape
+            np.testing.assert_array_equal(res[key], res["one_" + key])
+        np.testing.assert_array_equal(res["rays"], res["one_rays"])
+
+
+def test_probe_refines_by_the_gathered_band_times(balanced):
+    # every rank keeps the same refined cut, timed by the stand-in clock
+    timed = balanced[0]["timed"]
+    assert timed["device_ms"] == timed["want_ms"]
+    assert timed["edges"] != balanced[0]["edges"]
+    for res in balanced:
+        assert res["timed"] == timed
+    # the stand-in's costly top rows go to a band of their own
+    assert timed["edges"] == (0, 32, 128)
+    assert timed["device_ms"] == (0.096, 0.16)
+
+
+def test_band_names_each_ranks_accumulation(balanced):
+    edges = balanced[0]["edges"]
+    for rank, res in enumerate(balanced):
+        row0, rows = res["band"]
+        assert (row0, row0 + rows) == edges[rank:rank + 2]
+        assert res["accum_lanes"] == rows * ranks.SKY_CFG.width
+        assert res["accum_is_band"]
+
+
+def test_render_state_honours_the_edges(balanced):
+    assert all(res["carried_is_band"] for res in balanced)
+
+
+def test_sorted_mesh_bands_keep_their_chunk(balanced):
+    mesh = [res["mesh"] for res in balanced]
+    assert mesh[0]["edges"] != (0, 80, 160)
+    for rank, m in enumerate(mesh):
+        assert m["edges"] == mesh[0]["edges"]
+        assert m["chunk"] == m["equal_chunk"] == 2048
+        a, b = m["edges"][rank:rank + 2]
+        assert m["lanes"] == (b - a) * 128
+        np.testing.assert_array_equal(m["rays"], m["one_rays"])
+        np.testing.assert_allclose(m["hdr"], m["one_hdr"], rtol=1e-3,
+                                   atol=5e-4)
+
+
 def test_a_failing_rank_fails_the_world():
     # rank 1 raises while rank 0 waits for it in a collective: the launcher
     # reports rank 1's error and stops rank 0 instead of hanging
@@ -487,6 +661,47 @@ def test_bands_on_card_are_the_frame_bit_for_bit(cuda_device, bands):
         st, stats = sharding.shard_frames(
             cfg, *args, state_mod.init_state(cfg.num_pixels // bands,
                                              cuda_device), 2, rank, bands)
+        parts.append(st.accum)
+        rays = rays + stats.rays_per_bounce
+    assert torch.equal(torch.cat(parts).view(torch.int32),
+                       full.accum.view(torch.int32))
+    assert torch.equal(rays, fstats.rays_per_bounce)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bands", [2, 4])
+def test_balanced_bands_on_card_are_the_frame_bit_for_bit(cuda_device,
+                                                          bands):
+    # the bands the sharded Renderer's probe cuts (the probe run whole in
+    # this process) through K1 small on the card, put together and held to
+    # the unsharded frame bit for bit, rays exact; the camera raised so
+    # the top two thirds are sky
+    from spt_tpu_torch.engine import state as state_mod
+    from spt_tpu_torch.env import make_procedural_environment
+    from spt_tpu_torch.lights import default_lights
+    from spt_tpu_torch.scene import build_default_scene, flatten_scene
+
+    cfg = CFG.replace(width=256, height=192, max_depth=6)
+    cam = tcamera.Camera(**{**ranks.SKY_CAMERA, "aspect_ratio": 256 / 192})
+    args = (flatten_scene(build_default_scene(), cuda_device),
+            make_procedural_environment(cuda_device),
+            default_lights(cuda_device), cam.rays(cuda_device))
+    g = sharding.strip_rows(cfg, bands)
+    counts = sharding.strip_work(
+        cfg, *args, torch.zeros((), dtype=torch.int32, device=cuda_device),
+        range(cfg.height // g), g, 1).tolist()
+    edges = sharding.balanced_edges(counts, bands, g)
+    assert edges != tuple(range(0, 193, 192 // bands))
+    bcfg = cfg.replace(band_edges=edges)
+    full, fstats = sharding.shard_frames(
+        cfg, *args, state_mod.init_state(cfg.num_pixels, cuda_device), 2,
+        0, 1)
+    parts, rays = [], 0
+    for rank in range(bands):
+        rows = sharding.band(bcfg, rank, bands)[1]
+        st, stats = sharding.shard_frames(
+            bcfg, *args, state_mod.init_state(rows * cfg.width, cuda_device),
+            2, rank, bands)
         parts.append(st.accum)
         rays = rays + stats.rays_per_bounce
     assert torch.equal(torch.cat(parts).view(torch.int32),

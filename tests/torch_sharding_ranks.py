@@ -155,6 +155,99 @@ def every_case(rank, world, out_dir, jax_state):
     return res
 
 
+# tall frame under a camera raised so the scene fills the lowest third and
+# the top half is sky: the probe cuts it unevenly
+SKY_CFG = RenderConfig(width=64, height=128, spp=1, max_depth=4)
+SKY_CAMERA = dict(position=(0.0, 3.0, 8.0), target=(0.0, 4.0, 0.0),
+                  fov_degrees=60.0, aspect_ratio=0.5)
+
+
+def _accum_bits(t):
+    return t.contiguous().view(torch.int32).numpy()
+
+
+def balanced_case(rank, world):
+    """The work-balanced bands on one rank: a sharded Renderer of
+    SKY_CFG and one unsharded Renderer of it in this process (one thread,
+    as the ranks run), two frames each; the band of ``sharding.band`` on
+    the Renderer's cfg against the rows of the rank's accumulation;
+    interop.render_state with the cfg; and a sorted mesh scene whose bands
+    keep their sort chunk."""
+    from spt_tpu_torch.parallel import sharding
+    from spt_tpu_torch.ops import ray_sort
+    from spt_tpu_torch.integrators import wavefront
+
+    res = {}
+    cam = Camera(**SKY_CAMERA)
+    r = Renderer(build_default_scene(), SKY_CFG, camera=cam, device=CPU)
+    one = Renderer(build_default_scene(), SKY_CFG, camera=Camera(**SKY_CAMERA),
+                   device=CPU, multi_device=False)
+    res["edges"] = r.band_edges
+    res["cfg_edges"] = r.cfg.band_edges
+    res["share"] = r.band_work_share
+    # the probe left the state as a fresh one
+    res["fresh"] = (r.last_stats is None and not r.state.accum.any().item()
+                    and float(r.state.sample_count) == 0.0
+                    and int(r.state.frame_index) == 0)
+    # the probe's refinement, its band times from a stand-in clock: the
+    # top 64 rows cost three times the others, whatever their rays
+    def band_ns(row0, rows):
+        return sum(3000 if y < 64 else 1000
+                   for y in range(row0, row0 + rows))
+
+    probe = sharding.probe_edges(SKY_CFG, r.scene, r.env, r.lights,
+                                 cam.rays(CPU), r.state.frame_index, r.mesh,
+                                 1, band_ns=band_ns)
+    res["timed"] = dict(edges=probe.edges, device_ms=probe.device_ms,
+                        want_ms=tuple(band_ns(a, b - a) / 1e6 for a, b in
+                                      zip(probe.edges, probe.edges[1:])))
+    r.render_frames(2)
+    one.render_frames(2)
+    res["image"], res["hdr"] = r.image(), r.hdr_image()
+    res["one_image"], res["one_hdr"] = one.image(), one.hdr_image()
+    res["rays"] = r.last_stats.rays_per_bounce.numpy()
+    res["one_rays"] = one.last_stats.rays_per_bounce.numpy()
+    row0, rows = sharding.band(r.cfg, rank, world)
+    w = SKY_CFG.width
+    res["band"] = (row0, rows)
+    res["accum_lanes"] = r.state.num_pixels
+    res["accum_is_band"] = bool((_accum_bits(r.state.accum) == _accum_bits(
+        one.state.accum[row0 * w:(row0 + rows) * w])).all())
+    whole = types.SimpleNamespace(accum=one.state.accum.numpy(),
+                                  sample_count=one.state.sample_count.numpy(),
+                                  frame_index=one.state.frame_index.numpy())
+    carried = interop.render_state(whole, CPU, rank, world, r.cfg)
+    res["carried_is_band"] = bool((_accum_bits(carried.accum)
+                                   == _accum_bits(r.state.accum)).all())
+    # resumed from the carried band: the third frame as the unsharded one's
+    r.state = carried
+    r.render_frames(1)
+    one.render_frames(1)
+    res["resumed_hdr"], res["one_resumed_hdr"] = r.hdr_image(), one.hdr_image()
+
+    desc, cfg, _ = accel_scene()
+    cfg = cfg.replace(width=128, height=160)
+    mcam = dict(position=(0, 0, 5.0), target=(0, 1.6, 0), fov_degrees=50.0,
+                aspect_ratio=128 / 160)
+    m = Renderer(desc, cfg, camera=Camera(**mcam), device=CPU)
+    m1 = Renderer(desc, cfg, camera=Camera(**mcam), device=CPU,
+                  multi_device=False)
+
+    def chunk(lanes):
+        return ray_sort.chunk_size(lanes + wavefront.sort_padding(lanes))
+
+    mrows = sharding.band(m.cfg, rank, world)[1]
+    res["mesh"] = dict(edges=m.band_edges, lanes=m.state.num_pixels,
+                       chunk=chunk(mrows * cfg.width),
+                       equal_chunk=chunk(cfg.num_pixels // world))
+    m.render_frame(check_camera=False)
+    m1.render_frame(check_camera=False)
+    res["mesh"].update(hdr=m.hdr_image(), one_hdr=m1.hdr_image(),
+                       rays=m.last_stats.rays_per_bounce.numpy(),
+                       one_rays=m1.last_stats.rays_per_bounce.numpy())
+    return res
+
+
 def fail_on_rank_one(rank, world):
     """Rank 1 raises; rank 0 waits for it in a collective."""
     if rank == 1:
